@@ -1,0 +1,316 @@
+"""Drive the PyTorch port's BraTS prediction path once on one CUDA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Run from the repository root on a machine with an H100 (sm_90). Phases:
+
+0. the card (nvidia-smi name and power limit), torch / CUDA versions, SM;
+   TF32 off, so f32 comparisons are exact to f32 rounding;
+1. build the CUDA kernels from ``unet3d_tpu_torch/ops/kernels/`` (timed);
+2. each kernel variant against its plain PyTorch version, bf16 and f32, at
+   the DynUNet's shapes; relative bounds 1e-5 (f32) and 1e-2 (bf16) on y,
+   1e-4 on the statistics (f32 atomics change the sum order run to run);
+3. the slice: the BraTS DynUNet of ``examples/brats2020/brats2020_config.json``
+   (seeded random weights, no trained checkpoint in the repo), its sliding-
+   window inferer and sigmoid, answering two requests through
+   ``volumetric_predictions`` in bf16: (1,4,128,128,128), one window, and the
+   raw BraTS grid (1,4,240,240,155), 18 windows. The NIfTI outputs are read
+   back and checked (shape, finite, in [0, 1], affine);
+4. the launch count of every kernel on the path (``conv_stats``,
+   ``block_stats``) grew during phase 3, and the whole forward on one 128^3
+   window, kernels against the plain path, agrees within relative L2 3e-2 in
+   bf16. The ``conv`` variant (no statistics) has no site in the DynUNet
+   forward, where every stride-1 conv feeds an instance norm; phase 2 checks
+   it, and it is not counted.
+
+Exits non-zero if any phase fails or there is no CUDA device. The last lines
+are the card, a JSON object of the kernels, and ``{"ok": true, ...}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CONFIG = os.path.join(ROOT, "examples", "brats2020", "brats2020_config.json")
+OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
+KERNEL_SOURCE = "unet3d_tpu_torch/ops/kernels/conv3d.cu"
+REPLACES = {
+    "conv": "unet3d_tpu/ops/pallas/conv3d_kernel.py:154",
+    "conv_stats": "unet3d_tpu/ops/pallas/winograd_kernel.py:274",
+    "block_stats": "unet3d_tpu/ops/pallas/block_kernel.py:171",
+}
+# (label, spatial, cin, cout): the stride-1 3x3x3 convs of the BraTS DynUNet.
+# Per window the path runs conv_stats at input_block.conv1 and at every
+# up-block conv1 (on the concatenated (upsampled, skip), 6 launches) and
+# block_stats at every block's conv2 (11 launches).
+SHAPES = [
+    ("input conv1 4->64 @128^3", 128, 4, 64),
+    ("level-0 conv 64->64 @128^3", 128, 64, 64),
+    ("up-block conv1 128->64 @128^3", 128, 128, 64),
+    ("level-1 conv 96->96 @64^3", 64, 96, 96),
+    ("up-block conv1 192->96 @64^3", 64, 192, 96),
+    ("bottleneck conv2 384->384 @4^3", 4, 384, 384),
+]
+# the kernels the path launches, and the shape each variant's time is
+# reported at (its largest on the path; conv at the level-0 conv2's shape)
+PATH_VARIANTS = ("conv_stats", "block_stats")
+TIMED_AT = {"conv": 1, "conv_stats": 2, "block_stats": 1}
+BOUNDS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+STATS_BOUND = 1e-4
+L2_BOUND = 3e-2
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def plain_fast(variant, x, w, inv, shift):
+    """The plain PyTorch composition in the working dtype (cuDNN conv, torch
+    elementwise and reductions): what the kernel is timed against."""
+    from unet3d_tpu_torch.ops.conv3d import conv3d_torch
+    from unet3d_tpu_torch.ops.conv3d_kernel import instance_stats
+    if variant == "block_stats":
+        x = F.leaky_relu(x * inv[:, None, None, None, :].to(x.dtype)
+                         + shift[:, None, None, None, :].to(x.dtype), 0.01)
+    y = conv3d_torch(x, w, (1, 1, 1), ((1, 1),) * 3)
+    if variant == "conv":
+        return y
+    return (y, *instance_stats(y))
+
+
+def phase2(device, gen):
+    from unet3d_tpu_torch.ops import conv3d_kernel as K
+    kernel = {"conv": K.conv3x3x3, "conv_stats": K.conv3x3x3_with_stats,
+              "block_stats": K.conv3x3x3_block_with_stats}
+    plain = {"conv": K.conv3d_reference,
+             "conv_stats": K.conv3d_with_stats_reference,
+             "block_stats": K.conv3d_block_with_stats_reference}
+    report = {v: {"max_abs_err": 0.0} for v in kernel}
+    for si, (label, s, cin, cout) in enumerate(SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(1, s, s, s, cin, device=device, generator=gen).to(dtype)
+            w = (torch.randn(3, 3, 3, cin, cout, device=device, generator=gen)
+                 / (27 * cin) ** 0.5).to(dtype)
+            inv = torch.rand(1, cin, device=device, generator=gen) + 0.5
+            shift = torch.randn(1, cin, device=device, generator=gen) * 0.3
+            for variant in kernel:
+                args = (x, w) if variant != "block_stats" else (x, w, inv, shift)
+                got, want = kernel[variant](*args), plain[variant](*args)
+                got_y = got if variant == "conv" else got[0]
+                want_y = want if variant == "conv" else want[0]
+                torch.cuda.synchronize()
+                diff = (got_y.float() - want_y.float()).abs().max().item()
+                rel = diff / want_y.float().abs().max().item()
+                msg = f"{variant:11s} {label:31s} {str(dtype)[6:]:8s} y rel {rel:.3e}"
+                check(rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
+                if variant != "conv":
+                    # the statistics of the kernel's own rounded y, in f64
+                    yd = got_y.double()
+                    s_err = max(
+                        ((got[1] - yd.sum((1, 2, 3))).abs().max()
+                         / yd.abs().sum((1, 2, 3)).max()).item(),
+                        ((got[2] - (yd * yd).sum((1, 2, 3))).abs().max()
+                         / (yd * yd).sum((1, 2, 3)).max()).item())
+                    msg += f" stats rel {s_err:.3e}"
+                    check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
+                if si == TIMED_AT[variant] and dtype == torch.bfloat16:
+                    ms = cuda_ms(lambda: kernel[variant](*args))
+                    plain_ms = cuda_ms(lambda: plain_fast(variant, x, w, inv, shift))
+                    report[variant].update(ms=ms, plain_ms=plain_ms, shape=label,
+                                           max_abs_err=diff)
+                    msg += f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                print(msg, flush=True)
+            del x, w
+    torch.cuda.empty_cache()
+    return report
+
+
+def plain_block(block, x):
+    """Basic block through F.conv3d and the concat, as the JAX model runs it."""
+    from unet3d_tpu_torch.ops.conv3d import conv3d_torch, _pads
+    from unet3d_tpu_torch.ops.conv3d_kernel import instance_stats
+    from unet3d_tpu_torch.ops.norm import instance_norm_from_stats
+    if isinstance(x, tuple):
+        x = torch.cat(x, dim=-1)
+    for conv, norm in ((block.conv1, block.norm1), (block.conv2, block.norm2)):
+        y = conv3d_torch(x, conv.kernel, conv.strides, _pads("SAME", conv.kernel_size))
+        y = instance_norm_from_stats(y, *instance_stats(y), norm.scale, norm.bias)
+        x = F.leaky_relu(y, 0.01)
+    return x
+
+
+def plain_forward(net, x):
+    n = net.n_levels
+    skips = [plain_block(net.input_block, x)]
+    for i in range(1, n - 1):
+        skips.append(plain_block(getattr(net, f"downsample{i - 1}"), skips[-1]))
+    h = plain_block(net.bottleneck, skips[-1])
+    for i in range(n - 2, -1, -1):
+        up = getattr(net, f"upsample{n - 2 - i}")
+        h = plain_block(up.conv_block, (up.transp_conv(h), skips[i]))
+    return net.output_block(h)
+
+
+def phase3(device, seed, card):
+    from unet3d_tpu_torch.config.factory import (build_inferer_from_config,
+                                                 build_or_load_model_from_config,
+                                                 get_activation_from_config)
+    from unet3d_tpu_torch.data import nifti
+    from unet3d_tpu_torch.ops import conv3d_kernel as K
+    from unet3d_tpu_torch.predict.sliding_window import (_scan_interval,
+                                                         dense_patch_slices)
+    from unet3d_tpu_torch.predict.volumetric import volumetric_predictions
+    from unet3d_tpu_torch.utils.config import load_json
+
+    config = load_json(CONFIG)
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    inferer = build_inferer_from_config(config)
+    activation = get_activation_from_config(config)
+    amp = bool(config["training"]["amp"])
+    print(f"model DynUNet filters {config['model']['filters']}, {n_params} params; "
+          f"inferer roi {inferer.roi_size} overlap {inferer.overlap} {inferer.mode}; "
+          f"activation {activation}; amp {amp}", flush=True)
+    rng = np.random.RandomState(seed)
+    affine = np.array([[-1.0, 0, 0, 120.0], [0, -1.0, 0, 120.0],
+                       [0, 0, 1.0, -77.0], [0, 0, 0, 1]])
+    cases = {"A": (128, 128, 128), "B": (240, 240, 155)}
+    images = {k: rng.randn(1, 4, *s).astype(np.float32) for k, s in cases.items()}
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+
+    def request(name):
+        batch = {"image": images[name], "affine": [affine],
+                 "source_filename": [f"case{name}.nii.gz"]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = volumetric_predictions(model, [batch], OUT_DIR, activation=activation,
+                                         resample=False, inferer=inferer, amp=amp)
+        torch.cuda.synchronize()
+        return written, time.perf_counter() - t0
+
+    request("A")  # warm-up: cuDNN plans, the allocator
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = {}
+    for name, spatial in cases.items():
+        written, seconds[name] = request(name)
+        data, got_affine, _ = nifti.load(written[0])
+        data = np.moveaxis(data, -1, 0)
+        check(data.shape == (3,) + spatial, f"case {name}: shape {data.shape}")
+        check(bool(np.isfinite(data).all()), f"case {name}: non-finite output")
+        check(0.0 <= data.min() and data.max() <= 1.0, f"case {name}: outside [0, 1]")
+        check(np.allclose(got_affine, affine, atol=1e-6), f"case {name}: affine")
+        n_win = len(dense_patch_slices(spatial, inferer.roi_size, _scan_interval(
+            spatial, inferer.roi_size, inferer.overlap)))
+        print(f"case {name} {spatial}: {n_win} windows, {seconds[name]:.3f} s "
+              f"(write included), mean {data.mean():.4f} [{card}]", flush=True)
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"launches during the requests: {launches}; peak memory {peak:.2f} GiB",
+          flush=True)
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    return model, launches, seconds
+
+
+def phase4(model, launches, device, seed):
+    import copy
+    for variant in PATH_VARIANTS:
+        check(launches[variant] > 0, f"kernel {variant} was not launched on the path")
+    net = copy.deepcopy(model).to(torch.bfloat16).eval()
+    x = torch.from_numpy(np.random.RandomState(seed + 1).randn(
+        1, 128, 128, 128, 4).astype(np.float32)).to(device, torch.bfloat16)
+    with torch.inference_mode():
+        got = net(x).float()
+        want = plain_forward(net, x).float()
+    rel_l2 = ((got - want).norm() / want.norm()).item()
+    max_err = (got - want).abs().max().item()
+    print(f"whole forward 128^3 bf16, kernels vs plain path: rel L2 {rel_l2:.3e}, "
+          f"max abs {max_err:.3e} (logits max {want.abs().max().item():.3e})", flush=True)
+    check(rel_l2 < L2_BOUND, f"whole-forward rel L2 {rel_l2:.3e} > {L2_BOUND}")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from unet3d_tpu_torch.kernels.build import load_library
+    from unet3d_tpu_torch.utils.device import require_cuda, sm_version
+
+    # phase 0
+    card = card_line()
+    print(card, flush=True)
+    device = require_cuda()
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"sm_{''.join(map(str, sm_version(device)))}, {torch.cuda.get_device_name(0)}",
+          flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # phase 1
+    t0 = time.perf_counter()
+    load_library()
+    print(f"kernel build {time.perf_counter() - t0:.1f} s", flush=True)
+    # phase 2
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    report = phase2(device, gen)
+    # phase 3
+    model, launches, seconds = phase3(device, args.seed, card)
+    # phase 4
+    phase4(model, launches, device, args.seed)
+    check(not any(m in sys.modules for m in ("jax", "unet3d_tpu")),
+          "the port imported jax")
+    kernels = [{"name": v, "route": "cuda", "source": KERNEL_SOURCE,
+                "replaces": REPLACES[v], "launches": launches[v],
+                "max_abs_err": report[v]["max_abs_err"], "ms": report[v]["ms"],
+                "plain_ms": report[v]["plain_ms"], "shape": report[v]["shape"]}
+               for v in PATH_VARIANTS]
+    conv = report["conv"]
+    print(f"conv variant (not on the forward path): {conv['shape']} bf16 max abs "
+          f"err {conv['max_abs_err']:.3e}, kernel {conv['ms']:.3f} ms, plain "
+          f"{conv['plain_ms']:.3f} ms")
+    print(f"seconds per case: {json.dumps(seconds)} [{card}]")
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's BraTS prediction path once on one CUDA GPU.
+"""Drive the PyTorch port's BraTS prediction and training paths once on one CUDA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -7,9 +7,13 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
 0. the card (nvidia-smi name and power limit), torch / CUDA versions, SM;
    TF32 off, so f32 comparisons are exact to f32 rounding;
 1. build the CUDA kernels from ``unet3d_tpu_torch/ops/kernels/`` (timed);
-2. each kernel variant against its plain PyTorch version, bf16 and f32, at
-   the DynUNet's shapes; relative bounds 1e-5 (f32) and 1e-2 (bf16) on y,
-   1e-4 on the statistics (f32 atomics change the sum order run to run);
+2. each kernel against its plain PyTorch version, bf16 and f32, at the
+   DynUNet's shapes: the three conv variants at the forward's shapes
+   (relative bounds 1e-5 in f32 and 1e-2 in bf16 on y, 1e-4 on the
+   statistics: f32 atomics change the sum order run to run), the ``conv``
+   variant as the input gradient (flipped, in/out-transposed weight) at the
+   level-0 shapes, and ``s2_wgrad`` at the five stride-2 convs (relative
+   1e-4: f32 sums of up to 262,144 products in another order);
 3. the slice: the BraTS DynUNet of ``examples/brats2020/brats2020_config.json``
    (seeded random weights, no trained checkpoint in the repo), its sliding-
    window inferer and sigmoid, answering two requests through
@@ -19,9 +23,21 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
 4. the launch count of every kernel on the path (``conv_stats``,
    ``block_stats``) grew during phase 3, and the whole forward on one 128^3
    window, kernels against the plain path, agrees within relative L2 3e-2 in
-   bf16. The ``conv`` variant (no statistics) has no site in the DynUNet
-   forward, where every stride-1 conv feeds an instance norm; phase 2 checks
-   it, and it is not counted.
+   bf16. The ``conv`` variant (no statistics) and ``s2_wgrad`` have no site
+   in the forward: they run in training;
+5. training: the same model, DiceLoss, Adam and ReduceLROnPlateau from the
+   config, through ``make_train_step`` / ``make_eval_step`` / ``run_training``,
+   2 epochs of 3 bf16 AMP steps on one seeded (1,4,128,128,128) batch with
+   random binary labels, validated on one 128^3 case through the sliding-window
+   inferer, checkpoints in ``build/chip_smoke/``. Checks: finite losses, the
+   last step's below the first; 2 CSV rows; ``model.npz`` reloads into a
+   fresh model equal to the trained one; all four kernels launched during the
+   training. Then one step's gradients, kernels against the plain path
+   (cuDNN, torch autograd, the same weights and batch): relative L2 over all
+   parameters within 1e-3 in f32 (the f32 gradient of this net lies ~1.5e-4
+   from an f64 one on either path: the instance norms amplify sum-order
+   differences) and 2e-2 in bf16 (each path ~1.3e-2 from f64); and the
+   train-step time with kernels and plain, and the peak memory.
 
 Exits non-zero if any phase fails or there is no CUDA device. The last lines
 are the card, a JSON object of the kernels, and ``{"ok": true, ...}``.
@@ -43,11 +59,17 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "examples", "brats2020", "brats2020_config.json")
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
-KERNEL_SOURCE = "unet3d_tpu_torch/ops/kernels/conv3d.cu"
+SOURCES = {
+    "conv": "unet3d_tpu_torch/ops/kernels/conv3d.cu",
+    "conv_stats": "unet3d_tpu_torch/ops/kernels/conv3d.cu",
+    "block_stats": "unet3d_tpu_torch/ops/kernels/conv3d.cu",
+    "s2_wgrad": "unet3d_tpu_torch/ops/kernels/s2_wgrad.cu",
+}
 REPLACES = {
     "conv": "unet3d_tpu/ops/pallas/conv3d_kernel.py:154",
     "conv_stats": "unet3d_tpu/ops/pallas/winograd_kernel.py:274",
     "block_stats": "unet3d_tpu/ops/pallas/block_kernel.py:171",
+    "s2_wgrad": "unet3d_tpu/ops/pallas/s2_wgrad_kernel.py:177",
 }
 # (label, spatial, cin, cout): the stride-1 3x3x3 convs of the BraTS DynUNet.
 # Per window the path runs conv_stats at input_block.conv1 and at every
@@ -61,13 +83,33 @@ SHAPES = [
     ("up-block conv1 192->96 @64^3", 64, 192, 96),
     ("bottleneck conv2 384->384 @4^3", 4, 384, 384),
 ]
-# the kernels the path launches, and the shape each variant's time is
-# reported at (its largest on the path; conv at the level-0 conv2's shape)
-PATH_VARIANTS = ("conv_stats", "block_stats")
-TIMED_AT = {"conv": 1, "conv_stats": 2, "block_stats": 1}
+# (label, spatial, cin, cout) of the input gradients the conv kernel takes
+# at level 0: dx of a conv2 and of an up-block conv1 (64 -> 128 channels)
+DX_SHAPES = [
+    ("dx of level-0 conv2 64->64 @128^3", 128, 64, 64),
+    ("dx of up-block conv1 64->128 @128^3", 128, 64, 128),
+]
+# (label, spatial of x, cin, cout): the stride-2 convs, whose weight gradient
+# s2_wgrad computes (x at that size, the cotangent at half of it)
+S2_SHAPES = [
+    ("s2 64->96 @128^3", 128, 64, 96),
+    ("s2 96->128 @64^3", 64, 96, 128),
+    ("s2 128->192 @32^3", 32, 128, 192),
+    ("s2 192->256 @16^3", 16, 192, 256),
+    ("s2 256->384 @8^3", 8, 256, 384),
+]
+# the kernels each path launches, and the shape each kernel's time is
+# reported at (its largest on the path; conv at the level-0 conv2's dx)
+PREDICT_KERNELS = ("conv_stats", "block_stats")
+TRAIN_KERNELS = ("conv", "conv_stats", "block_stats", "s2_wgrad")
+TIMED_AT = {"conv_stats": 2, "block_stats": 1}
 BOUNDS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 STATS_BOUND = 1e-4
+S2_BOUND = 1e-4
 L2_BOUND = 3e-2
+GRAD_BOUND_F32 = 1e-3
+GRAD_BOUND_BF16 = 2e-2
+TRAIN_EPOCHS, TRAIN_STEPS = 2, 3
 
 
 class SmokeFailure(RuntimeError):
@@ -77,6 +119,17 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def reset_launches() -> None:
+    from unet3d_tpu_torch.ops import conv3d_kernel, s2_wgrad_kernel
+    conv3d_kernel.reset_launches()
+    s2_wgrad_kernel.reset_launches()
+
+
+def launch_counts() -> dict:
+    from unet3d_tpu_torch.ops import conv3d_kernel, s2_wgrad_kernel
+    return {**conv3d_kernel.LAUNCHES, **s2_wgrad_kernel.LAUNCHES}
 
 
 def card_line() -> str:
@@ -146,7 +199,7 @@ def phase2(device, gen):
                          / (yd * yd).sum((1, 2, 3)).max()).item())
                     msg += f" stats rel {s_err:.3e}"
                     check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
-                if si == TIMED_AT[variant] and dtype == torch.bfloat16:
+                if si == TIMED_AT.get(variant) and dtype == torch.bfloat16:
                     ms = cuda_ms(lambda: kernel[variant](*args))
                     plain_ms = cuda_ms(lambda: plain_fast(variant, x, w, inv, shift))
                     report[variant].update(ms=ms, plain_ms=plain_ms, shape=label,
@@ -156,6 +209,65 @@ def phase2(device, gen):
             del x, w
     torch.cuda.empty_cache()
     return report
+
+
+def rel_max(got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def phase2_backward(device, gen, report):
+    """The conv kernel as the input gradient, and s2_wgrad, against their
+    plain versions; each bf16 case timed against the plain composition in
+    bf16 (cuDNN), the first shape's time reported."""
+    from unet3d_tpu_torch.ops import conv3d_kernel as K
+    from unet3d_tpu_torch.ops import s2_wgrad_kernel as W
+    from unet3d_tpu_torch.ops.conv3d import conv3d_torch, flip_io
+
+    for si, (label, s, cin, cout) in enumerate(DX_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            # the cotangent of a conv with cin outputs, and its cin -> cout weight
+            g = torch.randn(1, s, s, s, cin, device=device, generator=gen).to(dtype)
+            w = (torch.randn(3, 3, 3, cout, cin, device=device, generator=gen)
+                 / (27 * cin) ** 0.5).to(dtype)
+            wf = flip_io(w)
+            got, want = K.conv3x3x3(g, wf), K.conv3d_reference(g, wf)
+            torch.cuda.synchronize()
+            rel = rel_max(got, want)
+            msg = f"conv as dx  {label:36s} {str(dtype)[6:]:8s} rel {rel:.3e}"
+            check(rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
+            if dtype == torch.bfloat16:
+                ms = cuda_ms(lambda: K.conv3x3x3(g, wf))
+                plain_ms = cuda_ms(lambda: conv3d_torch(g, wf, (1, 1, 1), ((1, 1),) * 3))
+                msg += f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                if si == 0:
+                    report["conv"] = dict(
+                        ms=ms, plain_ms=plain_ms, shape=label,
+                        max_abs_err=(got.float() - want.float()).abs().max().item())
+            print(msg, flush=True)
+            del g, w, wf, got, want
+    for si, (label, s, cin, cout) in enumerate(S2_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(1, s, s, s, cin, device=device, generator=gen).to(dtype)
+            g = torch.randn(1, s // 2, s // 2, s // 2, cout, device=device,
+                            generator=gen).to(dtype)
+            got, want = W.s2_wgrad(x, g), W.s2_wgrad_reference(x, g)
+            torch.cuda.synchronize()
+            rel = rel_max(got, want)
+            msg = f"s2_wgrad    {label:36s} {str(dtype)[6:]:8s} rel {rel:.3e}"
+            check(rel < S2_BOUND, f"{msg} > {S2_BOUND}")
+            if dtype == torch.bfloat16:
+                xn, gn = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+                ms = cuda_ms(lambda: W.s2_wgrad(x, g))
+                plain_ms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
+                    xn, (cout, cin, 3, 3, 3), gn, stride=2, padding=1))
+                msg += f" | kernel {ms:.3f} ms, cuDNN {plain_ms:.3f} ms"
+                if si == 0:
+                    report["s2_wgrad"] = dict(ms=ms, plain_ms=plain_ms, shape=label,
+                                              max_abs_err=(got - want).abs().max().item())
+            print(msg, flush=True)
+            del x, g, got, want
+    torch.cuda.empty_cache()
 
 
 def plain_block(block, x):
@@ -189,7 +301,6 @@ def phase3(device, seed, card):
                                                  build_or_load_model_from_config,
                                                  get_activation_from_config)
     from unet3d_tpu_torch.data import nifti
-    from unet3d_tpu_torch.ops import conv3d_kernel as K
     from unet3d_tpu_torch.predict.sliding_window import (_scan_interval,
                                                          dense_patch_slices)
     from unet3d_tpu_torch.predict.volumetric import volumetric_predictions
@@ -222,7 +333,7 @@ def phase3(device, seed, card):
         return written, time.perf_counter() - t0
 
     request("A")  # warm-up: cuDNN plans, the allocator
-    K.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     seconds = {}
     for name, spatial in cases.items():
@@ -237,7 +348,7 @@ def phase3(device, seed, card):
             spatial, inferer.roi_size, inferer.overlap)))
         print(f"case {name} {spatial}: {n_win} windows, {seconds[name]:.3f} s "
               f"(write included), mean {data.mean():.4f} [{card}]", flush=True)
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"launches during the requests: {launches}; peak memory {peak:.2f} GiB",
           flush=True)
@@ -247,7 +358,7 @@ def phase3(device, seed, card):
 
 def phase4(model, launches, device, seed):
     import copy
-    for variant in PATH_VARIANTS:
+    for variant in PREDICT_KERNELS:
         check(launches[variant] > 0, f"kernel {variant} was not launched on the path")
     net = copy.deepcopy(model).to(torch.bfloat16).eval()
     x = torch.from_numpy(np.random.RandomState(seed + 1).randn(
@@ -260,6 +371,170 @@ def phase4(model, launches, device, seed):
     print(f"whole forward 128^3 bf16, kernels vs plain path: rel L2 {rel_l2:.3e}, "
           f"max abs {max_err:.3e} (logits max {want.abs().max().item():.3e})", flush=True)
     check(rel_l2 < L2_BOUND, f"whole-forward rel L2 {rel_l2:.3e} > {L2_BOUND}")
+
+
+class PlainNet(torch.nn.Module):
+    """The model's forward through the plain path, for functional_call."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, x, train=False):
+        return plain_forward(self.net, x)
+
+
+class BatchLoader:
+    """In-memory loader of the same batch: iteration, len, set_epoch."""
+
+    def __init__(self, batch, n):
+        self.batch, self.n = batch, n
+
+    def __iter__(self):
+        return iter([self.batch] * self.n)
+
+    def __len__(self):
+        return self.n
+
+    def set_epoch(self, epoch):
+        pass
+
+
+def grad_rel_l2(model, criterion, x, y, amp):
+    """One step's gradients, kernels against the plain path: (relative L2
+    over all parameters, worst tensor's relative L2, its name)."""
+    from unet3d_tpu_torch.train.step import forward_loss
+    names, params = zip(*model.named_parameters())
+    got = torch.autograd.grad(forward_loss(model, criterion, x, y, amp), params)
+    want = torch.autograd.grad(forward_loss(PlainNet(model), criterion, x, y, amp), params)
+    diff = sum(float((a - b).float().square().sum()) for a, b in zip(got, want))
+    norm = sum(float(b.float().square().sum()) for b in want)
+    # tensors whose gradient is ~0 next to the whole are left out of the worst
+    worst = max((float((a - b).float().norm() / b.float().norm()), n)
+                for a, b, n in zip(got, want, names)
+                if float(b.float().norm()) > 1e-6 * norm ** 0.5)
+    return (diff / norm) ** 0.5, worst[0], worst[1]
+
+
+def step_ms(step, images, labels, reps=5) -> float:
+    for _ in range(2):
+        step(images, labels)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        step(images, labels)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase5(device, seed, card):
+    from unet3d_tpu_torch.config.factory import (build_inferer_from_config,
+                                                 build_optimizer_from_config,
+                                                 build_or_load_model_from_config,
+                                                 build_scheduler_from_config,
+                                                 load_criterion_from_config)
+    from unet3d_tpu_torch.convert import load_jax_variables
+    from unet3d_tpu_torch.train.checkpoint import load_checkpoint
+    from unet3d_tpu_torch.train.optim import get_learning_rate
+    from unet3d_tpu_torch.train.step import (make_eval_step, make_train_step,
+                                             prepare_batch)
+    from unet3d_tpu_torch.train.train import read_training_log, run_training
+    from unet3d_tpu_torch.utils.config import load_json
+
+    config = load_json(CONFIG)
+    amp = bool(config["training"]["amp"])
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    criterion = load_criterion_from_config(config)
+    optimizer = build_optimizer_from_config(config, model.parameters())
+    scheduler = build_scheduler_from_config(config, get_learning_rate(optimizer))
+    inferer = build_inferer_from_config(config)
+    rng = np.random.RandomState(seed + 2)
+    shape = tuple(config["dataset"]["desired_shape"])
+    train_batch = {"image": rng.randn(1, 4, *shape).astype(np.float32),
+                   "label": (rng.rand(1, 3, *shape) > 0.5).astype(np.float32)}
+    val_batch = {"image": rng.randn(1, 4, *shape).astype(np.float32),
+                 "label": (rng.rand(1, 3, *shape) > 0.5).astype(np.float32)}
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    os.makedirs(OUT_DIR)
+    log_file = os.path.join(OUT_DIR, "training_log.csv")
+    model_file = os.path.join(OUT_DIR, "model.npz")
+    train_step = make_train_step(model, criterion, optimizer, amp=amp)
+    step_losses = []
+
+    def recorded_step(images, labels):
+        loss = train_step(images, labels)
+        step_losses.append(loss)
+        return loss
+
+    print(f"training: {TRAIN_EPOCHS} epochs x {TRAIN_STEPS} steps, batch "
+          f"{train_batch['image'].shape}, amp {amp}, {type(optimizer).__name__} lr "
+          f"{get_learning_rate(optimizer)}, {type(scheduler).__name__}", flush=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run_training(recorded_step, make_eval_step(model, criterion, inferer, amp=amp),
+                 model, optimizer, TRAIN_EPOCHS, BatchLoader(train_batch, TRAIN_STEPS),
+                 BatchLoader(val_batch, 1), log_file, model_file,
+                 save_best=bool(config["training"]["save_best"]), scheduler=scheduler)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(v) for v in step_losses]
+    rows = read_training_log(log_file)
+    print(f"run_training {seconds:.3f} s (first step included); step losses "
+          f"{[round(v, 6) for v in losses]}; log {rows}; launches {launches}; "
+          f"peak memory {peak:.2f} GiB [{card}]", flush=True)
+    check(len(losses) == TRAIN_EPOCHS * TRAIN_STEPS, f"{len(losses)} steps ran")
+    check(all(np.isfinite(losses)), f"non-finite training loss {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(len(rows) == TRAIN_EPOCHS, f"training log has {len(rows)} rows")
+    check(all(np.isfinite(r[3]) for r in rows), f"non-finite validation loss {rows}")
+    for kernel in TRAIN_KERNELS:
+        check(launches[kernel] > 0, f"kernel {kernel} was not launched in training")
+    fresh = build_or_load_model_from_config(config, None, device, seed=seed + 1)
+    load_jax_variables(fresh, load_checkpoint(model_file))
+    for (name, a), b in zip(model.named_parameters(), fresh.parameters()):
+        check(torch.equal(a, b), f"checkpoint round trip changed {name}")
+    print(f"checkpoint {os.path.basename(model_file)} reloads equal; files "
+          f"{sorted(os.listdir(OUT_DIR))}", flush=True)
+    del fresh
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+
+    # one step's gradients, kernels against the plain path
+    grads = {}
+    for name, dt_amp, bound in (("f32", False, GRAD_BOUND_F32),
+                                ("bf16", True, GRAD_BOUND_BF16)):
+        x, y = prepare_batch(train_batch["image"], train_batch["label"], device, dt_amp)
+        rel, worst, worst_name = grad_rel_l2(model, criterion, x, y, dt_amp)
+        grads[name] = rel
+        msg = (f"gradients {name}, kernels vs plain path: rel L2 {rel:.3e} over all "
+               f"parameters; worst tensor {worst_name} {worst:.3e}")
+        print(msg, flush=True)
+        check(rel < bound, f"{msg} > {bound}")
+        del x, y
+    torch.cuda.empty_cache()
+
+    # train-step time, plain, kernels, kernels, plain
+    times = {"plain": [], "kernels": []}
+    peaks = {}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        net = model if which == "kernels" else PlainNet(model)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-6)
+        torch.cuda.reset_peak_memory_stats()
+        times[which].append(step_ms(make_train_step(net, criterion, opt, amp=amp),
+                                    train_batch["image"], train_batch["label"]))
+        peaks[which] = torch.cuda.max_memory_allocated() / 2**30
+    step = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"train step (amp {amp}) batch {train_batch['image'].shape}: kernels "
+          f"{times['kernels']} ms, plain "
+          f"{times['plain']} ms; peak memory kernels {peaks['kernels']:.2f} GiB, plain "
+          f"{peaks['plain']:.2f} GiB [{card}]", flush=True)
+    return launches, dict(step_ms=step, peak_gib=peaks, grad_rel_l2=grads,
+                          losses=losses)
 
 
 def main() -> int:
@@ -288,22 +563,25 @@ def main() -> int:
     # phase 2
     gen = torch.Generator(device=device).manual_seed(args.seed)
     report = phase2(device, gen)
+    phase2_backward(device, gen, report)
     # phase 3
     model, launches, seconds = phase3(device, args.seed, card)
     # phase 4
     phase4(model, launches, device, args.seed)
+    del model
+    torch.cuda.empty_cache()
+    # phase 5
+    train_launches, training = phase5(device, args.seed, card)
     check(not any(m in sys.modules for m in ("jax", "unet3d_tpu")),
           "the port imported jax")
-    kernels = [{"name": v, "route": "cuda", "source": KERNEL_SOURCE,
-                "replaces": REPLACES[v], "launches": launches[v],
+    kernels = [{"name": v, "route": "cuda", "source": SOURCES[v],
+                "replaces": REPLACES[v], "launches": train_launches[v],
+                "launches_predict": launches[v],
                 "max_abs_err": report[v]["max_abs_err"], "ms": report[v]["ms"],
                 "plain_ms": report[v]["plain_ms"], "shape": report[v]["shape"]}
-               for v in PATH_VARIANTS]
-    conv = report["conv"]
-    print(f"conv variant (not on the forward path): {conv['shape']} bf16 max abs "
-          f"err {conv['max_abs_err']:.3e}, kernel {conv['ms']:.3f} ms, plain "
-          f"{conv['plain_ms']:.3f} ms")
+               for v in TRAIN_KERNELS]
     print(f"seconds per case: {json.dumps(seconds)} [{card}]")
+    print(f"training: {json.dumps(training)} [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,14 @@ assert build._lib is None, "importing the package built or loaded the kernels"
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "unet3d_tpu", "triton"))
 assert not leaked, leaked
+print(" ".join(names))
 print(len(names))
 """
+
+# the training slice's modules, which must stand alone like the rest
+TRAINING_MODULES = ("ops.s2_wgrad_kernel", "ops.interpolate", "train.losses",
+                    "train.optim", "train.step", "train.meters", "train.train",
+                    "train.checkpoint")
 
 
 def _env():
@@ -38,7 +44,9 @@ def test_every_module_imports_without_jax_or_a_build():
     assert out.returncode == 0, out.stderr
     n_modules = sum(f.endswith(".py") and f != "__init__.py"
                     for _, _, files in os.walk(PACKAGE) for f in files)
-    assert int(out.stdout.strip().splitlines()[-1]) >= n_modules
+    *_, names, count = out.stdout.strip().splitlines()
+    assert int(count) >= n_modules
+    assert {f"unet3d_tpu_torch.{m}" for m in TRAINING_MODULES} <= set(names.split())
 
 
 def test_no_source_of_the_port_names_jax():
@@ -56,12 +64,15 @@ def test_no_source_of_the_port_names_jax():
 
 def test_kernel_wrapper_raises_for_a_device_without_a_kernel():
     from unet3d_tpu_torch.ops import conv3d_kernel as kernels
+    from unet3d_tpu_torch.ops import s2_wgrad_kernel
     x = torch.empty(1, 2, 2, 2, 3, device="meta")
     w = torch.empty(3, 3, 3, 3, 4, device="meta")
-    before = dict(kernels.LAUNCHES)
+    before = dict(kernels.LAUNCHES), dict(s2_wgrad_kernel.LAUNCHES)
     with pytest.raises(RuntimeError, match="no kernel"):
         kernels.conv3x3x3(x, w)
-    assert kernels.LAUNCHES == before
+    with pytest.raises(RuntimeError, match="no kernel"):
+        s2_wgrad_kernel.s2_wgrad(x, torch.empty(1, 1, 1, 1, 4, device="meta"))
+    assert (kernels.LAUNCHES, s2_wgrad_kernel.LAUNCHES) == before
 
 
 def test_require_cuda_matches_the_machine():

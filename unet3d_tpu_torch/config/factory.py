@@ -1,14 +1,17 @@
-"""Config-section -> object factories: the subset the prediction path needs.
+"""Config-section -> object factories: the subset the prediction and training
+paths need.
 
 Counterparts of ``build_or_load_model_from_config``,
-``build_inferer_from_config`` and ``get_activation_from_config`` in
-``unet3d_tpu/config/factory.py``; the JSON schema is the same.
+``load_criterion_from_config``, ``build_optimizer_from_config``,
+``build_scheduler_from_config``, ``build_inferer_from_config`` and
+``get_activation_from_config`` in ``unet3d_tpu/config/factory.py``; the JSON
+schema is the same.
 """
 from __future__ import annotations
 
 import logging
 import os
-from typing import Optional
+from typing import Iterable, Optional
 
 import torch
 
@@ -17,6 +20,8 @@ from unet3d_tpu_torch.models.layers import init_parameters
 from unet3d_tpu_torch.models.registry import create_model
 from unet3d_tpu_torch.predict.sliding_window import build_inferer
 from unet3d_tpu_torch.train.checkpoint import load_checkpoint
+from unet3d_tpu_torch.train.losses import load_criterion
+from unet3d_tpu_torch.train.optim import build_optimizer, build_scheduler
 from unet3d_tpu_torch.utils.config import get_kwargs, in_config
 
 
@@ -33,6 +38,25 @@ def build_or_load_model_from_config(config, model_filename: Optional[str],
         logging.info("Loading model weights from %s (strict=%s)", model_filename, strict)
         load_jax_variables(model, load_checkpoint(model_filename), strict=strict)
     return model.to(device).eval()
+
+
+def load_criterion_from_config(config):
+    return load_criterion(config["loss"]["name"], loss_kwargs=get_kwargs(config["loss"]))
+
+
+def build_optimizer_from_config(config, params: Iterable) -> torch.optim.Optimizer:
+    """The ``optimizer`` section's optimizer over ``params`` (its ``lr``
+    defaults to 1e-3)."""
+    return build_optimizer(config["optimizer"]["name"], params,
+                           **get_kwargs(config["optimizer"]))
+
+
+def build_scheduler_from_config(config, base_lr: float):
+    """The ``scheduler`` section's scheduler, or None without one."""
+    if "scheduler" not in config:
+        return None
+    section = config["scheduler"]
+    return build_scheduler(section["name"], base_lr, **get_kwargs(section))
 
 
 def build_inferer_from_config(config):

@@ -28,6 +28,13 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor
     return out
 
 
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """``{'a.b.kernel': tensor}`` -> ``{'params/a/b/kernel': array}``, the
+    inverse of ``flax_to_state_dict``."""
+    return {_PARAMS + key.replace(".", "/"): value.detach().cpu().numpy()
+            for key, value in state_dict.items()}
+
+
 def load_jax_variables(model: nn.Module, flat: Mapping[str, np.ndarray],
                        strict: bool = True) -> nn.Module:
     """Copy flat JAX parameters into ``model`` in place.

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``unet3d_tpu_torch/ops/kernels/`` are compiled by ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, which is
-loaded with ``ctypes``. No source includes PyTorch's headers, which keeps the
-build several times shorter than a ``torch.utils.cpp_extension`` module's.
+for ``sm_90a``, one process per source, all started together, and linked into
+one shared library with a plain C interface, which is loaded with ``ctypes``.
+No source includes PyTorch's headers, which keeps the build several times
+shorter than a ``torch.utils.cpp_extension`` module's.
 
 Errors: the C entry point returns the ``cudaError_t`` of the launch itself
 (bad configuration, no kernel image for the card), and the wrapper raises on
@@ -28,10 +29,11 @@ import threading
 from pathlib import Path
 
 _PACKAGE = Path(__file__).resolve().parents[1]
-SOURCES = (_PACKAGE / "ops" / "kernels" / "conv3d.cu",)
+SOURCES = (_PACKAGE / "ops" / "kernels" / "conv3d.cu",
+           _PACKAGE / "ops" / "kernels" / "s2_wgrad.cu")
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lib = None
 _lock = threading.Lock()
@@ -57,15 +59,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libunet3d_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def _compile(out: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+def _run(cmd) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _wait(cmd, proc: subprocess.Popen) -> None:
+    output, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+                           f"{output}")
+
+
+def _compile(out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(SOURCES, objects)]
+    procs = []
+    try:
+        procs.extend(_run(cmd) for cmd in cmds)
+        for cmd, proc in zip(cmds, procs):
+            _wait(cmd, proc)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+        _wait(link, _run(link))
+        os.replace(tmp, out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objects:
+            obj.unlink(missing_ok=True)
 
 
 def load_library() -> ctypes.CDLL:
@@ -81,6 +109,9 @@ def load_library() -> ctypes.CDLL:
             lib.unet3d_conv3x3x3_ndhwc.argtypes = [
                 i, i, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
             lib.unet3d_conv3x3x3_ndhwc.restype = i
+            lib.unet3d_s2_wgrad_ndhwc.argtypes = [
+                i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, p]
+            lib.unet3d_s2_wgrad_ndhwc.restype = i
             lib.unet3d_cuda_error_string.argtypes = [i]
             lib.unet3d_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

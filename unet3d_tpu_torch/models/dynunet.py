@@ -1,4 +1,4 @@
-"""DynUNet forward at inference (counterpart of ``unet3d_tpu/models/dynunet.py``).
+"""DynUNet (counterpart of ``unet3d_tpu/models/dynunet.py``).
 
 nnU-Net style U-Net: per-level strides / filters / kernel sizes, conv ->
 instance norm -> leaky ReLU blocks, transposed-conv upsampling with a skip
@@ -8,7 +8,11 @@ follow the Flax tree, so ``convert.load_jax_variables`` maps keys one to one.
 In a basic block, conv1 returns its output's statistics, norm1 folds them into
 a per-(item, channel) affine, and conv2 applies that affine and the leaky ReLU
 to its input as it loads it: ``lrelu(IN1(y1))`` is never materialised. On CUDA
-the 3x3x3 stride-1 convs run the hand-written kernels (``ops/conv3d_kernel``).
+the 3x3x3 stride-1 convs run the hand-written kernels (``ops/conv3d_kernel``)
+forward and backward, and the stride-2 convs' weight gradient runs
+``ops/s2_wgrad_kernel``. The gradient of the folded affine reaches norm1's
+scale / bias and conv1's statistics through autograd of ``fold_in_affine``:
+the derived instance-norm gradient the JAX model uses by default.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch.nn.functional as F
 from unet3d_tpu_torch.models.layers import (FastConv, PointwiseConv, _triple,
                                             transposed_conv)
 from unet3d_tpu_torch.ops.conv3d import conv3d_block_with_stats
+from unet3d_tpu_torch.ops.interpolate import resize_ndhwc
 from unet3d_tpu_torch.ops.norm import fold_in_affine, instance_norm_from_stats
 
 IntsOrSeq = Union[int, Sequence[int]]
@@ -116,19 +121,29 @@ class DynUNet(nn.Module):
             self.add_module(f"upsample{n - 2 - i}", UnetUpBlock(
                 filters[i + 1], filters[i], kernel_size[i + 1],
                 upsample_kernel_size[i]))
-            # deep-supervision heads: kept so checkpoints load strictly; the
-            # inference forward does not use them
             if deep_supervision and 0 < i <= deep_supr_num:
                 self.add_module(f"deep_supervision_head{i}",
                                 PointwiseConv(filters[i], out_channels))
         self.output_block = PointwiseConv(filters[0], out_channels)
+        self.deep_supervision = deep_supervision
+        self.deep_supr_num = deep_supr_num
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """NDHWC logits; with deep supervision and ``train``, the output and
+        the heads (nearest-upsampled to full size) stacked on axis 1."""
         n = self.n_levels
         skips = [self.input_block(x)]
         for i in range(1, n - 1):
             skips.append(getattr(self, f"downsample{i - 1}")(skips[-1]))
         x = self.bottleneck(skips[-1])
+        heads = []
         for i in range(n - 2, -1, -1):
             x = getattr(self, f"upsample{n - 2 - i}")(x, skips[i])
-        return self.output_block(x)
+            if self.deep_supervision and train and 0 < i <= self.deep_supr_num:
+                heads.append(getattr(self, f"deep_supervision_head{i}")(x))
+        out = self.output_block(x)
+        if not heads:
+            return out
+        full = out.shape[1:4]
+        ups = [resize_ndhwc(h, full, mode="nearest") for h in reversed(heads)]
+        return torch.stack([out] + ups, dim=1)

@@ -1,6 +1,10 @@
-"""Conv building blocks (NDHWC activations), forward only.
+"""Conv building blocks (NDHWC activations).
 
-Counterparts of ``unet3d_tpu/models/layers.py``. Parameters keep the Flax
+Counterparts of ``unet3d_tpu/models/layers.py``. ``FastConv`` trains through
+the autograd Functions of ``ops/conv3d``; ``PointwiseConv`` and
+``SubpixelConvTranspose`` are matmuls and reshapes that train through torch
+autograd (the JAX subpixel VJP is a layout device for XLA, not a kernel).
+Parameters keep the Flax
 names and layouts (``kernel`` DHWIO, ``bias``), so a JAX checkpoint loads by
 key alone (``convert.py``). Parameters are created empty; ``init_parameters``
 fills a whole model from a ``torch.Generator``.

@@ -1,11 +1,16 @@
-"""3D convolution entry points (NDHWC activations, DHWIO weights).
+"""3D convolution entry points (NDHWC activations, DHWIO weights), with gradients.
 
 The 3x3x3 stride-1 SAME conv goes to the hand-written kernels of
-``ops/conv3d_kernel.py`` (their plain versions for a CPU tensor). Every other
-conv (stride 2, 1x1x1, other kernel sizes) goes to ``F.conv3d`` with explicit
-pads, as the JAX package leaves them to XLA; its statistics are a plain
-reduction. Padding "SAME" means symmetric k//2 pads (torch Conv3d semantics),
-not XLA's strided SAME.
+``ops/conv3d_kernel.py`` (their plain versions for a CPU tensor), forward and
+backward: the input gradient is the ``conv`` kernel on the cotangent with the
+weight flipped on its three spatial axes and in/out transposed, the weight
+gradient is cuDNN's (the JAX package leaves it to XLA). The 3x3x3 stride-2
+conv runs forward and input gradient in cuDNN and its weight gradient in the
+kernel of ``ops/s2_wgrad_kernel.py``. Every other conv (1x1x1, other kernel
+sizes) goes to ``F.conv3d`` with explicit pads and torch autograd, as the JAX
+package leaves them to XLA; statistics outside a kernel are a plain
+reduction. Padding "SAME" means symmetric k//2 pads (torch Conv3d
+semantics), not XLA's strided SAME.
 """
 from __future__ import annotations
 
@@ -13,11 +18,13 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from unet3d_tpu_torch.ops.conv3d_kernel import (affine_lrelu, conv3x3x3,
                                                 conv3x3x3_block_with_stats,
                                                 conv3x3x3_with_stats,
                                                 instance_stats)
+from unet3d_tpu_torch.ops.s2_wgrad_kernel import s2_wgrad
 
 Pads = Tuple[Tuple[int, int], ...]
 
@@ -31,8 +38,8 @@ def _pads(padding, kernel: Sequence[int]) -> Pads:
     return pads
 
 
-def _uses_kernel(w: torch.Tensor, stride: Tuple[int, ...], pads: Pads) -> bool:
-    return (tuple(w.shape[:3]) == (3, 3, 3) and stride == (1, 1, 1)
+def _is_3x3x3(w: torch.Tensor, stride: Tuple[int, ...], pads: Pads, s: int) -> bool:
+    return (tuple(w.shape[:3]) == (3, 3, 3) and stride == (s, s, s)
             and pads == ((1, 1),) * 3)
 
 
@@ -46,12 +53,130 @@ def conv3d_torch(x: torch.Tensor, w: torch.Tensor, stride: Tuple[int, ...],
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
+def flip_io(w: torch.Tensor) -> torch.Tensor:
+    """The 3x3x3 weight of the input gradient: taps reversed, in/out swapped."""
+    return torch.flip(w, dims=(0, 1, 2)).transpose(3, 4).contiguous()
+
+
+def weight_grad(x: torch.Tensor, g: torch.Tensor, w_shape, stride: int,
+                pad: int) -> torch.Tensor:
+    """cuDNN's weight gradient (f32 accumulation) of ``conv3d(x, w)`` for the
+    cotangent ``g``, DHWIO, in g's dtype. A CPU tensor computes in f32."""
+    dtype = g.dtype
+    if x.device.type == "cpu":
+        x, g = x.float(), g.float()
+    dw = torch.nn.grad.conv3d_weight(
+        x.permute(0, 4, 1, 2, 3), (w_shape[4], w_shape[3], *w_shape[:3]),
+        g.permute(0, 4, 1, 2, 3), stride=stride, padding=pad)
+    return dw.permute(2, 3, 4, 1, 0).to(dtype)
+
+
+def fold_stats_cotangent(gy, gs1, gs2, y) -> torch.Tensor:
+    """The cotangent of y from those of (y, sum y, sum y^2) per (item,
+    channel), folded in f32 and rounded to y's dtype, contiguous."""
+    g = (gy.float() + gs1[:, None, None, None, :]
+         + 2.0 * y.float() * gs2[:, None, None, None, :])
+    return g.to(y.dtype).contiguous()
+
+
+class _Conv3x3x3(torch.autograd.Function):
+    """3x3x3 stride-1 SAME conv, with or without the output statistics."""
+
+    @staticmethod
+    def forward(ctx, x, w, with_stats: bool):
+        ctx.with_stats = with_stats
+        if with_stats:
+            y, s1, s2 = conv3x3x3_with_stats(x, w)
+            ctx.save_for_backward(x, w, y)
+            return y, s1, s2
+        y = conv3x3x3(x, w)
+        ctx.save_for_backward(x, w)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, gs1=None, gs2=None):
+        if ctx.with_stats:
+            x, w, y = ctx.saved_tensors
+            g = fold_stats_cotangent(gy, gs1, gs2, y)
+        else:
+            x, w = ctx.saved_tensors
+            g = gy.to(x.dtype).contiguous()
+        dx = conv3x3x3(g, flip_io(w)) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = weight_grad(x, g, w.shape, 1, 1).to(w.dtype)
+        return dx, dw, None
+
+
+class _BlockConv3x3x3(torch.autograd.Function):
+    """``conv(lrelu(y * inv + shift), w)`` plus the output statistics, the
+    activation zero-padded. Backward recomputes the activation: the kernel's
+    forward never writes it."""
+
+    @staticmethod
+    def forward(ctx, y, w, inv, shift, alpha: float):
+        out, t1, t2 = conv3x3x3_block_with_stats(y, w, inv, shift, alpha)
+        ctx.alpha = alpha
+        ctx.save_for_backward(y, inv, shift, w, out)
+        return out, t1, t2
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gout, gt1, gt2):
+        y, inv, shift, w, out = ctx.saved_tensors
+        g = fold_stats_cotangent(gout, gt1, gt2, out)
+        dw = None
+        if ctx.needs_input_grad[1]:
+            z = affine_lrelu(y, inv, shift, ctx.alpha)
+            dw = weight_grad(z, g, w.shape, 1, 1).to(w.dtype)
+            del z
+        dy = dinv = dshift = None
+        if any(ctx.needs_input_grad[i] for i in (0, 2, 3)):
+            dz = conv3x3x3(g, flip_io(w)).float()
+            inv5, shift5 = inv[:, None, None, None, :], shift[:, None, None, None, :]
+            yf = y.float()
+            dz = torch.where(yf * inv5 + shift5 >= 0, dz, dz * ctx.alpha)
+            dy = (dz * inv5).to(y.dtype)
+            dinv = (dz * yf).sum(dim=(1, 2, 3))
+            dshift = dz.sum(dim=(1, 2, 3))
+        return dy, dw, dinv, dshift, None
+
+
+class _Conv3x3x3Stride2(torch.autograd.Function):
+    """3x3x3 stride-2 conv with pads of 1: forward and input gradient in
+    cuDNN, weight gradient in the s2_wgrad kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return conv3d_torch(x, w, (2, 2, 2), ((1, 1),) * 3)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        g = gy.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv3d_input(
+                (x.shape[0], x.shape[4], *x.shape[1:4]),
+                w.to(x.dtype).permute(4, 3, 0, 1, 2),
+                g.permute(0, 4, 1, 2, 3), stride=2, padding=1)
+            dx = dx.permute(0, 2, 3, 4, 1).contiguous()
+        if ctx.needs_input_grad[1]:
+            dw = s2_wgrad(x, g).to(w.dtype)
+        return dx, dw
+
+
 def conv3d(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int] = (1, 1, 1),
            padding="SAME") -> torch.Tensor:
     stride = tuple(int(s) for s in stride)
     pads = _pads(padding, w.shape[:3])
-    if _uses_kernel(w, stride, pads):
-        return conv3x3x3(x, w.contiguous())
+    if _is_3x3x3(w, stride, pads, 1):
+        return _Conv3x3x3.apply(x, w.contiguous(), False)
+    if _is_3x3x3(w, stride, pads, 2):
+        return _Conv3x3x3Stride2.apply(x, w.contiguous())
     return conv3d_torch(x, w, stride, pads)
 
 
@@ -61,9 +186,9 @@ def conv3d_with_stats(x: torch.Tensor, w: torch.Tensor,
     to its dtype: the instance-norm statistics."""
     stride = tuple(int(s) for s in stride)
     pads = _pads(padding, w.shape[:3])
-    if _uses_kernel(w, stride, pads):
-        return conv3x3x3_with_stats(x, w.contiguous())
-    y = conv3d_torch(x, w, stride, pads)
+    if _is_3x3x3(w, stride, pads, 1):
+        return _Conv3x3x3.apply(x, w.contiguous(), True)
+    y = conv3d(x, w, stride, padding)
     return (y, *instance_stats(y))
 
 
@@ -75,5 +200,5 @@ def conv3d_block_with_stats(y: torch.Tensor, w: torch.Tensor,
     instance norm folded with its statistics (``ops/norm.fold_in_affine``).
     The activation is zero-padded, as if it had been materialised."""
     if tuple(w.shape[:3]) == (3, 3, 3):
-        return conv3x3x3_block_with_stats(y, w.contiguous(), scale, shift, alpha)
+        return _BlockConv3x3x3.apply(y, w.contiguous(), scale, shift, alpha)
     return conv3d_with_stats(affine_lrelu(y, scale, shift, alpha), w)

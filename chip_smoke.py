@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's BraTS prediction and training paths once on one CUDA GPU.
+"""Drive the PyTorch port's BraTS prediction, training and CLI paths once on one CUDA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -13,7 +13,13 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    statistics: f32 atomics change the sum order run to run), the ``conv``
    variant as the input gradient (flipped, in/out-transposed weight) at the
    level-0 shapes, and ``s2_wgrad`` at the five stride-2 convs (relative
-   1e-4: f32 sums of up to 262,144 products in another order);
+   1e-4: f32 sums of up to 262,144 products in another order); the two
+   Winograd-DH variants (``winograd``, ``winograd_stats``) at the shapes
+   where UNET3D_TPU_CONV=winograd sends them (C >= 96 at >= 64^3: three
+   forward sites and two input gradients), against their plain Winograd
+   version (the same bounds as the direct kernels) and the direct conv's
+   (2e-2 in bf16: the input transform rounds twice; 1e-4 in f32), each bf16
+   case timed against the direct hand kernel and cuDNN;
 3. the slice: the BraTS DynUNet of ``examples/brats2020/brats2020_config.json``
    (seeded random weights, no trained checkpoint in the repo), its sliding-
    window inferer and sigmoid, answering two requests through
@@ -37,7 +43,23 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    parameters within 1e-3 in f32 (the f32 gradient of this net lies ~1.5e-4
    from an f64 one on either path: the instance norms amplify sum-order
    differences) and 2e-2 in bf16 (each path ~1.3e-2 from f64); and the
-   train-step time with kernels and plain, and the peak memory.
+   train-step time with kernels and plain, and the peak memory;
+6. the predict CLI: two synthetic BraTS-grid cases (four modalities of
+   240 x 240 x 155 int16, zero around a seeded ellipsoid, uncompressed
+   ``.nii``), the seeded model's ``.npz`` checkpoint and a copy of the BraTS
+   config whose ``bratsvalidation_filenames`` names them, through
+   ``scripts.predict.main(... --group bratsvalidation --activation
+   sigmoid)`` in this process: crop to foreground, resize to 128^3,
+   normalise, one bf16 forward, sigmoid, trilinear resample back to the
+   native grid, ``.nii.gz`` write. Run with the default routing and with
+   UNET3D_TPU_CONV=winograd. Checks: one file per case on the native grid,
+   3 channels, the source affine, finite, in [0, 1]; Winograd launches only
+   with the strategy; the two runs within relative L2 3e-2 of each other.
+   Prints each case's seconds: read + preprocess, forward, resample, write;
+7. one bf16 train step under UNET3D_TPU_CONV=winograd: the launch counts of
+   one step (``winograd`` as the input gradient of the three 64^3 sites),
+   its gradients against the plain path within the phase-5 bounds, and its
+   time beside the default routing's (default, winograd, winograd, default).
 
 Exits non-zero if any phase fails or there is no CUDA device. The last lines
 are the card, a JSON object of the kernels, and ``{"ok": true, ...}``.
@@ -45,7 +67,9 @@ are the card, a JSON object of the kernels, and ``{"ok": true, ...}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -59,17 +83,22 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "examples", "brats2020", "brats2020_config.json")
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
+CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
 SOURCES = {
     "conv": "unet3d_tpu_torch/ops/kernels/conv3d.cu",
     "conv_stats": "unet3d_tpu_torch/ops/kernels/conv3d.cu",
     "block_stats": "unet3d_tpu_torch/ops/kernels/conv3d.cu",
     "s2_wgrad": "unet3d_tpu_torch/ops/kernels/s2_wgrad.cu",
+    "winograd": "unet3d_tpu_torch/ops/kernels/winograd.cu",
+    "winograd_stats": "unet3d_tpu_torch/ops/kernels/winograd.cu",
 }
 REPLACES = {
     "conv": "unet3d_tpu/ops/pallas/conv3d_kernel.py:154",
     "conv_stats": "unet3d_tpu/ops/pallas/winograd_kernel.py:274",
     "block_stats": "unet3d_tpu/ops/pallas/block_kernel.py:171",
     "s2_wgrad": "unet3d_tpu/ops/pallas/s2_wgrad_kernel.py:177",
+    "winograd": "unet3d_tpu/ops/pallas/winograd_kernel.py:229",
+    "winograd_stats": "unet3d_tpu/ops/pallas/winograd_kernel.py:274",
 }
 # (label, spatial, cin, cout): the stride-1 3x3x3 convs of the BraTS DynUNet.
 # Per window the path runs conv_stats at input_block.conv1 and at every
@@ -98,13 +127,27 @@ S2_SHAPES = [
     ("s2 192->256 @16^3", 16, 192, 256),
     ("s2 256->384 @8^3", 8, 256, 384),
 ]
+# (label, spatial, cin, cout): where UNET3D_TPU_CONV=winograd runs the
+# Winograd kernels in the BraTS DynUNet at 128^3 (input C >= 96 at >= 64^3):
+# three forward sites with statistics (a fourth, upsample3.conv2, has the
+# first's shape) and the two input-gradient shapes of the three 64^3 sites
+WINO_SHAPES = [
+    ("downsample0.conv2 96->96 @64^3", 64, 96, 96),
+    ("upsample3.conv1 192->96 @64^3", 64, 192, 96),
+    ("upsample4.conv1 128->64 @128^3", 128, 128, 64),
+    ("dx of a 96->96 conv @64^3", 64, 96, 96),
+    ("dx of upsample3.conv1 96->192 @64^3", 64, 96, 192),
+]
 # the kernels each path launches, and the shape each kernel's time is
-# reported at (its largest on the path; conv at the level-0 conv2's dx)
+# reported at (its largest on the path; conv at the level-0 conv2's dx;
+# winograd at the dx it runs in training)
 PREDICT_KERNELS = ("conv_stats", "block_stats")
 TRAIN_KERNELS = ("conv", "conv_stats", "block_stats", "s2_wgrad")
-TIMED_AT = {"conv_stats": 2, "block_stats": 1}
+STRATEGY_KERNELS = ("winograd", "winograd_stats")
+TIMED_AT = {"conv_stats": 2, "block_stats": 1, "winograd": 3, "winograd_stats": 2}
 BOUNDS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 STATS_BOUND = 1e-4
+WINO_DIRECT_BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 S2_BOUND = 1e-4
 L2_BOUND = 3e-2
 GRAD_BOUND_F32 = 1e-3
@@ -122,14 +165,28 @@ def check(cond: bool, msg: str) -> None:
 
 
 def reset_launches() -> None:
-    from unet3d_tpu_torch.ops import conv3d_kernel, s2_wgrad_kernel
+    from unet3d_tpu_torch.ops import conv3d_kernel, s2_wgrad_kernel, winograd_kernel
     conv3d_kernel.reset_launches()
     s2_wgrad_kernel.reset_launches()
+    winograd_kernel.reset_launches()
 
 
 def launch_counts() -> dict:
-    from unet3d_tpu_torch.ops import conv3d_kernel, s2_wgrad_kernel
-    return {**conv3d_kernel.LAUNCHES, **s2_wgrad_kernel.LAUNCHES}
+    from unet3d_tpu_torch.ops import conv3d_kernel, s2_wgrad_kernel, winograd_kernel
+    return {**conv3d_kernel.LAUNCHES, **s2_wgrad_kernel.LAUNCHES,
+            **winograd_kernel.LAUNCHES}
+
+
+@contextlib.contextmanager
+def conv_strategy(strategy):
+    """UNET3D_TPU_CONV set to ``strategy`` (None: unset) inside the block."""
+    os.environ.pop("UNET3D_TPU_CONV", None)
+    if strategy:
+        os.environ["UNET3D_TPU_CONV"] = strategy
+    try:
+        yield
+    finally:
+        os.environ.pop("UNET3D_TPU_CONV", None)
 
 
 def card_line() -> str:
@@ -164,6 +221,15 @@ def plain_fast(variant, x, w, inv, shift):
     return (y, *instance_stats(y))
 
 
+def stats_err(y, s1, s2) -> float:
+    """The statistics against an f64 sum of the kernel's own rounded y."""
+    yd = y.double()
+    return max(((s1 - yd.sum((1, 2, 3))).abs().max()
+                / yd.abs().sum((1, 2, 3)).max()).item(),
+               ((s2 - (yd * yd).sum((1, 2, 3))).abs().max()
+                / (yd * yd).sum((1, 2, 3)).max()).item())
+
+
 def phase2(device, gen):
     from unet3d_tpu_torch.ops import conv3d_kernel as K
     kernel = {"conv": K.conv3x3x3, "conv_stats": K.conv3x3x3_with_stats,
@@ -190,13 +256,7 @@ def phase2(device, gen):
                 msg = f"{variant:11s} {label:31s} {str(dtype)[6:]:8s} y rel {rel:.3e}"
                 check(rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
                 if variant != "conv":
-                    # the statistics of the kernel's own rounded y, in f64
-                    yd = got_y.double()
-                    s_err = max(
-                        ((got[1] - yd.sum((1, 2, 3))).abs().max()
-                         / yd.abs().sum((1, 2, 3)).max()).item(),
-                        ((got[2] - (yd * yd).sum((1, 2, 3))).abs().max()
-                         / (yd * yd).sum((1, 2, 3)).max()).item())
+                    s_err = stats_err(*got)
                     msg += f" stats rel {s_err:.3e}"
                     check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
                 if si == TIMED_AT.get(variant) and dtype == torch.bfloat16:
@@ -267,6 +327,51 @@ def phase2_backward(device, gen, report):
                                               max_abs_err=(got - want).abs().max().item())
             print(msg, flush=True)
             del x, g, got, want
+    torch.cuda.empty_cache()
+
+
+def phase2_winograd(device, gen, report):
+    """Both Winograd variants against their plain Winograd version and the
+    direct conv's plain version; each bf16 case timed against the direct
+    hand kernel and the plain composition in bf16 (cuDNN)."""
+    from unet3d_tpu_torch.ops import conv3d_kernel as K
+    from unet3d_tpu_torch.ops import winograd_kernel as W
+    kernel = {"winograd": W.winograd3x3x3, "winograd_stats": W.winograd3x3x3_with_stats}
+    direct = {"winograd": ("conv", K.conv3x3x3),
+              "winograd_stats": ("conv_stats", K.conv3x3x3_with_stats)}
+    for si, (label, s, cin, cout) in enumerate(WINO_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(1, s, s, s, cin, device=device, generator=gen).to(dtype)
+            w = (torch.randn(3, 3, 3, cin, cout, device=device, generator=gen)
+                 / (27 * cin) ** 0.5).to(dtype)
+            want, want_direct = W.winograd_reference(x, w), K.conv3d_reference(x, w)
+            for variant in kernel:
+                got = kernel[variant](x, w)
+                got_y = got if variant == "winograd" else got[0]
+                torch.cuda.synchronize()
+                rel, rel_direct = rel_max(got_y, want), rel_max(got_y, want_direct)
+                msg = (f"{variant:14s} {label:36s} {str(dtype)[6:]:8s} y rel {rel:.3e}, "
+                       f"vs direct {rel_direct:.3e}")
+                check(rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
+                check(rel_direct < WINO_DIRECT_BOUNDS[dtype],
+                      f"{msg} > {WINO_DIRECT_BOUNDS[dtype]}")
+                if variant == "winograd_stats":
+                    s_err = stats_err(*got)
+                    msg += f" stats rel {s_err:.3e}"
+                    check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
+                if dtype == torch.bfloat16:
+                    plain_variant, direct_fn = direct[variant]
+                    ms = cuda_ms(lambda: kernel[variant](x, w))
+                    direct_ms = cuda_ms(lambda: direct_fn(x, w))
+                    plain_ms = cuda_ms(lambda: plain_fast(plain_variant, x, w, None, None))
+                    msg += (f" | kernel {ms:.3f} ms, direct kernel {direct_ms:.3f} ms, "
+                            f"cuDNN {plain_ms:.3f} ms")
+                    if si == TIMED_AT[variant]:
+                        report[variant] = dict(
+                            ms=ms, plain_ms=plain_ms, direct_ms=direct_ms, shape=label,
+                            max_abs_err=(got_y.float() - want.float()).abs().max().item())
+                print(msg, flush=True)
+            del x, w, want, want_direct
     torch.cuda.empty_cache()
 
 
@@ -537,6 +642,169 @@ def phase5(device, seed, card):
                           losses=losses)
 
 
+# the synthetic BraTS cases of phase 6: the BraTS 2020 grid, 1 mm voxels with
+# flipped x and y axes, and its four modalities
+BRATS_GRID = (240, 240, 155)
+BRATS_AFFINE = np.array([[-1.0, 0, 0, 0], [0, -1.0, 0, 239.0], [0, 0, 1.0, 0],
+                         [0, 0, 0, 1]])
+MODALITIES = ("flair", "t1", "t1ce", "t2")
+CLI_CASES = 2
+
+
+def write_cases(seed):
+    """CLI_CASES cases of four int16 modalities: zero background around a
+    seeded ellipsoid of noisy tissue, written as uncompressed ``.nii``."""
+    from unet3d_tpu_torch.data import nifti
+    rng = np.random.RandomState(seed + 3)
+    grid = np.stack(np.meshgrid(*(np.arange(n, dtype=np.float32) for n in BRATS_GRID),
+                                indexing="ij"))
+    cases = []
+    for i in range(CLI_CASES):
+        centre = np.array(BRATS_GRID, np.float32) / 2 + rng.uniform(-10, 10, 3)
+        radii = np.array([70.0, 85.0, 60.0]) * rng.uniform(0.8, 1.0, 3)
+        inside = (((grid - centre[:, None, None, None].astype(np.float32))
+                   / radii[:, None, None, None].astype(np.float32)) ** 2).sum(0) <= 1
+        name = f"BraTS20_Validation_{i + 1:03d}"
+        os.makedirs(os.path.join(CLI_DIR, name))
+        files = []
+        for modality in MODALITIES:
+            tissue = rng.normal(400.0, 100.0, size=BRATS_GRID).astype(np.float32)
+            fn = os.path.join(CLI_DIR, name, f"{name}_{modality}.nii")
+            nifti.save(fn, np.where(inside, tissue, 0).astype(np.int16), BRATS_AFFINE)
+            files.append(fn)
+        cases.append({"image": files})
+    return cases
+
+
+class CaseSeconds(logging.Handler):
+    """Collects the per-case stage seconds that ``predict/volumetric.py`` logs."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        if hasattr(record, "case_seconds"):
+            self.records.append(record.case_seconds)
+
+
+def phase6_cli(seed, card):
+    from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
+    from unet3d_tpu_torch.data import nifti
+    from unet3d_tpu_torch.scripts import predict
+    from unet3d_tpu_torch.train.checkpoint import save_checkpoint
+    from unet3d_tpu_torch.utils.config import dump_json, load_json
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    config = load_json(CONFIG)
+    config["bratsvalidation_filenames"] = write_cases(seed)
+    config_file = os.path.join(CLI_DIR, "brats2020_config.json")
+    dump_json(config, config_file)
+    model_file = os.path.join(CLI_DIR, "model.npz")
+    save_checkpoint(build_or_load_model_from_config(config, None, torch.device("cpu"),
+                                                    seed=seed), model_file)
+    print(f"CLI set-up: {CLI_CASES} cases of {len(MODALITIES)} x {BRATS_GRID} int16 "
+          f".nii, checkpoint, config: {time.perf_counter() - t0:.1f} s", flush=True)
+    volumetric_log = logging.getLogger("unet3d_tpu_torch.predict.volumetric")
+    volumetric_log.setLevel(logging.INFO)
+    predictions, launches, breakdown = {}, {}, {}
+    for strategy in (None, "winograd"):
+        name = strategy or "default"
+        out_dir = os.path.join(CLI_DIR, f"out_{name}")
+        case_seconds = CaseSeconds()
+        volumetric_log.addHandler(case_seconds)
+        with conv_strategy(strategy):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            predict.main(["--config_filename", config_file, "--model_filename", model_file,
+                          "--output_directory", out_dir, "--group", "bratsvalidation",
+                          "--activation", "sigmoid"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches[name] = launch_counts()
+        volumetric_log.removeHandler(case_seconds)
+        written = sorted(os.listdir(os.path.join(out_dir, "predictions")))
+        check(len(written) == CLI_CASES, f"CLI {name}: wrote {written}")
+        breakdown[name] = case_seconds.records
+        for fn in written:
+            data, affine, _ = nifti.load(os.path.join(out_dir, "predictions", fn))
+            check(data.shape == BRATS_GRID + (3,), f"CLI {name} {fn}: shape {data.shape}")
+            check(bool(np.isfinite(data).all()), f"CLI {name} {fn}: non-finite output")
+            check(0.0 <= data.min() and data.max() <= 1.0, f"CLI {name} {fn}: outside [0, 1]")
+            check(np.allclose(affine, BRATS_AFFINE, atol=1e-6), f"CLI {name} {fn}: affine")
+            predictions[name, fn] = data
+        for record in breakdown[name]:
+            print(f"CLI {name} {record['case']}: " + ", ".join(
+                f"{k} {record[k]:.3f} s" for k in ("read_preprocess", "forward",
+                                                    "resample", "write"))
+                  + f" [{card}]", flush=True)
+        print(f"CLI {name}: {seconds:.3f} s for {CLI_CASES} cases (model build and "
+              f"load included); launches {launches[name]}", flush=True)
+    wino = {k: sum(launches[k][v] for v in STRATEGY_KERNELS) for k in launches}
+    check(wino["default"] == 0 and wino["winograd"] > 0,
+          f"Winograd launches by run {wino}: expected only under the strategy")
+    rel = {}
+    for fn in written:
+        a, b = predictions["default", fn], predictions["winograd", fn]
+        rel[fn] = float(np.linalg.norm(b - a) / np.linalg.norm(a))
+        check(rel[fn] < L2_BOUND, f"CLI {fn}: strategy vs default rel L2 {rel[fn]:.3e}")
+    print(f"CLI predictions, winograd vs default routing: rel L2 {rel}", flush=True)
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return launches, dict(case_seconds=breakdown, rel_l2=rel)
+
+
+def phase7_strategy_step(device, seed, card):
+    from unet3d_tpu_torch.config.factory import (build_or_load_model_from_config,
+                                                 load_criterion_from_config)
+    from unet3d_tpu_torch.train.step import make_train_step, prepare_batch
+    from unet3d_tpu_torch.utils.config import load_json
+
+    config = load_json(CONFIG)
+    amp = bool(config["training"]["amp"])
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    criterion = load_criterion_from_config(config)
+    rng = np.random.RandomState(seed + 2)
+    shape = tuple(config["dataset"]["desired_shape"])
+    images = rng.randn(1, 4, *shape).astype(np.float32)
+    labels = (rng.rand(1, 3, *shape) > 0.5).astype(np.float32)
+    with conv_strategy("winograd"):
+        step = make_train_step(model, criterion,
+                               torch.optim.Adam(model.parameters(), lr=1e-6), amp=amp)
+        step(images, labels)
+        torch.cuda.synchronize()
+        reset_launches()
+        step(images, labels)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        print(f"strategy train step (amp {amp}): launches {launches}", flush=True)
+        for kernel in STRATEGY_KERNELS:
+            check(launches[kernel] > 0, f"kernel {kernel} was not launched in the step")
+        grads = {}
+        for name, dt_amp, bound in (("f32", False, GRAD_BOUND_F32),
+                                    ("bf16", True, GRAD_BOUND_BF16)):
+            x, y = prepare_batch(images, labels, device, dt_amp)
+            rel, worst, worst_name = grad_rel_l2(model, criterion, x, y, dt_amp)
+            grads[name] = rel
+            msg = (f"gradients {name} under the strategy, kernels vs plain path: rel L2 "
+                   f"{rel:.3e}; worst tensor {worst_name} {worst:.3e}")
+            print(msg, flush=True)
+            check(rel < bound, f"{msg} > {bound}")
+            del x, y
+    torch.cuda.empty_cache()
+    times = {"default": [], "winograd": []}
+    for which in ("default", "winograd", "winograd", "default"):
+        with conv_strategy(None if which == "default" else which):
+            opt = torch.optim.Adam(model.parameters(), lr=1e-6)
+            times[which].append(step_ms(make_train_step(model, criterion, opt, amp=amp),
+                                        images, labels))
+    print(f"train step (amp {amp}) batch {images.shape}: winograd {times['winograd']} ms, "
+          f"default {times['default']} ms [{card}]", flush=True)
+    return launches, dict(step_ms={k: sum(v) / len(v) for k, v in times.items()},
+                          grad_rel_l2=grads)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -547,6 +815,7 @@ def main() -> int:
     from unet3d_tpu_torch.kernels.build import load_library
     from unet3d_tpu_torch.utils.device import require_cuda, sm_version
 
+    os.environ.pop("UNET3D_TPU_CONV", None)  # phases 3-5 run the default routing
     # phase 0
     card = card_line()
     print(card, flush=True)
@@ -564,6 +833,7 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     report = phase2(device, gen)
     phase2_backward(device, gen, report)
+    phase2_winograd(device, gen, report)
     # phase 3
     model, launches, seconds = phase3(device, args.seed, card)
     # phase 4
@@ -572,16 +842,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 5
     train_launches, training = phase5(device, args.seed, card)
+    # phase 6
+    cli_launches, cli = phase6_cli(args.seed, card)
+    # phase 7
+    strategy_launches, strategy = phase7_strategy_step(device, args.seed, card)
     check(not any(m in sys.modules for m in ("jax", "unet3d_tpu")),
           "the port imported jax")
+    # launches: the training path's (phase 5; phase 7 for the Winograd
+    # variants, which run only under the strategy); launches_predict: the
+    # prediction path's (phase 3; the CLI under the strategy for Winograd)
     kernels = [{"name": v, "route": "cuda", "source": SOURCES[v],
                 "replaces": REPLACES[v], "launches": train_launches[v],
                 "launches_predict": launches[v],
                 "max_abs_err": report[v]["max_abs_err"], "ms": report[v]["ms"],
                 "plain_ms": report[v]["plain_ms"], "shape": report[v]["shape"]}
                for v in TRAIN_KERNELS]
+    kernels += [{"name": v, "route": "cuda", "source": SOURCES[v],
+                 "replaces": REPLACES[v], "launches": strategy_launches[v],
+                 "launches_predict": cli_launches["winograd"][v],
+                 "max_abs_err": report[v]["max_abs_err"], "ms": report[v]["ms"],
+                 "plain_ms": report[v]["plain_ms"], "direct_ms": report[v]["direct_ms"],
+                 "shape": report[v]["shape"]}
+                for v in STRATEGY_KERNELS]
     print(f"seconds per case: {json.dumps(seconds)} [{card}]")
     print(f"training: {json.dumps(training)} [{card}]")
+    print(f"cli: {json.dumps(cli)} [{card}]")
+    print(f"strategy train step: {json.dumps(strategy)} [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

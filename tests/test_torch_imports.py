@@ -30,6 +30,11 @@ print(len(names))
 TRAINING_MODULES = ("ops.s2_wgrad_kernel", "ops.interpolate", "train.losses",
                     "train.optim", "train.step", "train.meters", "train.train",
                     "train.checkpoint")
+# the prediction CLI's slice: the data path, the CLIs and the Winograd kernel
+PREDICT_CLI_MODULES = ("ops.winograd_kernel", "ops.affine", "ops.one_hot", "ops.crop",
+                       "ops.normalize", "ops.resample", "data.orientation", "data.io",
+                       "data.dataset", "data.loader", "scripts.predict",
+                       "scripts.segment")
 
 
 def _env():
@@ -47,6 +52,7 @@ def test_every_module_imports_without_jax_or_a_build():
     *_, names, count = out.stdout.strip().splitlines()
     assert int(count) >= n_modules
     assert {f"unet3d_tpu_torch.{m}" for m in TRAINING_MODULES} <= set(names.split())
+    assert {f"unet3d_tpu_torch.{m}" for m in PREDICT_CLI_MODULES} <= set(names.split())
 
 
 def test_no_source_of_the_port_names_jax():

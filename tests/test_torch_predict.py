@@ -111,5 +111,25 @@ def test_volumetric_predictions_write_nifti_jax_reads(networks, tmp_path):
         np.testing.assert_array_equal(data, want[i])
         np.testing.assert_allclose(got_affine, aff, atol=1e-6)
         assert 0.0 <= data.min() and data.max() <= 1.0
-    with pytest.raises(NotImplementedError, match="resample"):
-        volumetric_predictions(port, [batch], str(tmp_path), resample=True)
+    # resample=True reads each source file for its grid (tests/test_torch_cli.py
+    # runs it on real files); these sources do not exist
+    with pytest.raises(FileNotFoundError):
+        volumetric_predictions(port, [batch], str(tmp_path), resample=True,
+                               inferer=inferer)
+
+
+@pytest.mark.parametrize("activation", ["tanh", "relu", "exp", "softmax", "sigmoid",
+                                        "abs", None])
+def test_apply_activation_matches_jax(activation):
+    """Any jax.numpy / jax.nn name on the JAX side, torch / torch.nn.functional
+    on the port's."""
+    from unet3d_tpu.predict.volumetric import apply_activation as jax_apply_activation
+    pred = np.random.RandomState(7).randn(2, 3, 4, 5, 3).astype(np.float32)
+    got = apply_activation(torch.from_numpy(pred), activation).numpy()
+    want = np.asarray(jax_apply_activation(jnp.asarray(pred), activation))
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5)
+
+
+def test_apply_activation_rejects_unknown_names():
+    with pytest.raises(ValueError, match="Unknown activation"):
+        apply_activation(torch.zeros(1, 3), "no_such_function")

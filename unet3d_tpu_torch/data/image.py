@@ -1,7 +1,7 @@
 """Affine-carrying volume container (counterpart of ``unet3d_tpu/data/image.py``).
 
 A host-side ``(C, D, H, W)`` array plus its 4x4 voxel->world affine and
-metadata. ``spacing`` is not here yet: it needs the port of ``ops/affine.py``.
+metadata.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from unet3d_tpu_torch.data import nifti
+from unet3d_tpu_torch.ops import affine as affine_ops
 
 
 @dataclass
@@ -37,6 +38,10 @@ class Volume:
     @property
     def dtype(self):
         return self.data.dtype
+
+    @property
+    def spacing(self) -> np.ndarray:
+        return affine_ops.get_spacing_from_affine(self.affine)
 
     def make_similar(self, data, affine: Optional[np.ndarray] = None,
                      copy_meta: bool = True) -> "Volume":

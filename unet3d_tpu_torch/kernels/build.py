@@ -30,7 +30,8 @@ from pathlib import Path
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 SOURCES = (_PACKAGE / "ops" / "kernels" / "conv3d.cu",
-           _PACKAGE / "ops" / "kernels" / "s2_wgrad.cu")
+           _PACKAGE / "ops" / "kernels" / "s2_wgrad.cu",
+           _PACKAGE / "ops" / "kernels" / "winograd.cu")
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -112,6 +113,9 @@ def load_library() -> ctypes.CDLL:
             lib.unet3d_s2_wgrad_ndhwc.argtypes = [
                 i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, p]
             lib.unet3d_s2_wgrad_ndhwc.restype = i
+            lib.unet3d_winograd3x3x3_ndhwc.argtypes = [
+                i, i, p, p, p, p, i, i, i, i, i, i, i, i, p]
+            lib.unet3d_winograd3x3x3_ndhwc.restype = i
             lib.unet3d_cuda_error_string.argtypes = [i]
             lib.unet3d_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

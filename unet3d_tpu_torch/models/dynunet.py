@@ -10,9 +10,12 @@ a per-(item, channel) affine, and conv2 applies that affine and the leaky ReLU
 to its input as it loads it: ``lrelu(IN1(y1))`` is never materialised. On CUDA
 the 3x3x3 stride-1 convs run the hand-written kernels (``ops/conv3d_kernel``)
 forward and backward, and the stride-2 convs' weight gradient runs
-``ops/s2_wgrad_kernel``. The gradient of the folded affine reaches norm1's
-scale / bias and conv1's statistics through autograd of ``fold_in_affine``:
-the derived instance-norm gradient the JAX model uses by default.
+``ops/s2_wgrad_kernel``. Under ``UNET3D_TPU_CONV=winograd`` the convs that
+pass the JAX gate run the Winograd-DH kernels instead, a conv2 site on its
+materialised activation (``ops/conv3d``). The gradient of the folded affine
+reaches norm1's scale / bias and conv1's statistics through autograd of
+``fold_in_affine``: the derived instance-norm gradient the JAX model uses by
+default.
 """
 from __future__ import annotations
 

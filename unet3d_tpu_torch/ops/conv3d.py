@@ -11,10 +11,19 @@ sizes) goes to ``F.conv3d`` with explicit pads and torch autograd, as the JAX
 package leaves them to XLA; statistics outside a kernel are a plain
 reduction. Padding "SAME" means symmetric k//2 pads (torch Conv3d
 semantics), not XLA's strided SAME.
+
+``UNET3D_TPU_CONV=winograd`` (the JAX package's strategy variable, read at
+each dispatch) sends every 3x3x3 stride-1 conv that passes the JAX gate
+(``ops/winograd_kernel.winograd_applies``) to the Winograd-DH kernels, forward
+and input gradient, as the JAX package does; at a fused block site the
+activation is then materialised first. Unset keeps the routing above; any
+other value raises (the JAX package's other strategies are TPU bisect
+handles the port does not carry).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import os
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +34,10 @@ from unet3d_tpu_torch.ops.conv3d_kernel import (affine_lrelu, conv3x3x3,
                                                 conv3x3x3_with_stats,
                                                 instance_stats)
 from unet3d_tpu_torch.ops.s2_wgrad_kernel import s2_wgrad
+from unet3d_tpu_torch.ops.winograd_kernel import (winograd3x3x3,
+                                                  winograd3x3x3_with_stats,
+                                                  winograd_applies,
+                                                  winograd_profitable)
 
 Pads = Tuple[Tuple[int, int], ...]
 
@@ -36,6 +49,22 @@ def _pads(padding, kernel: Sequence[int]) -> Pads:
     if any(lo != hi for lo, hi in pads):
         raise ValueError(f"asymmetric conv padding {pads} is not supported")
     return pads
+
+
+def conv_strategy() -> Optional[str]:
+    """``UNET3D_TPU_CONV`` as the port honours it: None (unset) or "winograd"."""
+    strategy = os.environ.get("UNET3D_TPU_CONV") or None
+    if strategy not in (None, "winograd"):
+        raise ValueError(
+            f"UNET3D_TPU_CONV={strategy!r}: the port honours only 'winograd' "
+            "(or unset); the JAX package's other conv strategies are TPU "
+            "bisect handles it does not carry")
+    return strategy
+
+
+def _winograd_site(x: torch.Tensor, w: torch.Tensor, stride, pads) -> bool:
+    return (conv_strategy() == "winograd"
+            and winograd_applies(tuple(x.shape), tuple(w.shape), stride, pads))
 
 
 def _is_3x3x3(w: torch.Tensor, stride: Tuple[int, ...], pads: Pads, s: int) -> bool:
@@ -80,16 +109,21 @@ def fold_stats_cotangent(gy, gs1, gs2, y) -> torch.Tensor:
 
 
 class _Conv3x3x3(torch.autograd.Function):
-    """3x3x3 stride-1 SAME conv, with or without the output statistics."""
+    """3x3x3 stride-1 SAME conv, with or without the output statistics,
+    through the direct kernels or (``winograd``) the Winograd-DH ones. The
+    input gradient of a Winograd site is Winograd again when the cotangent
+    passes the profitability gate, else the direct ``conv`` kernel (the JAX
+    ``_dgrad``)."""
 
     @staticmethod
-    def forward(ctx, x, w, with_stats: bool):
-        ctx.with_stats = with_stats
+    def forward(ctx, x, w, with_stats: bool, winograd: bool = False):
+        ctx.with_stats, ctx.winograd = with_stats, winograd
         if with_stats:
-            y, s1, s2 = conv3x3x3_with_stats(x, w)
+            op = winograd3x3x3_with_stats if winograd else conv3x3x3_with_stats
+            y, s1, s2 = op(x, w)
             ctx.save_for_backward(x, w, y)
             return y, s1, s2
-        y = conv3x3x3(x, w)
+        y = (winograd3x3x3 if winograd else conv3x3x3)(x, w)
         ctx.save_for_backward(x, w)
         return y
 
@@ -102,11 +136,15 @@ class _Conv3x3x3(torch.autograd.Function):
         else:
             x, w = ctx.saved_tensors
             g = gy.to(x.dtype).contiguous()
-        dx = conv3x3x3(g, flip_io(w)) if ctx.needs_input_grad[0] else None
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dgrad = (winograd3x3x3 if ctx.winograd and winograd_profitable(g.shape)
+                     else conv3x3x3)
+            dx = dgrad(g, flip_io(w))
         dw = None
         if ctx.needs_input_grad[1]:
             dw = weight_grad(x, g, w.shape, 1, 1).to(w.dtype)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 class _BlockConv3x3x3(torch.autograd.Function):
@@ -171,10 +209,12 @@ class _Conv3x3x3Stride2(torch.autograd.Function):
 
 def conv3d(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int] = (1, 1, 1),
            padding="SAME") -> torch.Tensor:
+    conv_strategy()  # an unknown strategy raises at every conv, as a typo should
     stride = tuple(int(s) for s in stride)
     pads = _pads(padding, w.shape[:3])
     if _is_3x3x3(w, stride, pads, 1):
-        return _Conv3x3x3.apply(x, w.contiguous(), False)
+        return _Conv3x3x3.apply(x, w.contiguous(), False,
+                                _winograd_site(x, w, stride, pads))
     if _is_3x3x3(w, stride, pads, 2):
         return _Conv3x3x3Stride2.apply(x, w.contiguous())
     return conv3d_torch(x, w, stride, pads)
@@ -187,7 +227,8 @@ def conv3d_with_stats(x: torch.Tensor, w: torch.Tensor,
     stride = tuple(int(s) for s in stride)
     pads = _pads(padding, w.shape[:3])
     if _is_3x3x3(w, stride, pads, 1):
-        return _Conv3x3x3.apply(x, w.contiguous(), True)
+        return _Conv3x3x3.apply(x, w.contiguous(), True,
+                                _winograd_site(x, w, stride, pads))
     y = conv3d(x, w, stride, padding)
     return (y, *instance_stats(y))
 
@@ -198,7 +239,9 @@ def conv3d_block_with_stats(y: torch.Tensor, w: torch.Tensor,
     """Stride-1 SAME ``conv3d(lrelu(y * scale + shift, alpha), w)`` plus the
     output statistics. ``scale`` / ``shift`` are f32 (N, C): the previous
     instance norm folded with its statistics (``ops/norm.fold_in_affine``).
-    The activation is zero-padded, as if it had been materialised."""
-    if tuple(w.shape[:3]) == (3, 3, 3):
+    The activation is zero-padded, as if it had been materialised; at a
+    Winograd site it is materialised, as the JAX model does."""
+    if (tuple(w.shape[:3]) == (3, 3, 3)
+            and not _winograd_site(y, w, (1, 1, 1), ((1, 1),) * 3)):
         return _BlockConv3x3x3.apply(y, w.contiguous(), scale, shift, alpha)
     return conv3d_with_stats(affine_lrelu(y, scale, shift, alpha), w)

@@ -39,9 +39,9 @@ def instance_stats(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def affine_lrelu(x, inv, shift, alpha):
     """lrelu(x * inv + shift) in f32 with (N, C) ``inv`` / ``shift``, rounded
-    to x's dtype."""
+    to x's dtype. Differentiable, with the JAX derivative 1 at 0."""
     z = x.float() * inv[:, None, None, None, :] + shift[:, None, None, None, :]
-    return F.leaky_relu(z, alpha).to(x.dtype)
+    return torch.where(z >= 0, z, z * alpha).to(x.dtype)
 
 
 def conv3d_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

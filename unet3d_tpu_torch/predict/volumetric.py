@@ -1,21 +1,34 @@
-"""Whole-volume prediction: forward -> activation -> NIfTI.
+"""Whole-volume prediction: forward -> activation -> resample-to-native -> NIfTI.
 
 Counterpart of ``unet3d_tpu/predict/volumetric.py``: a no-grad loop over a
-loader's batches, an optional inferer (sliding window), a sigmoid/softmax
-activation, and one NIfTI per case named after its source file. Resampling
-back to the source grid waits for the port of ``ops/resample.py``.
+loader's batches, an optional inferer (sliding window), an activation, an
+optional resample back to the source file's grid on the prediction's device,
+and one NIfTI per case named after its source file.
+
+Each written case is logged at INFO with the seconds spent waiting for its
+batch (reading and preprocessing, when the loader runs in the caller's
+thread), in the forward and activation, in the resample and in the write (a
+batch's load and forward split evenly over its cases); the record carries
+them as a dict in its ``case_seconds`` attribute.
 """
 from __future__ import annotations
 
 import copy
+import logging
 import os
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from unet3d_tpu_torch.data.image import Volume
+from unet3d_tpu_torch.data.io import load_image
+from unet3d_tpu_torch.ops.resample import resample_to_img
 from unet3d_tpu_torch.utils.validation import validate_batch_item
+
+logger = logging.getLogger(__name__)
 
 
 def to_ndhwc(x: torch.Tensor) -> torch.Tensor:
@@ -42,13 +55,19 @@ def make_forward(model: torch.nn.Module, amp: bool = False) -> Callable:
 
 
 def apply_activation(pred: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
-    """None, or the config's sigmoid / softmax (over channels, the last axis)."""
+    """None, sigmoid, softmax (over channels, the last axis), or any function
+    of ``torch`` or ``torch.nn.functional`` by name, as the JAX version
+    resolves ``jax.numpy`` and ``jax.nn`` names."""
     if activation is None:
         return pred
     if activation == "sigmoid":
         return torch.sigmoid(pred)
     if activation == "softmax":
         return torch.softmax(pred, dim=-1)
+    for namespace in (torch, F):
+        fn = getattr(namespace, activation, None)
+        if callable(fn):
+            return fn(pred)
     raise ValueError(f"Unknown activation {activation}")
 
 
@@ -62,34 +81,79 @@ def _prediction_filename(prediction_dir: str, source) -> str:
     return os.path.join(prediction_dir, basename + ".nii.gz")
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def volumetric_predictions(model: torch.nn.Module, dataloader,
                            prediction_dir: str,
                            activation: Optional[str] = None,
                            resample: bool = False,
                            inferer: Optional[Callable] = None,
-                           amp: bool = False) -> List[str]:
+                           amp: bool = False,
+                           interpolation: str = "trilinear") -> List[str]:
     """Predict every case of ``dataloader`` on the model's device and write
     one NIfTI each; returns the filenames.
 
     Batches are dicts with ``image`` (B, C, D, H, W), ``affine`` (B, 4, 4) and
-    ``source_filename``; ``amp`` runs the forward in bf16."""
-    if resample:
-        raise NotImplementedError(
-            "resample=True needs the port of ops/resample.py (see ROADMAP.md)")
+    ``source_filename``; ``amp`` runs the forward in bf16. ``resample`` maps
+    each prediction back onto its source file's grid (``interpolation``)
+    before it is written, with the source's affine."""
     os.makedirs(prediction_dir, exist_ok=True)
     forward = make_forward(model, amp=amp)
     device = next(model.parameters()).device
     written: List[str] = []
-    for batch in dataloader:
+    batches = iter(dataloader)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(batches, None)
+        if batch is None:
+            return written
+        t1 = time.perf_counter()
         for key in ("image", "affine", "source_filename"):
             validate_batch_item(batch, key, context="volumetric prediction")
         x = to_ndhwc(torch.as_tensor(np.asarray(batch["image"])).to(device))
         pred = inferer(x, forward) if inferer is not None else forward(x)
-        pred = apply_activation(pred.float(), activation)
-        pred_host = pred.cpu().numpy()  # (B, D, H, W, C)
-        for i in range(pred_host.shape[0]):
-            item_pred = np.moveaxis(pred_host[i], -1, 0)  # (C, D, H, W)
-            out_fn = _prediction_filename(prediction_dir, batch["source_filename"][i])
-            Volume(data=item_pred, affine=np.asarray(batch["affine"][i])).to_filename(out_fn)
+        pred = apply_activation(pred.float(), activation)  # (B, D, H, W, C)
+        _sync(device)
+        t2 = time.perf_counter()
+        n_items = pred.shape[0]
+        for i in range(n_items):
+            t3 = time.perf_counter()
+            item_pred = pred[i].permute(3, 0, 1, 2)  # (C, D, H, W)
+            affine = np.asarray(batch["affine"][i])
+            source = batch["source_filename"][i]
+            if resample:
+                original = load_image(source, reorder=False)
+                item_pred = resample_to_img(item_pred, affine, original.affine,
+                                            original.spatial_shape, mode=interpolation)
+                affine = original.affine
+            item_host = item_pred.cpu().numpy()
+            t4 = time.perf_counter()
+            out_fn = _prediction_filename(prediction_dir, source)
+            Volume(data=item_host, affine=affine).to_filename(out_fn)
+            t5 = time.perf_counter()
             written.append(out_fn)
-    return written
+            case = os.path.basename(out_fn)
+            seconds = {"read_preprocess": (t1 - t0) / n_items,
+                       "forward": (t2 - t1) / n_items, "resample": t4 - t3,
+                       "write": t5 - t4}
+            logger.info("%s: %s", case,
+                        ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items()),
+                        extra={"case_seconds": dict(seconds, case=case)})
+
+
+def infer_subject_id(filename, all_filenames=None) -> str:
+    """Subject id from the path component that differs across cases, else
+    the file's parent directory name."""
+    fn = filename[0] if isinstance(filename, (list, tuple)) else filename
+    parts = os.path.normpath(str(fn)).split(os.sep)
+    if all_filenames and len(all_filenames) > 1:
+        others = [os.path.normpath(str(f[0] if isinstance(f, (list, tuple)) else f))
+                  .split(os.sep) for f in all_filenames]
+        for i, part in enumerate(parts):
+            values = {o[i] for o in others if len(o) > i}
+            if len(values) > 1:
+                return part
+    return parts[-2] if len(parts) >= 2 else parts[-1]

@@ -1,8 +1,10 @@
-"""CUDA device selection and the capability the port's kernels are built for."""
+"""CUDA device selection, the capability the port's kernels are built for,
+and host arrays as tensors."""
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 # the kernels are compiled for sm_90a (Hopper) only
@@ -26,3 +28,13 @@ def require_cuda(index: int = 0) -> torch.device:
             f"kernels are built for sm_{REQUIRED_CAPABILITY[0]}"
             f"{REQUIRED_CAPABILITY[1]}a")
     return device
+
+
+def as_tensor(data) -> torch.Tensor:
+    """A tensor as it is; a numpy array (or list) as a CPU tensor sharing its
+    memory, or a copy when the array is read-only (memory-mapped caches,
+    decoded NIfTI buffers), which torch cannot share."""
+    if isinstance(data, torch.Tensor):
+        return data
+    arr = np.asarray(data)
+    return torch.from_numpy(arr if arr.flags.writeable else arr.copy())

@@ -19,18 +19,29 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    forward sites and two input gradients), against their plain Winograd
    version (the same bounds as the direct kernels) and the direct conv's
    (2e-2 in bf16: the input transform rounds twice; 1e-4 in f32), each bf16
-   case timed against the direct hand kernel and cuDNN;
+   case timed against the direct hand kernel and cuDNN. Every bf16 time
+   is printed beside the plain composition's, one PyTorch call's where one
+   computes the same function (``F.conv3d``, cuDNN's weight gradient), and
+   the bound: the larger of the operations at 989 TFLOP/s and the bytes
+   (inputs read once, outputs written once) at 3.35 TB/s. The direct conv is
+   timed at every SHAPES site in the variant that site runs and at both
+   DX_SHAPES; its bf16 calls (Cin a multiple of 4, Cout of 8: every site)
+   take the wgmma form (``conv3d_wgmma.cu``);
 3. the slice: the BraTS DynUNet of ``examples/brats2020/brats2020_config.json``
    (seeded random weights, no trained checkpoint in the repo), its sliding-
    window inferer and sigmoid, answering two requests through
    ``volumetric_predictions`` in bf16: (1,4,128,128,128), one window, and the
    raw BraTS grid (1,4,240,240,155), 18 windows. The NIfTI outputs are read
-   back and checked (shape, finite, in [0, 1], affine);
+   back and checked (shape, finite, in [0, 1], affine). The direct conv's
+   launches by form are printed, and any bf16 site off the wgmma form fails;
+   one window's forward is profiled (device time by kernel group, span, idle
+   share);
 4. the launch count of every kernel on the path (``conv_stats``,
    ``block_stats``) grew during phase 3, and the whole forward on one 128^3
    window, kernels against the plain path, agrees within relative L2 3e-2 in
-   bf16. The ``conv`` variant (no statistics) and ``s2_wgrad`` have no site
-   in the forward: they run in training;
+   bf16; both forwards timed (plain, kernels, kernels, plain). The ``conv``
+   variant (no statistics) and ``s2_wgrad`` have no site in the forward: they
+   run in training;
 5. training: the same model, DiceLoss, Adam and ReduceLROnPlateau from the
    config, through ``make_train_step`` / ``make_eval_step`` / ``run_training``,
    2 epochs of 3 bf16 AMP steps on one seeded (1,4,128,128,128) batch with
@@ -43,7 +54,9 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    parameters within 1e-3 in f32 (the f32 gradient of this net lies ~1.5e-4
    from an f64 one on either path: the instance norms amplify sum-order
    differences) and 2e-2 in bf16 (each path ~1.3e-2 from f64); and the
-   train-step time with kernels and plain, and the peak memory;
+   train-step time with kernels and plain, and the peak memory; the forms
+   checked as in phase 3 over the training run, and one step of each path
+   profiled;
 6. the predict CLI: two synthetic BraTS-grid cases (four modalities of
    240 x 240 x 155 int16, zero around a seeded ellipsoid, uncompressed
    ``.nii``), the seeded model's ``.npz`` checkpoint and a copy of the BraTS
@@ -84,10 +97,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "examples", "brats2020", "brats2020_config.json")
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
+# the bf16 form of the direct conv variants (conv3d.cu keeps the f32 form and
+# a bf16 WMMA form for channel counts no DynUNet site has)
 SOURCES = {
-    "conv": "unet3d_tpu_torch/ops/kernels/conv3d.cu",
-    "conv_stats": "unet3d_tpu_torch/ops/kernels/conv3d.cu",
-    "block_stats": "unet3d_tpu_torch/ops/kernels/conv3d.cu",
+    "conv": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
+    "conv_stats": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
+    "block_stats": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
     "s2_wgrad": "unet3d_tpu_torch/ops/kernels/s2_wgrad.cu",
     "winograd": "unet3d_tpu_torch/ops/kernels/winograd.cu",
     "winograd_stats": "unet3d_tpu_torch/ops/kernels/winograd.cu",
@@ -112,6 +127,9 @@ SHAPES = [
     ("up-block conv1 192->96 @64^3", 64, 192, 96),
     ("bottleneck conv2 384->384 @4^3", 4, 384, 384),
 ]
+# the variant each SHAPES site runs in the forward (and so in training)
+SITE_VARIANT = ("conv_stats", "block_stats", "conv_stats", "block_stats", "conv_stats",
+                "block_stats")
 # (label, spatial, cin, cout) of the input gradients the conv kernel takes
 # at level 0: dx of a conv2 and of an up-block conv1 (64 -> 128 channels)
 DX_SHAPES = [
@@ -145,6 +163,11 @@ PREDICT_KERNELS = ("conv_stats", "block_stats")
 TRAIN_KERNELS = ("conv", "conv_stats", "block_stats", "s2_wgrad")
 STRATEGY_KERNELS = ("winograd", "winograd_stats")
 TIMED_AT = {"conv_stats": 2, "block_stats": 1, "winograd": 3, "winograd_stats": 2}
+# dense peaks of one H100 SXM (NVIDIA's data sheet, at 700 W) for the bounds
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+# Winograd-DH's channel products per output against the direct conv's
+WINOGRAD_PRODUCTS = 48 / 108
 BOUNDS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 STATS_BOUND = 1e-4
 WINO_DIRECT_BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -207,6 +230,86 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(flops: float, nbytes: float, dtype=torch.bfloat16):
+    """The least time the card could take: the larger of the operations at
+    the dtype's peak and the bytes (each input read once, each output written
+    once) at the memory rate; and which of the two it is."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def conv_bound(variant, s, cin, cout, products=1.0):
+    """bound_ms of one bf16 3x3x3 conv variant on (1, s, s, s, cin) -> cout."""
+    vox = s ** 3
+    nbytes = 2 * (vox * (cin + cout) + 27 * cin * cout)
+    nbytes += 8 * cout if variant in ("conv_stats", "block_stats", "winograd_stats") else 0
+    nbytes += 8 * cin if variant == "block_stats" else 0
+    return bound_ms(2.0 * vox * 27 * cin * cout * products, nbytes)
+
+
+def library_conv(x, w):
+    """One PyTorch call for the conv alone (cuDNN): F.conv3d on the NCDHW view
+    (channels_last_3d, no copy) of the same NDHWC operands."""
+    wn = w.permute(4, 3, 0, 1, 2).contiguous()
+    xn = x.permute(0, 4, 1, 2, 3)
+    return lambda: F.conv3d(xn, wn, padding=1)
+
+
+def form_counts() -> str:
+    from unet3d_tpu_torch.ops import conv3d_kernel
+    forms = {f"{v}/{f}": n for (v, f), n in sorted(conv3d_kernel.FORM_LAUNCHES.items())}
+    return f"direct conv launches by form {forms}"
+
+
+def check_forms(where: str) -> None:
+    """In a bf16 run, every direct conv took the wgmma form."""
+    from unet3d_tpu_torch.ops import conv3d_kernel
+    off = {k: n for k, n in conv3d_kernel.FORM_LAUNCHES.items() if k[1] != "wgmma"}
+    check(not off, f"{where}: bf16 sites off the wgmma form: {off}")
+
+
+def profile_device(fn, label: str, card: str) -> dict:
+    """Device time of one call of ``fn`` by kernel group (torch.profiler),
+    its device span and idle share; printed, and returned."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print(f"profile {label}: no device events traced (not measured)", flush=True)
+        return {}
+    groups = (("conv wgmma", "conv3x3x3_wgmma"), ("conv wmma/fma", "conv3x3x3_ndhwc"),
+              ("s2_wgrad", "s2_wgrad"), ("winograd", "winograd3x3x3"),
+              ("memcpy/memset", "mem"), ("copies and casts", "copy"),
+              ("reductions", "reduce"), ("elementwise", "elementwise"))
+    by_group, by_name = {}, {}
+    for e in kernels:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        lname = e.name.lower()
+        group = next((g for g, key in groups if key.lower() in lname), "other (cuDNN, cuBLAS, ...)")
+        by_group[group] = by_group.get(group, 0.0) + ms
+        by_name[e.name[:70]] = by_name.get(e.name[:70], 0.0) + ms
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, spans[0][0]
+    for lo, hi in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    span = (spans[-1][1] - spans[0][0]) / 1e3
+    total = sum(by_group.values())
+    idle = 1.0 - busy / 1e3 / span
+    print(f"profile {label}: device {total:.3f} ms in {len(kernels)} kernels, span "
+          f"{span:.3f} ms, idle {idle:.1%} [{card}]", flush=True)
+    for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  {g:28s} {ms:9.3f} ms {ms / total:6.1%}", flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {ms:9.3f} ms  {name}", flush=True)
+    return dict(device_ms=total, span_ms=span, idle=idle, groups=by_group)
+
+
 def plain_fast(variant, x, w, inv, shift):
     """The plain PyTorch composition in the working dtype (cuDNN conv, torch
     elementwise and reductions): what the kernel is timed against."""
@@ -259,12 +362,19 @@ def phase2(device, gen):
                     s_err = stats_err(*got)
                     msg += f" stats rel {s_err:.3e}"
                     check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
-                if si == TIMED_AT.get(variant) and dtype == torch.bfloat16:
+                if variant == SITE_VARIANT[si] and dtype == torch.bfloat16:
                     ms = cuda_ms(lambda: kernel[variant](*args))
                     plain_ms = cuda_ms(lambda: plain_fast(variant, x, w, inv, shift))
-                    report[variant].update(ms=ms, plain_ms=plain_ms, shape=label,
-                                           max_abs_err=diff)
-                    msg += f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                    library_ms = cuda_ms(library_conv(x, w))
+                    bms, bound_by = conv_bound(variant, s, cin, cout)
+                    msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d "
+                            f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, "
+                            f"{bms / ms:.1%})")
+                    if si == TIMED_AT.get(variant):
+                        # no one PyTorch call takes the statistics with the conv
+                        report[variant].update(
+                            ms=ms, plain_ms=plain_ms, shape=label, max_abs_err=diff,
+                            bound_ms=bms, bound_by=bound_by, library_ms=None)
                 print(msg, flush=True)
             del x, w
     torch.cuda.empty_cache()
@@ -299,10 +409,15 @@ def phase2_backward(device, gen, report):
             if dtype == torch.bfloat16:
                 ms = cuda_ms(lambda: K.conv3x3x3(g, wf))
                 plain_ms = cuda_ms(lambda: conv3d_torch(g, wf, (1, 1, 1), ((1, 1),) * 3))
-                msg += f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                library_ms = cuda_ms(library_conv(g, wf))
+                bms, bound_by = conv_bound("conv", s, cin, cout)
+                msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d "
+                        f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, "
+                        f"{bms / ms:.1%})")
                 if si == 0:
                     report["conv"] = dict(
-                        ms=ms, plain_ms=plain_ms, shape=label,
+                        ms=ms, plain_ms=plain_ms, shape=label, bound_ms=bms,
+                        bound_by=bound_by, library_ms=library_ms,
                         max_abs_err=(got.float() - want.float()).abs().max().item())
             print(msg, flush=True)
             del g, w, wf, got, want
@@ -321,9 +436,18 @@ def phase2_backward(device, gen, report):
                 ms = cuda_ms(lambda: W.s2_wgrad(x, g))
                 plain_ms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
                     xn, (cout, cin, 3, 3, 3), gn, stride=2, padding=1))
-                msg += f" | kernel {ms:.3f} ms, cuDNN {plain_ms:.3f} ms"
+                # dw: 27 * cin * cout products per output voxel; x and g read,
+                # the f32 weight gradient written
+                half = (s // 2) ** 3
+                bms, bound_by = bound_ms(2.0 * half * 27 * cin * cout,
+                                         2 * (s ** 3 * cin + half * cout) + 4 * 27 * cin * cout)
+                msg += (f" | kernel {ms:.3f} ms, cuDNN {plain_ms:.3f} ms, bound {bms:.3f} ms "
+                        f"({bound_by}, {bms / ms:.1%})")
                 if si == 0:
+                    # the plain composition is one PyTorch call (cuDNN's dw)
                     report["s2_wgrad"] = dict(ms=ms, plain_ms=plain_ms, shape=label,
+                                              bound_ms=bms, bound_by=bound_by,
+                                              library_ms=plain_ms,
                                               max_abs_err=(got - want).abs().max().item())
             print(msg, flush=True)
             del x, g, got, want
@@ -364,11 +488,16 @@ def phase2_winograd(device, gen, report):
                     ms = cuda_ms(lambda: kernel[variant](x, w))
                     direct_ms = cuda_ms(lambda: direct_fn(x, w))
                     plain_ms = cuda_ms(lambda: plain_fast(plain_variant, x, w, None, None))
+                    # Winograd-DH issues 48 of the direct conv's 108 products
+                    bms, bound_by = conv_bound(variant, s, cin, cout, WINOGRAD_PRODUCTS)
                     msg += (f" | kernel {ms:.3f} ms, direct kernel {direct_ms:.3f} ms, "
-                            f"cuDNN {plain_ms:.3f} ms")
+                            f"cuDNN {plain_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, "
+                            f"{bms / ms:.1%})")
                     if si == TIMED_AT[variant]:
                         report[variant] = dict(
                             ms=ms, plain_ms=plain_ms, direct_ms=direct_ms, shape=label,
+                            bound_ms=bms, bound_by=bound_by,
+                            library_ms=plain_ms if variant == "winograd" else None,
                             max_abs_err=(got_y.float() - want.float()).abs().max().item())
                 print(msg, flush=True)
             del x, w, want, want_direct
@@ -457,11 +586,25 @@ def phase3(device, seed, card):
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"launches during the requests: {launches}; peak memory {peak:.2f} GiB",
           flush=True)
+    print(f"requests: {form_counts()}", flush=True)
+    check_forms("requests")
     shutil.rmtree(OUT_DIR, ignore_errors=True)
-    return model, launches, seconds
+    # the device time of one window's forward, as the requests ran it
+    import copy
+    dtype = torch.bfloat16 if amp else torch.float32
+    net = copy.deepcopy(model).to(dtype).eval()
+    window = torch.from_numpy(images["A"]).to(device, dtype).permute(0, 2, 3, 4, 1).contiguous()
+
+    def forward():
+        with torch.inference_mode():
+            net(window)
+
+    profile = profile_device(forward, "one 128^3 window forward", card)
+    del net, window
+    return model, launches, seconds, profile
 
 
-def phase4(model, launches, device, seed):
+def phase4(model, launches, device, seed, card):
     import copy
     for variant in PREDICT_KERNELS:
         check(launches[variant] > 0, f"kernel {variant} was not launched on the path")
@@ -476,6 +619,14 @@ def phase4(model, launches, device, seed):
     print(f"whole forward 128^3 bf16, kernels vs plain path: rel L2 {rel_l2:.3e}, "
           f"max abs {max_err:.3e} (logits max {want.abs().max().item():.3e})", flush=True)
     check(rel_l2 < L2_BOUND, f"whole-forward rel L2 {rel_l2:.3e} > {L2_BOUND}")
+    times = {"plain": [], "kernels": []}
+    with torch.inference_mode():
+        for which in ("plain", "kernels", "kernels", "plain"):
+            fn = (lambda: net(x)) if which == "kernels" else (lambda: plain_forward(net, x))
+            times[which].append(cuda_ms(fn))
+    print(f"window forward 128^3 bf16: kernels {times['kernels']} ms, plain "
+          f"{times['plain']} ms [{card}]", flush=True)
+    return {k: sum(v) / len(v) for k, v in times.items()}
 
 
 class PlainNet(torch.nn.Module):
@@ -600,6 +751,8 @@ def phase5(device, seed, card):
     check(all(np.isfinite(r[3]) for r in rows), f"non-finite validation loss {rows}")
     for kernel in TRAIN_KERNELS:
         check(launches[kernel] > 0, f"kernel {kernel} was not launched in training")
+    print(f"training: {form_counts()}", flush=True)
+    check_forms("training")
     fresh = build_or_load_model_from_config(config, None, device, seed=seed + 1)
     load_jax_variables(fresh, load_checkpoint(model_file))
     for (name, a), b in zip(model.named_parameters(), fresh.parameters()):
@@ -634,12 +787,20 @@ def phase5(device, seed, card):
                                     train_batch["image"], train_batch["label"]))
         peaks[which] = torch.cuda.max_memory_allocated() / 2**30
     step = {k: sum(v) / len(v) for k, v in times.items()}
+    profile = {}
+    for which in ("kernels", "plain"):
+        net = model if which == "kernels" else PlainNet(model)
+        one_step = make_train_step(net, criterion, torch.optim.Adam(model.parameters(), lr=1e-6),
+                                   amp=amp)
+        profile[which] = profile_device(
+            lambda: one_step(train_batch["image"], train_batch["label"]),
+            f"one bf16 train step ({which})", card)
     print(f"train step (amp {amp}) batch {train_batch['image'].shape}: kernels "
           f"{times['kernels']} ms, plain "
           f"{times['plain']} ms; peak memory kernels {peaks['kernels']:.2f} GiB, plain "
           f"{peaks['plain']:.2f} GiB [{card}]", flush=True)
     return launches, dict(step_ms=step, peak_gib=peaks, grad_rel_l2=grads,
-                          losses=losses)
+                          losses=losses, profile=profile)
 
 
 # the synthetic BraTS cases of phase 6: the BraTS 2020 grid, 1 mm voxels with
@@ -835,9 +996,9 @@ def main() -> int:
     phase2_backward(device, gen, report)
     phase2_winograd(device, gen, report)
     # phase 3
-    model, launches, seconds = phase3(device, args.seed, card)
+    model, launches, seconds, window_profile = phase3(device, args.seed, card)
     # phase 4
-    phase4(model, launches, device, args.seed)
+    window_ms = phase4(model, launches, device, args.seed, card)
     del model
     torch.cuda.empty_cache()
     # phase 5
@@ -851,20 +1012,18 @@ def main() -> int:
     # launches: the training path's (phase 5; phase 7 for the Winograd
     # variants, which run only under the strategy); launches_predict: the
     # prediction path's (phase 3; the CLI under the strategy for Winograd)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": v, "route": "cuda", "source": SOURCES[v],
                 "replaces": REPLACES[v], "launches": train_launches[v],
-                "launches_predict": launches[v],
-                "max_abs_err": report[v]["max_abs_err"], "ms": report[v]["ms"],
-                "plain_ms": report[v]["plain_ms"], "shape": report[v]["shape"]}
+                "launches_predict": launches[v], **{k: report[v][k] for k in keys}}
                for v in TRAIN_KERNELS]
     kernels += [{"name": v, "route": "cuda", "source": SOURCES[v],
                  "replaces": REPLACES[v], "launches": strategy_launches[v],
                  "launches_predict": cli_launches["winograd"][v],
-                 "max_abs_err": report[v]["max_abs_err"], "ms": report[v]["ms"],
-                 "plain_ms": report[v]["plain_ms"], "direct_ms": report[v]["direct_ms"],
-                 "shape": report[v]["shape"]}
+                 **{k: report[v][k] for k in keys}, "direct_ms": report[v]["direct_ms"]}
                 for v in STRATEGY_KERNELS]
     print(f"seconds per case: {json.dumps(seconds)} [{card}]")
+    print(f"window: {json.dumps(dict(forward_ms=window_ms, profile=window_profile))} [{card}]")
     print(f"training: {json.dumps(training)} [{card}]")
     print(f"cli: {json.dumps(cli)} [{card}]")
     print(f"strategy train step: {json.dumps(strategy)} [{card}]")

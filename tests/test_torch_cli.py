@@ -3,7 +3,8 @@
 Both predict CLIs run in-process on the fixture case (two modalities, a
 non-RAS anisotropic affine) with a 3-level DynUNet config (16^3
 ``desired_shape``, crop-foreground and resample on, f32) and the same
-JAX-written ``.npz`` checkpoint; the written NIfTIs must have the same shape
+JAX-written ``.npz`` checkpoint, the port on ``device="cpu"`` (without it the
+CLI needs a CUDA GPU); the written NIfTIs must have the same shape
 and affine and agree within 1e-4 relative to the largest value (two f32
 networks ~1e-5 apart, resampled by the same trilinear weights). The port
 runs once with the default routing and once under UNET3D_TPU_CONV=winograd
@@ -15,6 +16,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -86,7 +88,7 @@ def test_predict_cli_matches_jax(setup, tmp_path, monkeypatch, caplog, strategy)
     out = str(tmp_path / "port")
     caplog.set_level(logging.INFO, logger=volumetric.__name__)
     predict.main(["--config_filename", config_file, "--model_filename", model_file,
-                  "--output_directory", out, "--activation", "sigmoid"])
+                  "--output_directory", out, "--activation", "sigmoid"], device="cpu")
     assert bool(calls) == bool(strategy)  # the Winograd sites ran only with it
     got_file = os.path.join(out, "predictions", "case_t1.nii.gz")
     assert sorted(os.listdir(os.path.join(out, "predictions"))) == ["case_t1.nii.gz"]
@@ -135,14 +137,25 @@ def test_parsers_take_the_jax_flags():
 def test_unported_options_raise(setup, tmp_path, model_file, machine):
     config = json.load(open(setup[0]))
     with pytest.raises(NotImplementedError, match="not ported"):
-        predict.run_inference(config, str(tmp_path), model_file, "test", None, machine)
+        predict.run_inference(config, str(tmp_path), model_file, "test", None, machine,
+                              device="cpu")
 
 
 def test_unknown_group_raises(setup, tmp_path):
     config = json.load(open(setup[0]))
     with pytest.raises(ValueError, match="bratsvalidation_filenames"):
         predict.run_inference(config, str(tmp_path), setup[1], "bratsvalidation", None,
-                              {"n_gpus": 1})
+                              {"n_gpus": 1}, device="cpu")
+
+
+def test_predict_without_a_gpu_raises_unless_given_the_cpu(setup, tmp_path, monkeypatch):
+    """No silent CPU fallback: with no CUDA device and no ``device`` the
+    CLI refuses to run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = json.load(open(setup[0]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict.run_inference(config, str(tmp_path), setup[1], "test", None, {"n_gpus": 1})
+    assert not os.path.exists(os.path.join(str(tmp_path), "predictions"))
 
 
 @pytest.mark.parametrize("filenames", [

@@ -30,6 +30,7 @@ from pathlib import Path
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 SOURCES = (_PACKAGE / "ops" / "kernels" / "conv3d.cu",
+           _PACKAGE / "ops" / "kernels" / "conv3d_wgmma.cu",
            _PACKAGE / "ops" / "kernels" / "s2_wgrad.cu",
            _PACKAGE / "ops" / "kernels" / "winograd.cu")
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_ext"
@@ -97,6 +98,19 @@ def _compile(out: Path) -> None:
             obj.unlink(missing_ok=True)
 
 
+def _check_wgmma_configs(lib: ctypes.CDLL) -> None:
+    """The C table of wgmma tile configurations is the wrapper's."""
+    from unet3d_tpu_torch.ops.conv3d_kernel import WGMMA_CONFIGS
+
+    out = (ctypes.c_int * 8)()
+    table = []
+    while lib.unet3d_conv3x3x3_wgmma_config(len(table), out) == 0:
+        table.append(tuple(out))
+    if tuple(table) != WGMMA_CONFIGS:
+        raise RuntimeError(f"conv3d_wgmma.cu CONFIGS {table} differ from "
+                           f"conv3d_kernel.WGMMA_CONFIGS {WGMMA_CONFIGS}")
+
+
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib
@@ -110,6 +124,13 @@ def load_library() -> ctypes.CDLL:
             lib.unet3d_conv3x3x3_ndhwc.argtypes = [
                 i, i, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
             lib.unet3d_conv3x3x3_ndhwc.restype = i
+            lib.unet3d_conv3x3x3_wgmma.argtypes = [
+                i, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
+                ctypes.c_float, p]
+            lib.unet3d_conv3x3x3_wgmma.restype = i
+            lib.unet3d_conv3x3x3_wgmma_config.argtypes = [i, ctypes.POINTER(i)]
+            lib.unet3d_conv3x3x3_wgmma_config.restype = i
+            _check_wgmma_configs(lib)
             lib.unet3d_s2_wgrad_ndhwc.argtypes = [
                 i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, p]
             lib.unet3d_s2_wgrad_ndhwc.restype = i

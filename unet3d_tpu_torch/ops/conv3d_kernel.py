@@ -1,6 +1,6 @@
 """The 3x3x3 stride-1 SAME conv kernels (NDHWC / DHWIO) and their plain versions.
 
-Three variants of one CUDA source (``ops/kernels/conv3d.cu``):
+Three variants, each in two CUDA forms:
 
 * ``conv3x3x3``                   y = conv(x, w)
 * ``conv3x3x3_with_stats``        y plus per-(n, c) f32 sum / sum of squares of
@@ -8,27 +8,97 @@ Three variants of one CUDA source (``ops/kernels/conv3d.cu``):
 * ``conv3x3x3_block_with_stats``  conv(lrelu(x * inv + shift), w) plus the same
                                   statistics; ``inv`` / ``shift`` are (N, Cin)
 
+Forms: ``wgmma`` (``ops/kernels/conv3d_wgmma.cu``), the Hopper form, takes
+every bf16 call whose Cin is a multiple of 4 and Cout of 8 (every site of
+the DynUNet), with the weight pre-packed per call (``pack_weight``) and a
+tile configuration picked from the shape (``wgmma_plan``); ``wmma``
+(``ops/kernels/conv3d.cu``) takes the other bf16 calls, and ``fma`` (the
+same source) every f32 call.
+
 Each takes a CUDA tensor to its kernel, and a CPU tensor to its plain version
 (``*_reference``); any other device raises. The plain versions compute in f32
 and round once, as the kernels do, and take the statistics of the rounded y.
-``LAUNCHES`` counts kernel launches per variant.
+``LAUNCHES`` counts kernel launches per variant, ``FORM_LAUNCHES`` per
+(variant, form).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import collections
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 LAUNCHES: Dict[str, int] = {"conv": 0, "conv_stats": 0, "block_stats": 0}
+FORM_LAUNCHES: Dict[Tuple[str, str], int] = collections.Counter()
 
 _VARIANTS = {"conv": 0, "conv_stats": 1, "block_stats": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the wgmma form's tile configurations, in the order of the C table
+# (conv3d_wgmma.cu CONFIGS, checked when the library loads): brick (z, y, x)
+# of output voxels, BN output channels per block, M tiles of 64 rows per
+# warpgroup, B stages, halo buffers (2: the next chunk's halo loads while this
+# one's taps run; 1: Cin <= 64, leaving room for the registers or a second
+# block per SM), blocks per SM
+WGMMA_CONFIGS = ((4, 4, 16, 64, 2, 4, 2, 1), (2, 4, 16, 96, 1, 4, 2, 1),
+                 (2, 4, 16, 128, 1, 4, 2, 1), (2, 4, 16, 192, 1, 4, 2, 1),
+                 (2, 4, 16, 256, 1, 3, 2, 1), (4, 4, 16, 64, 2, 3, 1, 1),
+                 (2, 4, 16, 128, 1, 3, 1, 2))
+CHUNK = 64  # input channels per staged chunk (one 128-byte row)
+TAPS = 27
+
+
+class WgmmaPlan(NamedTuple):
+    config: int                   # index of WGMMA_CONFIGS
+    brick: Tuple[int, int, int]   # output voxels per block, (z, y, x)
+    bn: int                       # output channels per block
+    n_tiles: int                  # blocks along Cout
+    chunks: int                   # 64-channel chunks along Cin
+    bricks: Tuple[int, int, int]  # bricks along (D, H, W)
 
 
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+    FORM_LAUNCHES.clear()
+
+
+def wgmma_plan(spatial: Tuple[int, int, int], cin: int, cout: int) -> WgmmaPlan:
+    """The wgmma form's tiling of a (D, H, W) volume, Cin -> Cout: BN = Cout
+    rounded up to a configured width where Cout <= 256 (one N tile, so each
+    staged input brick serves every output channel), 192-wide tiles above;
+    the one-halo configuration of that width when Cin fits one chunk and
+    there is one (measured faster on the H100 at 64 -> 64 and 64 -> 128),
+    else the two-halo one."""
+    chunks = -(-cin // CHUNK)
+    bn = next((c[3] for c in WGMMA_CONFIGS if c[3] >= cout), 192)
+    halos = 1 if chunks == 1 and (bn, 1) in {(c[3], c[6]) for c in WGMMA_CONFIGS} else 2
+    config = next(i for i, c in enumerate(WGMMA_CONFIGS) if c[3] == bn and c[6] == halos)
+    brick = WGMMA_CONFIGS[config][:3]
+    bricks = tuple(-(-n // b) for n, b in zip(spatial, brick))
+    return WgmmaPlan(config, brick, bn, -(-cout // bn), chunks, bricks)
+
+
+def pack_weight(w: torch.Tensor, bn: int) -> torch.Tensor:
+    """DHWIO ``w`` as the wgmma form's B tiles: (n_tiles, chunks, 27, bn, 64),
+    K-major (64 input channels of one output channel contiguous), zero past
+    Cin and Cout; step (chunk, tap) of N tile t is ``packed[t, chunk, tap]``."""
+    cin, cout = w.shape[3], w.shape[4]
+    chunks, n_tiles = -(-cin // CHUNK), -(-cout // bn)
+    wp = w.reshape(TAPS, cin, cout)
+    if chunks * CHUNK != cin or n_tiles * bn != cout:  # one copy fewer without
+        wp = F.pad(wp, (0, n_tiles * bn - cout, 0, chunks * CHUNK - cin))
+    return (wp.view(TAPS, chunks, CHUNK, n_tiles, bn)
+            .permute(3, 1, 0, 4, 2).contiguous())
+
+
+def kernel_form(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The CUDA form a call takes: ``wgmma``, ``wmma`` or ``fma``."""
+    if x.dtype == torch.float32:
+        return "fma"
+    aligned = x.data_ptr() % 16 == 0
+    return "wgmma" if x.shape[4] % 4 == 0 and w.shape[4] % 8 == 0 and aligned else "wmma"
 
 
 def instance_stats(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -94,22 +164,32 @@ def _launch(variant: str, x: torch.Tensor, w: torch.Tensor,
     lib = load_library()
     n, d, h, wd, cin = x.shape
     cout = w.shape[-1]
+    form = kernel_form(x, w)
     y = torch.empty((n, d, h, wd, cout), dtype=x.dtype, device=x.device)
     stats = None
     if variant != "conv":
         stats = torch.zeros((n, 2, cout), dtype=torch.float32, device=x.device)
+    ptrs = (inv.data_ptr() if inv is not None else None,
+            shift.data_ptr() if shift is not None else None,
+            stats.data_ptr() if stats is not None else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.unet3d_conv3x3x3_ndhwc(
-            _DTYPES[x.dtype], _VARIANTS[variant], x.data_ptr(), w.data_ptr(),
-            y.data_ptr(), inv.data_ptr() if inv is not None else None,
-            shift.data_ptr() if shift is not None else None,
-            stats.data_ptr() if stats is not None else None,
-            n, d, h, wd, cin, cout, float(alpha), stream)
+        if form == "wgmma":
+            plan = wgmma_plan((d, h, wd), cin, cout)
+            wp = pack_weight(w, plan.bn)
+            err = lib.unet3d_conv3x3x3_wgmma(
+                _VARIANTS[variant], plan.config, x.data_ptr(), wp.data_ptr(),
+                y.data_ptr(), *ptrs, n, d, h, wd, cin, cout, *plan.bricks,
+                plan.n_tiles, plan.chunks, float(alpha), stream)
+        else:
+            err = lib.unet3d_conv3x3x3_ndhwc(
+                _DTYPES[x.dtype], _VARIANTS[variant], x.data_ptr(), w.data_ptr(),
+                y.data_ptr(), *ptrs, n, d, h, wd, cin, cout, float(alpha), stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3x3 {variant} launch failed: "
+        raise RuntimeError(f"conv3x3x3 {variant} ({form}) launch failed: "
                            f"{lib.unet3d_cuda_error_string(err).decode()}")
     LAUNCHES[variant] += 1
+    FORM_LAUNCHES[variant, form] += 1
     return y, stats
 
 

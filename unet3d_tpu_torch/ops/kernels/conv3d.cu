@@ -38,12 +38,16 @@
 // caller zeroes, with atomicAdd. The order of those adds changes from run to
 // run, so the statistics agree with a sequential sum only to f32 rounding.
 //
-// What bounds it: the level-0 conv2 of the BraTS DynUNet (128^3, 64 -> 64) is
-// 2 * 128^3 * 27 * 64 * 64 = 0.46 TFLOP per call over ~0.5 GB of bf16
-// activations, so it is compute-bound on this card. This first form stages
-// through shared memory with no overlap of loads and math and uses mma.sync
-// tiles, so it stays far from the tensor-core peak; wgmma, TMA and a
-// multistage pipeline are left for later work.
+// Which calls take this form: every f32 call, and the bf16 calls whose Cin is
+// not a multiple of 4 or Cout not of 8 (no site of the DynUNet). Every other
+// bf16 call takes the Hopper form of the same three variants, conv3d_wgmma.cu
+// (brick-staged, wgmma), which ops/conv3d_kernel.py picks.
+//
+// What bounds it: a 3^3 conv does 54 * Cin * Cout flops per voxel, so it is
+// compute-bound at any width the f32 tests use. This form gathers A per tap
+// from global memory (each input element 27 times), stages through shared
+// memory with no overlap of loads and math, and multiplies with WMMA (bf16)
+// or FMA (f32, no TF32, so that it reproduces the f32 reference).
 //
 // Built by nvcc into a shared library with a plain C interface
 // (unet3d_tpu_torch/kernels/build.py) and called through ctypes with PyTorch's

@@ -7,9 +7,12 @@ Runs the configured model, strictly loaded from a JAX-format ``.npz``
 checkpoint, over the ``<group>_filenames`` cases through the config's dataset
 (cached under ``<output_directory>/cache``) and writes one NIfTI per case into
 ``<output_directory>/predictions``, resampled back to the case's source grid
-when the dataset resamples. The model runs on the first CUDA GPU when there
-is one, else on the CPU; ``UNET3D_TPU_CONV=winograd`` routes the large
-stride-1 convs through the Winograd-DH kernels (``ops/conv3d.py``).
+when the dataset resamples. The model runs on the first CUDA GPU, which must
+be an sm_90 card (``utils.device.require_cuda``; with none the CLI raises and
+never falls back to the CPU); ``run_inference`` / ``main`` take
+``device="cpu"`` to run the plain PyTorch path on purpose, as the tests do.
+``UNET3D_TPU_CONV=winograd`` routes the large stride-1 convs through the
+Winograd-DH kernels (``ops/conv3d.py``).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from unet3d_tpu_torch.data.loader import build_loader
 from unet3d_tpu_torch.predict.volumetric import volumetric_predictions
 from unet3d_tpu_torch.scripts.segment import format_parser as format_segmentation_parser
 from unet3d_tpu_torch.utils.config import in_config, load_json
+from unet3d_tpu_torch.utils.device import require_cuda
 
 
 def format_parser(parser=None, sub_command: bool = False):
@@ -54,9 +58,9 @@ def parse_args(args=None):
 
 
 def run_inference(config, output_directory, model_filename, group, activation,
-                  system_config):
-    """The JAX ``run_inference`` on one device: the first CUDA GPU when there
-    is one, else the CPU."""
+                  system_config, device=None):
+    """The JAX ``run_inference`` on one device: ``device`` when given, else
+    the first CUDA GPU (``require_cuda``, which raises without one)."""
     if str(model_filename).endswith(".u3dexp"):
         raise NotImplementedError(
             f"{model_filename}: exported model artifacts are not ported yet "
@@ -66,7 +70,7 @@ def run_inference(config, output_directory, model_filename, group, activation,
         raise NotImplementedError(
             "multi-device prediction (--ngpus > 1, --mesh) is not ported yet "
             "(see ROADMAP.md)")
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(device) if device is not None else require_cuda()
     logging.info("Output directory: %s", output_directory)
     work_dir = os.path.abspath(output_directory)
     check_hierarchy(config)
@@ -100,7 +104,9 @@ def run_inference(config, output_directory, model_filename, group, activation,
                                   amp=amp, interpolation="trilinear")
 
 
-def main(args=None):
+def main(args=None, device=None):
+    """The CLI on ``args`` (default: ``sys.argv``), on ``device`` (default:
+    the first CUDA GPU, see ``run_inference``)."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     namespace = parse_args(args)
@@ -109,7 +115,7 @@ def main(args=None):
     run_inference(config=config, output_directory=namespace.output_directory,
                   model_filename=namespace.model_filename, group=namespace.group,
                   activation=namespace.activation,
-                  system_config=get_machine_config(namespace))
+                  system_config=get_machine_config(namespace), device=device)
 
 
 if __name__ == "__main__":

@@ -13,14 +13,18 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    statistics: f32 atomics change the sum order run to run), the ``conv``
    variant as the input gradient (flipped, in/out-transposed weight) at the
    level-0 shapes, and ``s2_wgrad`` at the five stride-2 convs (relative
-   1e-4: f32 sums of up to 262,144 products in another order); the two
+   1e-4: f32 sums of up to 262,144 products in another order; its bf16 calls
+   take the wgmma form, ``s2_wgrad_wgmma.cu``, each timed against cuDNN's
+   weight gradient beside its bound); the two
    Winograd-DH variants (``winograd``, ``winograd_stats``) at the shapes
    where UNET3D_TPU_CONV=winograd sends them (C >= 96 at >= 64^3: three
    forward sites and two input gradients), against their plain Winograd
    version (the same bounds as the direct kernels) and the direct conv's
    (2e-2 in bf16: the input transform rounds twice; 1e-4 in f32), each bf16
    case timed against the direct hand kernel and cuDNN. Every bf16 time
-   is printed beside the plain composition's, one PyTorch call's where one
+   is a device time (the calls queued behind a device-side sleep, so the
+   host's time to issue them is not counted), printed beside the plain
+   composition's, one PyTorch call's where one
    computes the same function (``F.conv3d``, cuDNN's weight gradient), and
    the bound: the larger of the operations at 989 TFLOP/s and the bytes
    (inputs read once, outputs written once) at 3.35 TB/s. The direct conv is
@@ -54,8 +58,9 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    parameters within 1e-3 in f32 (the f32 gradient of this net lies ~1.5e-4
    from an f64 one on either path: the instance norms amplify sum-order
    differences) and 2e-2 in bf16 (each path ~1.3e-2 from f64); and the
-   train-step time with kernels and plain, and the peak memory; the forms
-   checked as in phase 3 over the training run, and one step of each path
+   train-step time with kernels and plain, and the peak memory; the launches
+   by form of the direct conv and of ``s2_wgrad`` over the training run,
+   failing on any bf16 launch off the wgmma form, and one step of each path
    profiled;
 6. the predict CLI: two synthetic BraTS-grid cases (four modalities of
    240 x 240 x 155 int16, zero around a seeded ellipsoid, uncompressed
@@ -70,7 +75,8 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    with the strategy; the two runs within relative L2 3e-2 of each other.
    Prints each case's seconds: read + preprocess, forward, resample, write;
 7. one bf16 train step under UNET3D_TPU_CONV=winograd: the launch counts of
-   one step (``winograd`` as the input gradient of the three 64^3 sites),
+   one step (``winograd`` as the input gradient of the three 64^3 sites) and
+   its launches by form, checked as in phase 5,
    its gradients against the plain path within the phase-5 bounds, and its
    time beside the default routing's (default, winograd, winograd, default).
 
@@ -97,13 +103,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "examples", "brats2020", "brats2020_config.json")
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
-# the bf16 form of the direct conv variants (conv3d.cu keeps the f32 form and
-# a bf16 WMMA form for channel counts no DynUNet site has)
+# the bf16 form of each kernel on the path (conv3d.cu and s2_wgrad.cu keep the
+# f32 form and a bf16 WMMA form for channel counts no DynUNet site has)
 SOURCES = {
     "conv": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
     "conv_stats": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
     "block_stats": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
-    "s2_wgrad": "unet3d_tpu_torch/ops/kernels/s2_wgrad.cu",
+    "s2_wgrad": "unet3d_tpu_torch/ops/kernels/s2_wgrad_wgmma.cu",
     "winograd": "unet3d_tpu_torch/ops/kernels/winograd.cu",
     "winograd_stats": "unet3d_tpu_torch/ops/kernels/winograd.cu",
 }
@@ -219,9 +225,33 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
+    """ms per call of ``fn`` by CUDA events, the host's time to issue each
+    call included where it is the longer (a forward's launches)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# device clock cycles the card idles per queued call in device_ms: ~1 ms at
+# the H100's clocks, far more than a wrapper's host time per call
+QUEUE_CYCLES_PER_CALL = 2_000_000
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """The device's ms per call of ``fn``: the calls are queued behind a
+    device-side sleep, so the events time their kernels back to back and not
+    the host's time to issue them (tens of microseconds per wrapper call,
+    more than a deep site's kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES_PER_CALL * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -255,16 +285,20 @@ def library_conv(x, w):
     return lambda: F.conv3d(xn, wn, padding=1)
 
 
+def form_launches() -> dict:
+    """Launches by (kernel, form) of the direct conv and of s2_wgrad."""
+    from unet3d_tpu_torch.ops import conv3d_kernel, s2_wgrad_kernel
+    return {**conv3d_kernel.FORM_LAUNCHES, **s2_wgrad_kernel.FORM_LAUNCHES}
+
+
 def form_counts() -> str:
-    from unet3d_tpu_torch.ops import conv3d_kernel
-    forms = {f"{v}/{f}": n for (v, f), n in sorted(conv3d_kernel.FORM_LAUNCHES.items())}
-    return f"direct conv launches by form {forms}"
+    forms = {f"{v}/{f}": n for (v, f), n in sorted(form_launches().items())}
+    return f"direct conv and s2_wgrad launches by form {forms}"
 
 
 def check_forms(where: str) -> None:
-    """In a bf16 run, every direct conv took the wgmma form."""
-    from unet3d_tpu_torch.ops import conv3d_kernel
-    off = {k: n for k, n in conv3d_kernel.FORM_LAUNCHES.items() if k[1] != "wgmma"}
+    """In a bf16 run, every direct conv and every s2_wgrad took the wgmma form."""
+    off = {k: n for k, n in form_launches().items() if k[1] != "wgmma"}
     check(not off, f"{where}: bf16 sites off the wgmma form: {off}")
 
 
@@ -283,7 +317,8 @@ def profile_device(fn, label: str, card: str) -> dict:
         print(f"profile {label}: no device events traced (not measured)", flush=True)
         return {}
     groups = (("conv wgmma", "conv3x3x3_wgmma"), ("conv wmma/fma", "conv3x3x3_ndhwc"),
-              ("s2_wgrad", "s2_wgrad"), ("winograd", "winograd3x3x3"),
+              ("s2_wgrad", "s2_wgrad"), ("s2_wgrad", "sum_splits"),
+              ("winograd", "winograd3x3x3"),
               ("memcpy/memset", "mem"), ("copies and casts", "copy"),
               ("reductions", "reduce"), ("elementwise", "elementwise"))
     by_group, by_name = {}, {}
@@ -363,9 +398,9 @@ def phase2(device, gen):
                     msg += f" stats rel {s_err:.3e}"
                     check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
                 if variant == SITE_VARIANT[si] and dtype == torch.bfloat16:
-                    ms = cuda_ms(lambda: kernel[variant](*args))
-                    plain_ms = cuda_ms(lambda: plain_fast(variant, x, w, inv, shift))
-                    library_ms = cuda_ms(library_conv(x, w))
+                    ms = device_ms(lambda: kernel[variant](*args))
+                    plain_ms = device_ms(lambda: plain_fast(variant, x, w, inv, shift))
+                    library_ms = device_ms(library_conv(x, w))
                     bms, bound_by = conv_bound(variant, s, cin, cout)
                     msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d "
                             f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, "
@@ -407,9 +442,9 @@ def phase2_backward(device, gen, report):
             msg = f"conv as dx  {label:36s} {str(dtype)[6:]:8s} rel {rel:.3e}"
             check(rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
             if dtype == torch.bfloat16:
-                ms = cuda_ms(lambda: K.conv3x3x3(g, wf))
-                plain_ms = cuda_ms(lambda: conv3d_torch(g, wf, (1, 1, 1), ((1, 1),) * 3))
-                library_ms = cuda_ms(library_conv(g, wf))
+                ms = device_ms(lambda: K.conv3x3x3(g, wf))
+                plain_ms = device_ms(lambda: conv3d_torch(g, wf, (1, 1, 1), ((1, 1),) * 3))
+                library_ms = device_ms(library_conv(g, wf))
                 bms, bound_by = conv_bound("conv", s, cin, cout)
                 msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d "
                         f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, "
@@ -429,12 +464,13 @@ def phase2_backward(device, gen, report):
             got, want = W.s2_wgrad(x, g), W.s2_wgrad_reference(x, g)
             torch.cuda.synchronize()
             rel = rel_max(got, want)
-            msg = f"s2_wgrad    {label:36s} {str(dtype)[6:]:8s} rel {rel:.3e}"
+            msg = (f"s2_wgrad    {label:36s} {str(dtype)[6:]:8s} "
+                   f"{W.kernel_form(x, g):5s} rel {rel:.3e}")
             check(rel < S2_BOUND, f"{msg} > {S2_BOUND}")
             if dtype == torch.bfloat16:
                 xn, gn = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
-                ms = cuda_ms(lambda: W.s2_wgrad(x, g))
-                plain_ms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
+                ms = device_ms(lambda: W.s2_wgrad(x, g))
+                plain_ms = device_ms(lambda: torch.nn.grad.conv3d_weight(
                     xn, (cout, cin, 3, 3, 3), gn, stride=2, padding=1))
                 # dw: 27 * cin * cout products per output voxel; x and g read,
                 # the f32 weight gradient written
@@ -485,9 +521,9 @@ def phase2_winograd(device, gen, report):
                     check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
                 if dtype == torch.bfloat16:
                     plain_variant, direct_fn = direct[variant]
-                    ms = cuda_ms(lambda: kernel[variant](x, w))
-                    direct_ms = cuda_ms(lambda: direct_fn(x, w))
-                    plain_ms = cuda_ms(lambda: plain_fast(plain_variant, x, w, None, None))
+                    ms = device_ms(lambda: kernel[variant](x, w))
+                    direct_ms = device_ms(lambda: direct_fn(x, w))
+                    plain_ms = device_ms(lambda: plain_fast(plain_variant, x, w, None, None))
                     # Winograd-DH issues 48 of the direct conv's 108 products
                     bms, bound_by = conv_bound(variant, s, cin, cout, WINOGRAD_PRODUCTS)
                     msg += (f" | kernel {ms:.3f} ms, direct kernel {direct_ms:.3f} ms, "
@@ -939,7 +975,9 @@ def phase7_strategy_step(device, seed, card):
         step(images, labels)
         torch.cuda.synchronize()
         launches = launch_counts()
-        print(f"strategy train step (amp {amp}): launches {launches}", flush=True)
+        print(f"strategy train step (amp {amp}): launches {launches}; {form_counts()}",
+              flush=True)
+        check_forms("strategy train step")
         for kernel in STRATEGY_KERNELS:
             check(launches[kernel] > 0, f"kernel {kernel} was not launched in the step")
         grads = {}

@@ -23,8 +23,8 @@ from unet3d_tpu_torch.config.factory import (build_inferer_from_config,
 from unet3d_tpu_torch.convert import load_jax_variables
 from unet3d_tpu_torch.models.registry import create_model
 from unet3d_tpu_torch.predict import sliding_window as sw
-from unet3d_tpu_torch.predict.volumetric import (apply_activation, make_forward,
-                                                 volumetric_predictions)
+from unet3d_tpu_torch.predict.volumetric import (ACTIVATIONS, apply_activation,
+                                                 make_forward, volumetric_predictions)
 
 KWARGS = dict(in_channels=4, out_channels=3, spatial_dims=3,
               strides=[[1, 1, 1], [2, 2, 2], [2, 2, 2]], filters=[4, 8, 16],
@@ -118,16 +118,27 @@ def test_volumetric_predictions_write_nifti_jax_reads(networks, tmp_path):
                                inferer=inferer)
 
 
-@pytest.mark.parametrize("activation", ["tanh", "relu", "exp", "softmax", "sigmoid",
-                                        "abs", None])
+@pytest.mark.parametrize("activation", sorted(ACTIVATIONS) + [None])
 def test_apply_activation_matches_jax(activation):
-    """Any jax.numpy / jax.nn name on the JAX side, torch / torch.nn.functional
-    on the port's."""
+    """Every name of the port's table against the JAX version's lookup
+    (jax.numpy, then jax.nn), on signed and on positive inputs (the domain of
+    sqrt, log, ...); the channel axis is even for glu. atol 1e-6, rtol 1e-5:
+    f32 rounding of the two libraries' elementwise functions."""
     from unet3d_tpu.predict.volumetric import apply_activation as jax_apply_activation
-    pred = np.random.RandomState(7).randn(2, 3, 4, 5, 3).astype(np.float32)
-    got = apply_activation(torch.from_numpy(pred), activation).numpy()
-    want = np.asarray(jax_apply_activation(jnp.asarray(pred), activation))
-    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5)
+    signed = np.random.RandomState(7).randn(2, 3, 4, 5, 4).astype(np.float32)
+    for pred in (signed, np.abs(signed) + 0.1):
+        got = apply_activation(torch.from_numpy(pred), activation).numpy()
+        want = np.asarray(jax_apply_activation(jnp.asarray(pred), activation))
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("activation", ["logsigmoid", "softsign", "hardtanh"])
+def test_apply_activation_rejects_torch_only_names_as_jax_does(activation):
+    from unet3d_tpu.predict.volumetric import apply_activation as jax_apply_activation
+    with pytest.raises(ValueError, match="Unknown activation"):
+        jax_apply_activation(jnp.zeros((1, 3)), activation)
+    with pytest.raises(ValueError, match="Unknown activation"):
+        apply_activation(torch.zeros(1, 3), activation)
 
 
 def test_apply_activation_rejects_unknown_names():

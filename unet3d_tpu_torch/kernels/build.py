@@ -29,10 +29,10 @@ import threading
 from pathlib import Path
 
 _PACKAGE = Path(__file__).resolve().parents[1]
-SOURCES = (_PACKAGE / "ops" / "kernels" / "conv3d.cu",
-           _PACKAGE / "ops" / "kernels" / "conv3d_wgmma.cu",
-           _PACKAGE / "ops" / "kernels" / "s2_wgrad.cu",
-           _PACKAGE / "ops" / "kernels" / "winograd.cu")
+_KERNELS = _PACKAGE / "ops" / "kernels"
+SOURCES = tuple(_KERNELS / name for name in (
+    "conv3d.cu", "conv3d_wgmma.cu", "s2_wgrad.cu", "s2_wgrad_wgmma.cu", "winograd.cu"))
+HEADERS = (_KERNELS / "sm90_wgmma.cuh",)  # included by the sources, hashed with them
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -56,7 +56,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libunet3d_kernels_{digest.hexdigest()[:16]}.so"
 
@@ -134,6 +134,9 @@ def load_library() -> ctypes.CDLL:
             lib.unet3d_s2_wgrad_ndhwc.argtypes = [
                 i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, p]
             lib.unet3d_s2_wgrad_ndhwc.restype = i
+            lib.unet3d_s2_wgrad_wgmma.argtypes = [
+                i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
+            lib.unet3d_s2_wgrad_wgmma.restype = i
             lib.unet3d_winograd3x3x3_ndhwc.argtypes = [
                 i, i, p, p, p, p, i, i, i, i, i, i, i, i, p]
             lib.unet3d_winograd3x3x3_ndhwc.restype = i

@@ -28,10 +28,15 @@
 // K = 64) the tiles fill the card and there is one split, written straight
 // to the output.
 //
-// What bounds it: level 0 is 87 GFLOP over ~40 MB of bf16 x and g, so it is
-// compute-bound; the deep levels are small either way. This first form stages
-// through shared memory with no overlap of loads and math and uses mma.sync
-// tiles, like conv3d.cu; wgmma, TMA and a multistage pipeline are later work.
+// What bounds it: at level 0 the bytes, 319 MB of bf16 x and g read once
+// and the f32 dw written once (0.095 ms at 3.35 TB/s, against 0.088 ms for
+// the 87 GFLOP); at 64^3 and 32^3 the operations; at 16^3 and 8^3 the dw
+// write. This form gathers every (tap, ci) row of A from device memory for
+// every output voxel (6.75x the bytes of x at level 0) and stages through
+// shared memory with no overlap of loads and math, on WMMA. Every bf16 call
+// with Cin and Cout multiples of 8 (every DynUNet site) takes the Hopper
+// form instead, s2_wgrad_wgmma.cu, which stages each input line once; this
+// one keeps f32 and the other bf16 channel counts.
 //
 // Not carried over from the TPU kernel: the 128-lane (2 * C) gate, the W
 // parity lane merge, the host-side H-parity deinterleave and the scanline DMA
@@ -48,6 +53,11 @@
 #include <climits>
 #include <cstdint>
 #include <type_traits>
+
+// dw[i] = sum over s of part[s][i], s in order: the split-K sum of this form
+// and of s2_wgrad_wgmma.cu's (defined below)
+cudaError_t unet3d_s2_wgrad_sum_splits(const float* part, float* dw, long long mn,
+                                       int splits, cudaStream_t stream);
 
 namespace {
 
@@ -332,11 +342,7 @@ cudaError_t launch(const WgradArgs& a, int splits, float* dw,
                       stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const long long mn = 27LL * a.cin * a.cout;
-  const long long blocks = (mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096;
-  sum_splits<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(a.out, dw, mn,
-                                                                 splits);
-  return cudaGetLastError();
+  return unet3d_s2_wgrad_sum_splits(a.out, dw, 27LL * a.cin * a.cout, splits, stream);
 }
 
 bool aligned16(const void* p) {
@@ -344,6 +350,13 @@ bool aligned16(const void* p) {
 }
 
 }  // namespace
+
+cudaError_t unet3d_s2_wgrad_sum_splits(const float* part, float* dw, long long mn,
+                                       int splits, cudaStream_t stream) {
+  const long long blocks = (mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096;
+  sum_splits<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(part, dw, mn, splits);
+  return cudaGetLastError();
+}
 
 // dtype: 0 = float32, 1 = bfloat16. x (N, D, H, W, Cin), g (N, Do, Ho, Wo,
 // Cout), dw (3, 3, 3, Cin, Cout) f32. With splits > 1, `part` is an f32

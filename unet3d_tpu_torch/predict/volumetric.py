@@ -17,7 +17,7 @@ import copy
 import logging
 import os
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -54,21 +54,55 @@ def make_forward(model: torch.nn.Module, amp: bool = False) -> Callable:
     return forward
 
 
+def _standardize(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.standardize`` over the last axis: variance as E[x^2] - E[x]^2
+    clipped at 0, eps 1e-5."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = ((x * x).mean(dim=-1, keepdim=True) - mean * mean).clamp(min=0)
+    return (x - mean) * torch.rsqrt(var + 1e-5)
+
+
+# The names the JAX version resolves, ``jax.numpy`` first, then ``jax.nn``,
+# with their defaults: the channel (last) axis for softmax, log_softmax, glu
+# and standardize; gelu's tanh approximation; leaky_relu's slope 0.01.
+ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    # jax.numpy, elementwise
+    "abs": torch.abs, "absolute": torch.abs, "negative": torch.neg,
+    "sign": torch.sign, "square": torch.square, "sqrt": torch.sqrt,
+    "cbrt": lambda x: torch.sign(x) * x.abs().pow(1.0 / 3.0),
+    "reciprocal": torch.reciprocal, "exp": torch.exp, "exp2": torch.exp2,
+    "expm1": torch.expm1, "log": torch.log, "log1p": torch.log1p, "log2": torch.log2,
+    "log10": torch.log10, "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "arctan": torch.arctan, "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "arcsinh": torch.arcsinh, "floor": torch.floor, "ceil": torch.ceil,
+    "trunc": torch.trunc,
+    # jax.nn
+    "sigmoid": torch.sigmoid, "relu": torch.relu, "relu6": F.relu6,
+    "softplus": F.softplus, "soft_sign": F.softsign, "silu": F.silu, "swish": F.silu,
+    "log_sigmoid": F.logsigmoid, "leaky_relu": lambda x: F.leaky_relu(x, 0.01),
+    "hard_sigmoid": F.hardsigmoid, "hard_silu": F.hardswish, "hard_swish": F.hardswish,
+    "hard_tanh": F.hardtanh, "elu": F.elu, "celu": F.celu, "selu": F.selu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"), "glu": lambda x: F.glu(x, dim=-1),
+    "mish": F.mish, "squareplus": lambda x: (x + torch.sqrt(x * x + 4.0)) / 2,
+    "sparse_plus": lambda x: torch.where(
+        x <= -1, torch.zeros_like(x), torch.where(x >= 1, x, (x + 1) ** 2 / 4)),
+    "softmax": lambda x: torch.softmax(x, dim=-1),
+    "log_softmax": lambda x: torch.log_softmax(x, dim=-1),
+    "standardize": _standardize,
+}
+
+
 def apply_activation(pred: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
-    """None, sigmoid, softmax (over channels, the last axis), or any function
-    of ``torch`` or ``torch.nn.functional`` by name, as the JAX version
-    resolves ``jax.numpy`` and ``jax.nn`` names."""
+    """None, or a name of ``ACTIVATIONS``: the ``jax.numpy`` / ``jax.nn``
+    names the JAX version takes, with its semantics. Any other name, torch's
+    own spellings (``logsigmoid``, ``softsign``, ``hardtanh``) included,
+    raises ``ValueError`` as the JAX version does for a name it lacks."""
     if activation is None:
         return pred
-    if activation == "sigmoid":
-        return torch.sigmoid(pred)
-    if activation == "softmax":
-        return torch.softmax(pred, dim=-1)
-    for namespace in (torch, F):
-        fn = getattr(namespace, activation, None)
-        if callable(fn):
-            return fn(pred)
-    raise ValueError(f"Unknown activation {activation}")
+    fn = ACTIVATIONS.get(activation)
+    if fn is None:
+        raise ValueError(f"Unknown activation {activation}")
+    return fn(pred)
 
 
 def _prediction_filename(prediction_dir: str, source) -> str:

@@ -20,8 +20,10 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    where UNET3D_TPU_CONV=winograd sends them (C >= 96 at >= 64^3: three
    forward sites and two input gradients), against their plain Winograd
    version (the same bounds as the direct kernels) and the direct conv's
-   (2e-2 in bf16: the input transform rounds twice; 1e-4 in f32), each bf16
-   case timed against the direct hand kernel and cuDNN. Every bf16 time
+   (2e-2 in bf16: the input transform rounds twice; 1e-4 in f32), each call's
+   form printed (every bf16 one takes the wgmma form, ``winograd_wgmma.cu``,
+   or the smoke fails), each bf16 case timed against the direct hand kernel
+   and cuDNN. Every bf16 time
    is a device time (the calls queued behind a device-side sleep, so the
    host's time to issue them is not counted), printed beside the plain
    composition's, one PyTorch call's where one
@@ -72,7 +74,8 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    native grid, ``.nii.gz`` write. Run with the default routing and with
    UNET3D_TPU_CONV=winograd. Checks: one file per case on the native grid,
    3 channels, the source affine, finite, in [0, 1]; Winograd launches only
-   with the strategy; the two runs within relative L2 3e-2 of each other.
+   with the strategy; every bf16 launch of the direct conv and of Winograd in
+   the wgmma form; the two runs within relative L2 3e-2 of each other.
    Prints each case's seconds: read + preprocess, forward, resample, write;
 7. one bf16 train step under UNET3D_TPU_CONV=winograd: the launch counts of
    one step (``winograd`` as the input gradient of the three 64^3 sites) and
@@ -103,15 +106,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "examples", "brats2020", "brats2020_config.json")
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
-# the bf16 form of each kernel on the path (conv3d.cu and s2_wgrad.cu keep the
-# f32 form and a bf16 WMMA form for channel counts no DynUNet site has)
+# the bf16 form of each kernel on the path (conv3d.cu, s2_wgrad.cu and
+# winograd.cu keep the f32 form and a bf16 WMMA form for channel counts no
+# DynUNet site has)
 SOURCES = {
     "conv": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
     "conv_stats": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
     "block_stats": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
     "s2_wgrad": "unet3d_tpu_torch/ops/kernels/s2_wgrad_wgmma.cu",
-    "winograd": "unet3d_tpu_torch/ops/kernels/winograd.cu",
-    "winograd_stats": "unet3d_tpu_torch/ops/kernels/winograd.cu",
+    "winograd": "unet3d_tpu_torch/ops/kernels/winograd_wgmma.cu",
+    "winograd_stats": "unet3d_tpu_torch/ops/kernels/winograd_wgmma.cu",
 }
 REPLACES = {
     "conv": "unet3d_tpu/ops/pallas/conv3d_kernel.py:154",
@@ -286,18 +290,20 @@ def library_conv(x, w):
 
 
 def form_launches() -> dict:
-    """Launches by (kernel, form) of the direct conv and of s2_wgrad."""
-    from unet3d_tpu_torch.ops import conv3d_kernel, s2_wgrad_kernel
-    return {**conv3d_kernel.FORM_LAUNCHES, **s2_wgrad_kernel.FORM_LAUNCHES}
+    """Launches by (kernel, form) of the direct conv, s2_wgrad and Winograd."""
+    from unet3d_tpu_torch.ops import conv3d_kernel, s2_wgrad_kernel, winograd_kernel
+    return {**conv3d_kernel.FORM_LAUNCHES, **s2_wgrad_kernel.FORM_LAUNCHES,
+            **winograd_kernel.FORM_LAUNCHES}
 
 
 def form_counts() -> str:
     forms = {f"{v}/{f}": n for (v, f), n in sorted(form_launches().items())}
-    return f"direct conv and s2_wgrad launches by form {forms}"
+    return f"direct conv, s2_wgrad and Winograd launches by form {forms}"
 
 
 def check_forms(where: str) -> None:
-    """In a bf16 run, every direct conv and every s2_wgrad took the wgmma form."""
+    """In a bf16 run, every direct conv, s2_wgrad and Winograd call took the
+    wgmma form."""
     off = {k: n for k, n in form_launches().items() if k[1] != "wgmma"}
     check(not off, f"{where}: bf16 sites off the wgmma form: {off}")
 
@@ -318,7 +324,7 @@ def profile_device(fn, label: str, card: str) -> dict:
         return {}
     groups = (("conv wgmma", "conv3x3x3_wgmma"), ("conv wmma/fma", "conv3x3x3_ndhwc"),
               ("s2_wgrad", "s2_wgrad"), ("s2_wgrad", "sum_splits"),
-              ("winograd", "winograd3x3x3"),
+              ("winograd", "winograd3x3x3"), ("winograd", "winograd_wgmma"),
               ("memcpy/memset", "mem"), ("copies and casts", "copy"),
               ("reductions", "reduce"), ("elementwise", "elementwise"))
     by_group, by_name = {}, {}
@@ -510,8 +516,11 @@ def phase2_winograd(device, gen, report):
                 got_y = got if variant == "winograd" else got[0]
                 torch.cuda.synchronize()
                 rel, rel_direct = rel_max(got_y, want), rel_max(got_y, want_direct)
-                msg = (f"{variant:14s} {label:36s} {str(dtype)[6:]:8s} y rel {rel:.3e}, "
-                       f"vs direct {rel_direct:.3e}")
+                form = W.kernel_form(x, w)
+                msg = (f"{variant:14s} {label:36s} {str(dtype)[6:]:8s} {form:5s} y rel "
+                       f"{rel:.3e}, vs direct {rel_direct:.3e}")
+                check(dtype != torch.bfloat16 or form == "wgmma",
+                      f"{msg}: a bf16 call off the wgmma form")
                 check(rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
                 check(rel_direct < WINO_DIRECT_BOUNDS[dtype],
                       f"{msg} > {WINO_DIRECT_BOUNDS[dtype]}")
@@ -925,6 +934,8 @@ def phase6_cli(seed, card):
         written = sorted(os.listdir(os.path.join(out_dir, "predictions")))
         check(len(written) == CLI_CASES, f"CLI {name}: wrote {written}")
         breakdown[name] = case_seconds.records
+        print(f"CLI {name}: {form_counts()}", flush=True)
+        check_forms(f"CLI {name}")
         for fn in written:
             data, affine, _ = nifti.load(os.path.join(out_dir, "predictions", fn))
             check(data.shape == BRATS_GRID + (3,), f"CLI {name} {fn}: shape {data.shape}")

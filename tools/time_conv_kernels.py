@@ -1,4 +1,4 @@
-"""Time the port's direct 3x3x3 conv and s2_wgrad kernels at the BraTS DynUNet's bf16 sites.
+"""Time the port's direct conv, s2_wgrad and Winograd-DH kernels at the BraTS DynUNet's bf16 sites.
 
     python tools/time_conv_kernels.py [--root CHECKOUT] [--reps N]
 
@@ -7,8 +7,11 @@ two checkouts can be timed on one card in turns, e.g. a parent commit
 unpacked under ``build/`` and this one: parent, this, this, parent. Each
 ``chip_smoke.SHAPES`` site is timed in the variant it runs
 (``chip_smoke.SITE_VARIANT``) and each ``chip_smoke.DX_SHAPES`` site as
-``conv`` on the flipped weight, and each ``chip_smoke.S2_SHAPES`` site as
-``s2_wgrad`` (x at that size, the cotangent at half of it), on seeded
+``conv`` on the flipped weight, each ``chip_smoke.S2_SHAPES`` site as
+``s2_wgrad`` (x at that size, the cotangent at half of it), and each
+``chip_smoke.WINO_SHAPES`` site (where UNET3D_TPU_CONV=winograd runs the
+Winograd kernels) as ``winograd_stats`` (the three forward sites) or
+``winograd`` (the two input gradients, and 192->96), on seeded
 N(0, 1) bf16 inputs: device time by CUDA events over ``--reps`` calls after
 one warm-up, queued behind a device-side sleep (``chip_smoke.device_ms``), so
 the wrappers' host time is not counted. Prints the card and one JSON line:
@@ -41,6 +44,7 @@ def main() -> int:
     spec.loader.exec_module(chip_smoke)
     from unet3d_tpu_torch.ops import conv3d_kernel as K
     from unet3d_tpu_torch.ops import s2_wgrad_kernel as W
+    from unet3d_tpu_torch.ops import winograd_kernel as WG
     from unet3d_tpu_torch.ops.conv3d import flip_io
 
     kernel = {"conv": K.conv3x3x3, "conv_stats": K.conv3x3x3_with_stats,
@@ -69,6 +73,17 @@ def main() -> int:
         g = torch.randn(1, s // 2, s // 2, s // 2, cout, device=device,
                         generator=gen).bfloat16()
         ms[f"s2_wgrad {label}"] = chip_smoke.device_ms(lambda: W.s2_wgrad(x, g), args.reps)
+    wino = {"winograd": WG.winograd3x3x3, "winograd_stats": WG.winograd3x3x3_with_stats}
+    for label, s, cin, cout in chip_smoke.WINO_SHAPES:
+        x = torch.randn(1, s, s, s, cin, device=device, generator=gen).bfloat16()
+        w = (torch.randn(3, 3, 3, cin, cout, device=device, generator=gen)
+             / (27 * cin) ** 0.5).bfloat16()
+        variants = ["winograd"] if label.startswith("dx") else ["winograd_stats"]
+        if "192->96" in label:
+            variants.append("winograd")
+        for variant in variants:
+            ms[f"{variant} {label}"] = chip_smoke.device_ms(lambda: wino[variant](x, w),
+                                                            args.reps)
     print(chip_smoke.card_line())
     print(json.dumps({"root": args.root, "card": chip_smoke.card_line(), "ms": ms}))
     return 0

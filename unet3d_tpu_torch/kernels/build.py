@@ -31,7 +31,8 @@ from pathlib import Path
 _PACKAGE = Path(__file__).resolve().parents[1]
 _KERNELS = _PACKAGE / "ops" / "kernels"
 SOURCES = tuple(_KERNELS / name for name in (
-    "conv3d.cu", "conv3d_wgmma.cu", "s2_wgrad.cu", "s2_wgrad_wgmma.cu", "winograd.cu"))
+    "conv3d.cu", "conv3d_wgmma.cu", "s2_wgrad.cu", "s2_wgrad_wgmma.cu", "winograd.cu",
+    "winograd_wgmma.cu"))
 HEADERS = (_KERNELS / "sm90_wgmma.cuh",)  # included by the sources, hashed with them
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -98,17 +99,23 @@ def _compile(out: Path) -> None:
             obj.unlink(missing_ok=True)
 
 
-def _check_wgmma_configs(lib: ctypes.CDLL) -> None:
-    """The C table of wgmma tile configurations is the wrapper's."""
-    from unet3d_tpu_torch.ops.conv3d_kernel import WGMMA_CONFIGS
-
-    out = (ctypes.c_int * 8)()
+def _check_configs(getter, width: int, expected, what: str) -> None:
+    """A C table of wgmma tile configurations is its wrapper's."""
+    out = (ctypes.c_int * width)()
     table = []
-    while lib.unet3d_conv3x3x3_wgmma_config(len(table), out) == 0:
+    while getter(len(table), out) == 0:
         table.append(tuple(out))
-    if tuple(table) != WGMMA_CONFIGS:
-        raise RuntimeError(f"conv3d_wgmma.cu CONFIGS {table} differ from "
-                           f"conv3d_kernel.WGMMA_CONFIGS {WGMMA_CONFIGS}")
+    if tuple(table) != tuple(expected):
+        raise RuntimeError(f"{what}: C table {table} differs from the wrapper's {expected}")
+
+
+def _check_wgmma_configs(lib: ctypes.CDLL) -> None:
+    from unet3d_tpu_torch.ops import conv3d_kernel, winograd_kernel
+
+    _check_configs(lib.unet3d_conv3x3x3_wgmma_config, 8, conv3d_kernel.WGMMA_CONFIGS,
+                   "conv3d_wgmma.cu CONFIGS")
+    _check_configs(lib.unet3d_winograd_wgmma_config, 5, winograd_kernel.WGMMA_CONFIGS,
+                   "winograd_wgmma.cu CONFIGS")
 
 
 def load_library() -> ctypes.CDLL:
@@ -130,7 +137,6 @@ def load_library() -> ctypes.CDLL:
             lib.unet3d_conv3x3x3_wgmma.restype = i
             lib.unet3d_conv3x3x3_wgmma_config.argtypes = [i, ctypes.POINTER(i)]
             lib.unet3d_conv3x3x3_wgmma_config.restype = i
-            _check_wgmma_configs(lib)
             lib.unet3d_s2_wgrad_ndhwc.argtypes = [
                 i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, p]
             lib.unet3d_s2_wgrad_ndhwc.restype = i
@@ -140,6 +146,12 @@ def load_library() -> ctypes.CDLL:
             lib.unet3d_winograd3x3x3_ndhwc.argtypes = [
                 i, i, p, p, p, p, i, i, i, i, i, i, i, i, p]
             lib.unet3d_winograd3x3x3_ndhwc.restype = i
+            lib.unet3d_winograd_wgmma.argtypes = [
+                i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+            lib.unet3d_winograd_wgmma.restype = i
+            lib.unet3d_winograd_wgmma_config.argtypes = [i, ctypes.POINTER(i)]
+            lib.unet3d_winograd_wgmma_config.restype = i
+            _check_wgmma_configs(lib)
             lib.unet3d_cuda_error_string.argtypes = [i]
             lib.unet3d_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (conv3d_wgmma.cu, s2_wgrad_wgmma.cu): cp.async with zero-fill, the async
-// proxy fence, ldmatrix, wgmma's fence / commit / wait, shared-memory
+// (conv3d_wgmma.cu, s2_wgrad_wgmma.cu, winograd_wgmma.cu): cp.async with
+// zero-fill, the async proxy fence, register fences for wgmma operands,
+// ldmatrix, wgmma's fence / commit / wait, shared-memory
 // descriptors in the 128-byte swizzle, and m64nNk16 bf16 products with A
 // from registers. Included by each source; kernels/build.py hashes it with
 // the sources, so an edit here rebuilds the library.
@@ -47,6 +48,18 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
+// pins registers at this point of the program: the compiler moves no access
+// to them across it, so no read of an accumulator or write of an A operand
+// lands inside a wgmma's pipeline stage (which would make ptxas serialize
+// the wgmmas)
+template <int N> __device__ __forceinline__ void fence_operands(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void fence_operands(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 // four 8x8 b16 matrices; lanes 8j..8j+7 give matrix j's row addresses
 __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -79,14 +92,33 @@ __device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t saddr, uint32_t n_blo
          (64ull << 32) | (1ull << 62);
 }
 
-// D += A * B for one m64nNk16 bf16 product, A from registers (the
-// m16n8k16-style fragment of each warp's 16 rows), B from a descriptor
-// (TRANS_B = 1: MN-major), f32 accumulators d (N / 2 per thread)
+// D = A * B + (scale_d ? D : 0) for one m64nNk16 bf16 product, A from
+// registers (the m16n8k16-style fragment of each warp's 16 rows), B from a
+// descriptor (TRANS_B = 1: MN-major), f32 accumulators d (N / 2 per thread)
 template <int N, int TRANS_B = 0> struct Wgmma;
+
+template <int TRANS_B> struct Wgmma<48, TRANS_B> {
+  static __device__ __forceinline__ void mma(const uint32_t (&a)[4], uint64_t desc,
+                                             float (&d)[24],
+                                             int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, {%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TRANS_B));
+  }
+};
 
 template <int TRANS_B> struct Wgmma<64, TRANS_B> {
   static __device__ __forceinline__ void mma(const uint32_t (&a)[4], uint64_t desc,
-                                             float (&d)[32]) {
+                                             float (&d)[32],
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -99,13 +131,14 @@ template <int TRANS_B> struct Wgmma<64, TRANS_B> {
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TRANS_B));
   }
 };
 
 template <int TRANS_B> struct Wgmma<96, TRANS_B> {
   static __device__ __forceinline__ void mma(const uint32_t (&a)[4], uint64_t desc,
-                                             float (&d)[48]) {
+                                             float (&d)[48],
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
@@ -121,13 +154,14 @@ template <int TRANS_B> struct Wgmma<96, TRANS_B> {
           "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
           "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TRANS_B));
   }
 };
 
 template <int TRANS_B> struct Wgmma<128, TRANS_B> {
   static __device__ __forceinline__ void mma(const uint32_t (&a)[4], uint64_t desc,
-                                             float (&d)[64]) {
+                                             float (&d)[64],
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -147,13 +181,14 @@ template <int TRANS_B> struct Wgmma<128, TRANS_B> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TRANS_B));
   }
 };
 
 template <int TRANS_B> struct Wgmma<192, TRANS_B> {
   static __device__ __forceinline__ void mma(const uint32_t (&a)[4], uint64_t desc,
-                                             float (&d)[96]) {
+                                             float (&d)[96],
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
@@ -180,13 +215,14 @@ template <int TRANS_B> struct Wgmma<192, TRANS_B> {
           "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
           "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
           "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TRANS_B));
   }
 };
 
 template <int TRANS_B> struct Wgmma<256, TRANS_B> {
   static __device__ __forceinline__ void mma(const uint32_t (&a)[4], uint64_t desc,
-                                             float (&d)[128]) {
+                                             float (&d)[128],
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -221,7 +257,7 @@ template <int TRANS_B> struct Wgmma<256, TRANS_B> {
           "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TRANS_B));
   }
 };
 

@@ -32,17 +32,13 @@
 // passed four times as halo blocks, a stats block revisited across sequential
 // grid steps) carries over. Any W; D and H even (the caller checks).
 //
-// bf16 multiplies on the tensor cores through WMMA 16x16x16 with f32
-// accumulation; f32 multiplies with FMA on the CUDA cores (no TF32).
-//
-// What bounds it: at the gate's shapes (C >= 96 at 64^3 and above) the
-// direct conv is compute-bound (96 -> 96 @ 64^3 is 130 GFLOP over 100 MB of
-// bf16 activations) and Winograd-DH needs 2.25x fewer multiply-adds (48 per
-// 2 x 2 tile and channel pair against 4 x 27). This first form stages each
-// channel chunk's input window once and then, for each of the 16 (jd, jh)
-// points, transforms it and stages U2's three dx slices through shared memory
-// between barriers, with no overlap of loads and math; wgmma, TMA and a
-// multistage pipeline are left for later work.
+// This file keeps the f32 form (FMA on the CUDA cores, no TF32) and a bf16
+// form for the calls the Hopper form (winograd_wgmma.cu) does not take: Cin
+// or Cout not a multiple of 8, or an unaligned x, which no DynUNet site has.
+// The bf16 form multiplies through WMMA 16x16x16 with f32 accumulation: it
+// stages each channel chunk's input window once and then, for each of the 16
+// (jd, jh) points, transforms it and stages U2's three dx slices through
+// shared memory between barriers, with no overlap of loads and math.
 //
 // Built by nvcc into the port's shared library with a plain C interface
 // (unet3d_tpu_torch/kernels/build.py) and called through ctypes with PyTorch's

@@ -4,18 +4,26 @@ versions.
 Winograd F(2,3) x F(2,3) on the D and H axes with a direct 3-tap W axis: each
 2x2 (D, H) output tile of every column comes from 48 channel products
 (4 x 4 transform points x 3 W taps) in place of the direct conv's 4 x 27.
-Two variants of one CUDA source (``ops/kernels/winograd.cu``):
+Two variants:
 
 * ``winograd3x3x3``             y = conv(x, w)
 * ``winograd3x3x3_with_stats``  y plus per-(n, c) f32 sum / sum of squares of
                                 y as rounded to its dtype
+
+each in three CUDA forms (``kernel_form``): ``wgmma``
+(``ops/kernels/winograd_wgmma.cu``), the Hopper form, for bf16 with Cin and
+Cout multiples of 8 (every Winograd site of the DynUNet), tiled by
+``wgmma_plan`` with U2 packed per call by ``pack_u2``; ``wmma``
+(``ops/kernels/winograd.cu``) for the other bf16 calls, and ``fma`` (the same
+source) for f32.
 
 Each takes a CUDA tensor to its kernel and a CPU tensor to its plain version
 (``*_reference``); any other device raises. The plain versions round where
 the JAX Pallas kernel rounds: the D and then the H input transform in the
 working dtype, the transformed weight ``transform_weights_dh`` in the working
 dtype, the 48 channel products and the inverse transform in f32, one rounding
-at the store. ``LAUNCHES`` counts kernel launches per variant.
+at the store. ``LAUNCHES`` counts kernel launches per variant,
+``FORM_LAUNCHES`` per (variant, form).
 
 The gate (``winograd_applies``) is the JAX package's: the shape part of
 ``winograd_available`` (stride 1, SAME, 3^3, D and H even) and
@@ -25,7 +33,8 @@ the thresholds.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import collections
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +43,7 @@ import torch.nn.functional as F
 from unet3d_tpu_torch.ops.conv3d_kernel import _DTYPES, _check, instance_stats
 
 LAUNCHES: Dict[str, int] = {"winograd": 0, "winograd_stats": 0}
+FORM_LAUNCHES: Dict[Tuple[str, str], int] = collections.Counter()
 
 _MIN_WINOGRAD_CHANNELS = 96
 _MIN_WINOGRAD_VOXELS = 64 ** 3
@@ -46,14 +56,77 @@ _G = np.array([[1, 0, 0],
 _BT = ((0, 2, -1), (1, 2, 1), (2, 1, -1), (1, 3, -1))
 # A^T: output row o takes transform point j with this sign
 _AT = ((1, 1, 1, 0), (0, 1, -1, -1))
-# the kernel's channel chunk and output-channel tile: the wrapper zero-pads
-# the transformed weight to these multiples
+# the wmma / fma form's channel chunk and output-channel tile: the wrapper
+# zero-pads the transformed weight to these multiples
 _CIN_PAD, _COUT_PAD = 16, 64
+
+# the wgmma form's tile configurations, in the order of the C table
+# (winograd_wgmma.cu CONFIGS, checked when the library loads): H tiles of 2
+# output rows and columns per block (BHT, BW: 128 positions, 64 per
+# warpgroup), output channels per block (BN), input channels per chunk (CK),
+# 128-byte B slabs in the ring
+WGMMA_CONFIGS = ((4, 32, 64, 32, 7), (4, 32, 48, 32, 8))
+POINTS = 16           # (jd, jh) transform points
+SLAB_K = 64           # K values (bf16) per 128-byte B slab
+
+
+class WgmmaPlan(NamedTuple):
+    config: int    # index of WGMMA_CONFIGS
+    bht: int       # H tiles (2 output rows each) per block
+    bw: int        # output columns per block
+    bn: int        # output channels per block
+    ck: int        # input channels per chunk
+    stages: int    # B slabs in the ring
+    h_tiles: int   # blocks along H / 2
+    w_tiles: int   # blocks along W
+    n_tiles: int   # blocks along Cout
+    chunks: int    # chunks along Cin
+
+
+def wgmma_plan(x_shape, cout: int) -> WgmmaPlan:
+    """The wgmma form's tiling of x (N, D, H, W, Cin) -> Cout: N tiles of at
+    most 64 channels (a warpgroup holds 5 BN / 2 f32 accumulators a thread:
+    one point's product and the four output tiles), equal in width, each
+    rounded up to a configured BN (Cout 64: one of 64, 96: two of 48, 192:
+    three of 64); a block owns BHT H tiles x BW columns of one depth tile."""
+    n, d, h, w, cin = x_shape
+    n_tiles = -(-cout // max(c[2] for c in WGMMA_CONFIGS))
+    bn = min(c[2] for c in WGMMA_CONFIGS if c[2] >= -(-cout // n_tiles))
+    config = next(i for i, c in enumerate(WGMMA_CONFIGS) if c[2] == bn)
+    bht, bw, _, ck, stages = WGMMA_CONFIGS[config]
+    return WgmmaPlan(config, bht, bw, bn, ck, stages, -(-(h // 2) // bht), -(-w // bw),
+                     -(-cout // bn), -(-cin // ck))
+
+
+def pack_u2(w: torch.Tensor, plan: WgmmaPlan) -> torch.Tensor:
+    """DHWIO ``w`` as the wgmma form's B slabs: ``transform_weights_dh`` in
+    w's dtype, zero-padded to whole chunks and N tiles, as (n_tiles, chunks, 24,
+    BN, 64); slab s of a chunk holds, for each output channel, the K values
+    (point p, tap dx, channel k) with (p * 3 + dx) // 2 == s, in that order,
+    32 channels of one (p, dx) after another."""
+    cin, cout = w.shape[3], w.shape[4]
+    cp, cop = plan.chunks * plan.ck, plan.n_tiles * plan.bn
+    u = transform_weights_dh(w, w.dtype)
+    if cp != cin or cop != cout:
+        u = F.pad(u, (0, cop - cout, 0, cp - cin))
+    pairs = 3 * POINTS * plan.ck // SLAB_K
+    u = u.reshape(pairs, SLAB_K // plan.ck, plan.chunks, plan.ck, plan.n_tiles, plan.bn)
+    return (u.permute(4, 2, 0, 5, 1, 3).contiguous()
+            .view(plan.n_tiles, plan.chunks, pairs, plan.bn, SLAB_K))
+
+
+def kernel_form(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The CUDA form a call takes: ``wgmma``, ``wmma`` or ``fma``."""
+    if x.dtype == torch.float32:
+        return "fma"
+    aligned = x.data_ptr() % 16 == 0
+    return "wgmma" if x.shape[4] % 8 == 0 and w.shape[4] % 8 == 0 and aligned else "wmma"
 
 
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+    FORM_LAUNCHES.clear()
 
 
 def winograd_profitable(x_shape) -> bool:
@@ -75,10 +148,22 @@ def winograd_applies(x_shape, w_shape, stride, pads) -> bool:
             and winograd_profitable(x_shape))
 
 
+_G_ON: Dict[torch.device, torch.Tensor] = {}
+
+
+def _g_on(device: torch.device) -> torch.Tensor:
+    """G on ``device``, copied once: a copy from pageable host memory per call
+    would wait for the stream's queued work."""
+    g = _G_ON.get(device)
+    if g is None:
+        g = _G_ON[device] = torch.from_numpy(_G).to(device)
+    return g
+
+
 def transform_weights_dh(w: torch.Tensor, dtype) -> torch.Tensor:
     """(3,3,3,C,Co) -> (48, C, Co): G x G over (dz, dy) in f32, direct over dx,
     rounded to ``dtype``. Row (jd * 4 + jh) * 3 + dx."""
-    g = torch.from_numpy(_G).to(w.device)
+    g = _g_on(w.device)
     u = torch.einsum("az,by,zyxio->abxio", g, g, w.float())
     return u.reshape(48, w.shape[3], w.shape[4]).to(dtype)
 
@@ -131,24 +216,34 @@ def _launch(variant: str, x: torch.Tensor, w: torch.Tensor
     lib = load_library()
     n, d, h, wd, cin = x.shape
     cout = w.shape[-1]
-    cp = -(-cin // _CIN_PAD) * _CIN_PAD
-    cop = -(-cout // _COUT_PAD) * _COUT_PAD
-    u2 = F.pad(transform_weights_dh(w, x.dtype), (0, cop - cout, 0, cp - cin))
-    u2 = u2.contiguous()
+    form = kernel_form(x, w)
     y = torch.empty((n, d, h, wd, cout), dtype=x.dtype, device=x.device)
     stats = None
     if variant == "winograd_stats":
         stats = torch.zeros((n, 2, cout), dtype=torch.float32, device=x.device)
+    stats_ptr = stats.data_ptr() if stats is not None else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.unet3d_winograd3x3x3_ndhwc(
-            _DTYPES[x.dtype], int(stats is not None), x.data_ptr(), u2.data_ptr(),
-            y.data_ptr(), stats.data_ptr() if stats is not None else None,
-            n, d, h, wd, cin, cout, cp, cop, stream)
+        if form == "wgmma":
+            plan = wgmma_plan(tuple(x.shape), cout)
+            u2 = pack_u2(w, plan)
+            err = lib.unet3d_winograd_wgmma(
+                int(stats is not None), plan.config, x.data_ptr(), u2.data_ptr(),
+                y.data_ptr(), stats_ptr, n, d, h, wd, cin, cout, plan.h_tiles,
+                plan.w_tiles, plan.n_tiles, plan.chunks, stream)
+        else:
+            cp = -(-cin // _CIN_PAD) * _CIN_PAD
+            cop = -(-cout // _COUT_PAD) * _COUT_PAD
+            u2 = F.pad(transform_weights_dh(w, x.dtype), (0, cop - cout, 0, cp - cin))
+            u2 = u2.contiguous()
+            err = lib.unet3d_winograd3x3x3_ndhwc(
+                _DTYPES[x.dtype], int(stats is not None), x.data_ptr(), u2.data_ptr(),
+                y.data_ptr(), stats_ptr, n, d, h, wd, cin, cout, cp, cop, stream)
     if err != 0:
-        raise RuntimeError(f"winograd3x3x3 {variant} launch failed: "
+        raise RuntimeError(f"winograd3x3x3 {variant} ({form}) launch failed: "
                            f"{lib.unet3d_cuda_error_string(err).decode()}")
     LAUNCHES[variant] += 1
+    FORM_LAUNCHES[variant, form] += 1
     return y, stats
 
 

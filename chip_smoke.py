@@ -81,7 +81,28 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    one step (``winograd`` as the input gradient of the three 64^3 sites) and
    its launches by form, checked as in phase 5,
    its gradients against the plain path within the phase-5 bounds, and its
-   time beside the default routing's (default, winograd, winograd, default).
+   time beside the default routing's (default, winograd, winograd, default);
+8. the train CLI: four labelled synthetic BraTS-grid cases (phase 6's
+   modalities plus a ``seg`` with labels 1, 2 and 4) under
+   ``build/chip_smoke_train/`` and a copy of the BraTS config that differs
+   only in its file lists (the four cases; ``bratsvalidation`` one of them),
+   2 epochs and 2 cross-validation folds; the model, 128^3 shape,
+   augmentations, AMP, loss, optimizer, scheduler and inferer as published.
+   ``scripts.train.main(... --setup_crossval_only)`` must split the cases
+   2/2 into ``fold1.json`` / ``fold2.json``; then ``main`` trains fold 1.
+   Checks: the four training kernels launched in the wgmma form during the
+   training (and no bf16 launch off it); every training batch reached the
+   step in bf16 on the card, copied from pinned memory; the first step's
+   batch equals its sample rebuilt on the CPU from the dataset at the same
+   epoch and index; 2 log rows with finite losses; the checkpoint reloads
+   equal; the ``bratsvalidation`` prediction is on the source grid with the
+   source affine, in [0, 1], and within relative L2 3e-2 of the predict CLI
+   run on the saved checkpoint. Prints seconds per epoch, each step's ms
+   (CUDA events around the step), the loader's wait per step with the
+   training samples' host ms by stage (preprocess, augment), each epoch's
+   seconds by part (training waits and steps, validation waits, the rest),
+   each batch's H2D span on the prefetcher's side stream and one batch's
+   copy alone from pinned memory, and the launches.
 
 Exits non-zero if any phase fails or there is no CUDA device. The last lines
 are the card, a JSON object of the kernels, and ``{"ok": true, ...}``.
@@ -96,6 +117,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -106,6 +128,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "examples", "brats2020", "brats2020_config.json")
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
+TRAIN_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
 # the bf16 form of each kernel on the path (conv3d.cu, s2_wgrad.cu and
 # winograd.cu keep the f32 form and a bf16 WMMA form for channel counts no
 # DynUNet site has)
@@ -186,6 +209,8 @@ L2_BOUND = 3e-2
 GRAD_BOUND_F32 = 1e-3
 GRAD_BOUND_BF16 = 2e-2
 TRAIN_EPOCHS, TRAIN_STEPS = 2, 3
+# phase 8: labelled cases, epochs and cross-validation folds of the train CLI
+TRAIN_CLI_CASES, TRAIN_CLI_EPOCHS, TRAIN_CLI_FOLDS = 4, 2, 2
 
 
 class SmokeFailure(RuntimeError):
@@ -857,41 +882,57 @@ MODALITIES = ("flair", "t1", "t1ce", "t2")
 CLI_CASES = 2
 
 
-def write_cases(seed):
-    """CLI_CASES cases of four int16 modalities: zero background around a
-    seeded ellipsoid of noisy tissue, written as uncompressed ``.nii``."""
+def write_cases(seed, out_dir=CLI_DIR, n_cases=CLI_CASES, prefix="BraTS20_Validation",
+                with_label=False):
+    """``n_cases`` cases of four int16 modalities under ``out_dir``: zero
+    background around a seeded ellipsoid of noisy tissue, written as
+    uncompressed ``.nii``. ``with_label`` adds a ``seg`` with the BraTS
+    labels in a seeded sphere inside the ellipsoid: 4 at its core, 1 around
+    that, 2 in its outer shell."""
     from unet3d_tpu_torch.data import nifti
     rng = np.random.RandomState(seed + 3)
     grid = np.stack(np.meshgrid(*(np.arange(n, dtype=np.float32) for n in BRATS_GRID),
                                 indexing="ij"))
     cases = []
-    for i in range(CLI_CASES):
+    for i in range(n_cases):
         centre = np.array(BRATS_GRID, np.float32) / 2 + rng.uniform(-10, 10, 3)
         radii = np.array([70.0, 85.0, 60.0]) * rng.uniform(0.8, 1.0, 3)
         inside = (((grid - centre[:, None, None, None].astype(np.float32))
                    / radii[:, None, None, None].astype(np.float32)) ** 2).sum(0) <= 1
-        name = f"BraTS20_Validation_{i + 1:03d}"
-        os.makedirs(os.path.join(CLI_DIR, name))
+        name = f"{prefix}_{i + 1:03d}"
+        os.makedirs(os.path.join(out_dir, name))
         files = []
         for modality in MODALITIES:
             tissue = rng.normal(400.0, 100.0, size=BRATS_GRID).astype(np.float32)
-            fn = os.path.join(CLI_DIR, name, f"{name}_{modality}.nii")
+            fn = os.path.join(out_dir, name, f"{name}_{modality}.nii")
             nifti.save(fn, np.where(inside, tissue, 0).astype(np.int16), BRATS_AFFINE)
             files.append(fn)
         cases.append({"image": files})
+        if with_label:
+            tumour = centre + rng.uniform(-20, 20, 3).astype(np.float32)
+            dist = np.sqrt(((grid - tumour[:, None, None, None]) ** 2).sum(0))
+            dist /= rng.uniform(18.0, 28.0)
+            seg = np.select([dist < 0.4, dist < 0.7, dist < 1.0], [4, 1, 2], 0)
+            cases[-1]["label"] = os.path.join(out_dir, name, f"{name}_seg.nii")
+            nifti.save(cases[-1]["label"], np.where(inside, seg, 0).astype(np.int16),
+                       BRATS_AFFINE)
     return cases
 
 
-class CaseSeconds(logging.Handler):
-    """Collects the per-case stage seconds that ``predict/volumetric.py`` logs."""
+class LogRecords(logging.Handler):
+    """Collects the ``attr`` of every record that carries one (the per-case
+    stage seconds of ``predict/volumetric.py``, the per-sample ones of
+    ``data/dataset.py``), and in ``threads`` the thread that logged it."""
 
-    def __init__(self):
-        super().__init__(logging.INFO)
-        self.records = []
+    def __init__(self, attr="case_seconds"):
+        super().__init__(logging.DEBUG)
+        self.attr = attr
+        self.records, self.threads = [], []
 
     def emit(self, record):
-        if hasattr(record, "case_seconds"):
-            self.records.append(record.case_seconds)
+        if hasattr(record, self.attr):
+            self.records.append(getattr(record, self.attr))
+            self.threads.append(threading.current_thread())
 
 
 def phase6_cli(seed, card):
@@ -918,7 +959,7 @@ def phase6_cli(seed, card):
     for strategy in (None, "winograd"):
         name = strategy or "default"
         out_dir = os.path.join(CLI_DIR, f"out_{name}")
-        case_seconds = CaseSeconds()
+        case_seconds = LogRecords()
         volumetric_log.addHandler(case_seconds)
         with conv_strategy(strategy):
             torch.cuda.synchronize()
@@ -1015,6 +1056,268 @@ def phase7_strategy_step(device, seed, card):
                           grad_rel_l2=grads)
 
 
+def _mean(values) -> float:
+    return float(np.mean(values)) if len(values) else float("nan")
+
+
+def phase8_train_cli(device, seed, card):
+    """The train CLI on the BraTS config, cut only in its file lists, epochs
+    and folds: cross-validation set-up, then fold 1 trained through
+    ``scripts.train.main`` (its own loaders, prefetcher, steps and
+    inference), with ``run_training`` and ``DevicePrefetcher`` wrapped in
+    this function to read the launches, each step's batch and time, the
+    loader's waits and the samples' stage seconds."""
+    from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
+    from unet3d_tpu_torch.convert import load_jax_variables
+    from unet3d_tpu_torch.data import nifti
+    from unet3d_tpu_torch.data.prefetch import DevicePrefetcher
+    from unet3d_tpu_torch.scripts import predict
+    from unet3d_tpu_torch.scripts import train as train_cli
+    from unet3d_tpu_torch.train.checkpoint import load_checkpoint
+    from unet3d_tpu_torch.train.train import read_training_log
+    from unet3d_tpu_torch.utils.config import dump_json, load_json
+
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    cases = write_cases(seed + 5, TRAIN_CLI_DIR, TRAIN_CLI_CASES, "BraTS20_Training",
+                        with_label=True)
+    config = load_json(CONFIG)
+    config["training_filenames"] = cases
+    config["bratsvalidation_filenames"] = [{"image": cases[0]["image"]}]
+    config["training"]["n_epochs"] = TRAIN_CLI_EPOCHS
+    config["cross_validation"]["folds"] = TRAIN_CLI_FOLDS
+    config_file = os.path.join(TRAIN_CLI_DIR, "brats2020_config.json")
+    dump_json(config, config_file)
+    work = os.path.join(TRAIN_CLI_DIR, "out", "brats2020_config")
+    print(f"train CLI set-up: {TRAIN_CLI_CASES} labelled cases of {len(MODALITIES)} x "
+          f"{BRATS_GRID} int16 .nii, config: {time.perf_counter() - t0:.1f} s", flush=True)
+    check(train_cli.main(["--config_filename", config_file, "--output_dir",
+                          os.path.dirname(work), "--setup_crossval_only"]) == [],
+          "--setup_crossval_only trained a fold")
+    folds = [load_json(os.path.join(work, f"fold{i + 1}.json"))
+             for i in range(TRAIN_CLI_FOLDS)]
+    labels = sorted(c["label"] for c in cases)
+    for i, fold in enumerate(folds):
+        train_labels = [c["label"] for c in fold["training_filenames"]]
+        val_labels = [c["label"] for c in fold["validation_filenames"]]
+        print(f"fold{i + 1}.json: training {[os.path.basename(f) for f in train_labels]}, "
+              f"validation {[os.path.basename(f) for f in val_labels]}", flush=True)
+        check(len(train_labels) == len(val_labels) == TRAIN_CLI_CASES // TRAIN_CLI_FOLDS
+              and sorted(train_labels + val_labels) == labels,
+              f"fold{i + 1}.json does not split the cases 2/2")
+    check(sorted(c["label"] for f in folds for c in f["validation_filenames"]) == labels,
+          "the folds' validation sets do not partition the cases")
+
+    steps, prefetchers, run = [], [], {}
+
+    class TimedPrefetcher(DevicePrefetcher):
+        """The CLI's prefetcher, with each batch's host wait, the threads
+        that produce its batches, its epochs' start times, its first batch's
+        source files, whether each host copy was pinned, and each batch's
+        copies timed by events on the side stream."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.waits, self.epochs, self.threads, self.first = [], [], [], None
+            self.pinned, self.copies = [], []
+            prefetchers.append(self)
+
+        def set_epoch(self, epoch):
+            self.epochs.append((epoch, time.perf_counter()))
+            super().set_epoch(epoch)
+
+        def _put(self, batch, stream):
+            if threading.current_thread() not in self.threads:  # the samples ran here
+                self.threads.append(threading.current_thread())
+            if self.first is None:
+                self.first = batch["source_filename"]
+            self.side, self.start = stream, torch.cuda.Event(enable_timing=True)
+            out = super()._put(batch, stream)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(stream)
+            self.copies.append((self.start, end))
+            return out
+
+        def _pinned(self, array):
+            host = super()._pinned(array)
+            self.pinned.append(host.is_pinned())
+            self.start.record(self.side)  # again after each key: the copies start here
+            return host
+
+        def __iter__(self):
+            batches = super().__iter__()
+            try:
+                while True:
+                    t = time.perf_counter()
+                    batch = next(batches, None)
+                    if batch is None:
+                        return
+                    self.waits.append(time.perf_counter() - t)
+                    yield batch
+            finally:
+                batches.close()
+
+    real_run_training = train_cli.run_training
+
+    def timed_run_training(train_step, *args, **kwargs):
+        def step(images, labels):
+            if not steps:
+                run["first"] = (images.clone(), labels.clone())
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            loss = train_step(images, labels)
+            end.record()
+            steps.append(dict(batch=[(t.dtype, t.device.type) for t in (images, labels)],
+                              events=(start, end), host_s=time.perf_counter() - t))
+            return loss
+
+        torch.cuda.synchronize()
+        reset_launches()
+        model = real_run_training(step, *args, **kwargs)
+        torch.cuda.synchronize()
+        run.update(end=time.perf_counter(), launches=launch_counts(),
+                   forms=dict(form_launches()))
+        return model
+
+    dataset_log = logging.getLogger("unet3d_tpu_torch.data.dataset")
+    samples, level = LogRecords("sample_seconds"), dataset_log.level
+    dataset_log.addHandler(samples)
+    dataset_log.setLevel(logging.DEBUG)
+    train_cli.run_training, train_cli.DevicePrefetcher = timed_run_training, TimedPrefetcher
+    fold_file, fold_dir = os.path.join(work, "fold1.json"), os.path.join(work, "fold1")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = train_cli.main(["--config_filename", fold_file, "--output_dir", work])
+        torch.cuda.synchronize()
+        cli_seconds = time.perf_counter() - t0
+    finally:
+        train_cli.run_training, train_cli.DevicePrefetcher = real_run_training, DevicePrefetcher
+        dataset_log.removeHandler(samples)
+        dataset_log.setLevel(level)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    check(result["work_dir"] == fold_dir, f"trained into {result['work_dir']}")
+    train_pf = result["training_loader"]
+    check(train_pf is prefetchers[0], "the training batches bypassed the prefetcher")
+    n_steps = TRAIN_CLI_EPOCHS * len(train_pf)
+    check(len(steps) == n_steps, f"{len(steps)} training steps ran, expected {n_steps}")
+    kinds = {kind for s in steps for kind in s["batch"]}
+    check(kinds == {(torch.bfloat16, "cuda")},
+          f"training batches (dtype, device) {kinds}: expected bf16 on the card")
+    check(len(train_pf.copies) == n_steps and len(train_pf.pinned) == 2 * n_steps
+          and all(train_pf.pinned),
+          f"training batches' host copies pinned: {train_pf.pinned}")
+    launches, forms = run["launches"], run["forms"]
+    print(f"train CLI training: launches {launches}; by form "
+          f"{ {f'{v}/{f}': n for (v, f), n in sorted(forms.items())} }", flush=True)
+    for kernel in TRAIN_KERNELS:
+        check(forms.get((kernel, "wgmma"), 0) > 0,
+              f"train CLI: kernel {kernel} was not launched in the wgmma form")
+    off = {k: n for k, n in forms.items() if k[1] != "wgmma"}
+    check(not off, f"train CLI: bf16 sites off the wgmma form: {off}")
+
+    # the first step's batch, rebuilt on the CPU from the dataset
+    dataset = train_pf.dataset
+    index = [list(c["image"]) for c in dataset.filenames].index(list(train_pf.first[0]))
+    first_epoch = train_pf.epochs[0][0]
+    dataset.set_epoch(first_epoch)
+    sample = dataset[index]
+    got_image, got_label = (t.cpu() for t in run["first"])
+    same = (torch.equal(got_image, torch.from_numpy(sample["image"][None]).to(torch.bfloat16))
+            and torch.equal(got_label,
+                            torch.from_numpy(sample["label"][None]).to(torch.bfloat16)))
+    print(f"first step's batch {tuple(got_image.shape)} {got_image.dtype} equals the "
+          f"dataset's sample {index} at epoch {first_epoch} rebuilt on the CPU: {same}",
+          flush=True)
+    check(same, "the first step's batch differs from its sample rebuilt on the CPU")
+
+    rows = read_training_log(os.path.join(fold_dir, "training_log.csv"))
+    print(f"training_log.csv: {rows}", flush=True)
+    check(len(rows) == TRAIN_CLI_EPOCHS, f"training log has {len(rows)} rows")
+    check(all(np.isfinite(r[1]) and np.isfinite(r[3]) for r in rows),
+          f"non-finite losses in the training log {rows}")
+    model = result["model"]
+    fresh = build_or_load_model_from_config(config, None, device, seed=seed + 1)
+    load_jax_variables(fresh, load_checkpoint(os.path.join(fold_dir, "model.npz")))
+    for (name, a), b in zip(model.named_parameters(), fresh.parameters()):
+        check(torch.equal(a, b), f"train CLI checkpoint round trip changed {name}")
+    del fresh
+
+    (written,) = result["predictions"]["bratsvalidation"]
+    data, affine, _ = nifti.load(written)
+    print(f"bratsvalidation prediction {os.path.basename(written)}: shape {data.shape}, "
+          f"range [{data.min():.4f}, {data.max():.4f}]", flush=True)
+    check(data.shape == BRATS_GRID + (3,), f"train CLI prediction shape {data.shape}")
+    check(bool(np.isfinite(data).all()), "train CLI prediction: non-finite output")
+    check(0.0 <= data.min() and data.max() <= 1.0, "train CLI prediction: outside [0, 1]")
+    check(np.allclose(affine, BRATS_AFFINE, atol=1e-6), "train CLI prediction: affine")
+    predict_dir = os.path.join(TRAIN_CLI_DIR, "predict")
+    predict.main(["--config_filename", fold_file, "--model_filename",
+                  os.path.join(fold_dir, "model.npz"), "--output_directory", predict_dir,
+                  "--group", "bratsvalidation", "--activation", "sigmoid"])
+    (name,) = os.listdir(os.path.join(predict_dir, "predictions"))
+    want, _, _ = nifti.load(os.path.join(predict_dir, "predictions", name))
+    rel = float(np.linalg.norm(data - want) / np.linalg.norm(want))
+    print(f"train CLI prediction vs the predict CLI on its checkpoint: rel L2 {rel:.3e}",
+          flush=True)
+    check(rel < L2_BOUND, f"train CLI vs predict CLI rel L2 {rel:.3e} > {L2_BOUND}")
+
+    starts = [t for _, t in train_pf.epochs] + [run["end"]]
+    epoch_s = [b - a for a, b in zip(starts, starts[1:])]
+    step_ms = [s["events"][0].elapsed_time(s["events"][1]) for s in steps]
+    waits_ms = [1e3 * w for w in train_pf.waits]
+    # where each epoch's seconds went: the training loop's waits for batches
+    # and its steps (host time: the step returns before the device ends), the
+    # validation loop's waits, and the rest (validation forwards, the log,
+    # the checkpoint)
+    val_pf, n_train, n_val = result["validation_loader"], len(train_pf), len(prefetchers[1])
+    epochs = []
+    for e, total in enumerate(epoch_s):
+        part = dict(train_wait=sum(train_pf.waits[e * n_train:(e + 1) * n_train]),
+                    train_steps=sum(st["host_s"] for st in steps[e * n_train:(e + 1) * n_train]),
+                    val_wait=sum(val_pf.waits[e * n_val:(e + 1) * n_val]))
+        epochs.append(dict(part, rest=total - sum(part.values())))
+    # the in-run copy spans include the worker's waits for the GIL between
+    # issuing the two copies; one batch's copy alone, from pinned memory:
+    h2d_ms = [start.elapsed_time(end) for start, end in train_pf.copies]
+    pinned = [got_image.pin_memory(), got_label.pin_memory()]
+    h2d_alone_ms = cuda_ms(lambda: [t.to(device, non_blocking=True) for t in pinned])
+    batch_mb = sum(t.numel() * t.element_size() for t in pinned) / 1e6
+    mine = [r for r, th in zip(samples.records, samples.threads) if th in train_pf.threads]
+    per_epoch = len(dataset)
+    stages = {f"epoch {first_epoch + e}": {
+        k: _mean([1e3 * r[k] for r in mine[e * per_epoch:(e + 1) * per_epoch]])
+        for k in ("preprocess", "augment")} for e in range(TRAIN_CLI_EPOCHS)}
+    summary = dict(cli_s=cli_seconds, epoch_s=epoch_s, step_ms=step_ms,
+                   step_ms_mean=_mean(step_ms), loader_wait_ms=waits_ms,
+                   loader_wait_ms_mean=_mean(waits_ms), sample_ms=stages,
+                   h2d_ms=h2d_ms, h2d_alone_ms=h2d_alone_ms, batch_mb=batch_mb,
+                   epoch_parts_s=epochs,
+                   peak_gib=peak, launches=launches, rel_l2_vs_predict=rel,
+                   log=[list(map(float, r)) for r in rows])
+    print(f"train CLI: {cli_seconds:.3f} s for main (fold 1: {len(dataset)} training, "
+          f"{len(result['validation_loader'])} validation cases, {TRAIN_CLI_EPOCHS} epochs, "
+          f"1 bratsvalidation prediction) [{card}]", flush=True)
+    print(f"train CLI seconds per epoch {[round(s, 3) for s in epoch_s]}; by part "
+          f"{[{k: round(v, 3) for k, v in e.items()} for e in epochs]} [{card}]", flush=True)
+    print(f"train CLI step ms {[round(s, 3) for s in step_ms]}, mean {_mean(step_ms):.3f} "
+          f"[{card}]", flush=True)
+    print(f"train CLI loader wait ms per step {[round(w, 3) for w in waits_ms]}, mean "
+          f"{_mean(waits_ms):.3f}; per training sample, host ms by stage (preprocess: read, "
+          f"crop, resize and the cache; augment: the random stages and normalisation) "
+          f"{json.dumps(stages)} [{card}]", flush=True)
+    print(f"train CLI H2D ms per batch ({batch_mb:.1f} MB bf16, pinned): side-stream span "
+          f"in the run {[round(h, 3) for h in h2d_ms]}, one batch's copy alone "
+          f"{h2d_alone_ms:.3f} ({batch_mb / h2d_alone_ms:.1f} GB/s); peak memory "
+          f"{peak:.2f} GiB [{card}]", flush=True)
+    del model, result
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    return launches, summary
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1056,19 +1359,24 @@ def main() -> int:
     cli_launches, cli = phase6_cli(args.seed, card)
     # phase 7
     strategy_launches, strategy = phase7_strategy_step(device, args.seed, card)
+    # phase 8
+    train_cli_launches, train_cli = phase8_train_cli(device, args.seed, card)
     check(not any(m in sys.modules for m in ("jax", "unet3d_tpu")),
           "the port imported jax")
     # launches: the training path's (phase 5; phase 7 for the Winograd
     # variants, which run only under the strategy); launches_predict: the
-    # prediction path's (phase 3; the CLI under the strategy for Winograd)
+    # prediction path's (phase 3; the CLI under the strategy for Winograd);
+    # launches_train_cli: the train CLI's training (phase 8)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": v, "route": "cuda", "source": SOURCES[v],
                 "replaces": REPLACES[v], "launches": train_launches[v],
-                "launches_predict": launches[v], **{k: report[v][k] for k in keys}}
+                "launches_predict": launches[v], "launches_train_cli": train_cli_launches[v],
+                **{k: report[v][k] for k in keys}}
                for v in TRAIN_KERNELS]
     kernels += [{"name": v, "route": "cuda", "source": SOURCES[v],
                  "replaces": REPLACES[v], "launches": strategy_launches[v],
                  "launches_predict": cli_launches["winograd"][v],
+                 "launches_train_cli": train_cli_launches[v],
                  **{k: report[v][k] for k in keys}, "direct_ms": report[v]["direct_ms"]}
                 for v in STRATEGY_KERNELS]
     print(f"seconds per case: {json.dumps(seconds)} [{card}]")
@@ -1076,6 +1384,7 @@ def main() -> int:
     print(f"training: {json.dumps(training)} [{card}]")
     print(f"cli: {json.dumps(cli)} [{card}]")
     print(f"strategy train step: {json.dumps(strategy)} [{card}]")
+    print(f"train cli: {json.dumps(train_cli)} [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,18 @@ def _t(a, requires_grad=True):
     return torch.from_numpy(a).requires_grad_(requires_grad)
 
 
+def jax_vjp(fn, primals, cotangent):
+    """``fn``'s value at ``primals`` and its VJP for ``cotangent``, as one
+    jitted computation. Run op by op, the VJP dispatches XLA ops while an
+    interpret-mode Pallas kernel's callbacks still run on XLA's threads, and
+    the two can deadlock: the test then hangs instead of failing."""
+    def value_and_vjp(p, c):
+        y, pull = jax.vjp(fn, *p)
+        return y, pull(c)
+    return jax.jit(value_and_vjp)(tuple(map(jnp.asarray, primals)),
+                                  jax.tree_util.tree_map(jnp.asarray, cotangent))
+
+
 # --- 3x3x3 stride 1 -----------------------------------------------------------
 
 @pytest.mark.parametrize("shape,cin,cout", [((1, 4, 8, 16), 4, 8),
@@ -56,8 +68,7 @@ def test_conv_vjp_matches_pallas_conv3d(shape, cin, cout):
     x, w = _rand(rng, *shape, cin), _rand(rng, 3, 3, 3, cin, cout, scale=0.1)
     g = _rand(rng, *shape, cout)
     with pltpu.force_tpu_interpret_mode():
-        _, pull = jax.vjp(pallas_conv3d, jnp.asarray(x), jnp.asarray(w))
-        want_dx, want_dw = pull(jnp.asarray(g))
+        _, (want_dx, want_dw) = jax_vjp(pallas_conv3d, (x, w), g)
     tx, tw = _t(x), _t(w)
     dx, dw = torch.autograd.grad(conv3d(tx, tw), (tx, tw), torch.from_numpy(g))
     assert _rel(dx, want_dx) < F32
@@ -70,8 +81,7 @@ def test_conv_stats_vjp_matches_winograd_stats_kernel():
     x, w = _rand(rng, 2, 4, 8, 8, 4), _rand(rng, 3, 3, 3, 4, 6, scale=0.1)
     gy, gs1, gs2 = _rand(rng, 2, 4, 8, 8, 6), _rand(rng, 2, 6), _rand(rng, 2, 6)
     with pltpu.force_tpu_interpret_mode():
-        _, pull = jax.vjp(winograd_conv3d_stats, jnp.asarray(x), jnp.asarray(w))
-        want_dx, want_dw = pull(tuple(map(jnp.asarray, (gy, gs1, gs2))))
+        _, (want_dx, want_dw) = jax_vjp(winograd_conv3d_stats, (x, w), (gy, gs1, gs2))
     tx, tw = _t(x), _t(w)
     y, s1, s2 = conv3d_with_stats(tx, tw)
     dx, dw = torch.autograd.grad((y, s1, s2), (tx, tw),
@@ -142,8 +152,7 @@ def test_stride2_conv_vjp_matches_pallas_wgrad_conv():
     w = (rng.normal(size=(3, 3, 3, 64, 8)) * 0.05).astype(np.float32)
     g = rng.normal(size=(1, 4, 4, 8, 8)).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
-        want_y, pull = jax.vjp(conv3d_s2_pallas_wgrad, jnp.asarray(x), jnp.asarray(w))
-        want_dx, want_dw = pull(jnp.asarray(g))
+        want_y, (want_dx, want_dw) = jax_vjp(conv3d_s2_pallas_wgrad, (x, w), g)
     tx, tw = _t(x), _t(w)
     y = conv3d(tx, tw, (2, 2, 2))
     dx, dw = torch.autograd.grad(y, (tx, tw), torch.from_numpy(g))

@@ -35,6 +35,8 @@ PREDICT_CLI_MODULES = ("ops.winograd_kernel", "ops.affine", "ops.one_hot", "ops.
                        "ops.normalize", "ops.resample", "data.orientation", "data.io",
                        "data.dataset", "data.loader", "scripts.predict",
                        "scripts.segment")
+# the train CLI's slice: the random stages, the prefetcher and the CLI
+TRAIN_CLI_MODULES = ("data.transforms", "data.prefetch", "config.factory", "scripts.train")
 
 
 def _env():
@@ -53,6 +55,7 @@ def test_every_module_imports_without_jax_or_a_build():
     assert int(count) >= n_modules
     assert {f"unet3d_tpu_torch.{m}" for m in TRAINING_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in PREDICT_CLI_MODULES} <= set(names.split())
+    assert {f"unet3d_tpu_torch.{m}" for m in TRAIN_CLI_MODULES} <= set(names.split())
 
 
 def test_no_source_of_the_port_names_jax():

@@ -31,6 +31,8 @@ from unet3d_tpu_torch.ops import conv3d as conv_ops
 from unet3d_tpu_torch.ops import winograd_kernel as wino
 from unet3d_tpu_torch.ops.conv3d_kernel import conv3d_reference
 
+from test_torch_grad import jax_vjp
+
 SHAPES = [(1, 8, 16, 12, 5, 7), (2, 4, 8, 8, 3, 4), (1, 6, 8, 10, 8, 8),
           (1, 4, 32, 16, 4, 6)]
 TOL = {"float32": 1e-4, "bfloat16": 4e-3}
@@ -207,15 +209,12 @@ def test_strategy_gradients_match_jax_winograd(low_gate, with_stats):
     rng = np.random.RandomState(6)
     gy = rng.randn(1, 8, 8, 8, 8).astype(np.float32)
     gs = rng.randn(2, 1, 8).astype(np.float32)
-    jx, jk = jnp.asarray(x), jnp.asarray(k)
     with pltpu.force_tpu_interpret_mode():
         if with_stats:
-            _, pull = jax.vjp(jax_wino.winograd_conv3d_stats, jx, jk)
-            want_dx, want_dw = pull((jnp.asarray(gy), jnp.asarray(gs[0]),
-                                     jnp.asarray(gs[1])))
+            _, (want_dx, want_dw) = jax_vjp(jax_wino.winograd_conv3d_stats, (x, k),
+                                            (gy, gs[0], gs[1]))
         else:
-            _, pull = jax.vjp(jax_wino.winograd_conv3d, jx, jk)
-            want_dx, want_dw = pull(jnp.asarray(gy))
+            _, (want_dx, want_dw) = jax_vjp(jax_wino.winograd_conv3d, (x, k), gy)
     tx = torch.from_numpy(x).requires_grad_()
     tk = torch.from_numpy(k).requires_grad_()
     wino.reset_launches()

@@ -1,25 +1,22 @@
-"""Config-section -> object factories: the subset the prediction and training
-paths need.
-
-Counterparts of the machine config (``add_machine_config_to_parser``,
-``get_machine_config``), ``check_hierarchy``, ``load_filenames`` /
-``load_filenames_from_config``, ``dataset_kwargs_from_config``,
-``build_inference_loaders_from_config``, ``build_or_load_model_from_config``,
-``load_criterion_from_config``, ``build_optimizer_from_config``,
-``build_scheduler_from_config``, ``build_inferer_from_config`` and
-``get_activation_from_config`` in ``unet3d_tpu/config/factory.py``; the JSON
-schema is the same.
+"""Config-section -> object factories (counterparts of
+``unet3d_tpu/config/factory.py``; the JSON schema is the same): the machine
+config, label-hierarchy expansion, cross-validation folds, the training,
+validation and inference loaders, the model, criterion, optimizer, scheduler
+and inferer, and the debug example dumps.
 """
 from __future__ import annotations
 
 import logging
 import os
+import warnings
+from copy import deepcopy
 from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
 from unet3d_tpu_torch.convert import load_jax_variables
+from unet3d_tpu_torch.data.image import Volume
 from unet3d_tpu_torch.data.loader import build_loader
 from unet3d_tpu_torch.models.layers import init_parameters
 from unet3d_tpu_torch.models.registry import create_model
@@ -27,7 +24,7 @@ from unet3d_tpu_torch.predict.sliding_window import build_inferer
 from unet3d_tpu_torch.train.checkpoint import load_checkpoint
 from unet3d_tpu_torch.train.losses import load_criterion
 from unet3d_tpu_torch.train.optim import build_optimizer, build_scheduler
-from unet3d_tpu_torch.utils.config import get_kwargs, in_config, load_json
+from unet3d_tpu_torch.utils.config import dump_json, get_kwargs, in_config, load_json
 
 
 def add_machine_config_to_parser(parser):
@@ -81,6 +78,33 @@ def check_hierarchy(config):
     return label_hierarchy
 
 
+def setup_cross_validation(config, work_dir, n_folds, random_seed=25):
+    """Shuffle ``training_filenames`` with a local ``RandomState(random_seed)``
+    (the JAX CLI's shuffle, so the folds are the same) into ``n_folds`` equal
+    folds, the last taking the remainder; writes ``fold{i}.json`` into
+    ``work_dir`` and returns [[fold config, its filename], ...]."""
+    filenames = config["training_filenames"]
+    np.random.RandomState(random_seed).shuffle(filenames)
+    val_step = int(len(filenames) / n_folds)
+    fold_configs = []
+    for fold_i in range(n_folds):
+        val_start = val_step * fold_i
+        if (fold_i + 1) == n_folds:
+            training_filenames = filenames[:val_start]
+            validation_filenames = filenames[val_start:]
+        else:
+            training_filenames = filenames[:val_start] + filenames[val_start + val_step:]
+            validation_filenames = filenames[val_start:val_start + val_step]
+        assert (len(validation_filenames) + len(training_filenames)) == len(filenames)
+        config_filename = os.path.join(work_dir, f"fold{fold_i + 1}.json")
+        fold_config = deepcopy(config)
+        fold_config["training_filenames"] = training_filenames
+        fold_config["validation_filenames"] = validation_filenames
+        dump_json(fold_config, config_filename)
+        fold_configs.append([fold_config, config_filename])
+    return fold_configs
+
+
 def load_filenames(filenames):
     """An inline list, or a ``.npy`` file of one."""
     if isinstance(filenames, list):
@@ -100,6 +124,67 @@ def dataset_kwargs_from_config(config):
     return get_kwargs(config["dataset"], ["name", "training", "validation", "verbose"])
 
 
+def transfer_dtype_from_config(config):
+    """bf16 image and label batches under AMP, or when
+    ``training.compact_transfer`` says so (it overrides the AMP default): the
+    step casts images to bf16 anyway, and one-hot labels are exact in bf16.
+    The loader ships them as torch tensors (numpy has no bf16)."""
+    amp = bool(in_config("amp", config["training"], False))
+    compact = in_config("compact_transfer", config["training"], None)
+    if compact if compact is not None else amp:
+        return {"image": torch.bfloat16, "label": torch.bfloat16}
+    return None
+
+
+def build_data_loaders_from_config(config, system_config, output_dir, dataset_class,
+                                   metric_to_monitor="val_loss"):
+    """The training loader (shuffled), the validation loader (None without
+    ``validation_filenames``, and then the monitored metric falls back to
+    ``loss``) and the metric; ``dataset.add_contours`` doubles
+    ``n_outputs``; ``training.test_input`` writes that many transformed
+    training samples under ``output_dir/data_loader_testing``."""
+    if in_config("add_contours", config["dataset"], False):
+        config["n_outputs"] = config.get("n_outputs", 0) * 2
+
+    n_workers = in_config("n_workers", system_config, 1)
+    batch_size = in_config("batch_size", config["training"], 1)
+    validation_batch_size = in_config("validation_batch_size", config["training"], 1)
+    prefetch_factor = in_config("prefetch_factor", config["training"], 1)
+    test_input = in_config("test_input", config["training"], 1)
+
+    training_kwargs = in_config("training", config["dataset"], {})
+    validation_kwargs = in_config("validation", config["dataset"], {})
+    dataset_kwargs = dataset_kwargs_from_config(config)
+    transfer_dtype = transfer_dtype_from_config(config)
+    collate = in_config("collate", config["training"], None)
+
+    training_dataset = dataset_class(filenames=config["training_filenames"],
+                                     **training_kwargs, **dataset_kwargs)
+    training_loader = build_loader(training_dataset, batch_size=batch_size,
+                                   shuffle=True, num_workers=n_workers,
+                                   prefetch_factor=prefetch_factor,
+                                   transfer_dtype=transfer_dtype, collate=collate)
+
+    if test_input:
+        write_dataset_examples(test_input, training_dataset,
+                               output_dir=os.path.join(output_dir, "data_loader_testing"))
+
+    if "validation_filenames" not in config:
+        warnings.warn(RuntimeWarning("No 'validation_filenames' key found in config. "
+                                     "Validation will not be run!"))
+        validation_loader = None
+        metric_to_monitor = "loss"
+    else:
+        validation_dataset = dataset_class(filenames=config["validation_filenames"],
+                                           **validation_kwargs, **dataset_kwargs)
+        validation_loader = build_loader(validation_dataset,
+                                         batch_size=validation_batch_size,
+                                         shuffle=False, num_workers=n_workers,
+                                         prefetch_factor=prefetch_factor,
+                                         transfer_dtype=transfer_dtype)
+    return training_loader, validation_loader, metric_to_monitor
+
+
 def build_inference_loaders_from_config(config, dataset_class, system_config):
     """A loader for every ``X_filenames`` key except training, as [loader, X]."""
     loaders = []
@@ -116,6 +201,15 @@ def build_inference_loaders_from_config(config, dataset_class, system_config):
                                   num_workers=in_config("n_workers", system_config, 1))
             loaders.append([loader, name])
     return loaders
+
+
+def model_input_shape_from_config(config, default_shape=(64, 64, 64)):
+    """NDHWC input shape of one sample: the dataset's ``desired_shape`` and
+    the model's input channels."""
+    model_cfg = config["model"]
+    channels = model_cfg.get("in_channels", model_cfg.get("n_features", 1))
+    shape = in_config("desired_shape", config.get("dataset", {}), default_shape)
+    return tuple(int(s) for s in shape) + (int(channels),)
 
 
 def build_or_load_model_from_config(config, model_filename: Optional[str],
@@ -167,3 +261,19 @@ def get_activation_from_config(config):
         if in_config(activation, config["loss"], False):
             return activation
     return None
+
+
+def write_dataset_examples(n_test_cases, training_dataset, output_dir):
+    """NIfTIs of the first ``n_test_cases`` transformed training samples,
+    image and label, for debugging."""
+    os.makedirs(output_dir, exist_ok=True)
+    for index in range(min(n_test_cases, len(training_dataset))):
+        item = training_dataset[index]
+        src = item["source_filename"]
+        src = src[0] if isinstance(src, (list, tuple)) else src
+        base = os.path.basename(str(src)).split(".")[0]
+        Volume(data=item["image"], affine=item["affine"]).to_filename(
+            os.path.join(output_dir, f"input_test_{base}.nii.gz"))
+        if "label" in item and np.asarray(item["label"]).ndim >= 3:
+            Volume(data=item["label"], affine=item["affine"]).to_filename(
+                os.path.join(output_dir, f"target_test_{base}.nii.gz"))

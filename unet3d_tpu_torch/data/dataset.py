@@ -1,15 +1,22 @@
-"""Segmentation dataset: the deterministic prefix of the sample pipeline and
-its normalisation (counterpart of ``unet3d_tpu/data/dataset.py``).
+"""Segmentation dataset: the per-sample pipeline (counterpart of
+``unet3d_tpu/data/dataset.py``), in the JAX package's order:
 
     load (multi-file channel concat) -> [orientation] -> one-hot labels ->
-    [crop foreground] -> [resample-resize | pad-or-crop] -> normalisation
+    [crop foreground] -> shape stage (random crop | resample-resize |
+    pad-or-crop) -> spatial augmentations -> normalisation -> intensity
+    augmentations
 
-``SegmentationDatasetPersistent`` caches the prefix on disk in the JAX
-package's format v2 (one ``.npy`` per volume and a ``.meta.json`` commit
-marker, read back with mmap) under the same content + config key, so a cache
-written by either package is read by the other. The random stages (random
-crop, spatial and intensity augmentations) belong to ``data/transforms.py``,
-which is not ported yet: a dataset configured with any of them raises.
+The deterministic prefix (through the non-random shape stage) is cacheable:
+``SegmentationDatasetPersistent`` caches it on disk in the JAX package's
+format v2 (one ``.npy`` per volume and a ``.meta.json`` commit marker, read
+back with mmap) under the same content + config key, so a cache written by
+either package is read by the other. The random stages draw their parameters
+from a per-sample ``np.random.RandomState`` seeded as the JAX package seeds
+it, and run their voxel math in torch on the CPU (``data/transforms.py``).
+
+Each sample logs its seconds at DEBUG, the prefix (read and preprocess, or
+the cache read) apart from the random stages (with the normalisation between
+them), in the record's ``sample_seconds`` attribute.
 """
 from __future__ import annotations
 
@@ -17,17 +24,21 @@ import hashlib
 import json
 import logging
 import os
+import time
 import warnings
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from unet3d_tpu_torch.data.io import load_image
+from unet3d_tpu_torch.data.transforms import RandSpatialCropD, build_transform
 from unet3d_tpu_torch.ops import crop as crop_ops
 from unet3d_tpu_torch.ops import normalize as normalize_ops
 from unet3d_tpu_torch.ops.affine import resize_affine
 from unet3d_tpu_torch.ops.one_hot import label_map_to_one_hot
 from unet3d_tpu_torch.ops.resample import resize_bucketed
+
+logger = logging.getLogger(__name__)
 
 _NORMALIZATION_ALIASES = {
     "zero_mean": "normalize_intensity",
@@ -73,7 +84,7 @@ def apply_normalization(image, normalization, normalization_kwargs):
 
 
 class SegmentationDataset:
-    """The JAX dataset's constructor; the random stages raise (see above)."""
+    """The JAX dataset: its constructor, prefix, random stages and seeds."""
 
     def __init__(self, filenames: Sequence[Dict[str, Any]], labels=None,
                  inference: Any = "auto", desired_shape: Optional[Sequence[int]] = None,
@@ -84,15 +95,7 @@ class SegmentationDataset:
                  spatial_augmentations: Optional[List[dict]] = None,
                  orientation: Optional[str] = None, reader=None, verbose: bool = False,
                  base_seed: int = 0):
-        del reader, verbose, base_seed  # API parity
-        random = {"random_crop": random_crop,
-                  "spatial_augmentations": spatial_augmentations,
-                  "intensity_augmentations": intensity_augmentations}
-        named = [k for k, v in random.items() if v]
-        if named:
-            raise NotImplementedError(
-                f"{', '.join(named)}: the random stages need the port of "
-                "data/transforms.py (see ROADMAP.md)")
+        del reader, verbose  # API parity
         self.filenames = list(filenames)
         if inference == "auto":
             inference = "label" not in self.filenames[0]
@@ -109,12 +112,23 @@ class SegmentationDataset:
         self.random_crop = random_crop
         self.resample = resample
         self.orientation = orientation
+        self.base_seed = base_seed
+        self.epoch = 0
+        self.spatial_transforms = [build_transform(s) for s in (spatial_augmentations or [])]
+        self.intensity_transforms = [build_transform(s)
+                                     for s in (intensity_augmentations or [])]
+        self.random_cropper = (RandSpatialCropD(roi_size=self.desired_shape)
+                               if self.random_crop and self.desired_shape else None)
 
     def __len__(self) -> int:
         return len(self.filenames)
 
+    def set_epoch(self, epoch: int) -> None:
+        """Advance the per-epoch augmentation stream."""
+        self.epoch = epoch
+
     def _deterministic_prefix(self, item: Dict[str, Any]) -> Dict[str, Any]:
-        """load -> orient -> one-hot -> crop-foreground -> shape stage."""
+        """load -> orient -> one-hot -> crop-foreground -> non-random shape stage."""
         image = load_image(item["image"], reorder=bool(self.orientation),
                            axcodes=self.orientation or "RAS", dtype=np.float32)
         label_data = None
@@ -131,7 +145,7 @@ class SegmentationDataset:
                 data, affine, label=label_data,
                 foreground_percentile=self.foreground_percentile, margin=1)
 
-        if self.desired_shape:
+        if self.desired_shape and not self.random_crop:
             if self.resample:
                 true_shape = data.shape[-3:]
                 affine = resize_affine(affine, true_shape, self.desired_shape)
@@ -150,13 +164,59 @@ class SegmentationDataset:
             out["label"] = label_data
         return out
 
+    @property
+    def multi_sample(self) -> bool:
+        """True when a transform emits several patches per input sample
+        (RandSpatialCropSamplesD): samples are then (S, C, D, H, W) and the
+        loader collates with ``collate_flatten``."""
+        return any(getattr(t, "num_samples", 1) > 1 for t in self.spatial_transforms)
+
+    def _random_stages(self, sample: Dict[str, Any], index: int) -> Dict[str, Any]:
+        """random crop -> spatial augmentations (multi-sample ones fan out)
+        -> normalisation -> intensity augmentations, each patch as f32 numpy."""
+        rng = np.random.RandomState(
+            (self.base_seed * 1_000_003 + self.epoch * 10_007 + index) % (2 ** 31))
+        image = sample["image"]
+        label = sample.get("label")
+        if self.random_cropper is not None:
+            image, label = self.random_cropper(rng, image, label)
+        pairs = [(image, label)]
+        for t in self.spatial_transforms:
+            if getattr(t, "num_samples", 1) > 1:
+                fanned = []
+                for im, lb in pairs:
+                    fanned.extend(t.samples(rng, im, lb))
+                pairs = fanned
+            else:
+                pairs = [t(rng, im, lb) for im, lb in pairs]
+        images, labels = [], []
+        for im, lb in pairs:
+            im = apply_normalization(im, self.normalization, self.normalization_kwargs)
+            for t in self.intensity_transforms:
+                im, _ = t(rng, im, lb)
+            images.append(np.asarray(im, dtype=np.float32))
+            labels.append(None if lb is None else np.asarray(lb, dtype=np.float32))
+        if len(images) == 1:
+            image_out, label_out = images[0], labels[0]
+        else:  # (S, C, D, H, W): collate_flatten's input shape
+            image_out = np.stack(images)
+            label_out = None if labels[0] is None else np.stack(labels)
+        out = {"image": image_out, "affine": sample["affine"],
+               "source_filename": sample["source_filename"]}
+        if label_out is not None:
+            out["label"] = label_out
+        return out
+
     def __getitem__(self, index: int) -> Dict[str, Any]:
+        t0 = time.perf_counter()
         sample = self._deterministic_prefix(self.filenames[index])
-        out = dict(sample)
-        out["image"] = apply_normalization(np.asarray(sample["image"], dtype=np.float32),
-                                           self.normalization, self.normalization_kwargs)
-        if "label" in sample:
-            out["label"] = np.asarray(sample["label"], dtype=np.float32)
+        t1 = time.perf_counter()
+        out = self._random_stages(sample, index)
+        seconds = {"index": index, "preprocess": t1 - t0,
+                   "augment": time.perf_counter() - t1}
+        logger.debug("sample %d: preprocess %.3f s, augment %.3f s", index,
+                     seconds["preprocess"], seconds["augment"],
+                     extra={"sample_seconds": seconds})
         return out
 
 

@@ -4,7 +4,9 @@
 Replaces the reference's torch/MONAI ``DataLoader``
 (`unet3d/scripts/script_utils.py:124-129`: shuffle / num_workers / pin_memory /
 prefetch_factor) with host-side thread parallelism over the sample pipeline;
-``n_workers`` maps to the thread pool width.
+``n_workers`` maps to the thread pool width. Batches are numpy, or torch
+tensors for the keys ``transfer_dtype`` casts to a torch dtype (bf16 under
+AMP: ``config/factory.py``); ``data/prefetch.py`` moves them to the GPU.
 """
 from __future__ import annotations
 
@@ -15,6 +17,10 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, List, Sequence
 
 import numpy as np
+import torch
+
+# a dead producer is noticed within this many seconds of the consumer's wait
+_POLL_SECONDS = 1.0
 
 
 def _stack_batch(samples: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
@@ -50,9 +56,10 @@ def collate_5d_flatten(batch: Dict[str, Any]) -> Dict[str, Any]:
 class DataLoader:
     """Iterates dicts with stacked ``image``/``label`` arrays plus per-item meta.
 
-    ``transfer_dtype`` maps batch keys to numpy dtypes applied after stacking
-    (e.g. ``{"label": np.uint8}``) so batches cross the host->device link
-    compact; floating arrays only.
+    ``transfer_dtype`` maps batch keys to torch dtypes applied after
+    stacking, so batches cross the host->device link compact: a torch dtype
+    (e.g. ``{"image": torch.bfloat16}``, which numpy lacks) makes the key a
+    torch tensor of that dtype. Floating arrays only.
     """
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
@@ -66,6 +73,9 @@ class DataLoader:
         self.prefetch_factor = max(int(prefetch_factor), 1)
         self.drop_last = drop_last
         self.transfer_dtype = dict(transfer_dtype or {})
+        for key, dtype in self.transfer_dtype.items():
+            if dtype is not None and not isinstance(dtype, torch.dtype):
+                raise TypeError(f"transfer_dtype[{key!r}] is {dtype!r}: a torch dtype")
         # multi-sample datasets (RandSpatialCropSamplesD) default to
         # collate_flatten so (B, S, C, D, H, W) folds to (B*S, ...)
         if collate is None and getattr(dataset, "multi_sample", False):
@@ -80,9 +90,9 @@ class DataLoader:
         for key, dtype in self.transfer_dtype.items():
             arr = batch.get(key)
             # floating only: integer class-index labels must ship untouched
-            if (arr is not None and dtype is not None and arr.dtype != dtype
-                    and np.issubdtype(arr.dtype, np.floating)):
-                batch[key] = arr.astype(dtype)
+            if arr is None or dtype is None or not np.issubdtype(arr.dtype, np.floating):
+                continue
+            batch[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(dtype)
         return batch
 
     def set_epoch(self, epoch: int) -> None:
@@ -165,7 +175,13 @@ class DataLoader:
         thread.start()
         try:
             while True:
-                kind, payload = out_q.get()
+                try:
+                    kind, payload = out_q.get(timeout=_POLL_SECONDS)
+                except queue.Empty:
+                    # a producer that died without a message must not hang us
+                    if not thread.is_alive() and out_q.empty():
+                        raise RuntimeError("the loader's producer ended without a batch")
+                    continue
                 if kind == "done":
                     break
                 if kind == "error":
@@ -192,7 +208,8 @@ def build_loader(dataset, batch_size: int = 1, shuffle: bool = False,
                  prefetch_factor: int = 2, seed: int = 0,
                  transfer_dtype=None, collate=None) -> DataLoader:
     """Factory with the reference's DataLoader kwarg surface; ``pin_memory`` is
-    accepted for parity.
+    accepted for parity (``data/prefetch.py`` always copies through pinned
+    memory).
     ``collate`` may be a callable or a registered name (collate_flatten /
     collate_5d_flatten, `training_utils.py:230-240`)."""
     del pin_memory

@@ -79,9 +79,12 @@ def _dst_voxel_grid(dst_shape, device) -> torch.Tensor:
 
 
 def resample_transform(data, transform, dst_shape, mode: str = "trilinear",
-                       clip_max=None) -> torch.Tensor:
+                       clip_max=None, reflect: bool = False) -> torch.Tensor:
     """Resample with a 4x4 dst-voxel -> src-voxel ``transform``; ``clip_max``
-    (3,) clamps source coordinates to [0, clip_max] per axis."""
+    (3,) clamps source coordinates to [0, clip_max] per axis; ``reflect``
+    mirrors coordinates outside the volume about the border voxel centres
+    (grid_sample's ``reflection`` padding with align_corners, MONAI
+    RandAffined's default)."""
     data = as_tensor(data)
     transform = torch.as_tensor(np.asarray(transform), dtype=torch.float32,
                                 device=data.device)
@@ -90,6 +93,13 @@ def resample_transform(data, transform, dst_shape, mode: str = "trilinear",
     # elementwise multiply-adds, as the JAX package computes them (no matmul)
     coords = torch.stack([rot[i, 0] * grid[0] + rot[i, 1] * grid[1]
                           + rot[i, 2] * grid[2] + trans[i] for i in range(3)])
+    if reflect:
+        # fold c into [0, L] with period 2L: r = L - |mod(c, 2L) - L|
+        last = torch.tensor([max(s - 1, 0) for s in data.shape[-3:]], dtype=torch.float32,
+                            device=data.device)[:, None, None, None]
+        period = torch.clamp(2.0 * last, min=1.0)  # L = 0 axes: coordinates clip to 0
+        coords = last - (torch.remainder(coords, period) - last).abs()
+        coords = torch.minimum(coords.clamp(min=0.0), last)
     if clip_max is not None:
         clip_max = torch.as_tensor(clip_max, dtype=torch.float32, device=data.device)
         coords = torch.minimum(coords.clamp(min=0.0), clip_max[:, None, None, None])

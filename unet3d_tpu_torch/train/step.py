@@ -1,8 +1,9 @@
 """Train and eval steps (counterpart of ``unet3d_tpu/train/step.py``).
 
-A step takes a host batch in the (B, C, D, H, W) layout, moves it to the
-model's device as NDHWC, and returns the loss as a device tensor without
-waiting for it: the training engine reads it one step late.
+A step takes a batch in the (B, C, D, H, W) layout, on the host (numpy or
+tensors) or already on the model's device (``data/prefetch.py``), moves it
+there as NDHWC, and returns the loss as a device tensor without waiting for
+it: the training engine reads it one step late.
 
 bf16 AMP with f32 master weights: the forward runs on bf16 copies of every f32
 parameter (norm scale and bias included, as the JAX step casts the whole
@@ -13,11 +14,11 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
-import numpy as np
 import torch
 from torch.func import functional_call
 
 from unet3d_tpu_torch.predict.volumetric import to_ndhwc
+from unet3d_tpu_torch.utils.device import as_tensor
 
 
 def from_ndhwc(x: torch.Tensor) -> torch.Tensor:
@@ -49,13 +50,12 @@ def _device(model: torch.nn.Module) -> torch.device:
 
 
 def prepare_batch(images, labels, device: torch.device, amp: bool):
-    """Host (B, C, D, H, W) images / labels -> NDHWC device tensors: images
-    in bf16 under ``amp``, else f32; labels in f32."""
-    x = to_ndhwc(torch.as_tensor(np.asarray(images)).to(device))
-    y = torch.as_tensor(np.asarray(labels)).to(device)
-    if y.dim() == 5:
-        y = to_ndhwc(y)
-    return x.to(torch.bfloat16 if amp else torch.float32), y.float()
+    """(B, C, D, H, W) images / labels -> NDHWC tensors on ``device``: images
+    in bf16 under ``amp``, else f32; labels in f32. A batch already on the
+    device in that dtype is taken as it is; casts happen on the device."""
+    x = as_tensor(images).to(device).to(torch.bfloat16 if amp else torch.float32)
+    y = as_tensor(labels).to(device).float()
+    return to_ndhwc(x), (to_ndhwc(y) if y.dim() == 5 else y)
 
 
 def forward_loss(model: torch.nn.Module, criterion: Callable, x: torch.Tensor,

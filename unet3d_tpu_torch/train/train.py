@@ -125,11 +125,17 @@ def run_training(train_step: Callable, eval_step: Optional[Callable],
                  save_last_n_models: Optional[int] = None,
                  scheduler: Optional[Scheduler] = None,
                  samples_per_epoch: Optional[int] = None,
-                 training_iterations_per_epoch: int = 1) -> torch.nn.Module:
+                 training_iterations_per_epoch: int = 1,
+                 save_optimizer: bool = False) -> torch.nn.Module:
     """Train ``model`` (in place, through ``train_step``) for up to
-    ``n_epochs``, resuming after the last epoch of an existing log."""
+    ``n_epochs``, resuming after the last epoch of an existing log.
+    ``save_optimizer`` (the optimizer state kept across a resume) is not
+    ported yet and raises."""
     if str(model_filename).endswith(".orbax"):
         raise NotImplementedError("orbax checkpoints are not ported (see ROADMAP.md)")
+    if save_optimizer:
+        raise NotImplementedError("save_optimizer: the optimizer state on resume is "
+                                  "not ported yet (see ROADMAP.md)")
     training_log: List[List[float]] = []
     if os.path.exists(training_log_filename):
         training_log.extend(read_training_log(training_log_filename))

@@ -102,7 +102,24 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    training samples' host ms by stage (preprocess, augment), each epoch's
    seconds by part (training waits and steps, validation waits, the rest),
    each batch's H2D span on the prefetcher's side stream and one batch's
-   copy alone from pinned memory, and the launches.
+   copy alone from pinned memory, and the launches;
+9. the train CLI again on phase 8's cases and folds, with the options a
+   user sets when a patch does not fit or training resumes: a residual
+   DynUNet (``model.res_block``), ``training.remat``, batches of 2 in 2
+   microbatches (``gradient_accumulation_steps``), DiceFocalLoss, AdamW and
+   ``save_optimizer``; fold 1 for 2 epochs, then ``main`` again with 3,
+   which resumes. Checks: the four training kernels in the wgmma form; each
+   step's ``conv_stats`` and ``block_stats`` launches 2 x 2 times one
+   forward's (forward and recompute, per microbatch); the resume loads the
+   optimizer file the first run wrote, equal to it, and the log ends with 3
+   rows of finite losses; one step's gradients kernels vs the plain path,
+   remat vs none and 2 microbatches vs one batch of 2, each within the
+   phase-5 bounds (1e-3 f32, 2e-2 bf16); the step's peak memory lower with
+   remat, at batch 1 and at 2 in 2; flip TTA (``predictions_with_tta``) on
+   one 128^3 window within relative L2 2e-2 of the mean of the four flipped
+   forwards. Prints the launches, the log, seconds per epoch, the CLI's
+   step ms, the step's ms (CUDA events) and peak memory with and without
+   remat, and a profile of one step each way.
 
 Exits non-zero if any phase fails or there is no CUDA device. The last lines
 are the card, a JSON object of the kernels, and ``{"ok": true, ...}``.
@@ -129,6 +146,7 @@ CONFIG = os.path.join(ROOT, "examples", "brats2020", "brats2020_config.json")
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
 TRAIN_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
+RES_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_train_res")
 # the bf16 form of each kernel on the path (conv3d.cu, s2_wgrad.cu and
 # winograd.cu keep the f32 form and a bf16 WMMA form for channel counts no
 # DynUNet site has)
@@ -211,6 +229,11 @@ GRAD_BOUND_BF16 = 2e-2
 TRAIN_EPOCHS, TRAIN_STEPS = 2, 3
 # phase 8: labelled cases, epochs and cross-validation folds of the train CLI
 TRAIN_CLI_CASES, TRAIN_CLI_EPOCHS, TRAIN_CLI_FOLDS = 4, 2, 2
+# phase 9: the options of the train CLI ported last; 2 epochs, then resumed to 3
+RES_TRAINING = dict(remat=True, gradient_accumulation_steps=2, batch_size=2,
+                    save_optimizer=True)
+RES_EPOCHS = 2
+TTA_BOUND = 2e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -575,17 +598,30 @@ def phase2_winograd(device, gen, report):
 
 
 def plain_block(block, x):
-    """Basic block through F.conv3d and the concat, as the JAX model runs it."""
+    """A basic or residual block through F.conv3d and the concat, as the JAX
+    model runs it: the residual block's norm2 without its activation, plus
+    the identity (projected where the block has conv3), then the activation."""
+    from unet3d_tpu_torch.models.dynunet import UnetResBlock
     from unet3d_tpu_torch.ops.conv3d import conv3d_torch, _pads
     from unet3d_tpu_torch.ops.conv3d_kernel import instance_stats
     from unet3d_tpu_torch.ops.norm import instance_norm_from_stats
     if isinstance(x, tuple):
         x = torch.cat(x, dim=-1)
+    residual = isinstance(block, UnetResBlock)
+    h = x
     for conv, norm in ((block.conv1, block.norm1), (block.conv2, block.norm2)):
-        y = conv3d_torch(x, conv.kernel, conv.strides, _pads("SAME", conv.kernel_size))
-        y = instance_norm_from_stats(y, *instance_stats(y), norm.scale, norm.bias)
-        x = F.leaky_relu(y, 0.01)
-    return x
+        y = conv3d_torch(h, conv.kernel, conv.strides, _pads("SAME", conv.kernel_size))
+        h = instance_norm_from_stats(y, *instance_stats(y), norm.scale, norm.bias)
+        if not (residual and conv is block.conv2):
+            h = F.leaky_relu(h, 0.01)
+    if residual:
+        identity = x
+        if block.project:
+            identity = block.conv3(x)
+            identity = instance_norm_from_stats(identity, *instance_stats(identity),
+                                                block.norm3.scale, block.norm3.bias)
+        h = F.leaky_relu(h + identity, 0.01)
+    return h
 
 
 def plain_forward(net, x):
@@ -1314,8 +1350,270 @@ def phase8_train_cli(device, seed, card):
           f"{h2d_alone_ms:.3f} ({batch_mb / h2d_alone_ms:.1f} GB/s); peak memory "
           f"{peak:.2f} GiB [{card}]", flush=True)
     del model, result
+    for part in ("out", "predict"):  # phase 9 trains on the same cases
+        shutil.rmtree(os.path.join(TRAIN_CLI_DIR, part), ignore_errors=True)
+    return launches, summary, cases
+
+
+def all_grads(model, criterion, x, y, amp, grad_accum=1):
+    """One step's f32 gradients of every parameter (no update)."""
+    from unet3d_tpu_torch.train.step import accumulate_gradients
+    model.zero_grad(set_to_none=True)
+    accumulate_gradients(model, criterion, x, y, amp, grad_accum)
+    grads = [p.grad.detach().clone() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def rel_l2_all(got, want) -> float:
+    """Relative L2 of one set of tensors against another, over all of them."""
+    diff = sum(float((a - b).float().square().sum()) for a, b in zip(got, want))
+    return (diff / sum(float(b.float().square().sum()) for b in want)) ** 0.5
+
+
+def phase9_train_cli_res(device, seed, card, cases):
+    """The train CLI with the options ported last, on phase 8's cases: the
+    BraTS config with a residual DynUNet, remat, batches of 2 in 2
+    microbatches, DiceFocalLoss, AdamW and the optimizer state saved; fold 1
+    for 2 epochs, then ``main`` again with 3 epochs, which resumes. Then, on
+    the trained model, one step's gradients three ways, the step's time and
+    peak memory with and without remat, and flip TTA on one window."""
+    from unet3d_tpu_torch.config.factory import (build_inferer_from_config,
+                                                 load_criterion_from_config)
+    from unet3d_tpu_torch.data.prefetch import DevicePrefetcher
+    from unet3d_tpu_torch.predict.volumetric import make_forward, predictions_with_tta
+    from unet3d_tpu_torch.scripts import train as train_cli
+    from unet3d_tpu_torch.train import train as engine
+    from unet3d_tpu_torch.train.checkpoint import opt_state_arrays
+    from unet3d_tpu_torch.train.step import make_train_step, prepare_batch
+    from unet3d_tpu_torch.train.train import read_training_log
+    from unet3d_tpu_torch.utils.config import dump_json, load_json
+
+    shutil.rmtree(RES_CLI_DIR, ignore_errors=True)
+    os.makedirs(RES_CLI_DIR)
+    config = load_json(CONFIG)
+    config["model"]["res_block"] = True
+    config["training"].update(RES_TRAINING, n_epochs=RES_EPOCHS)
+    config["loss"] = {"name": "DiceFocalLoss", "sigmoid": True}
+    config["optimizer"] = {"name": "AdamW", "lr": 1e-3}
+    config["training_filenames"] = cases
+    config["cross_validation"]["folds"] = TRAIN_CLI_FOLDS
+    del config["bratsvalidation_filenames"]
+    config_file = os.path.join(RES_CLI_DIR, "brats2020_res.json")
+    dump_json(config, config_file)
+    work = os.path.join(RES_CLI_DIR, "out", "brats2020_res")
+    train_cli.main(["--config_filename", config_file, "--output_dir",
+                    os.path.dirname(work), "--setup_crossval_only"])
+    fold_file, fold_dir = os.path.join(work, "fold1.json"), os.path.join(work, "fold1")
+    grad_accum = RES_TRAINING["gradient_accumulation_steps"]
+    print(f"train CLI, residual DynUNet: {json.dumps(RES_TRAINING)}, DiceFocalLoss, "
+          f"AdamW; fold 1, {RES_EPOCHS} epochs, then resumed to {RES_EPOCHS + 1}", flush=True)
+
+    runs, loads, epochs = [], [], []
+
+    class EpochPrefetcher(DevicePrefetcher):
+        def set_epoch(self, epoch):
+            epochs.append((len(runs), epoch, time.perf_counter()))
+            super().set_epoch(epoch)
+
+    real_run_training, real_load = train_cli.run_training, engine.load_opt_state
+
+    def timed_run_training(train_step, *args, **kwargs):
+        steps = []
+
+        def step(images, labels):
+            before = launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = train_step(images, labels)
+            end.record()
+            after = launch_counts()
+            steps.append(dict(shape=tuple(images.shape), events=(start, end),
+                              launches={k: after[k] - before[k] for k in after}))
+            return loss
+
+        torch.cuda.synchronize()
+        reset_launches()
+        model = real_run_training(step, *args, **kwargs)
+        torch.cuda.synchronize()
+        runs.append(dict(end=time.perf_counter(), steps=steps, launches=launch_counts(),
+                         forms=dict(form_launches()), model=model))
+        return model
+
+    def recorded_load(optimizer, names, filename):
+        real_load(optimizer, names, filename)
+        loads.append((filename, opt_state_arrays(optimizer, names)))
+
+    train_cli.run_training, engine.load_opt_state = timed_run_training, recorded_load
+    train_cli.DevicePrefetcher = EpochPrefetcher
+    optimizer_file = os.path.join(fold_dir, "model_optimizer.npz")
+    try:
+        t0 = time.perf_counter()
+        result = train_cli.main(["--config_filename", fold_file, "--output_dir", work])
+        first_s = time.perf_counter() - t0
+        with np.load(optimizer_file) as data:
+            saved = {k: data[k] for k in data.files}
+        fold = load_json(fold_file)
+        fold["training"]["n_epochs"] = RES_EPOCHS + 1
+        dump_json(fold, fold_file)
+        t0 = time.perf_counter()
+        resumed = train_cli.main(["--config_filename", fold_file, "--output_dir", work])
+        resume_s = time.perf_counter() - t0
+    finally:
+        train_cli.run_training, engine.load_opt_state = real_run_training, real_load
+        train_cli.DevicePrefetcher = DevicePrefetcher
+
+    # launches: all four training kernels, wgmma only, in both runs
+    for i, run in enumerate(runs):
+        forms = {f"{v}/{f}": n for (v, f), n in sorted(run["forms"].items())}
+        print(f"train CLI res+remat run {i + 1}: launches {run['launches']}; by form {forms}",
+              flush=True)
+        for kernel in TRAIN_KERNELS:
+            check(run["forms"].get((kernel, "wgmma"), 0) > 0,
+                  f"res+remat run {i + 1}: kernel {kernel} not launched in the wgmma form")
+        off = {k: n for k, n in run["forms"].items() if k[1] != "wgmma"}
+        check(not off, f"res+remat run {i + 1}: bf16 sites off the wgmma form: {off}")
+    # under remat each microbatch runs the stats kernels twice: forward and recompute
+    model = resumed["model"]
+    check(model.remat and type(model.input_block).__name__ == "UnetResBlock",
+          "the CLI did not build the residual remat model")
+    shape = tuple(config["dataset"]["desired_shape"])
+    forward = make_forward(model, amp=True)
+    window = torch.randn(1, *shape, 4, device=device,
+                         generator=torch.Generator(device=device).manual_seed(seed + 9))
+    reset_launches()
+    forward(window)
+    torch.cuda.synchronize()
+    per_forward = {k: launch_counts()[k] for k in ("conv_stats", "block_stats")}
+    steps = [st for run in runs for st in run["steps"]]
+    for st in steps:
+        want = {k: 2 * grad_accum * n for k, n in per_forward.items()}
+        got = {k: st["launches"][k] for k in per_forward}
+        check(st["shape"][0] == RES_TRAINING["batch_size"], f"step batch {st['shape']}")
+        check(got == want, f"res+remat step launches {got}: expected 2 x {grad_accum} "
+              f"microbatches x the forward's {per_forward}")
+    print(f"res+remat: one forward launches {per_forward}; each training step (batch "
+          f"{RES_TRAINING['batch_size']}, {grad_accum} microbatches) "
+          f"{[{k: st['launches'][k] for k in TRAIN_KERNELS} for st in steps]}", flush=True)
+
+    # the resume read the optimizer file written by the first run, as written
+    check(len(loads) == 1 and loads[0][0] == optimizer_file,
+          f"the resume loaded {[f for f, _ in loads]}")
+    loaded = loads[0][1]
+    same = loaded.keys() == saved.keys() and all(
+        np.array_equal(loaded[k], saved[k]) for k in saved)
+    print(f"resume: loaded {os.path.basename(optimizer_file)} ({len(saved)} leaves, count "
+          f"{int(saved['.count'])}); equal to the saved state: {same}", flush=True)
+    check(same, "the optimizer state the resume loaded differs from the saved one")
+    with np.load(optimizer_file) as data:
+        check(int(data[".count"]) == RES_EPOCHS + 1, f"final update count {int(data['.count'])}")
+    rows = read_training_log(os.path.join(fold_dir, "training_log.csv"))
+    print(f"res+remat training_log.csv: {rows}", flush=True)
+    check(len(rows) == RES_EPOCHS + 1 and [r[0] for r in rows] == [1, 2, 3],
+          f"resumed log has rows {[r[0] for r in rows]}")
+    check(all(np.isfinite(r[1]) and np.isfinite(r[3]) for r in rows),
+          f"non-finite losses in the resumed log {rows}")
+    step_ms_cli = [st["events"][0].elapsed_time(st["events"][1]) for st in steps]
+    ends = {i: run["end"] for i, run in enumerate(runs)}
+    epoch_s = []
+    for j, (run_i, epoch, t) in enumerate(epochs):
+        nxt = epochs[j + 1] if j + 1 < len(epochs) else None
+        stop = nxt[2] if nxt is not None and nxt[0] == run_i else ends[run_i]
+        epoch_s.append((epoch, stop - t))
+    print(f"train CLI res+remat: main {first_s:.3f} s ({RES_EPOCHS} epochs), resumed main "
+          f"{resume_s:.3f} s (1 epoch); seconds per epoch "
+          f"{[(e, round(v, 3)) for e, v in epoch_s]}; step ms "
+          f"{[round(v, 3) for v in step_ms_cli]} [{card}]", flush=True)
+    del result, resumed
+
+    # one step's gradients: kernels vs the plain path, remat vs none, 2
+    # microbatches vs one batch of 2
+    criterion = load_criterion_from_config(config)
+    rng = np.random.RandomState(seed + 11)
+    images = rng.randn(2, 4, *shape).astype(np.float32)
+    labels = (rng.rand(2, 3, *shape) > 0.5).astype(np.float32)
+    grads = {}
+    for name, amp, bound in (("f32", False, GRAD_BOUND_F32), ("bf16", True, GRAD_BOUND_BF16)):
+        x, y = prepare_batch(images, labels, device, amp)
+        rel, worst, worst_name = grad_rel_l2(model, criterion, x[:1], y[:1], amp)
+        remat = all_grads(model, criterion, x[:1], y[:1], amp)
+        model.remat = False
+        plain = all_grads(model, criterion, x[:1], y[:1], amp)
+        model.remat = True
+        accum = all_grads(model, criterion, x, y, amp, grad_accum)
+        whole = all_grads(model, criterion, x, y, amp, 1)
+        grads[name] = dict(kernels_vs_plain=rel, remat_vs_none=rel_l2_all(remat, plain),
+                           accum_vs_batch=rel_l2_all(accum, whole))
+        print(f"res+remat gradients {name}: kernels vs plain path rel L2 {rel:.3e} (worst "
+              f"{worst_name} {worst:.3e}); remat vs no remat "
+              f"{grads[name]['remat_vs_none']:.3e}; {grad_accum} microbatches vs one batch "
+              f"of 2 {grads[name]['accum_vs_batch']:.3e}", flush=True)
+        for what, value in grads[name].items():
+            check(value < bound, f"res+remat gradients {name} {what} {value:.3e} > {bound}")
+        del x, y, remat, plain, accum, whole
+    torch.cuda.empty_cache()
+
+    # the step's time and peak memory, with and without remat, at batch 1 and
+    # at the CLI's batch of 2 in 2 microbatches
+    cases_ms = {}
+    peaks = {}
+    order = [(1, 1, False), (1, 1, True), (2, grad_accum, False), (2, grad_accum, True)]
+    for batch, accum, remat in order + order[::-1]:
+        model.remat = remat
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-6)
+        one_step = make_train_step(model, criterion, opt, amp=True, grad_accum=accum)
+        one_step(images[:batch], labels[:batch])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        key = f"batch {batch} x{accum} remat {remat}"
+        cases_ms.setdefault(key, []).append(step_ms(one_step, images[:batch], labels[:batch]))
+        peaks[key] = torch.cuda.max_memory_allocated() / 2**30
+        del opt, one_step
+        torch.cuda.empty_cache()
+    profiles = {}
+    for remat in (False, True):
+        model.remat = remat
+        one_step = make_train_step(model, criterion, torch.optim.AdamW(model.parameters(),
+                                                                       lr=1e-6),
+                                   amp=True, grad_accum=grad_accum)
+        profiles[f"remat {remat}"] = profile_device(
+            lambda: one_step(images, labels),
+            f"one bf16 train step, batch 2 in {grad_accum} microbatches, remat {remat}", card)
+        del one_step
+    model.remat = True
+    print(f"res train step ms (CUDA events, 5 steps after 2, two turns): "
+          f"{json.dumps(cases_ms)}; peak memory GiB {json.dumps(peaks)} [{card}]", flush=True)
+    for batch, accum in ((1, 1), (2, grad_accum)):
+        on, off = (peaks[f"batch {batch} x{accum} remat {r}"] for r in (True, False))
+        check(on < off, f"batch {batch} x{accum}: remat's peak {on:.2f} GiB is not below "
+              f"{off:.2f} GiB without it")
+
+    # flip TTA on one window through the config's inferer
+    inferer = build_inferer_from_config(config)
+    with torch.no_grad():
+        got = predictions_with_tta(model, window, inferer=inferer, forward=forward)
+        runs_tta = [inferer(window, forward)]
+        for axis in (1, 2, 3):
+            runs_tta.append(torch.flip(inferer(torch.flip(window, dims=(axis,)), forward),
+                                       dims=(axis,)))
+        want = torch.stack(runs_tta).mean(0)
+    tta_rel = float((got - want).norm() / want.norm())
+    print(f"flip TTA on one {shape} window, bf16: rel L2 {tta_rel:.3e} against the mean of "
+          f"the four flipped forwards; {tuple(got.shape)}, finite "
+          f"{bool(torch.isfinite(got).all())}", flush=True)
+    check(got.shape == (1, *shape, 3) and bool(torch.isfinite(got).all()),
+          "flip TTA output")
+    check(tta_rel < TTA_BOUND, f"flip TTA rel L2 {tta_rel:.3e} > {TTA_BOUND}")
+    del model, forward, window, got, want, runs_tta
+    torch.cuda.empty_cache()
+    shutil.rmtree(RES_CLI_DIR, ignore_errors=True)
     shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
-    return launches, summary
+    return runs[0]["launches"], dict(
+        per_forward=per_forward, step_launches=[st["launches"] for st in steps],
+        step_ms_cli=step_ms_cli, epoch_s=epoch_s, main_s=[first_s, resume_s],
+        log=[list(map(float, r)) for r in rows], grad_rel_l2=grads, step_ms=cases_ms,
+        peak_gib=peaks, profile=profiles, tta_rel_l2=tta_rel)
 
 
 def main() -> int:
@@ -1360,23 +1658,30 @@ def main() -> int:
     # phase 7
     strategy_launches, strategy = phase7_strategy_step(device, args.seed, card)
     # phase 8
-    train_cli_launches, train_cli = phase8_train_cli(device, args.seed, card)
+    train_cli_launches, train_cli, cases = phase8_train_cli(device, args.seed, card)
+    torch.cuda.empty_cache()
+    # phase 9
+    res_launches, res = phase9_train_cli_res(device, args.seed, card, cases)
     check(not any(m in sys.modules for m in ("jax", "unet3d_tpu")),
           "the port imported jax")
     # launches: the training path's (phase 5; phase 7 for the Winograd
     # variants, which run only under the strategy); launches_predict: the
     # prediction path's (phase 3; the CLI under the strategy for Winograd);
-    # launches_train_cli: the train CLI's training (phase 8)
+    # launches_train_cli: the train CLI's training (phase 8);
+    # launches_train_cli_res_remat: its first run with the residual DynUNet,
+    # remat and 2 microbatches (phase 9)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": v, "route": "cuda", "source": SOURCES[v],
                 "replaces": REPLACES[v], "launches": train_launches[v],
                 "launches_predict": launches[v], "launches_train_cli": train_cli_launches[v],
+                "launches_train_cli_res_remat": res_launches[v],
                 **{k: report[v][k] for k in keys}}
                for v in TRAIN_KERNELS]
     kernels += [{"name": v, "route": "cuda", "source": SOURCES[v],
                  "replaces": REPLACES[v], "launches": strategy_launches[v],
                  "launches_predict": cli_launches["winograd"][v],
                  "launches_train_cli": train_cli_launches[v],
+                 "launches_train_cli_res_remat": res_launches[v],
                  **{k: report[v][k] for k in keys}, "direct_ms": report[v]["direct_ms"]}
                 for v in STRATEGY_KERNELS]
     print(f"seconds per case: {json.dumps(seconds)} [{card}]")
@@ -1385,6 +1690,7 @@ def main() -> int:
     print(f"cli: {json.dumps(cli)} [{card}]")
     print(f"strategy train step: {json.dumps(strategy)} [{card}]")
     print(f"train cli: {json.dumps(train_cli)} [{card}]")
+    print(f"train cli res remat: {json.dumps(res)} [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -302,10 +302,13 @@ def test_deep_supervision_weighting_matches_jax():
 
 
 def test_unported_names_raise():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        losses.load_criterion("FocalLoss")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        optim.build_optimizer("RMSprop", [torch.zeros(1, requires_grad=True)])
+    """Every loss and optimizer name of the JAX package is ported
+    (tests/test_torch_losses.py, tests/test_torch_optim.py); unknown names
+    raise as in JAX, and orbax checkpoints are still not ported."""
+    with pytest.raises(ValueError, match="not supported"):
+        losses.load_criterion("NoSuchLoss")
+    with pytest.raises(ValueError, match="not supported"):
+        optim.build_optimizer("LBFGS", [torch.zeros(1, requires_grad=True)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         save_checkpoint(torch.nn.Linear(1, 1), "model.orbax")
 

@@ -214,12 +214,19 @@ def model_input_shape_from_config(config, default_shape=(64, 64, 64)):
 
 def build_or_load_model_from_config(config, model_filename: Optional[str],
                                     device: torch.device, strict: bool = True,
-                                    seed: int = 0) -> torch.nn.Module:
-    """Create the configured model, initialise it from a ``torch.Generator``
-    seeded with ``seed``, load ``model_filename`` (a JAX ``.npz``) when it
-    exists, and return it on ``device`` in eval mode."""
+                                    seed: int = 0, remat: bool = False) -> torch.nn.Module:
+    """Create the configured model (with per-block ``remat``), initialise it
+    from a ``torch.Generator`` seeded with ``seed``, load ``model_filename``
+    (a JAX ``.npz``) when it exists, and return it on ``device`` in eval
+    mode. ``strict`` False is the JAX package's flexible load: tensors of
+    other shapes are tiled and truncated onto the model's
+    (``convert.load_jax_variables``), as the train CLI loads a pretrained
+    checkpoint."""
     model_cfg = config["model"]
-    model = create_model(model_cfg["name"], **get_kwargs(model_cfg))
+    kwargs = get_kwargs(model_cfg)
+    if remat:
+        kwargs["remat"] = True
+    model = create_model(model_cfg["name"], **kwargs)
     init_parameters(model, torch.Generator().manual_seed(seed))
     if model_filename and os.path.exists(model_filename):
         logging.info("Loading model weights from %s (strict=%s)", model_filename, strict)

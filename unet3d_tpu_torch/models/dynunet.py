@@ -16,6 +16,15 @@ materialised activation (``ops/conv3d``). The gradient of the folded affine
 reaches norm1's scale / bias and conv1's statistics through autograd of
 ``fold_in_affine``: the derived instance-norm gradient the JAX model uses by
 default.
+
+``res_block`` builds ``UnetResBlock`` for the down and bottleneck blocks: the
+same fused conv1 / conv2 pair, norm2 without its activation, and a projected
+identity (1x1x1 conv and a plain instance norm) where the channels or the
+stride change. ``remat`` recomputes each down, bottleneck and up block in the
+backward pass from its input (``torch.utils.checkpoint``, the JAX model's
+per-block ``nn.remat``): the block's parameters enter the checkpointed
+function as inputs, so a recompute under the train step's bf16 parameter
+copies runs on those copies, not on the f32 masters it finds on the module.
 """
 from __future__ import annotations
 
@@ -24,10 +33,13 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from unet3d_tpu_torch.models.layers import (FastConv, PointwiseConv, _triple,
                                             transposed_conv)
 from unet3d_tpu_torch.ops.conv3d import conv3d_block_with_stats
+from unet3d_tpu_torch.ops.conv3d_kernel import instance_stats
 from unet3d_tpu_torch.ops.interpolate import resize_ndhwc
 from unet3d_tpu_torch.ops.norm import fold_in_affine, instance_norm_from_stats
 
@@ -65,12 +77,45 @@ class UnetBasicBlock(nn.Module):
         self.conv2 = FastConv(out_channels, out_channels, k, use_bias=False)
         self.norm2 = _StatsInstanceNorm(out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _conv_pair(self, x: torch.Tensor) -> torch.Tensor:
+        """conv1 -> IN1 -> lrelu -> conv2 -> IN2, the first activation applied
+        in conv2's prologue."""
         y1, s1, s2 = self.conv1(x)
         inv, shift = self.norm1.fold(s1, s2, y1.shape[1] * y1.shape[2] * y1.shape[3])
         y2, t1, t2 = conv3d_block_with_stats(
             y1, self.conv2.kernel.to(y1.dtype), inv, shift, _ALPHA)
-        return F.leaky_relu(self.norm2(y2, t1, t2), _ALPHA)
+        return self.norm2(y2, t1, t2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(self._conv_pair(x), _ALPHA)
+
+
+class UnetResBlock(UnetBasicBlock):
+    """The basic block's conv pair with norm2 left without its activation,
+    plus the identity, projected where the channels or the stride change by
+    a 1x1x1 conv and an instance norm of its output's plain statistics (the
+    JAX block's Flax ``GroupNorm``, one channel per group):
+    ``lrelu(IN2(conv2(...)) + identity)``."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: IntsOrSeq = 3, stride: IntsOrSeq = 1):
+        super().__init__(in_channels, out_channels, kernel_size, stride)
+        stride = _triple(stride)
+        self.project = in_channels != out_channels or stride != (1, 1, 1)
+        if self.project:
+            # a 1x1x1 conv's "SAME" pads are 0: the JAX block's VALID
+            self.conv3 = (PointwiseConv(in_channels, out_channels, use_bias=False)
+                          if stride == (1, 1, 1) else
+                          FastConv(in_channels, out_channels, (1, 1, 1), stride,
+                                   use_bias=False))
+            self.norm3 = _StatsInstanceNorm(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x
+        if self.project:
+            identity = self.conv3(x)
+            identity = self.norm3(identity, *instance_stats(identity))
+        return F.leaky_relu(self._conv_pair(x) + identity, _ALPHA)
 
 
 class UnetUpBlock(nn.Module):
@@ -105,21 +150,19 @@ class DynUNet(nn.Module):
         super().__init__()
         if spatial_dims != 3:
             raise NotImplementedError("DynUNet is 3D")
-        if res_block or remat:
-            raise NotImplementedError(
-                "DynUNet res_block / remat are not ported yet (see ROADMAP.md)")
         n = len(strides)
         if filters is None:
             filters = [min(2 ** (5 + i), 320) for i in range(n)]
         filters = [int(f) for f in filters]
         self.n_levels = n
-        self.input_block = UnetBasicBlock(in_channels, filters[0], kernel_size[0],
-                                          strides[0])
+        self.remat = remat
+        block = UnetResBlock if res_block else UnetBasicBlock
+        self.input_block = block(in_channels, filters[0], kernel_size[0], strides[0])
         for i in range(1, n - 1):
-            self.add_module(f"downsample{i - 1}", UnetBasicBlock(
+            self.add_module(f"downsample{i - 1}", block(
                 filters[i - 1], filters[i], kernel_size[i], strides[i]))
-        self.bottleneck = UnetBasicBlock(filters[n - 2], filters[n - 1],
-                                         kernel_size[n - 1], strides[n - 1])
+        self.bottleneck = block(filters[n - 2], filters[n - 1],
+                                kernel_size[n - 1], strides[n - 1])
         for i in range(n - 2, -1, -1):
             self.add_module(f"upsample{n - 2 - i}", UnetUpBlock(
                 filters[i + 1], filters[i], kernel_size[i + 1],
@@ -131,17 +174,34 @@ class DynUNet(nn.Module):
         self.deep_supervision = deep_supervision
         self.deep_supr_num = deep_supr_num
 
+    def _block(self, name: str, *inputs: torch.Tensor) -> torch.Tensor:
+        """Block ``name`` on ``inputs``; under ``remat`` with gradients on, a
+        checkpoint that keeps only the inputs and recomputes the rest in the
+        backward pass."""
+        block = getattr(self, name)
+        if not (self.remat and torch.is_grad_enabled()):
+            return block(*inputs)
+        names, params = zip(*block.named_parameters())
+        n_in = len(inputs)
+
+        def run(*args):
+            return functional_call(block, dict(zip(names, args[n_in:])), args[:n_in])
+
+        # the block draws no random numbers: no RNG state to stash
+        return checkpoint(run, *inputs, *params, use_reentrant=False,
+                          preserve_rng_state=False)
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """NDHWC logits; with deep supervision and ``train``, the output and
         the heads (nearest-upsampled to full size) stacked on axis 1."""
         n = self.n_levels
-        skips = [self.input_block(x)]
+        skips = [self._block("input_block", x)]
         for i in range(1, n - 1):
-            skips.append(getattr(self, f"downsample{i - 1}")(skips[-1]))
-        x = self.bottleneck(skips[-1])
+            skips.append(self._block(f"downsample{i - 1}", skips[-1]))
+        x = self._block("bottleneck", skips[-1])
         heads = []
         for i in range(n - 2, -1, -1):
-            x = getattr(self, f"upsample{n - 2 - i}")(x, skips[i])
+            x = self._block(f"upsample{n - 2 - i}", x, skips[i])
             if self.deep_supervision and train and 0 < i <= self.deep_supr_num:
                 heads.append(getattr(self, f"deep_supervision_head{i}")(x))
         out = self.output_block(x)

@@ -104,3 +104,32 @@ def one_hot_to_label_map(one_hot, labels: Labels, threshold: float = 0.5,
         return torch.stack(label_maps)
     mask = mask_encoding(one_hot, len(labels), threshold, sum_then_threshold)
     return _assign_labels(one_hot, mask, list(labels), dtype)
+
+
+def binary_erosion_3x3(binary) -> torch.Tensor:
+    """One iteration of 6-connected binary erosion (scipy's default
+    structuring element) over the last three axes, outside the volume false."""
+    b = as_tensor(binary).bool()
+    out = b
+    for axis in range(b.dim() - 3, b.dim()):
+        n = b.shape[axis]
+        edge = torch.zeros_like(b.narrow(axis, 0, 1))
+        forward = torch.cat([b.narrow(axis, 1, n - 1), edge], dim=axis)
+        backward = torch.cat([edge, b.narrow(axis, 0, n - 1)], dim=axis)
+        out = out & forward & backward
+    return out
+
+
+def estimate_binary_contour(binary) -> torch.Tensor:
+    """A mask XOR its erosion: its one-voxel-thick boundary."""
+    b = as_tensor(binary).bool()
+    return b ^ binary_erosion_3x3(b)
+
+
+def add_one_hot_encoding_contours(one_hot) -> torch.Tensor:
+    """Append a contour channel per channel of a channel-first one-hot
+    encoding (doubles the channel count, as the ``add_contours`` option
+    doubles ``n_outputs``)."""
+    one_hot = as_tensor(one_hot)
+    contours = estimate_binary_contour(one_hot > 0)
+    return torch.cat([one_hot, contours.to(one_hot.dtype)], dim=0)

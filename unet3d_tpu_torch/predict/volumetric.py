@@ -191,3 +191,22 @@ def infer_subject_id(filename, all_filenames=None) -> str:
             if len(values) > 1:
                 return part
     return parts[-2] if len(parts) >= 2 else parts[-1]
+
+
+def predictions_with_tta(model: Optional[torch.nn.Module], x_ndhwc: torch.Tensor,
+                         inferer: Optional[Callable] = None,
+                         flip_axes=((1,), (2,), (3,)), amp: bool = False,
+                         forward: Optional[Callable] = None) -> torch.Tensor:
+    """Test-time flip averaging: the prediction of ``x_ndhwc`` and of each
+    flip along ``flip_axes`` (flipped back), averaged. ``forward`` (default
+    ``make_forward(model, amp)``) runs the model, through ``inferer`` when
+    one is given; pass one prebuilt when calling repeatedly."""
+    if forward is None:
+        forward = make_forward(model, amp=amp)
+    run = (lambda z: inferer(z, forward)) if inferer is not None else forward
+    out = run(x_ndhwc)
+    n = 1
+    for axes in flip_axes:
+        out = out + torch.flip(run(torch.flip(x_ndhwc, dims=axes)), dims=axes)
+        n += 1
+    return out / n

@@ -16,9 +16,12 @@ into ``<work dir>/X/`` with the config's inferer and activation.
 The model runs on the first CUDA GPU, which must be an sm_90 card
 (``utils.device.require_cuda``; with none the CLI raises and never falls
 back to the CPU); ``run`` / ``main`` take ``device="cpu"`` to run the plain
-PyTorch path on purpose, as the tests do. Multi-GPU (``--ngpus > 1``,
-``--mesh``), orbax checkpoints, gradient accumulation, ``remat`` and
-``save_optimizer`` are not ported yet and raise.
+PyTorch path on purpose, as the tests do. ``training.remat`` recomputes each
+block in the backward pass, ``training.gradient_accumulation_steps`` splits
+each batch into microbatches with one optimizer update, and
+``training.save_optimizer`` keeps the optimizer state across a resume, as in
+the JAX CLI. Multi-GPU (``--ngpus > 1``, ``--mesh``) and orbax checkpoints
+are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -46,8 +49,8 @@ from unet3d_tpu_torch.data.dataset import load_dataset_class, validate_filenames
 from unet3d_tpu_torch.data.prefetch import DevicePrefetcher
 from unet3d_tpu_torch.predict.volumetric import volumetric_predictions
 from unet3d_tpu_torch.train.optim import get_learning_rate
-from unet3d_tpu_torch.train.step import (forward_loss, make_eval_step, make_train_step,
-                                         prepare_batch)
+from unet3d_tpu_torch.train.step import (accumulate_gradients, make_eval_step,
+                                         make_train_step, prepare_batch)
 from unet3d_tpu_torch.train.train import run_training
 from unet3d_tpu_torch.utils.config import in_config, load_json
 from unet3d_tpu_torch.utils.device import require_cuda
@@ -92,19 +95,20 @@ def _dtype_name(dtype) -> str:
 
 
 def dry_run_step(work_dir, training_loader, model, criterion, amp: bool,
-                 device: torch.device) -> dict:
-    """``--dry_run``: one batch through the real data pipeline, then one
-    forward and backward of the train step at its shapes, the gradients
-    dropped (no optimizer update). Writes ``compile_report.json`` with the
-    JAX CLI's keys that have a meaning here; ``per_device_peak_gib`` is the
-    device's peak allocated memory in the step (CUDA only)."""
+                 device: torch.device, grad_accum: int = 1) -> dict:
+    """``--dry_run``: one batch through the real data pipeline, then the
+    forwards and backwards of the train step at its shapes (``grad_accum``
+    microbatches), the gradients dropped (no optimizer update). Writes
+    ``compile_report.json`` with the JAX CLI's keys that have a meaning
+    here; ``per_device_peak_gib`` is the device's peak allocated memory in
+    the step (CUDA only)."""
     batch = next(iter(training_loader))
     images, labels = batch["image"], batch["label"]
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     x, y = prepare_batch(images, labels, device, amp)
-    forward_loss(model, criterion, x, y, amp).backward()
+    accumulate_gradients(model, criterion, x, y, amp, grad_accum)
     model.zero_grad(set_to_none=True)
     report = {
         "backend": device.type,
@@ -112,7 +116,7 @@ def dry_run_step(work_dir, training_loader, model, criterion, amp: bool,
         "images": [[int(s) for s in images.shape], _dtype_name(images.dtype)],
         "labels": [[int(s) for s in labels.shape], _dtype_name(labels.dtype)],
         "amp": bool(amp),
-        "gradient_accumulation_steps": 1,
+        "gradient_accumulation_steps": int(grad_accum),
     }
     if cuda:
         torch.cuda.synchronize(device)
@@ -136,11 +140,27 @@ def _refuse_unported(config, system_config) -> None:
     if in_config("checkpoint_backend", training, "npz") == "orbax":
         raise NotImplementedError("checkpoint_backend 'orbax' is not ported yet "
                                   "(see ROADMAP.md)")
-    if int(in_config("gradient_accumulation_steps", training, 1)) > 1:
-        raise NotImplementedError("gradient_accumulation_steps > 1 is not ported yet "
-                                  "(see ROADMAP.md)")
-    if in_config("remat", training, False):
-        raise NotImplementedError("training.remat is not ported yet (see ROADMAP.md)")
+
+
+def check_gradient_accumulation(criterion, grad_accum: int) -> None:
+    """The JAX CLI's checks: averaging microbatch losses and gradients
+    equals the full-batch step only for a mean-reduced criterion that
+    decomposes per sample, so a ``batch=True`` criterion raises and another
+    reduction warns."""
+    if grad_accum <= 1:
+        return
+    if getattr(criterion, "batch", False):
+        raise ValueError(
+            "gradient_accumulation_steps > 1 is incompatible with a "
+            "batch=True criterion: the loss couples samples across the "
+            "batch axis, so microbatched accumulation changes the "
+            "training objective. Set batch=False or disable accumulation.")
+    if getattr(criterion, "reduction", "mean") != "mean":
+        warnings.warn(RuntimeWarning(
+            "gradient_accumulation_steps > 1 with reduction="
+            f"'{criterion.reduction}': accumulated microbatch losses are "
+            "averaged, which only matches the full-batch step for "
+            "reduction='mean'."))
 
 
 def run(config_filename, output_dir, namespace, device=None):
@@ -209,24 +229,28 @@ def run(config_filename, output_dir, namespace, device=None):
 
     pretrained = namespace.pretrained_model_filename
     pretrained = os.path.abspath(pretrained) if pretrained else model_filename
-    model = build_or_load_model_from_config(config, pretrained, device, strict=False)
+    training = config["training"]
+    model = build_or_load_model_from_config(config, pretrained, device, strict=False,
+                                            remat=bool(in_config("remat", training, False)))
     criterion = load_criterion_from_config(config)
     optimizer = build_optimizer_from_config(config, model.parameters())
     scheduler = build_scheduler_from_config(config, get_learning_rate(optimizer))
     inferer = build_inferer_from_config(config) if "inference" in config else None
-    amp = bool(in_config("amp", config["training"], False))
+    amp = bool(in_config("amp", training, False))
+    grad_accum = int(in_config("gradient_accumulation_steps", training, 1))
+    check_gradient_accumulation(criterion, grad_accum)
 
     if namespace.dry_run:
-        return dry_run_step(work_dir, training_loader, model, criterion, amp, device)
+        return dry_run_step(work_dir, training_loader, model, criterion, amp, device,
+                            grad_accum)
 
     # batch i + 1 is prepared and copied to the device while step i runs
     training_loader = DevicePrefetcher(training_loader, device)
     if validation_loader is not None:
         validation_loader = DevicePrefetcher(validation_loader, device)
 
-    training = config["training"]
     run_training(
-        make_train_step(model, criterion, optimizer, amp=amp),
+        make_train_step(model, criterion, optimizer, amp=amp, grad_accum=grad_accum),
         make_eval_step(model, criterion, inferer=inferer, amp=amp), model, optimizer,
         n_epochs=in_config("n_epochs", training, 1000),
         training_loader=training_loader, validation_loader=validation_loader,

@@ -1,9 +1,14 @@
 """Progress meters: wall-clock tracing of the training loop.
 
 Counterpart of ``unet3d_tpu/train/meters.py``; ``device_memory_stats`` reads
-``torch.cuda.memory_stats``.
+``torch.cuda.memory_stats``, and ``profiler_trace`` records a
+``torch.profiler`` trace (host and CUDA activity) where the JAX package
+records a ``jax.profiler`` one.
 """
 from __future__ import annotations
+
+import contextlib
+import os
 
 import torch
 
@@ -77,3 +82,27 @@ def device_memory_stats() -> dict:
         }
     return stats
 
+
+
+def print_device_memory() -> None:
+    for device, s in device_memory_stats().items():
+        print(f"{device}: {s['bytes_in_use']} / {s['bytes_limit']} "
+              f"(peak {s['peak_bytes_in_use']})", flush=True)
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str = None):
+    """A ``torch.profiler`` trace of the block, written to ``log_dir`` as a
+    Chrome trace (``trace.json``; the CUDA activity where there is a GPU);
+    no trace when ``log_dir`` is None."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

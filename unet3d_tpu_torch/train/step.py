@@ -9,6 +9,11 @@ bf16 AMP with f32 master weights: the forward runs on bf16 copies of every f32
 parameter (norm scale and bias included, as the JAX step casts the whole
 parameter tree), through ``torch.func.functional_call``, so the gradients
 reach the f32 masters through the cast and the optimizer updates those.
+
+``grad_accum`` > 1 splits each batch into that many equal microbatches (the
+JAX step's scan): one forward and backward each, the gradients summed in f32
+in the masters' ``.grad``, divided once by the count, one optimizer update,
+and the loss the mean of the microbatches'.
 """
 from __future__ import annotations
 
@@ -32,17 +37,33 @@ def amp_cast(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             for k, v in params.items()}
 
 
-def compute_criterion(criterion: Callable, output: torch.Tensor,
-                      target: torch.Tensor) -> torch.Tensor:
-    """The loss; a deep-supervision stack (heads on axis 1, one more axis than
-    the target) is weighted 1/2^i, normalised, as nnU-Net does."""
+def compute_criterion(criterion: Callable, output, target: torch.Tensor) -> torch.Tensor:
+    """The loss of ``output`` or of a model's ``(output, *extras)``.
+
+    A ``wants_extras`` criterion (VAELoss) takes the first two extras as
+    ``mu`` / ``logvar``; otherwise every scalar extra is an auxiliary loss
+    term the model computed, added to the criterion's value, and other extras
+    are ignored. A deep-supervision stack (heads on axis 1, one more axis
+    than the target) is weighted 1/2^i, normalised, as nnU-Net does."""
+    extras = ()
+    if isinstance(output, tuple):
+        output, *extras = output
+    if getattr(criterion, "wants_extras", False):
+        if len(extras) >= 2:
+            return criterion(output, target, mu=extras[0], logvar=extras[1])
+        return criterion(output, target)
     if output.dim() == target.dim() + 1:
         n = output.shape[1]
         weights = [0.5 ** i for i in range(n)]
         total = sum(weights)
-        return sum((w / total) * criterion(output[:, i], target)
+        loss = sum((w / total) * criterion(output[:, i], target)
                    for i, w in enumerate(weights))
-    return criterion(output, target)
+    else:
+        loss = criterion(output, target)
+    for e in extras:
+        if isinstance(e, torch.Tensor) and e.dim() == 0:
+            loss = loss + e.to(loss.dtype)
+    return loss
 
 
 def _device(model: torch.nn.Module) -> torch.device:
@@ -70,19 +91,48 @@ def forward_loss(model: torch.nn.Module, criterion: Callable, x: torch.Tensor,
     return compute_criterion(criterion, out, y)
 
 
+def accumulate_gradients(model: torch.nn.Module, criterion: Callable,
+                         x: torch.Tensor, y: torch.Tensor, amp: bool,
+                         grad_accum: int = 1) -> torch.Tensor:
+    """Forward and backward of the batch into the parameters' ``.grad``, in
+    ``grad_accum`` equal microbatches (contiguous slices of the batch axis,
+    as the kernels take them), the gradients summed in f32 and divided once
+    by the count; returns the mean loss, detached."""
+    if grad_accum <= 1:
+        loss = forward_loss(model, criterion, x, y, amp)
+        loss.backward()
+        return loss.detach()
+    n = x.shape[0]
+    if n % grad_accum:
+        raise ValueError(f"batch size {n} is not divisible by "
+                         f"gradient_accumulation_steps={grad_accum}")
+    m = n // grad_accum
+    total = None
+    for i in range(grad_accum):
+        loss = forward_loss(model, criterion, x[i * m:(i + 1) * m],
+                            y[i * m:(i + 1) * m], amp)
+        loss.backward()
+        loss = loss.detach().float()
+        total = loss if total is None else total + loss
+    for p in model.parameters():
+        if p.grad is not None:
+            p.grad.div_(grad_accum)
+    return total / grad_accum
+
+
 def make_train_step(model: torch.nn.Module, criterion: Callable,
-                    optimizer: torch.optim.Optimizer, amp: bool = False) -> Callable:
-    """``step(images, labels) -> loss``: forward, backward, one optimizer
-    update of the (f32) parameters."""
+                    optimizer: torch.optim.Optimizer, amp: bool = False,
+                    grad_accum: int = 1) -> Callable:
+    """``step(images, labels) -> loss``: forward, backward (in ``grad_accum``
+    microbatches), one optimizer update of the (f32) parameters."""
     device = _device(model)
 
     def step(images, labels) -> torch.Tensor:
         x, y = prepare_batch(images, labels, device, amp)
         optimizer.zero_grad(set_to_none=True)
-        loss = forward_loss(model, criterion, x, y, amp)
-        loss.backward()
+        loss = accumulate_gradients(model, criterion, x, y, amp, grad_accum)
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 

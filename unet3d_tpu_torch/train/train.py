@@ -6,7 +6,10 @@ epoch, ``_best`` on improvement, ``_{epoch}`` every N, a rolling window of the
 last N). The steps close over the model and optimizer (``train/step.py``), so
 the engine passes batches, and the scheduler writes each epoch's learning rate
 into the optimizer. Losses are read one step late: the host prepares batch
-i + 1 while the device still runs step i.
+i + 1 while the device still runs step i. ``save_optimizer`` writes the
+optimizer state each epoch in the JAX package's format
+(``model_optimizer.npz``) and restores it on resume, before the scheduler's
+replay.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from unet3d_tpu_torch.train.checkpoint import save_checkpoint
+from unet3d_tpu_torch.train.checkpoint import (load_opt_state, save_checkpoint,
+                                               save_opt_state)
 from unet3d_tpu_torch.train.meters import AverageMeter, ProgressMeter
 from unet3d_tpu_torch.train.optim import (ReduceLROnPlateau, Scheduler,
                                           get_learning_rate, set_learning_rate)
@@ -61,10 +65,19 @@ def append_to_filename(filename: str, what_to_append) -> str:
     return os.path.join(dirname, f"{name}_{what_to_append}.{extension}")
 
 
+FIRST_STEP_HINT = (
+    "The first training step failed to run (input shape {shape}). If this is "
+    "an out-of-memory failure, reduce the dataset 'desired_shape' in "
+    "increments of 16 (keep each dim divisible by 2^#downsample levels), set "
+    "\"remat\": true in the training config to recompute activations in the "
+    "backward pass, or split each batch with \"gradient_accumulation_steps\".")
+
+
 def epoch_training(train_loader, train_step: Callable, epoch: int,
                    samples_per_epoch: Optional[int] = None,
                    print_freq: int = 1) -> float:
-    """One pass over the training loader; returns the mean loss."""
+    """One pass over the training loader; returns the mean loss. A failure
+    of the first step of the first epoch carries the out-of-memory hint."""
     batch_time = AverageMeter("Time", ":6.3f")
     data_time = AverageMeter("Data", ":6.3f")
     losses = AverageMeter("Loss", ":.4e")
@@ -76,7 +89,13 @@ def epoch_training(train_loader, train_step: Callable, epoch: int,
     for i, batch in enumerate(train_loader):
         data_time.update(time.time() - end)
         images = batch["image"]
-        loss = train_step(images, batch["label"])
+        try:
+            loss = train_step(images, batch["label"])
+        except Exception as error:
+            if i == 0 and epoch <= 1:
+                raise RuntimeError(FIRST_STEP_HINT.format(
+                    shape=tuple(images.shape))) from error
+            raise
         if pending is not None:
             losses.update(float(pending[0]), pending[1])
         pending = (loss, images.shape[0])
@@ -128,14 +147,12 @@ def run_training(train_step: Callable, eval_step: Optional[Callable],
                  training_iterations_per_epoch: int = 1,
                  save_optimizer: bool = False) -> torch.nn.Module:
     """Train ``model`` (in place, through ``train_step``) for up to
-    ``n_epochs``, resuming after the last epoch of an existing log.
-    ``save_optimizer`` (the optimizer state kept across a resume) is not
-    ported yet and raises."""
+    ``n_epochs``, resuming after the last epoch of an existing log (with the
+    optimizer state of ``<model>_optimizer.npz`` under ``save_optimizer``)."""
     if str(model_filename).endswith(".orbax"):
         raise NotImplementedError("orbax checkpoints are not ported (see ROADMAP.md)")
-    if save_optimizer:
-        raise NotImplementedError("save_optimizer: the optimizer state on resume is "
-                                  "not ported yet (see ROADMAP.md)")
+    names = [name for name, _ in model.named_parameters()]
+    optimizer_filename = append_to_filename(model_filename, "optimizer")
     training_log: List[List[float]] = []
     if os.path.exists(training_log_filename):
         training_log.extend(read_training_log(training_log_filename))
@@ -143,6 +160,9 @@ def run_training(train_step: Callable, eval_step: Optional[Callable],
     else:
         start_epoch = 1
     metric_col = TRAINING_LOG_HEADER.index(metric_to_monitor)
+
+    if save_optimizer and start_epoch > 1 and os.path.exists(optimizer_filename):
+        load_opt_state(optimizer, names, optimizer_filename)
 
     # fast-forward the scheduler through the logged epochs
     if scheduler is not None and start_epoch > 1:
@@ -191,6 +211,8 @@ def run_training(train_step: Callable, eval_step: Optional[Callable],
             set_learning_rate(optimizer, scheduler.lr)
 
         save_checkpoint(model, model_filename)
+        if save_optimizer:
+            save_opt_state(optimizer, names, optimizer_filename)
         if save_best and min_epoch == len(training_log) - 1:
             forced_copy(model_filename, append_to_filename(model_filename, "best"))
         if save_every_n_epochs and (epoch % save_every_n_epochs) == 0:

@@ -121,6 +121,28 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    step ms, the step's ms (CUDA events) and peak memory with and without
    remat, and a profile of one step each way.
 
+10. the Myronenko family (the BraTS config with its model section replaced
+   by SegResNetVAE at Myronenko's widths, ``SEGRESNET_MODEL``): the conv
+   kernel at SegResNet's new shapes (bf16 at 32 channels, f32 in the
+   decoder) and ``s2_wgrad`` at its new widths, each against its plain
+   version and timed as in phase 2 (f32 bounds at the f32 peak); (a) one
+   128^3 bf16 window forward, eval, kernels against the plain path (every
+   FastConv through ``F.conv3d``) within relative L2 3e-2, the conv's
+   launches 19 in the wgmma form (encoder) and 6 in the fma form (the
+   decoder, which AMP runs in f32 after the trilinear upsample), times and
+   a profile; (b) one bf16 AMP train step at batch 1 (DiceLoss plus the VAE
+   term): ``conv`` 61 (31 forward, 30 input gradients), ``s2_wgrad`` 4, no
+   wmma form, gradients against the plain path within the phase-5 bounds
+   (the noise drawn alike), step ms, peak memory and a profile; (c) the
+   train CLI on phase 8's cases and folds (fold 1, 2 epochs) with that
+   model: finite losses, the checkpoint reloads strictly and equal, the
+   bratsvalidation prediction on the source grid in [0, 1], launches by
+   form, seconds per epoch and step ms; (d) UNet3D at its reference
+   defaults, AutoImplantUNet (``test=True`` through ``make_forward``) and
+   LabeledVariationalAutoEncoder at 128^3: one bf16 window forward and one
+   step's gradients (f32, bf16) against the plain path within the phase-5
+   bounds, with their launches.
+
 Exits non-zero if any phase fails or there is no CUDA device. The last lines
 are the card, a JSON object of the kernels, and ``{"ok": true, ...}``.
 """
@@ -234,6 +256,45 @@ RES_TRAINING = dict(remat=True, gradient_accumulation_steps=2, batch_size=2,
                     save_optimizer=True)
 RES_EPOCHS = 2
 TTA_BOUND = 2e-2
+# phase 10: the Myronenko family. SegResNetVAE as Myronenko's BraTS 2018 net
+# (arXiv:1810.11654 section 2: 32 initial filters, GroupNorm of 8 groups,
+# blocks 1, 2, 2, 4 down and 1, 1, 1 up, a 256-d VAE latent) on the BraTS
+# config's 128^3 patch (the paper crops 160 x 192 x 128)
+SEGRESNET_MODEL = {"name": "SegResNetVAE", "input_image_size": [128, 128, 128],
+                   "init_filters": 32, "in_channels": 4, "out_channels": 3,
+                   "dropout_prob": 0.2, "norm_groups": 8, "blocks_down": [1, 2, 2, 4],
+                   "blocks_up": [1, 1, 1], "upsample_mode": "nontrainable", "vae_nz": 256,
+                   "smallest_filters": 16}
+SEGRESNET_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_segresnet")
+# the other nets of the family at their reference defaults (the reference's
+# UNet3D: base_width 32, blocks 1, 2, 2, 4), each with the BraTS config's
+# DiceLoss (sigmoid): AutoImplantUNet maps a CT channel to itself (its output
+# is y - x); the labelled VAE mirrors its encoder so its segmentation has the
+# input's size, and trains through its sampled latent (the loss ignores mu
+# and logvar; tools/family_grad_conditioning.py measures VAELoss's KL term)
+FAMILY_MODELS = (
+    ("UNet3D", dict(n_features=4, base_width=32, encoder_blocks=[1, 2, 2, 4], n_outputs=3),
+     3),
+    ("AutoImplantUNet", dict(n_features=1, base_width=32, encoder_blocks=[1, 2, 2, 4],
+                             n_outputs=1), 1),
+    ("LabeledVariationalAutoEncoder",
+     dict(n_features=4, base_width=32, encoder_blocks=[1, 2, 2, 4], n_outputs=3,
+          input_shape=[128, 128, 128], decoder_mirrors_encoder=True), 3),
+)
+# (label, spatial, cin, cout, dtype): the conv kernel at SegResNet's new shapes:
+# bf16 (wgmma) at level 0's 32 channels, half of a 64-wide tile, and f32 (the
+# fma form of conv3d.cu) in the decoder, which AMP runs in f32 after the
+# trilinear upsample
+FAMILY_CONV_SHAPES = [
+    ("convInit 4->32 @128^3", 128, 4, 32, torch.bfloat16),
+    ("layer0 32->32 @128^3", 128, 32, 32, torch.bfloat16),
+    ("up2 block 32->32 @128^3", 128, 32, 32, torch.float32),
+    ("up1 block 64->64 @64^3", 64, 64, 64, torch.float32),
+]
+# (label, spatial of x, cin, cout): s2_wgrad at SegResNetVAE's new widths
+FAMILY_S2_SHAPES = [("down1 32->64 @128^3", 128, 32, 64),
+                    ("vae_down_conv 256->16 @16^3", 16, 256, 16)]
+FAMILY_KERNELS = ("conv", "s2_wgrad")
 
 
 class SmokeFailure(RuntimeError):
@@ -320,13 +381,15 @@ def bound_ms(flops: float, nbytes: float, dtype=torch.bfloat16):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def conv_bound(variant, s, cin, cout, products=1.0):
-    """bound_ms of one bf16 3x3x3 conv variant on (1, s, s, s, cin) -> cout."""
+def conv_bound(variant, s, cin, cout, products=1.0, dtype=torch.bfloat16):
+    """bound_ms of one 3x3x3 conv variant on (1, s, s, s, cin) -> cout in
+    ``dtype`` (bf16 by default)."""
     vox = s ** 3
-    nbytes = 2 * (vox * (cin + cout) + 27 * cin * cout)
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * (vox * (cin + cout) + 27 * cin * cout)
     nbytes += 8 * cout if variant in ("conv_stats", "block_stats", "winograd_stats") else 0
     nbytes += 8 * cin if variant == "block_stats" else 0
-    return bound_ms(2.0 * vox * 27 * cin * cout * products, nbytes)
+    return bound_ms(2.0 * vox * 27 * cin * cout * products, nbytes, dtype)
 
 
 def library_conv(x, w):
@@ -1608,12 +1671,410 @@ def phase9_train_cli_res(device, seed, card, cases):
     del model, forward, window, got, want, runs_tta
     torch.cuda.empty_cache()
     shutil.rmtree(RES_CLI_DIR, ignore_errors=True)
-    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
     return runs[0]["launches"], dict(
         per_forward=per_forward, step_launches=[st["launches"] for st in steps],
         step_ms_cli=step_ms_cli, epoch_s=epoch_s, main_s=[first_s, resume_s],
         log=[list(map(float, r)) for r in rows], grad_rel_l2=grads, step_ms=cases_ms,
         peak_gib=peaks, profile=profiles, tta_rel_l2=tta_rel)
+
+
+@contextlib.contextmanager
+def plain_convs():
+    """Inside the block every FastConv (the Myronenko family's convs) runs
+    ``F.conv3d`` with torch autograd: the plain path, no hand kernel."""
+    from unet3d_tpu_torch.models import layers
+    from unet3d_tpu_torch.ops.conv3d import _pads, conv3d_torch
+
+    def plain(x, w, strides=(1, 1, 1), padding="SAME"):
+        return conv3d_torch(x, w, tuple(strides), _pads(padding, w.shape[:3]))
+
+    real, layers.conv3d = layers.conv3d, plain
+    try:
+        yield
+    finally:
+        layers.conv3d = real
+
+
+def phase10_kernels(device, gen):
+    """The conv kernel and s2_wgrad at SegResNet's new shapes against their
+    plain versions, in the form each takes there, timed (device ms) beside
+    the plain composition, one PyTorch call and the bound (f32 at the f32
+    peak outside the tensor cores)."""
+    from unet3d_tpu_torch.ops import conv3d_kernel as K
+    from unet3d_tpu_torch.ops import s2_wgrad_kernel as W
+    from unet3d_tpu_torch.ops.conv3d import conv3d_torch
+
+    rows = []
+    for label, s, cin, cout, dtype in FAMILY_CONV_SHAPES:
+        x = torch.randn(1, s, s, s, cin, device=device, generator=gen).to(dtype)
+        w = (torch.randn(3, 3, 3, cin, cout, device=device, generator=gen)
+             / (27 * cin) ** 0.5).to(dtype)
+        form = K.kernel_form(x, w)
+        got, want = K.conv3x3x3(x, w), K.conv3d_reference(x, w)
+        torch.cuda.synchronize()
+        rel = rel_max(got, want)
+        msg = f"family conv {label:28s} {str(dtype)[6:]:8s} {form:5s} rel {rel:.3e}"
+        check(form == ("wgmma" if dtype == torch.bfloat16 else "fma"), f"{msg}: form")
+        check(rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
+        ms = device_ms(lambda: K.conv3x3x3(x, w))
+        plain_ms = device_ms(lambda: conv3d_torch(x, w, (1, 1, 1), ((1, 1),) * 3))
+        library_ms = device_ms(library_conv(x, w))
+        bms, bound_by = conv_bound("conv", s, cin, cout, dtype=dtype)
+        print(f"{msg} | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d "
+              f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})",
+              flush=True)
+        rows.append(dict(name="conv", shape=label, dtype=str(dtype)[6:], form=form, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
+                         bound_by=bound_by,
+                         max_abs_err=(got.float() - want.float()).abs().max().item()))
+        del x, w, got, want
+    for label, s, cin, cout in FAMILY_S2_SHAPES:
+        x = torch.randn(1, s, s, s, cin, device=device, generator=gen).to(torch.bfloat16)
+        g = torch.randn(1, s // 2, s // 2, s // 2, cout, device=device,
+                        generator=gen).to(torch.bfloat16)
+        form = W.kernel_form(x, g)
+        got, want = W.s2_wgrad(x, g), W.s2_wgrad_reference(x, g)
+        torch.cuda.synchronize()
+        rel = rel_max(got, want)
+        msg = f"family s2_wgrad {label:28s} bfloat16 {form:5s} rel {rel:.3e}"
+        check(form == "wgmma", f"{msg}: form")
+        check(rel < S2_BOUND, f"{msg} > {S2_BOUND}")
+        xn, gn = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+        ms = device_ms(lambda: W.s2_wgrad(x, g))
+        plain_ms = device_ms(lambda: torch.nn.grad.conv3d_weight(
+            xn, (cout, cin, 3, 3, 3), gn, stride=2, padding=1))
+        half = (s // 2) ** 3
+        bms, bound_by = bound_ms(2.0 * half * 27 * cin * cout,
+                                 2 * (s ** 3 * cin + half * cout) + 4 * 27 * cin * cout)
+        print(f"{msg} | kernel {ms:.3f} ms, cuDNN {plain_ms:.3f} ms, bound {bms:.3f} ms "
+              f"({bound_by}, {bms / ms:.1%})", flush=True)
+        # the plain composition is one PyTorch call (cuDNN's dw)
+        rows.append(dict(name="s2_wgrad", shape=label, dtype="bfloat16", form=form, ms=ms,
+                         plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bms,
+                         bound_by=bound_by, max_abs_err=(got - want).abs().max().item()))
+        del x, g, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def forms_of(kernels) -> dict:
+    return {f"{v}/{f}": n for (v, f), n in sorted(form_launches().items()) if v in kernels}
+
+
+def check_family_forms(where: str, wmma_conv: bool = False) -> None:
+    """Under AMP the family's conv launches take the wgmma form (bf16) or
+    the fma form (the f32 decoder), s2_wgrad the wgmma form; the conv's wmma
+    form only where ``wmma_conv`` allows it: in the U-Nets and autoencoders
+    the first conv follows a GroupNorm, so training takes its input
+    gradient, whose n_features outputs are no multiple of 8, and
+    AutoImplantUNet's one-channel input conv is no multiple of 4."""
+    allowed = {("conv", "wgmma"), ("conv", "fma"), ("s2_wgrad", "wgmma")}
+    if wmma_conv:
+        allowed.add(("conv", "wmma"))
+    off = {k: n for k, n in form_launches().items() if k not in allowed}
+    check(not off, f"{where}: launches off the wgmma / fma forms: {off}")
+
+
+def family_grads(model, criterion, x, y, amp, seed):
+    """One step's gradients of every parameter, kernels against the plain
+    path, the noise drawn from generators seeded alike: (relative L2 over
+    all, worst tensor's, its name)."""
+    from unet3d_tpu_torch.train.step import forward_loss, noise_generator
+    names, params = zip(*model.named_parameters())
+
+    def grads():
+        loss = forward_loss(model, criterion, x, y, amp, noise_generator(model, seed))
+        return torch.autograd.grad(loss, params)
+
+    got = grads()
+    with plain_convs():
+        want = grads()
+    diff = sum(float((a - b).float().square().sum()) for a, b in zip(got, want))
+    norm = sum(float(b.float().square().sum()) for b in want)
+    worst = max((float((a - b).float().norm() / b.float().norm()), n)
+                for a, b, n in zip(got, want, names)
+                if float(b.float().norm()) > 1e-6 * norm ** 0.5)
+    return (diff / norm) ** 0.5, worst[0], worst[1]
+
+
+def window_check(model, window, use_test=False):
+    """One bf16 window forward through ``make_forward``, kernels against the
+    plain path: (output, relative L2, launches, forms)."""
+    from unet3d_tpu_torch.predict.volumetric import make_forward
+    forward = make_forward(model, amp=True, use_test=use_test)
+    torch.cuda.synchronize()
+    reset_launches()
+    got = forward(window)
+    torch.cuda.synchronize()
+    launches, forms = launch_counts(), dict(form_launches())
+    with plain_convs():
+        want = forward(window)
+    check(launch_counts() == launches, "the plain path launched a hand kernel")
+    rel = float((got - want).norm() / want.norm())
+    return forward, got, rel, launches, forms
+
+
+def phase10_segresnet(device, seed, card):
+    """SegResNetVAE at Myronenko's widths: (a) one 128^3 bf16 window forward,
+    kernels against the plain path, launches by form, time and profile; (b)
+    one bf16 AMP train step at batch 1 (DiceLoss plus the VAE term):
+    launches, gradients against the plain path, step ms, peak memory,
+    profile."""
+    from unet3d_tpu_torch.config.factory import (build_optimizer_from_config,
+                                                 build_or_load_model_from_config,
+                                                 load_criterion_from_config)
+    from unet3d_tpu_torch.train.step import make_train_step, prepare_batch
+    from unet3d_tpu_torch.utils.config import load_json
+
+    config = load_json(CONFIG)
+    config["model"] = dict(SEGRESNET_MODEL)
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"SegResNetVAE {json.dumps(SEGRESNET_MODEL)}: {n_params} params [{card}]",
+          flush=True)
+    shape = tuple(config["dataset"]["desired_shape"])
+    rng = np.random.RandomState(seed + 20)
+    window = torch.from_numpy(rng.randn(1, *shape, 4).astype(np.float32)).to(device)
+
+    # (a) one window forward, eval: the segmentation alone
+    forward, got, rel, launches, forms = window_check(model, window)
+    check(got.shape == (1, *shape, 3) and bool(torch.isfinite(got).all()),
+          f"SegResNetVAE window output {tuple(got.shape)}")
+    print(f"SegResNetVAE window 128^3 bf16: kernels vs plain path rel L2 {rel:.3e}; "
+          f"launches {launches}; by form {forms_of(FAMILY_KERNELS)}", flush=True)
+    check(rel < L2_BOUND, f"SegResNetVAE window rel L2 {rel:.3e} > {L2_BOUND}")
+    check_family_forms("SegResNetVAE window")
+    window_by_form = forms_of(FAMILY_KERNELS)
+    window_forms = {k: forms.get(k, 0) for k in (("conv", "wgmma"), ("conv", "fma"))}
+    check(window_forms == {("conv", "wgmma"): 19, ("conv", "fma"): 6},
+          f"SegResNetVAE window conv launches by form {window_forms}: expected 19 "
+          "wgmma (encoder) and 6 fma (the f32 decoder)")
+    times = {"plain": [], "kernels": []}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        with plain_convs() if which == "plain" else contextlib.nullcontext():
+            times[which].append(cuda_ms(lambda: forward(window)))
+    window_profile = profile_device(lambda: forward(window),
+                                    "SegResNetVAE one 128^3 window forward", card)
+    print(f"SegResNetVAE window forward 128^3 bf16: kernels {times['kernels']} ms, plain "
+          f"{times['plain']} ms [{card}]", flush=True)
+    del forward, got
+
+    # (b) one bf16 AMP train step at batch 1
+    criterion = load_criterion_from_config(config)
+    images = rng.randn(1, 4, *shape).astype(np.float32)
+    labels = (rng.rand(1, 3, *shape) > 0.5).astype(np.float32)
+    optimizer = build_optimizer_from_config(config, model.parameters())
+    step = make_train_step(model, criterion, optimizer, amp=True, seed=seed)
+    step(images, labels)  # warm-up: cuDNN plans, the allocator
+    torch.cuda.synchronize()
+    reset_launches()
+    loss = float(step(images, labels))
+    torch.cuda.synchronize()
+    step_launches, step_forms = launch_counts(), forms_of(FAMILY_KERNELS)
+    print(f"SegResNetVAE train step: loss {loss:.6f}; launches {step_launches}; by form "
+          f"{step_forms}", flush=True)
+    check(np.isfinite(loss), f"SegResNetVAE train loss {loss}")
+    check_family_forms("SegResNetVAE train step")
+    check(step_launches["s2_wgrad"] == 4,
+          f"s2_wgrad launched {step_launches['s2_wgrad']} times, expected 4 "
+          "(down1..3 and vae_down_conv)")
+    check(step_launches["conv"] == 61,
+          f"conv launched {step_launches['conv']} times, expected 61 (31 forward: 19 bf16 "
+          "and 12 f32 with the VAE replay; 30 input gradients)")
+    grads = {}
+    for name, amp, bound in (("f32", False, GRAD_BOUND_F32), ("bf16", True, GRAD_BOUND_BF16)):
+        x, y = prepare_batch(images, labels, device, amp)
+        grel, worst, worst_name = family_grads(model, criterion, x, y, amp, seed)
+        grads[name] = grel
+        msg = (f"SegResNetVAE gradients {name}, kernels vs plain path: rel L2 {grel:.3e}; "
+               f"worst tensor {worst_name} {worst:.3e}")
+        print(msg, flush=True)
+        check(grel < bound, f"{msg} > {bound}")
+        del x, y
+    torch.cuda.empty_cache()
+    step_times, peaks = {"plain": [], "kernels": []}, {}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        one = make_train_step(model, criterion, torch.optim.Adam(model.parameters(), lr=1e-6),
+                              amp=True, seed=seed)
+        with plain_convs() if which == "plain" else contextlib.nullcontext():
+            torch.cuda.reset_peak_memory_stats()
+            step_times[which].append(step_ms(one, images, labels))
+            peaks[which] = torch.cuda.max_memory_allocated() / 2**30
+    step_profile = profile_device(lambda: step(images, labels),
+                                  "SegResNetVAE one bf16 train step", card)
+    print(f"SegResNetVAE train step (bf16 AMP, batch 1, 128^3): kernels "
+          f"{step_times['kernels']} ms, plain {step_times['plain']} ms; peak memory kernels "
+          f"{peaks['kernels']:.2f} GiB, plain {peaks['plain']:.2f} GiB [{card}]", flush=True)
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+    return step_launches, dict(
+        window_rel_l2=rel, window_launches=launches, window_forms=window_by_form,
+        window_ms=times, window_profile=window_profile, step_loss=loss,
+        step_forms=step_forms, grad_rel_l2=grads, step_ms=step_times, peak_gib=peaks,
+        step_profile=step_profile)
+
+
+def phase10_train_cli(device, seed, card, cases):
+    """The train CLI on phase 8's cases and folds with the BraTS config's
+    model section replaced by SegResNetVAE: fold 1, 2 epochs, its validation
+    and bratsvalidation prediction through the CLI's own code."""
+    from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
+    from unet3d_tpu_torch.convert import load_jax_variables
+    from unet3d_tpu_torch.data import nifti
+    from unet3d_tpu_torch.data.prefetch import DevicePrefetcher
+    from unet3d_tpu_torch.scripts import train as train_cli
+    from unet3d_tpu_torch.train.checkpoint import load_checkpoint
+    from unet3d_tpu_torch.train.train import read_training_log
+    from unet3d_tpu_torch.utils.config import dump_json, load_json
+
+    shutil.rmtree(SEGRESNET_CLI_DIR, ignore_errors=True)
+    os.makedirs(SEGRESNET_CLI_DIR)
+    config = load_json(CONFIG)
+    config["model"] = dict(SEGRESNET_MODEL)
+    config["training_filenames"] = cases
+    config["bratsvalidation_filenames"] = [{"image": cases[0]["image"]}]
+    config["training"]["n_epochs"] = TRAIN_CLI_EPOCHS
+    config["cross_validation"]["folds"] = TRAIN_CLI_FOLDS
+    config_file = os.path.join(SEGRESNET_CLI_DIR, "brats2020_segresnet.json")
+    dump_json(config, config_file)
+    work = os.path.join(SEGRESNET_CLI_DIR, "out", "brats2020_segresnet")
+    train_cli.main(["--config_filename", config_file, "--output_dir",
+                    os.path.dirname(work), "--setup_crossval_only"])
+    fold_file, fold_dir = os.path.join(work, "fold1.json"), os.path.join(work, "fold1")
+    steps, epochs, run = [], [], {}
+
+    class EpochPrefetcher(DevicePrefetcher):
+        def set_epoch(self, epoch):
+            epochs.append((epoch, time.perf_counter()))
+            super().set_epoch(epoch)
+
+    real_run_training = train_cli.run_training
+
+    def timed_run_training(train_step, *args, **kwargs):
+        def step(images, labels):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = train_step(images, labels)
+            end.record()
+            steps.append((start, end))
+            return loss
+
+        torch.cuda.synchronize()
+        reset_launches()
+        model = real_run_training(step, *args, **kwargs)
+        torch.cuda.synchronize()
+        run.update(end=time.perf_counter(), launches=launch_counts(),
+                   forms=forms_of(FAMILY_KERNELS))
+        check_family_forms("SegResNetVAE train CLI")
+        return model
+
+    train_cli.run_training, train_cli.DevicePrefetcher = timed_run_training, EpochPrefetcher
+    try:
+        t0 = time.perf_counter()
+        result = train_cli.main(["--config_filename", fold_file, "--output_dir", work])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        train_cli.run_training, train_cli.DevicePrefetcher = real_run_training, DevicePrefetcher
+    print(f"SegResNetVAE train CLI training: launches {run['launches']}; by form "
+          f"{run['forms']}", flush=True)
+    for kernel in FAMILY_KERNELS:
+        check(run["launches"][kernel] > 0, f"train CLI: kernel {kernel} was not launched")
+    check(run["forms"].get("conv/wgmma", 0) > 0 and run["forms"].get("conv/fma", 0) > 0,
+          f"train CLI: conv forms {run['forms']}")
+    rows = read_training_log(os.path.join(fold_dir, "training_log.csv"))
+    print(f"SegResNetVAE training_log.csv: {rows}", flush=True)
+    check(len(rows) == TRAIN_CLI_EPOCHS and all(
+        np.isfinite(r[1]) and np.isfinite(r[3]) for r in rows),
+        f"SegResNetVAE training log {rows}")
+    model = result["model"]
+    fresh = build_or_load_model_from_config(config, None, device, seed=seed + 1)
+    load_jax_variables(fresh, load_checkpoint(os.path.join(fold_dir, "model.npz")),
+                       strict=True)
+    for (name, a), b in zip(model.named_parameters(), fresh.parameters()):
+        check(torch.equal(a, b), f"SegResNetVAE checkpoint round trip changed {name}")
+    (written,) = result["predictions"]["bratsvalidation"]
+    data, affine, _ = nifti.load(written)
+    print(f"SegResNetVAE bratsvalidation prediction {os.path.basename(written)}: shape "
+          f"{data.shape}, range [{data.min():.4f}, {data.max():.4f}]", flush=True)
+    check(data.shape == BRATS_GRID + (3,) and bool(np.isfinite(data).all())
+          and 0.0 <= data.min() and data.max() <= 1.0
+          and np.allclose(affine, BRATS_AFFINE, atol=1e-6),
+          f"SegResNetVAE train CLI prediction {data.shape}")
+    starts = [t for _, t in epochs] + [run["end"]]
+    epoch_s = [b - a for a, b in zip(starts, starts[1:])]
+    step_ms_cli = [a.elapsed_time(b) for a, b in steps]
+    print(f"SegResNetVAE train CLI: main {cli_s:.3f} s; seconds per epoch "
+          f"{[round(v, 3) for v in epoch_s]}; step ms {[round(v, 3) for v in step_ms_cli]} "
+          f"[{card}]", flush=True)
+    del model, fresh, result
+    torch.cuda.empty_cache()
+    shutil.rmtree(SEGRESNET_CLI_DIR, ignore_errors=True)
+    return run["launches"], dict(main_s=cli_s, epoch_s=epoch_s, step_ms=step_ms_cli,
+                                 log=[list(map(float, r)) for r in rows],
+                                 forms=run["forms"])
+
+
+def phase10_family(device, seed, card):
+    """UNet3D, AutoImplantUNet (``test=True`` through ``make_forward``) and
+    LabeledVariationalAutoEncoder at 128^3: one bf16 window forward and one
+    train step's gradients (f32 and bf16), kernels against the plain path,
+    with the launches."""
+    from unet3d_tpu_torch.config.factory import load_criterion_from_config
+    from unet3d_tpu_torch.models.layers import init_parameters
+    from unet3d_tpu_torch.models.registry import create_model
+    from unet3d_tpu_torch.train.step import prepare_batch
+    from unet3d_tpu_torch.utils.config import load_json
+
+    config = load_json(CONFIG)
+    shape = tuple(config["dataset"]["desired_shape"])
+    criterion = load_criterion_from_config(config)
+    out = {}
+    for i, (name, kwargs, n_labels) in enumerate(FAMILY_MODELS):
+        if "input_shape" in kwargs:
+            kwargs = dict(kwargs, input_shape=list(shape))
+        model = create_model(name, **kwargs)
+        init_parameters(model, torch.Generator().manual_seed(seed + i))
+        model = model.to(device).eval()
+        rng = np.random.RandomState(seed + 30 + i)
+        n_in = kwargs["n_features"]
+        window = torch.from_numpy(rng.randn(1, *shape, n_in).astype(np.float32)).to(device)
+        forward, got, rel, launches, forms = window_check(
+            model, window, use_test=name == "AutoImplantUNet")
+        check(got.shape == (1, *shape, kwargs["n_outputs"]) and bool(torch.isfinite(got).all()),
+              f"{name} window output {tuple(got.shape)}")
+        msg = (f"{name} window {shape} bf16: kernels vs plain rel L2 {rel:.3e}; launches "
+               f"{launches}; by form {forms_of(FAMILY_KERNELS)}")
+        print(msg, flush=True)
+        check(rel < L2_BOUND, f"{msg} > {L2_BOUND}")
+        check_family_forms(f"{name} window", wmma_conv=kwargs["n_features"] % 4 != 0)
+        check(launches["conv"] > 0, f"{name}: conv not launched")
+        window_ms = cuda_ms(lambda: forward(window))
+        del forward, got
+        images = rng.randn(1, n_in, *shape).astype(np.float32)
+        labels = (rng.rand(1, n_labels, *shape) > 0.5).astype(np.float32)
+        grads = {}
+        for dt, amp, bound in (("f32", False, GRAD_BOUND_F32), ("bf16", True, GRAD_BOUND_BF16)):
+            x, y = prepare_batch(images, labels, device, amp)
+            reset_launches()
+            grel, worst, worst_name = family_grads(model, criterion, x, y, amp, seed)
+            grads[dt] = grel
+            step_launches = launch_counts()
+            msg = (f"{name} gradients {dt}, kernels vs plain path: rel L2 {grel:.3e}; worst "
+                   f"tensor {worst_name} {worst:.3e}; launches {step_launches}")
+            print(msg, flush=True)
+            check(grel < bound, f"{msg} > {bound}")
+            check(step_launches["s2_wgrad"] > 0, f"{name}: s2_wgrad not launched")
+            if amp:
+                check_family_forms(f"{name} train step", wmma_conv=True)
+            del x, y
+        print(f"{name} window forward {shape} bf16 {window_ms:.3f} ms [{card}]", flush=True)
+        out[name] = dict(window_rel_l2=rel, window_launches=launches, window_ms=window_ms,
+                         grad_rel_l2=grads, step_launches=step_launches)
+        del model
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1662,6 +2123,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 9
     res_launches, res = phase9_train_cli_res(device, args.seed, card, cases)
+    # phase 10
+    family_rows = phase10_kernels(device, gen)
+    segresnet_launches, segresnet = phase10_segresnet(device, args.seed, card)
+    segresnet_cli_launches, segresnet_cli = phase10_train_cli(device, args.seed, card, cases)
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    family = phase10_family(device, args.seed, card)
     check(not any(m in sys.modules for m in ("jax", "unet3d_tpu")),
           "the port imported jax")
     # launches: the training path's (phase 5; phase 7 for the Winograd
@@ -1669,19 +2136,27 @@ def main() -> int:
     # prediction path's (phase 3; the CLI under the strategy for Winograd);
     # launches_train_cli: the train CLI's training (phase 8);
     # launches_train_cli_res_remat: its first run with the residual DynUNet,
-    # remat and 2 microbatches (phase 9)
+    # remat and 2 microbatches (phase 9); launches_segresnet: one bf16 train
+    # step of SegResNetVAE (phase 10b), and family_shapes the kernel at the
+    # Myronenko family's new shapes (phase 10)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": v, "route": "cuda", "source": SOURCES[v],
                 "replaces": REPLACES[v], "launches": train_launches[v],
                 "launches_predict": launches[v], "launches_train_cli": train_cli_launches[v],
                 "launches_train_cli_res_remat": res_launches[v],
+                "launches_segresnet": segresnet_launches[v],
                 **{k: report[v][k] for k in keys}}
                for v in TRAIN_KERNELS]
+    for entry in kernels:
+        rows = [r for r in family_rows if r["name"] == entry["name"]]
+        if rows:
+            entry["family_shapes"] = rows
     kernels += [{"name": v, "route": "cuda", "source": SOURCES[v],
                  "replaces": REPLACES[v], "launches": strategy_launches[v],
                  "launches_predict": cli_launches["winograd"][v],
                  "launches_train_cli": train_cli_launches[v],
                  "launches_train_cli_res_remat": res_launches[v],
+                 "launches_segresnet": segresnet_launches[v],
                  **{k: report[v][k] for k in keys}, "direct_ms": report[v]["direct_ms"]}
                 for v in STRATEGY_KERNELS]
     print(f"seconds per case: {json.dumps(seconds)} [{card}]")
@@ -1691,6 +2166,10 @@ def main() -> int:
     print(f"strategy train step: {json.dumps(strategy)} [{card}]")
     print(f"train cli: {json.dumps(train_cli)} [{card}]")
     print(f"train cli res remat: {json.dumps(res)} [{card}]")
+    print(f"segresnet: {json.dumps(dict(kernel_shapes=family_rows, **segresnet))} [{card}]")
+    print(f"segresnet train cli: {json.dumps(dict(segresnet_cli, launches=segresnet_cli_launches))} "
+          f"[{card}]")
+    print(f"myronenko family: {json.dumps(family)} [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,13 +13,16 @@ import torch
 
 from unet3d_tpu_torch.ops import conv3d_kernel as K
 
-# (D, H, W), Cin, Cout: the DynUNet's bf16 sites at 128^3 and ragged volumes
+# (D, H, W), Cin, Cout: the DynUNet's bf16 sites at 128^3, ragged volumes and
+# SegResNet's 32-channel level 0
 PLANS = [
     ((128, 128, 128), 64, 64), ((128, 128, 128), 128, 64), ((128, 128, 128), 64, 128),
     ((64, 64, 64), 96, 96), ((64, 64, 64), 192, 96), ((16, 16, 16), 256, 256),
     ((8, 8, 8), 512, 256), ((4, 4, 4), 384, 384), ((128, 128, 128), 4, 64),
     ((9, 12, 20), 64, 96),
     ((9, 12, 20), 96, 192), ((5, 7, 33), 64, 64), ((3, 5, 17), 200, 320),
+    # the Myronenko family's bf16 sites narrower than a 64-wide tile
+    ((128, 128, 128), 4, 32), ((128, 128, 128), 32, 32),
 ]
 SMEM_PER_BLOCK = 232448  # bytes a block of an H100 can use
 SMEM_PER_SM = 233472     # bytes an H100 SM holds, 1024 reserved per block

@@ -201,8 +201,21 @@ def test_subpixel_conv_transpose_matches_flax(k):
 
 
 def test_transposed_conv_other_kernels_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        layers.transposed_conv(4, 4, 3, 2)
+    """Kernel != stride, once refused, now takes the Flax ``nn.ConvTranspose``
+    (unflipped kernel, pads (k-1-p, k-1-p+op)); tests/test_torch_myronenko.py
+    holds it in full. One k=3 s=2 case against Flax, 1e-5."""
+    import flax.linen as fnn
+    x = np.random.RandomState(6).randn(1, 3, 5, 4, 4).astype(np.float32)
+    jmod = jax_layers.transposed_conv(4, 3, 2)
+    assert isinstance(jmod, fnn.ConvTranspose)
+    variables = jmod.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    mod = layers.transposed_conv(4, 4, 3, 2)
+    load_jax_variables(mod, _flat(variables))
+    with torch.no_grad():
+        got = mod(torch.from_numpy(x)).numpy()
+    want = np.asarray(jmod.apply(variables, jnp.asarray(x)))
+    assert got.shape == want.shape == (1, 5, 9, 7, 4)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("strides", [(1, 1, 1), (2, 2, 2)])
@@ -232,6 +245,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         create_model("DynUNet", **dict(MODEL_KWARGS, spatial_dims=2))
     with pytest.raises(ValueError, match="not ported"):
-        create_model("SegResNet")
+        create_model("SegResNetDS")
     with pytest.raises(ValueError):
         init_parameters(torch.nn.Linear(2, 2), torch.Generator())

@@ -39,6 +39,10 @@ PREDICT_CLI_MODULES = ("ops.winograd_kernel", "ops.affine", "ops.one_hot", "ops.
 TRAIN_CLI_MODULES = ("data.transforms", "data.prefetch", "config.factory", "scripts.train")
 # the rest of training and of the data path
 TRAINING_REST_MODULES = ("train.metrics", "data.filenames", "convert", "models.dynunet")
+# the Myronenko family
+MYRONENKO_MODULES = ("models.segresnet", "models.myronenko", "models.decoder",
+                     "models.unet", "models.variational", "models.layers",
+                     "ops.interpolate")
 
 
 def _env():
@@ -59,6 +63,7 @@ def test_every_module_imports_without_jax_or_a_build():
     assert {f"unet3d_tpu_torch.{m}" for m in PREDICT_CLI_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in TRAIN_CLI_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in TRAINING_REST_MODULES} <= set(names.split())
+    assert {f"unet3d_tpu_torch.{m}" for m in MYRONENKO_MODULES} <= set(names.split())
 
 
 def test_no_source_of_the_port_names_jax():

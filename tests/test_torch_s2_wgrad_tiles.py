@@ -37,6 +37,8 @@ SITES = [((1, 128, 128, 128), 64, 96), ((1, 64, 64, 64), 96, 128),
          ((1, 8, 8, 8), 256, 384)]
 RAGGED = [((1, 9, 13, 17), 64, 96), ((1, 9, 13, 17), 96, 192), ((2, 7, 5, 3), 24, 40),
           ((2, 3, 1, 1), 8, 8), ((1, 5, 4, 150), 72, 200), ((3, 11, 6, 9), 136, 520)]
+# SegResNetVAE's new widths: down1 at level 0 and the VAE branch's down conv
+MYRONENKO = [((1, 128, 128, 128), 32, 64), ((1, 16, 16, 16), 256, 16)]
 
 
 def _outputs(x_shape):
@@ -56,7 +58,7 @@ def _segment_voxels(plan, x_shape):
     return line, ow, (line < n * do * ho) & (ow < wo)
 
 
-@pytest.mark.parametrize("x_shape,cin,cout", SITES + RAGGED)
+@pytest.mark.parametrize("x_shape,cin,cout", SITES + RAGGED + MYRONENKO)
 def test_wgmma_plan_covers_every_row_column_and_voxel_once(x_shape, cin, cout):
     plan = W.wgmma_plan(x_shape + (cin,), cout, SMS)
     assert (plan.bn, plan.stages) in W.WGMMA_CONFIGS

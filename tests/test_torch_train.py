@@ -353,7 +353,8 @@ def test_schedulers_step_like_jax(name, kwargs):
 def test_nearest_resize_matches_jax(out):
     x = np.random.RandomState(13).randn(2, 4, 6, 5, 3).astype(np.float32)
     want = np.asarray(jax_resize(jnp.asarray(x), out, mode="nearest"))
-    np.testing.assert_array_equal(resize_ndhwc(torch.from_numpy(x), out).numpy(), want)
+    np.testing.assert_array_equal(
+        resize_ndhwc(torch.from_numpy(x), out, mode="nearest").numpy(), want)
 
 
 # --- the engine's bookkeeping, with scripted losses ---------------------------

@@ -6,6 +6,7 @@ and inferer, and the debug example dumps.
 """
 from __future__ import annotations
 
+import inspect
 import logging
 import os
 import warnings
@@ -19,7 +20,7 @@ from unet3d_tpu_torch.convert import load_jax_variables
 from unet3d_tpu_torch.data.image import Volume
 from unet3d_tpu_torch.data.loader import build_loader
 from unet3d_tpu_torch.models.layers import init_parameters
-from unet3d_tpu_torch.models.registry import create_model
+from unet3d_tpu_torch.models.registry import MODEL_REGISTRY, create_model
 from unet3d_tpu_torch.predict.sliding_window import build_inferer
 from unet3d_tpu_torch.train.checkpoint import load_checkpoint
 from unet3d_tpu_torch.train.losses import load_criterion
@@ -225,6 +226,11 @@ def build_or_load_model_from_config(config, model_filename: Optional[str],
     model_cfg = config["model"]
     kwargs = get_kwargs(model_cfg)
     if remat:
+        cls = MODEL_REGISTRY.get(model_cfg["name"])
+        if cls is not None and "remat" not in inspect.signature(cls).parameters:
+            raise NotImplementedError(
+                f"training.remat for {model_cfg['name']}: the port recomputes "
+                "per block in DynUNet only (see ROADMAP.md)")
         kwargs["remat"] = True
     model = create_model(model_cfg["name"], **kwargs)
     init_parameters(model, torch.Generator().manual_seed(seed))

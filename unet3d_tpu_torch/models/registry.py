@@ -1,32 +1,46 @@
 """Model registry: config ``name`` -> ``nn.Module``.
 
-Only DynUNet is ported; the other names of ``unet3d_tpu/models/registry.py``
-raise with the list of what is still to port (ROADMAP.md).
+Ported: DynUNet and the Myronenko family (SegResNet, SegResNetVAE, UNet3D,
+AutocastUNet, AutoImplantUNet and the autoencoders). The other names of
+``unet3d_tpu/models/registry.py`` raise with the list of what is still to
+port (ROADMAP.md).
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 from unet3d_tpu_torch.models.dynunet import DynUNet
+from unet3d_tpu_torch.models.segresnet import SegResNet, SegResNetVAE
+from unet3d_tpu_torch.models.unet import AutocastUNet, AutoImplantUNet, UNet3D
+from unet3d_tpu_torch.models.variational import (ConvolutionalAutoEncoder,
+                                                 LabeledVariationalAutoEncoder,
+                                                 VariationalAutoEncoder)
 
-MODEL_REGISTRY: Dict[str, Any] = {"DynUNet": DynUNet}
+MODEL_REGISTRY: Dict[str, Any] = {
+    "DynUNet": DynUNet,
+    "SegResNet": SegResNet,
+    "SegResNetVAE": SegResNetVAE,
+    "UNet3D": UNet3D,
+    "AutocastUNet": AutocastUNet,
+    "AutoImplantUNet": AutoImplantUNet,
+    "ConvolutionalAutoEncoder": ConvolutionalAutoEncoder,
+    "VariationalAutoEncoder": VariationalAutoEncoder,
+    "LabeledVariationalAutoEncoder": LabeledVariationalAutoEncoder,
+}
 
 # names the JAX package resolves that the port does not have yet
 NOT_YET_PORTED = (
-    "AHNet", "AHnet", "Ahnet", "AttentionUnet", "AutoEncoder", "AutoImplantUNet",
-    "AutocastUNet", "BasicUNet", "BasicUNetPlusPlus", "BasicUnetPlusPlus",
-    "Classifier", "ConvolutionalAutoEncoder", "Critic", "DenseNet",
-    "DenseNet121", "DenseNet169", "DenseNet201", "DenseNet264", "DiNTS",
-    "Discriminator", "EfficientNetBN", "FCN", "Generator", "GlobalNet",
-    "GraphCMR", "HighResNet", "LabeledVariationalAutoEncoder", "LocalNet",
-    "QuickNAT", "Quicknat", "RegUNet", "RegularizedBasicResNet",
-    "RegularizedResNet", "Regressor", "ResNet", "ResNetWithDecoder1D",
-    "SegResNet", "SegResNetDS", "SegResNetVAE", "SwinUNETR",
+    "AHNet", "AHnet", "Ahnet", "AttentionUnet", "AutoEncoder", "BasicUNet",
+    "BasicUNetPlusPlus", "BasicUnetPlusPlus", "Classifier", "Critic",
+    "DenseNet", "DenseNet121", "DenseNet169", "DenseNet201", "DenseNet264",
+    "DiNTS", "Discriminator", "EfficientNetBN", "FCN", "Generator",
+    "GlobalNet", "GraphCMR", "HighResNet", "LocalNet", "QuickNAT", "Quicknat",
+    "RegUNet", "RegularizedBasicResNet", "RegularizedResNet", "Regressor",
+    "ResNet", "ResNetWithDecoder1D", "SegResNetDS", "SwinUNETR",
     "TopologyConstruction", "TopologyInstance", "TopologySearch", "UNETR",
-    "UNet", "UNet3D", "VNet", "VQVAE", "VarAutoEncoder",
-    "VariationalAutoEncoder", "ViT", "ViTAutoEnc", "resnet_101", "resnet_152",
-    "resnet_18", "resnet_34", "resnet_50", "resnext_101_32x8d",
-    "resnext_50_32x4d",
+    "UNet", "VNet", "VQVAE", "VarAutoEncoder", "ViT", "ViTAutoEnc",
+    "resnet_101", "resnet_152", "resnet_18", "resnet_34", "resnet_50",
+    "resnext_101_32x8d", "resnext_50_32x4d",
 )
 
 

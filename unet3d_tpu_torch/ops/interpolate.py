@@ -1,7 +1,14 @@
-"""Nearest-neighbour NDHWC resize (counterpart of ``unet3d_tpu/ops/interpolate.py``).
+"""Separable NDHWC resize (counterpart of ``unet3d_tpu/ops/interpolate.py``).
 
-Only ``mode="nearest"`` is ported: the DynUNet deep-supervision heads use it.
-Source index ``floor(i * s_in / s_out)``, clipped, as torch's ``nearest``.
+Used by the decoders' upsampling and DynUNet's deep-supervision heads. Each
+spatial axis whose size changes is resampled on its own: the nearest modes
+take one index per output voxel, the linear modes two indices and a lerp.
+Source coordinates follow ``torch.nn.functional.interpolate``.
+
+Dtypes follow the JAX version: the nearest modes keep the input's dtype; the
+linear modes multiply by an f32 weight, so a bf16 input comes out f32 once
+any axis is resampled (an axis of unchanged size is skipped and casts
+nothing).
 """
 from __future__ import annotations
 
@@ -11,19 +18,43 @@ import numpy as np
 import torch
 
 
-def _nearest_index(s_in: int, s_out: int) -> np.ndarray:
+def _axis_coords(s_in: int, s_out: int, mode: str, align_corners: bool) -> np.ndarray:
     v = np.arange(s_out, dtype=np.float64)
-    return np.clip(np.floor(v * (s_in / s_out)), 0, s_in - 1).astype(np.int64)
+    if mode == "nearest":
+        return np.clip(np.floor(v * (s_in / s_out)), 0, s_in - 1)
+    if mode == "nearest-exact":
+        return np.clip(np.floor((v + 0.5) * (s_in / s_out)), 0, s_in - 1)
+    if align_corners:
+        return v * ((s_in - 1) / max(s_out - 1, 1))
+    return np.clip((v + 0.5) * (s_in / s_out) - 0.5, 0, s_in - 1)
 
 
-def resize_ndhwc(x: torch.Tensor, out_spatial: Sequence[int],
-                 mode: str = "nearest") -> torch.Tensor:
-    """Resize ``(N, D, H, W, C)`` to spatial ``out_spatial``."""
-    if mode != "nearest":
-        raise NotImplementedError(
-            f"resize mode {mode!r}: only 'nearest' is ported so far (see ROADMAP.md)")
+def resize_ndhwc(x: torch.Tensor, out_spatial: Sequence[int], mode: str = "trilinear",
+                 align_corners: bool = False) -> torch.Tensor:
+    """Resize ``(N, D, H, W, C)`` to spatial ``out_spatial``: ``nearest``,
+    ``nearest-exact``, or any other mode name as linear (``trilinear``)."""
+    nearest = mode in ("nearest", "nearest-exact")
     for axis, (s_in, s_out) in enumerate(zip(x.shape[1:4], out_spatial), start=1):
-        if s_in != int(s_out):
-            index = torch.from_numpy(_nearest_index(s_in, int(s_out))).to(x.device)
+        s_out = int(s_out)
+        if s_in == s_out:
+            continue
+        coords = _axis_coords(s_in, s_out, mode, align_corners)
+        if nearest:
+            index = torch.from_numpy(coords.astype(np.int64)).to(x.device)
             x = torch.index_select(x, axis, index)
+            continue
+        lo = np.floor(coords).astype(np.int64)
+        hi = np.minimum(lo + 1, s_in - 1)
+        shape = [1] * x.dim()
+        shape[axis] = s_out
+        w = torch.from_numpy((coords - lo).astype(np.float32)).to(x.device).reshape(shape)
+        x = (torch.index_select(x, axis, torch.from_numpy(lo).to(x.device)) * (1.0 - w)
+             + torch.index_select(x, axis, torch.from_numpy(hi).to(x.device)) * w)
     return x
+
+
+def upsample_ndhwc(x: torch.Tensor, scale: int = 2, mode: str = "trilinear",
+                   align_corners: bool = False) -> torch.Tensor:
+    """scale_factor-style upsample (torch semantics: out = floor(in * scale))."""
+    out_spatial = tuple(int(s * scale) for s in x.shape[1:4])
+    return resize_ndhwc(x, out_spatial, mode=mode, align_corners=align_corners)

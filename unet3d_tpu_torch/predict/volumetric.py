@@ -14,6 +14,7 @@ them as a dict in its ``case_seconds`` attribute.
 from __future__ import annotations
 
 import copy
+import inspect
 import logging
 import os
 import time
@@ -36,20 +37,26 @@ def to_ndhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def make_forward(model: torch.nn.Module, amp: bool = False) -> Callable:
+def make_forward(model: torch.nn.Module, amp: bool = False,
+                 use_test: bool = False) -> Callable:
     """Inference forward over NDHWC inputs.
 
     ``amp`` runs it in bfloat16 and returns f32: the parameters are cast to
     bf16 once, here, on a copy of the model (the f32 master stays as it is),
-    and each input is cast per call."""
+    and each input is cast per call. ``use_test`` passes ``test=True`` to a
+    forward that takes it (AutoImplantUNet's raw output). A tuple output (the
+    VAE family's ``(out, mu, logvar)``) gives its first element."""
     net = copy.deepcopy(model).to(torch.bfloat16) if amp else model
     net.eval()
+    kwargs = ({"test": True} if use_test
+              and "test" in inspect.signature(net.forward).parameters else {})
 
     def forward(x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            if amp:
-                return net(x.to(torch.bfloat16)).float()
-            return net(x)
+            out = net(x.to(torch.bfloat16) if amp else x, **kwargs)
+            if isinstance(out, tuple):
+                out = out[0]
+            return out.float() if amp else out
 
     return forward
 

@@ -50,7 +50,8 @@ from unet3d_tpu_torch.data.prefetch import DevicePrefetcher
 from unet3d_tpu_torch.predict.volumetric import volumetric_predictions
 from unet3d_tpu_torch.train.optim import get_learning_rate
 from unet3d_tpu_torch.train.step import (accumulate_gradients, make_eval_step,
-                                         make_train_step, prepare_batch)
+                                         make_train_step, noise_generator,
+                                         prepare_batch)
 from unet3d_tpu_torch.train.train import run_training
 from unet3d_tpu_torch.utils.config import in_config, load_json
 from unet3d_tpu_torch.utils.device import require_cuda
@@ -108,7 +109,8 @@ def dry_run_step(work_dir, training_loader, model, criterion, amp: bool,
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     x, y = prepare_batch(images, labels, device, amp)
-    accumulate_gradients(model, criterion, x, y, amp, grad_accum)
+    accumulate_gradients(model, criterion, x, y, amp, grad_accum,
+                         noise_generator(model))
     model.zero_grad(set_to_none=True)
     report = {
         "backend": device.type,

@@ -10,6 +10,12 @@ parameter (norm scale and bias included, as the JAX step casts the whole
 parameter tree), through ``torch.func.functional_call``, so the gradients
 reach the f32 masters through the cast and the optimizer updates those.
 
+A model whose forward takes ``rng`` (the dropout and VAE noise of the
+Myronenko family) draws its training noise from a ``torch.Generator`` on the
+model's device, seeded from the run's seed (``noise_generator``): the train
+step owns it and passes it to every forward, as the JAX step splits its
+``dropout`` and ``sample`` keys each step. Eval draws nothing.
+
 ``grad_accum`` > 1 splits each batch into that many equal microbatches (the
 JAX step's scan): one forward and backward each, the gradients summed in f32
 in the masters' ``.grad``, divided once by the count, one optimizer update,
@@ -17,6 +23,7 @@ and the loss the mean of the microbatches'.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Dict, Optional
 
 import torch
@@ -70,6 +77,14 @@ def _device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def noise_generator(model: torch.nn.Module, seed: int = 0) -> Optional[torch.Generator]:
+    """A generator on the model's device seeded with ``seed`` for a model
+    whose forward draws noise (takes ``rng``), else None."""
+    if "rng" not in inspect.signature(model.forward).parameters:
+        return None
+    return torch.Generator(device=_device(model)).manual_seed(seed)
+
+
 def prepare_batch(images, labels, device: torch.device, amp: bool):
     """(B, C, D, H, W) images / labels -> NDHWC tensors on ``device``: images
     in bf16 under ``amp``, else f32; labels in f32. A batch already on the
@@ -80,26 +95,31 @@ def prepare_batch(images, labels, device: torch.device, amp: bool):
 
 
 def forward_loss(model: torch.nn.Module, criterion: Callable, x: torch.Tensor,
-                 y: torch.Tensor, amp: bool) -> torch.Tensor:
+                 y: torch.Tensor, amp: bool,
+                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
     """The training forward and its loss; under ``amp`` on bf16 copies of the
-    f32 parameters."""
+    f32 parameters. ``rng`` goes to a forward that draws noise."""
+    kwargs = {"train": True}
+    if rng is not None:
+        kwargs["rng"] = rng
     if amp:
         params = amp_cast(dict(model.named_parameters()))
-        out = functional_call(model, params, (x,), {"train": True})
+        out = functional_call(model, params, (x,), kwargs)
     else:
-        out = model(x, train=True)
+        out = model(x, **kwargs)
     return compute_criterion(criterion, out, y)
 
 
 def accumulate_gradients(model: torch.nn.Module, criterion: Callable,
                          x: torch.Tensor, y: torch.Tensor, amp: bool,
-                         grad_accum: int = 1) -> torch.Tensor:
+                         grad_accum: int = 1,
+                         rng: Optional[torch.Generator] = None) -> torch.Tensor:
     """Forward and backward of the batch into the parameters' ``.grad``, in
     ``grad_accum`` equal microbatches (contiguous slices of the batch axis,
     as the kernels take them), the gradients summed in f32 and divided once
     by the count; returns the mean loss, detached."""
     if grad_accum <= 1:
-        loss = forward_loss(model, criterion, x, y, amp)
+        loss = forward_loss(model, criterion, x, y, amp, rng)
         loss.backward()
         return loss.detach()
     n = x.shape[0]
@@ -110,7 +130,7 @@ def accumulate_gradients(model: torch.nn.Module, criterion: Callable,
     total = None
     for i in range(grad_accum):
         loss = forward_loss(model, criterion, x[i * m:(i + 1) * m],
-                            y[i * m:(i + 1) * m], amp)
+                            y[i * m:(i + 1) * m], amp, rng)
         loss.backward()
         loss = loss.detach().float()
         total = loss if total is None else total + loss
@@ -122,15 +142,18 @@ def accumulate_gradients(model: torch.nn.Module, criterion: Callable,
 
 def make_train_step(model: torch.nn.Module, criterion: Callable,
                     optimizer: torch.optim.Optimizer, amp: bool = False,
-                    grad_accum: int = 1) -> Callable:
+                    grad_accum: int = 1, seed: int = 0) -> Callable:
     """``step(images, labels) -> loss``: forward, backward (in ``grad_accum``
-    microbatches), one optimizer update of the (f32) parameters."""
+    microbatches), one optimizer update of the (f32) parameters; a model
+    that draws noise draws it from the step's ``noise_generator(model,
+    seed)``."""
     device = _device(model)
+    rng = noise_generator(model, seed)
 
     def step(images, labels) -> torch.Tensor:
         x, y = prepare_batch(images, labels, device, amp)
         optimizer.zero_grad(set_to_none=True)
-        loss = accumulate_gradients(model, criterion, x, y, amp, grad_accum)
+        loss = accumulate_gradients(model, criterion, x, y, amp, grad_accum, rng)
         optimizer.step()
         return loss
 

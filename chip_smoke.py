@@ -5,7 +5,9 @@
 Run from the repository root on a machine with an H100 (sm_90). Phases:
 
 0. the card (nvidia-smi name and power limit), torch / CUDA versions, SM;
-   TF32 off, so f32 comparisons are exact to f32 rounding;
+   no TF32 flag is set: every phase runs under torch's defaults (cuDNN's f32
+   convs in TF32), as a user runs the CLIs, and the port's own policy
+   (``utils/device.full_f32``) keeps its f32 paths full f32;
 1. build the CUDA kernels from ``unet3d_tpu_torch/ops/kernels/`` (timed);
 2. each kernel against its plain PyTorch version, bf16 and f32, at the
    DynUNet's shapes: the three conv variants at the forward's shapes
@@ -31,8 +33,13 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    the bound: the larger of the operations at 989 TFLOP/s and the bytes
    (inputs read once, outputs written once) at 3.35 TB/s. The direct conv is
    timed at every SHAPES site in the variant that site runs and at both
-   DX_SHAPES; its bf16 calls (Cin a multiple of 4, Cout of 8: every site)
-   take the wgmma form (``conv3d_wgmma.cu``);
+   DX_SHAPES, in bf16 and in f32; its bf16 calls (Cin a multiple of 4, Cout
+   of 8: every site) take the wgmma form (``conv3d_wgmma.cu``), its f32 calls
+   (Cin a multiple of 4) the tf32x3 form (``conv3d_tf32x3.cu``), each timed
+   beside F.conv3d with TF32 off and two bounds: the f32 one (67 TFLOP/s on
+   the CUDA cores) and the 3xTF32 one (three TF32 products per product at
+   495 TFLOP/s), the share read against the second. The f32 ``s2_wgrad`` and
+   Winograd calls are timed too, beside cuDNN with TF32 off and the f32 bound;
 3. the slice: the BraTS DynUNet of ``examples/brats2020/brats2020_config.json``
    (seeded random weights, no trained checkpoint in the repo), its sliding-
    window inferer and sigmoid, answering two requests through
@@ -59,7 +66,8 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    (cuDNN, torch autograd, the same weights and batch): relative L2 over all
    parameters within 1e-3 in f32 (the f32 gradient of this net lies ~1.5e-4
    from an f64 one on either path: the instance norms amplify sum-order
-   differences) and 2e-2 in bf16 (each path ~1.3e-2 from f64); and the
+   differences) and 2e-2 in bf16 (each path ~1.3e-2 from f64), the f32
+   step's direct convs all in the tf32x3 form; and the
    train-step time with kernels and plain, and the peak memory; the launches
    by form of the direct conv and of ``s2_wgrad`` over the training run,
    failing on any bf16 launch off the wgmma form, and one step of each path
@@ -123,17 +131,26 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
 
 10. the Myronenko family (the BraTS config with its model section replaced
    by SegResNetVAE at Myronenko's widths, ``SEGRESNET_MODEL``): the conv
-   kernel at SegResNet's new shapes (bf16 at 32 channels, f32 in the
-   decoder) and ``s2_wgrad`` at its new widths, each against its plain
-   version and timed as in phase 2 (f32 bounds at the f32 peak); (a) one
+   kernel at the family's new shapes (bf16 at 32 channels; the U-Nets'
+   first-conv input gradient, 32 -> 4, in the wmma form; f32 at the three
+   decoder sites, 32 -> 32 @128^3, 64 -> 64 @64^3 and 128 -> 128 @32^3, in
+   the tf32x3 form) and ``s2_wgrad`` at its new widths, each against its
+   plain version, its form checked, and timed as in phase 2; (a) one
    128^3 bf16 window forward, eval, kernels against the plain path (every
    FastConv through ``F.conv3d``) within relative L2 3e-2, the conv's
-   launches 19 in the wgmma form (encoder) and 6 in the fma form (the
+   launches 19 in the wgmma form (encoder) and 6 in the tf32x3 form (the
    decoder, which AMP runs in f32 after the trilinear upsample), times and
    a profile; (b) one bf16 AMP train step at batch 1 (DiceLoss plus the VAE
-   term): ``conv`` 61 (31 forward, 30 input gradients), ``s2_wgrad`` 4, no
-   wmma form, gradients against the plain path within the phase-5 bounds
-   (the noise drawn alike), step ms, peak memory and a profile; (c) the
+   term): ``conv`` 61 (31 forward, 30 input gradients: 37 wgmma and 24
+   tf32x3), ``s2_wgrad`` 4, no wmma form, gradients against the plain path
+   within the phase-5 bounds (the noise drawn alike), step ms, peak memory
+   and a profile; then, under torch's default TF32 flags, the f32 step's
+   gradients through the kernels and through the plain path, and one f32
+   stride-2 conv (32 -> 64 @128^3, forward and both gradients), each
+   against the same computation with TF32 off by the caller within
+   relative L2 1e-5 (the port's f32 policy), and the kernels' f32
+   gradients against the f64 plain path no more than 1e-5 farther than
+   the plain f32 path's own; (c) the
    train CLI on phase 8's cases and folds (fold 1, 2 epochs) with that
    model: finite losses, the checkpoint reloads strictly and equal, the
    bratsvalidation prediction on the source grid in [0, 1], launches by
@@ -144,7 +161,9 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    bounds, with their launches.
 
 Exits non-zero if any phase fails or there is no CUDA device. The last lines
-are the card, a JSON object of the kernels, and ``{"ok": true, ...}``.
+are the card, a JSON object of the kernels (the bf16 forms' rows, then the
+f32 form's: ``conv_tf32x3``, ``conv_stats_tf32x3``, ``block_stats_tf32x3``,
+with both bounds), and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -236,8 +255,9 @@ PREDICT_KERNELS = ("conv_stats", "block_stats")
 TRAIN_KERNELS = ("conv", "conv_stats", "block_stats", "s2_wgrad")
 STRATEGY_KERNELS = ("winograd", "winograd_stats")
 TIMED_AT = {"conv_stats": 2, "block_stats": 1, "winograd": 3, "winograd_stats": 2}
-# dense peaks of one H100 SXM (NVIDIA's data sheet, at 700 W) for the bounds
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# dense peaks of one H100 SXM (NVIDIA's data sheet, at 700 W) for the bounds:
+# bf16 and TF32 on the tensor cores, f32 on the CUDA cores
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 # Winograd-DH's channel products per output against the direct conv's
 WINOGRAD_PRODUCTS = 48 / 108
@@ -281,16 +301,28 @@ FAMILY_MODELS = (
      dict(n_features=4, base_width=32, encoder_blocks=[1, 2, 2, 4], n_outputs=3,
           input_shape=[128, 128, 128], decoder_mirrors_encoder=True), 3),
 )
-# (label, spatial, cin, cout, dtype): the conv kernel at SegResNet's new shapes:
-# bf16 (wgmma) at level 0's 32 channels, half of a 64-wide tile, and f32 (the
-# fma form of conv3d.cu) in the decoder, which AMP runs in f32 after the
-# trilinear upsample
+# (label, spatial, cin, cout, dtype, form): the conv kernel at the family's
+# new shapes: bf16 (wgmma) at level 0's 32 channels, half of a 64-wide tile;
+# the U-Nets' first-conv input gradient (4 outputs, the wmma form of
+# conv3d.cu); and f32 (the tf32x3 form, conv3d_tf32x3.cu) at SegResNetVAE's
+# three decoder sites, which AMP runs in f32 after the trilinear upsample
 FAMILY_CONV_SHAPES = [
-    ("convInit 4->32 @128^3", 128, 4, 32, torch.bfloat16),
-    ("layer0 32->32 @128^3", 128, 32, 32, torch.bfloat16),
-    ("up2 block 32->32 @128^3", 128, 32, 32, torch.float32),
-    ("up1 block 64->64 @64^3", 64, 64, 64, torch.float32),
+    ("convInit 4->32 @128^3", 128, 4, 32, torch.bfloat16, "wgmma"),
+    ("layer0 32->32 @128^3", 128, 32, 32, torch.bfloat16, "wgmma"),
+    ("U-Net first conv dx 32->4 @128^3", 128, 32, 4, torch.bfloat16, "wmma"),
+    ("up2 block 32->32 @128^3", 128, 32, 32, torch.float32, "tf32x3"),
+    ("up1 block 64->64 @64^3", 64, 64, 64, torch.float32, "tf32x3"),
+    ("up0 block 128->128 @32^3", 32, 128, 128, torch.float32, "tf32x3"),
 ]
+# the f32 form's rows of the kernels line: its source, and the SegResNetVAE
+# decoder site the conv variant's time is reported at
+TF32X3_SOURCE = "unet3d_tpu_torch/ops/kernels/conv3d_tf32x3.cu"
+TF32X3_CONV_AT = "up2 block 32->32 @128^3"
+# torch's default TF32 flags: each f32 path against itself with TF32 off
+TF32_FLAGS_BOUND = 1e-5
+# the kernels' f32 step gradients: their distance from the f64 plain path
+# past the plain f32 path's own
+F64_EXCESS_BOUND = 1e-5
 # (label, spatial of x, cin, cout): s2_wgrad at SegResNetVAE's new widths
 FAMILY_S2_SHAPES = [("down1 32->64 @128^3", 128, 32, 64),
                     ("vae_down_conv 256->16 @16^3", 16, 256, 16)]
@@ -381,23 +413,42 @@ def bound_ms(flops: float, nbytes: float, dtype=torch.bfloat16):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def conv_bytes(variant, s, cin, cout, size) -> int:
+    """Bytes one 3x3x3 conv variant on (1, s, s, s, cin) -> cout must move
+    with ``size``-byte values: x and w read, y written, statistics and the
+    block prologue's (inv, shift) in f32."""
+    nbytes = size * (s ** 3 * (cin + cout) + 27 * cin * cout)
+    nbytes += 8 * cout if variant in ("conv_stats", "block_stats", "winograd_stats") else 0
+    return nbytes + (8 * cin if variant == "block_stats" else 0)
+
+
 def conv_bound(variant, s, cin, cout, products=1.0, dtype=torch.bfloat16):
     """bound_ms of one 3x3x3 conv variant on (1, s, s, s, cin) -> cout in
-    ``dtype`` (bf16 by default)."""
-    vox = s ** 3
-    size = torch.finfo(dtype).bits // 8
-    nbytes = size * (vox * (cin + cout) + 27 * cin * cout)
-    nbytes += 8 * cout if variant in ("conv_stats", "block_stats", "winograd_stats") else 0
-    nbytes += 8 * cin if variant == "block_stats" else 0
-    return bound_ms(2.0 * vox * 27 * cin * cout * products, nbytes, dtype)
+    ``dtype`` (bf16 by default; f32 on the CUDA cores)."""
+    return bound_ms(2.0 * s ** 3 * 27 * cin * cout * products,
+                    conv_bytes(variant, s, cin, cout, torch.finfo(dtype).bits // 8), dtype)
+
+
+def tf32x3_bound(variant, s, cin, cout):
+    """bound_ms of one f32 3x3x3 conv variant done f32-accurate on the tensor
+    cores, as the tf32x3 form does it: three TF32 products per product at the
+    TF32 peak, or the f32 bytes at the memory rate."""
+    return bound_ms(3 * 2.0 * s ** 3 * 27 * cin * cout, conv_bytes(variant, s, cin, cout, 4),
+                    "tf32")
 
 
 def library_conv(x, w):
     """One PyTorch call for the conv alone (cuDNN): F.conv3d on the NCDHW view
-    (channels_last_3d, no copy) of the same NDHWC operands."""
+    (channels_last_3d, no copy) of the same NDHWC operands; f32 with TF32 off
+    (the port's ``full_f32`` scope, host-side only)."""
+    from unet3d_tpu_torch.utils.device import full_f32
     wn = w.permute(4, 3, 0, 1, 2).contiguous()
     xn = x.permute(0, 4, 1, 2, 3)
-    return lambda: F.conv3d(xn, wn, padding=1)
+
+    def call():
+        with full_f32(xn):
+            return F.conv3d(xn, wn, padding=1)
+    return call
 
 
 def form_launches() -> dict:
@@ -433,7 +484,8 @@ def profile_device(fn, label: str, card: str) -> dict:
     if not kernels:
         print(f"profile {label}: no device events traced (not measured)", flush=True)
         return {}
-    groups = (("conv wgmma", "conv3x3x3_wgmma"), ("conv wmma/fma", "conv3x3x3_ndhwc"),
+    groups = (("conv wgmma", "conv3x3x3_wgmma"), ("conv tf32x3", "conv3x3x3_tf32x3"),
+              ("conv wmma/fma", "conv3x3x3_ndhwc"),
               ("s2_wgrad", "s2_wgrad"), ("s2_wgrad", "sum_splits"),
               ("winograd", "winograd3x3x3"), ("winograd", "winograd_wgmma"),
               ("memcpy/memset", "mem"), ("copies and casts", "copy"),
@@ -493,6 +545,7 @@ def phase2(device, gen):
              "conv_stats": K.conv3d_with_stats_reference,
              "block_stats": K.conv3d_block_with_stats_reference}
     report = {v: {"max_abs_err": 0.0} for v in kernel}
+    report.update({f"{v}_tf32x3": {} for v in kernel})
     for si, (label, s, cin, cout) in enumerate(SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(1, s, s, s, cin, device=device, generator=gen).to(dtype)
@@ -508,25 +561,38 @@ def phase2(device, gen):
                 torch.cuda.synchronize()
                 diff = (got_y.float() - want_y.float()).abs().max().item()
                 rel = diff / want_y.float().abs().max().item()
-                msg = f"{variant:11s} {label:31s} {str(dtype)[6:]:8s} y rel {rel:.3e}"
+                form = K.kernel_form(x, w)
+                msg = (f"{variant:11s} {label:31s} {str(dtype)[6:]:8s} {form:6s} y rel "
+                       f"{rel:.3e}")
+                check(form == ("wgmma" if dtype == torch.bfloat16 else "tf32x3"),
+                      f"{msg}: form")
                 check(rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
                 if variant != "conv":
                     s_err = stats_err(*got)
                     msg += f" stats rel {s_err:.3e}"
                     check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
-                if variant == SITE_VARIANT[si] and dtype == torch.bfloat16:
+                if variant == SITE_VARIANT[si]:
                     ms = device_ms(lambda: kernel[variant](*args))
                     plain_ms = device_ms(lambda: plain_fast(variant, x, w, inv, shift))
                     library_ms = device_ms(library_conv(x, w))
-                    bms, bound_by = conv_bound(variant, s, cin, cout)
-                    msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d "
-                            f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, "
-                            f"{bms / ms:.1%})")
+                    entry = dict(ms=ms, plain_ms=plain_ms, shape=label, max_abs_err=diff)
+                    if dtype == torch.bfloat16:
+                        bms, bound_by = conv_bound(variant, s, cin, cout)
+                        msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d "
+                                f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, "
+                                f"{bms / ms:.1%})")
+                    else:
+                        f32_ms, _ = conv_bound(variant, s, cin, cout, dtype=dtype)
+                        bms, bound_by = tf32x3_bound(variant, s, cin, cout)
+                        entry["f32_bound_ms"] = f32_ms
+                        msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d "
+                                f"(TF32 off) {library_ms:.3f} ms, f32 bound {f32_ms:.3f} ms, "
+                                f"3xTF32 bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
                     if si == TIMED_AT.get(variant):
                         # no one PyTorch call takes the statistics with the conv
-                        report[variant].update(
-                            ms=ms, plain_ms=plain_ms, shape=label, max_abs_err=diff,
-                            bound_ms=bms, bound_by=bound_by, library_ms=None)
+                        key = variant if dtype == torch.bfloat16 else f"{variant}_tf32x3"
+                        report[key].update(entry, bound_ms=bms, bound_by=bound_by,
+                                           library_ms=None)
                 print(msg, flush=True)
             del x, w
     torch.cuda.empty_cache()
@@ -540,11 +606,12 @@ def rel_max(got, want) -> float:
 
 def phase2_backward(device, gen, report):
     """The conv kernel as the input gradient, and s2_wgrad, against their
-    plain versions; each bf16 case timed against the plain composition in
-    bf16 (cuDNN), the first shape's time reported."""
+    plain versions; each case timed against the plain composition in its
+    dtype (cuDNN, TF32 off in f32), the first bf16 shape's time reported."""
     from unet3d_tpu_torch.ops import conv3d_kernel as K
     from unet3d_tpu_torch.ops import s2_wgrad_kernel as W
     from unet3d_tpu_torch.ops.conv3d import conv3d_torch, flip_io
+    from unet3d_tpu_torch.utils.device import full_f32
 
     for si, (label, s, cin, cout) in enumerate(DX_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
@@ -556,12 +623,20 @@ def phase2_backward(device, gen, report):
             got, want = K.conv3x3x3(g, wf), K.conv3d_reference(g, wf)
             torch.cuda.synchronize()
             rel = rel_max(got, want)
-            msg = f"conv as dx  {label:36s} {str(dtype)[6:]:8s} rel {rel:.3e}"
+            form = K.kernel_form(g, wf)
+            msg = f"conv as dx  {label:36s} {str(dtype)[6:]:8s} {form:6s} rel {rel:.3e}"
+            check(form == ("wgmma" if dtype == torch.bfloat16 else "tf32x3"), f"{msg}: form")
             check(rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
-            if dtype == torch.bfloat16:
-                ms = device_ms(lambda: K.conv3x3x3(g, wf))
-                plain_ms = device_ms(lambda: conv3d_torch(g, wf, (1, 1, 1), ((1, 1),) * 3))
-                library_ms = device_ms(library_conv(g, wf))
+            ms = device_ms(lambda: K.conv3x3x3(g, wf))
+            plain_ms = device_ms(lambda: conv3d_torch(g, wf, (1, 1, 1), ((1, 1),) * 3))
+            library_ms = device_ms(library_conv(g, wf))
+            if dtype == torch.float32:
+                f32_ms, _ = conv_bound("conv", s, cin, cout, dtype=dtype)
+                bms, bound_by = tf32x3_bound("conv", s, cin, cout)
+                msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d (TF32 off) "
+                        f"{library_ms:.3f} ms, f32 bound {f32_ms:.3f} ms, 3xTF32 bound "
+                        f"{bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
+            else:
                 bms, bound_by = conv_bound("conv", s, cin, cout)
                 msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d "
                         f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, "
@@ -584,24 +659,29 @@ def phase2_backward(device, gen, report):
             msg = (f"s2_wgrad    {label:36s} {str(dtype)[6:]:8s} "
                    f"{W.kernel_form(x, g):5s} rel {rel:.3e}")
             check(rel < S2_BOUND, f"{msg} > {S2_BOUND}")
-            if dtype == torch.bfloat16:
-                xn, gn = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
-                ms = device_ms(lambda: W.s2_wgrad(x, g))
-                plain_ms = device_ms(lambda: torch.nn.grad.conv3d_weight(
-                    xn, (cout, cin, 3, 3, 3), gn, stride=2, padding=1))
-                # dw: 27 * cin * cout products per output voxel; x and g read,
-                # the f32 weight gradient written
-                half = (s // 2) ** 3
-                bms, bound_by = bound_ms(2.0 * half * 27 * cin * cout,
-                                         2 * (s ** 3 * cin + half * cout) + 4 * 27 * cin * cout)
-                msg += (f" | kernel {ms:.3f} ms, cuDNN {plain_ms:.3f} ms, bound {bms:.3f} ms "
-                        f"({bound_by}, {bms / ms:.1%})")
-                if si == 0:
-                    # the plain composition is one PyTorch call (cuDNN's dw)
-                    report["s2_wgrad"] = dict(ms=ms, plain_ms=plain_ms, shape=label,
-                                              bound_ms=bms, bound_by=bound_by,
-                                              library_ms=plain_ms,
-                                              max_abs_err=(got - want).abs().max().item())
+            xn, gn = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+            ms = device_ms(lambda: W.s2_wgrad(x, g))
+
+            def cudnn_dw():
+                with full_f32(gn):
+                    return torch.nn.grad.conv3d_weight(xn, (cout, cin, 3, 3, 3), gn,
+                                                       stride=2, padding=1)
+            plain_ms = device_ms(cudnn_dw)
+            # dw: 27 * cin * cout products per output voxel; x and g read,
+            # the f32 weight gradient written
+            half = (s // 2) ** 3
+            size = torch.finfo(dtype).bits // 8
+            bms, bound_by = bound_ms(2.0 * half * 27 * cin * cout,
+                                     size * (s ** 3 * cin + half * cout) + 4 * 27 * cin * cout,
+                                     dtype)
+            msg += (f" | kernel {ms:.3f} ms, cuDNN{' (TF32 off)' * (dtype == torch.float32)} "
+                    f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
+            if dtype == torch.bfloat16 and si == 0:
+                # the plain composition is one PyTorch call (cuDNN's dw)
+                report["s2_wgrad"] = dict(ms=ms, plain_ms=plain_ms, shape=label,
+                                          bound_ms=bms, bound_by=bound_by,
+                                          library_ms=plain_ms,
+                                          max_abs_err=(got - want).abs().max().item())
             print(msg, flush=True)
             del x, g, got, want
     torch.cuda.empty_cache()
@@ -609,8 +689,8 @@ def phase2_backward(device, gen, report):
 
 def phase2_winograd(device, gen, report):
     """Both Winograd variants against their plain Winograd version and the
-    direct conv's plain version; each bf16 case timed against the direct
-    hand kernel and the plain composition in bf16 (cuDNN)."""
+    direct conv's plain version; each case timed against the direct hand
+    kernel and the plain composition in its dtype (cuDNN, TF32 off in f32)."""
     from unet3d_tpu_torch.ops import conv3d_kernel as K
     from unet3d_tpu_torch.ops import winograd_kernel as W
     kernel = {"winograd": W.winograd3x3x3, "winograd_stats": W.winograd3x3x3_with_stats}
@@ -639,22 +719,21 @@ def phase2_winograd(device, gen, report):
                     s_err = stats_err(*got)
                     msg += f" stats rel {s_err:.3e}"
                     check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
-                if dtype == torch.bfloat16:
-                    plain_variant, direct_fn = direct[variant]
-                    ms = device_ms(lambda: kernel[variant](x, w))
-                    direct_ms = device_ms(lambda: direct_fn(x, w))
-                    plain_ms = device_ms(lambda: plain_fast(plain_variant, x, w, None, None))
-                    # Winograd-DH issues 48 of the direct conv's 108 products
-                    bms, bound_by = conv_bound(variant, s, cin, cout, WINOGRAD_PRODUCTS)
-                    msg += (f" | kernel {ms:.3f} ms, direct kernel {direct_ms:.3f} ms, "
-                            f"cuDNN {plain_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, "
-                            f"{bms / ms:.1%})")
-                    if si == TIMED_AT[variant]:
-                        report[variant] = dict(
-                            ms=ms, plain_ms=plain_ms, direct_ms=direct_ms, shape=label,
-                            bound_ms=bms, bound_by=bound_by,
-                            library_ms=plain_ms if variant == "winograd" else None,
-                            max_abs_err=(got_y.float() - want.float()).abs().max().item())
+                plain_variant, direct_fn = direct[variant]
+                ms = device_ms(lambda: kernel[variant](x, w))
+                direct_ms = device_ms(lambda: direct_fn(x, w))
+                plain_ms = device_ms(lambda: plain_fast(plain_variant, x, w, None, None))
+                # Winograd-DH issues 48 of the direct conv's 108 products
+                bms, bound_by = conv_bound(variant, s, cin, cout, WINOGRAD_PRODUCTS, dtype)
+                msg += (f" | kernel {ms:.3f} ms, direct kernel {direct_ms:.3f} ms, "
+                        f"cuDNN{' (TF32 off)' * (dtype == torch.float32)} {plain_ms:.3f} ms, "
+                        f"bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
+                if dtype == torch.bfloat16 and si == TIMED_AT[variant]:
+                    report[variant] = dict(
+                        ms=ms, plain_ms=plain_ms, direct_ms=direct_ms, shape=label,
+                        bound_ms=bms, bound_by=bound_by,
+                        library_ms=plain_ms if variant == "winograd" else None,
+                        max_abs_err=(got_y.float() - want.float()).abs().max().item())
                 print(msg, flush=True)
             del x, w, want, want_direct
     torch.cuda.empty_cache()
@@ -931,17 +1010,23 @@ def phase5(device, seed, card):
     del fresh
     shutil.rmtree(OUT_DIR, ignore_errors=True)
 
-    # one step's gradients, kernels against the plain path
+    # one step's gradients, kernels against the plain path; the f32 step's
+    # direct convs take the tf32x3 form
     grads = {}
     for name, dt_amp, bound in (("f32", False, GRAD_BOUND_F32),
                                 ("bf16", True, GRAD_BOUND_BF16)):
         x, y = prepare_batch(train_batch["image"], train_batch["label"], device, dt_amp)
+        reset_launches()
         rel, worst, worst_name = grad_rel_l2(model, criterion, x, y, dt_amp)
         grads[name] = rel
         msg = (f"gradients {name}, kernels vs plain path: rel L2 {rel:.3e} over all "
-               f"parameters; worst tensor {worst_name} {worst:.3e}")
+               f"parameters; worst tensor {worst_name} {worst:.3e}; {form_counts()}")
         print(msg, flush=True)
         check(rel < bound, f"{msg} > {bound}")
+        if not dt_amp:
+            f32_forms = forms_of(("conv", "conv_stats", "block_stats"))
+            check(set(f32_forms) == {f"{v}/tf32x3" for v in ("conv", "conv_stats", "block_stats")},
+                  f"f32 step: direct conv launches by form {f32_forms}")
         del x, y
     torch.cuda.empty_cache()
 
@@ -969,7 +1054,7 @@ def phase5(device, seed, card):
           f"{times['plain']} ms; peak memory kernels {peaks['kernels']:.2f} GiB, plain "
           f"{peaks['plain']:.2f} GiB [{card}]", flush=True)
     return launches, dict(step_ms=step, peak_gib=peaks, grad_rel_l2=grads,
-                          losses=losses, profile=profile)
+                          losses=losses, profile=profile, f32_step_forms=f32_forms)
 
 
 # the synthetic BraTS cases of phase 6: the BraTS 2020 grid, 1 mm voxels with
@@ -1696,16 +1781,17 @@ def plain_convs():
 
 
 def phase10_kernels(device, gen):
-    """The conv kernel and s2_wgrad at SegResNet's new shapes against their
+    """The conv kernel and s2_wgrad at the family's new shapes against their
     plain versions, in the form each takes there, timed (device ms) beside
-    the plain composition, one PyTorch call and the bound (f32 at the f32
-    peak outside the tensor cores)."""
+    the plain composition, one PyTorch call and the bound (f32: both the f32
+    CUDA-core bound and the 3xTF32 tensor-core bound the tf32x3 form is held
+    to)."""
     from unet3d_tpu_torch.ops import conv3d_kernel as K
     from unet3d_tpu_torch.ops import s2_wgrad_kernel as W
     from unet3d_tpu_torch.ops.conv3d import conv3d_torch
 
     rows = []
-    for label, s, cin, cout, dtype in FAMILY_CONV_SHAPES:
+    for label, s, cin, cout, dtype, expected in FAMILY_CONV_SHAPES:
         x = torch.randn(1, s, s, s, cin, device=device, generator=gen).to(dtype)
         w = (torch.randn(3, 3, 3, cin, cout, device=device, generator=gen)
              / (27 * cin) ** 0.5).to(dtype)
@@ -1713,20 +1799,28 @@ def phase10_kernels(device, gen):
         got, want = K.conv3x3x3(x, w), K.conv3d_reference(x, w)
         torch.cuda.synchronize()
         rel = rel_max(got, want)
-        msg = f"family conv {label:28s} {str(dtype)[6:]:8s} {form:5s} rel {rel:.3e}"
-        check(form == ("wgmma" if dtype == torch.bfloat16 else "fma"), f"{msg}: form")
+        msg = f"family conv {label:32s} {str(dtype)[6:]:8s} {form:6s} rel {rel:.3e}"
+        check(form == expected, f"{msg}: form, expected {expected}")
         check(rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
         ms = device_ms(lambda: K.conv3x3x3(x, w))
         plain_ms = device_ms(lambda: conv3d_torch(x, w, (1, 1, 1), ((1, 1),) * 3))
         library_ms = device_ms(library_conv(x, w))
-        bms, bound_by = conv_bound("conv", s, cin, cout, dtype=dtype)
-        print(f"{msg} | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d "
-              f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})",
-              flush=True)
-        rows.append(dict(name="conv", shape=label, dtype=str(dtype)[6:], form=form, ms=ms,
-                         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
-                         bound_by=bound_by,
-                         max_abs_err=(got.float() - want.float()).abs().max().item()))
+        row = dict(name="conv" if dtype == torch.bfloat16 else "conv_tf32x3", shape=label,
+                   dtype=str(dtype)[6:], form=form, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms,
+                   max_abs_err=(got.float() - want.float()).abs().max().item())
+        if dtype == torch.float32:
+            row["f32_bound_ms"], _ = conv_bound("conv", s, cin, cout, dtype=dtype)
+            bms, bound_by = tf32x3_bound("conv", s, cin, cout)
+            msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d (TF32 off) "
+                    f"{library_ms:.3f} ms, f32 bound {row['f32_bound_ms']:.3f} ms, 3xTF32 "
+                    f"bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
+        else:
+            bms, bound_by = conv_bound("conv", s, cin, cout, dtype=dtype)
+            msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d "
+                    f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
+        print(msg, flush=True)
+        rows.append(dict(row, bound_ms=bms, bound_by=bound_by))
         del x, w, got, want
     for label, s, cin, cout in FAMILY_S2_SHAPES:
         x = torch.randn(1, s, s, s, cin, device=device, generator=gen).to(torch.bfloat16)
@@ -1763,16 +1857,16 @@ def forms_of(kernels) -> dict:
 
 def check_family_forms(where: str, wmma_conv: bool = False) -> None:
     """Under AMP the family's conv launches take the wgmma form (bf16) or
-    the fma form (the f32 decoder), s2_wgrad the wgmma form; the conv's wmma
-    form only where ``wmma_conv`` allows it: in the U-Nets and autoencoders
-    the first conv follows a GroupNorm, so training takes its input
-    gradient, whose n_features outputs are no multiple of 8, and
+    the tf32x3 form (the f32 decoder), s2_wgrad the wgmma form; the conv's
+    wmma form only where ``wmma_conv`` allows it: in the U-Nets and
+    autoencoders the first conv follows a GroupNorm, so training takes its
+    input gradient, whose n_features outputs are no multiple of 8, and
     AutoImplantUNet's one-channel input conv is no multiple of 4."""
-    allowed = {("conv", "wgmma"), ("conv", "fma"), ("s2_wgrad", "wgmma")}
+    allowed = {("conv", "wgmma"), ("conv", "tf32x3"), ("s2_wgrad", "wgmma")}
     if wmma_conv:
         allowed.add(("conv", "wmma"))
     off = {k: n for k, n in form_launches().items() if k not in allowed}
-    check(not off, f"{where}: launches off the wgmma / fma forms: {off}")
+    check(not off, f"{where}: launches off the wgmma / tf32x3 forms: {off}")
 
 
 def family_grads(model, criterion, x, y, amp, seed):
@@ -1797,6 +1891,80 @@ def family_grads(model, criterion, x, y, amp, seed):
     return (diff / norm) ** 0.5, worst[0], worst[1]
 
 
+def rel_l2_of(got, want) -> float:
+    """Relative L2 of tensors ``got`` against ``want``, over all of them."""
+    diff = sum(float((a.double() - b.double()).square().sum()) for a, b in zip(got, want))
+    return (diff / sum(float(b.double().square().sum()) for b in want)) ** 0.5
+
+
+def default_tf32_flags(model, criterion, images, labels, device, seed):
+    """Under torch's default flags (cuDNN's f32 convs in TF32; this script sets
+    no flag) the f32 paths stay full f32: one f32 SegResNetVAE step's
+    gradients (the hand kernels or the plain path, cuDNN's stride-2 convs,
+    weight gradients and transposed convs) and one f32 stride-2 conv at V's
+    down1 (32 -> 64 @128^3: cuDNN forward and input gradient, s2_wgrad),
+    each against the same computation with cuDNN's TF32 off by the caller,
+    within TF32_FLAGS_BOUND relative L2 (TF32 would be ~1e-3; the same path
+    run twice differs by 2e-8 to 1.5e-7). The two f32 paths are not each
+    other's yardstick: GroupNorm's E[x^2] - E[x]^2 in f32 (the reference's
+    formula) puts each 4e-7 to 2.6e-4 from f64 by the weights' state, and
+    the kernels anywhere from 0.6x to 1.9x as far as the plain path
+    (tools/f32_grad_spread.py). So the kernels' gradients are held to the
+    f64 plain path: no more than F64_EXCESS_BOUND farther from it than the
+    plain f32 path's."""
+    import copy
+
+    from unet3d_tpu_torch.ops.conv3d import conv3d
+    from unet3d_tpu_torch.train.step import forward_loss, noise_generator, prepare_batch
+    check(torch.backends.cudnn.allow_tf32, "cuDNN's TF32 flag is not torch's default")
+    x, y = prepare_batch(images, labels, device, False)
+    rng = np.random.RandomState(seed + 40)
+    xs = torch.from_numpy(rng.randn(1, 128, 128, 128, 32).astype(np.float32)).to(device)
+    ws = torch.from_numpy((rng.randn(3, 3, 3, 32, 64) / np.sqrt(27 * 32))
+                          .astype(np.float32)).to(device)
+    gs = torch.from_numpy(rng.randn(1, 64, 64, 64, 64).astype(np.float32)).to(device)
+
+    def step_grads(net, xx, plain):
+        with plain_convs() if plain else contextlib.nullcontext():
+            loss = forward_loss(net, criterion, xx, y, False, noise_generator(net, seed))
+            return torch.autograd.grad(loss, list(net.parameters()))
+
+    def stride2():
+        lx, lw = xs.clone().requires_grad_(), ws.clone().requires_grad_()
+        out = conv3d(lx, lw, (2, 2, 2))
+        return (out.detach(), *torch.autograd.grad(out, (lx, lw), gs))
+
+    got = {"kernels": step_grads(model, x, False), "plain": step_grads(model, x, True)}
+    got_s2 = stride2()
+    check(torch.backends.cudnn.allow_tf32, "the port left cuDNN's TF32 flag changed")
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = {"kernels": step_grads(model, x, False), "plain": step_grads(model, x, True)}
+        want_s2 = stride2()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    double = copy.deepcopy(model).double()
+    f64 = step_grads(double, x.double(), True)
+    del double
+    out = {f"step_{path}": rel_l2_of(got[path], want[path]) for path in got}
+    for name, a, b in zip(("stride2_y", "stride2_dx", "stride2_dw"), got_s2, want_s2):
+        out[name] = rel_l2_of([a], [b])
+    accuracy = {"kernels_vs_plain": rel_l2_of(got["kernels"], want["plain"]),
+                "kernels_vs_f64": rel_l2_of(got["kernels"], f64),
+                "plain_vs_f64": rel_l2_of(want["plain"], f64)}
+    print(f"torch's default TF32 flags: f32 paths vs themselves with TF32 off, rel L2 {out}; "
+          f"f32 step gradients {accuracy}", flush=True)
+    for name, rel in out.items():
+        check(rel < TF32_FLAGS_BOUND, f"default TF32 flags: {name} rel L2 {rel:.3e} > "
+              f"{TF32_FLAGS_BOUND}")
+    excess = accuracy["kernels_vs_f64"] - accuracy["plain_vs_f64"]
+    check(excess < F64_EXCESS_BOUND,
+          f"f32 step gradients: the kernels {accuracy['kernels_vs_f64']:.3e} from f64, the "
+          f"plain path {accuracy['plain_vs_f64']:.3e}: {excess:.3e} farther > "
+          f"{F64_EXCESS_BOUND}")
+    return dict(out, **accuracy)
+
+
 def window_check(model, window, use_test=False):
     """One bf16 window forward through ``make_forward``, kernels against the
     plain path: (output, relative L2, launches, forms)."""
@@ -1819,7 +1987,8 @@ def phase10_segresnet(device, seed, card):
     kernels against the plain path, launches by form, time and profile; (b)
     one bf16 AMP train step at batch 1 (DiceLoss plus the VAE term):
     launches, gradients against the plain path, step ms, peak memory,
-    profile."""
+    profile; then the f32 step and an f32 stride-2 conv under torch's default
+    TF32 flags (``default_tf32_flags``)."""
     from unet3d_tpu_torch.config.factory import (build_optimizer_from_config,
                                                  build_or_load_model_from_config,
                                                  load_criterion_from_config)
@@ -1845,10 +2014,10 @@ def phase10_segresnet(device, seed, card):
     check(rel < L2_BOUND, f"SegResNetVAE window rel L2 {rel:.3e} > {L2_BOUND}")
     check_family_forms("SegResNetVAE window")
     window_by_form = forms_of(FAMILY_KERNELS)
-    window_forms = {k: forms.get(k, 0) for k in (("conv", "wgmma"), ("conv", "fma"))}
-    check(window_forms == {("conv", "wgmma"): 19, ("conv", "fma"): 6},
+    window_forms = {k: forms.get(k, 0) for k in (("conv", "wgmma"), ("conv", "tf32x3"))}
+    check(window_forms == {("conv", "wgmma"): 19, ("conv", "tf32x3"): 6},
           f"SegResNetVAE window conv launches by form {window_forms}: expected 19 "
-          "wgmma (encoder) and 6 fma (the f32 decoder)")
+          "wgmma (encoder) and 6 tf32x3 (the f32 decoder)")
     times = {"plain": [], "kernels": []}
     for which in ("plain", "kernels", "kernels", "plain"):
         with plain_convs() if which == "plain" else contextlib.nullcontext():
@@ -1881,6 +2050,10 @@ def phase10_segresnet(device, seed, card):
     check(step_launches["conv"] == 61,
           f"conv launched {step_launches['conv']} times, expected 61 (31 forward: 19 bf16 "
           "and 12 f32 with the VAE replay; 30 input gradients)")
+    step_conv_forms = {k: step_forms.get(k, 0) for k in ("conv/wgmma", "conv/tf32x3")}
+    check(step_conv_forms == {"conv/wgmma": 37, "conv/tf32x3": 24},
+          f"SegResNetVAE step conv launches by form {step_conv_forms}: expected 37 wgmma "
+          "and 24 tf32x3 (the f32 decoder's forward, input gradients and VAE replay)")
     grads = {}
     for name, amp, bound in (("f32", False, GRAD_BOUND_F32), ("bf16", True, GRAD_BOUND_BF16)):
         x, y = prepare_batch(images, labels, device, amp)
@@ -1891,6 +2064,8 @@ def phase10_segresnet(device, seed, card):
         print(msg, flush=True)
         check(grel < bound, f"{msg} > {bound}")
         del x, y
+    # torch's default TF32 flags
+    tf32_flags = default_tf32_flags(model, criterion, images, labels, device, seed)
     torch.cuda.empty_cache()
     step_times, peaks = {"plain": [], "kernels": []}, {}
     for which in ("plain", "kernels", "kernels", "plain"):
@@ -1911,7 +2086,7 @@ def phase10_segresnet(device, seed, card):
         window_rel_l2=rel, window_launches=launches, window_forms=window_by_form,
         window_ms=times, window_profile=window_profile, step_loss=loss,
         step_forms=step_forms, grad_rel_l2=grads, step_ms=step_times, peak_gib=peaks,
-        step_profile=step_profile)
+        step_profile=step_profile, default_tf32_flags_rel_l2=tf32_flags)
 
 
 def phase10_train_cli(device, seed, card, cases):
@@ -1981,7 +2156,7 @@ def phase10_train_cli(device, seed, card, cases):
           f"{run['forms']}", flush=True)
     for kernel in FAMILY_KERNELS:
         check(run["launches"][kernel] > 0, f"train CLI: kernel {kernel} was not launched")
-    check(run["forms"].get("conv/wgmma", 0) > 0 and run["forms"].get("conv/fma", 0) > 0,
+    check(run["forms"].get("conv/wgmma", 0) > 0 and run["forms"].get("conv/tf32x3", 0) > 0,
           f"train CLI: conv forms {run['forms']}")
     rows = read_training_log(os.path.join(fold_dir, "training_log.csv"))
     print(f"SegResNetVAE training_log.csv: {rows}", flush=True)
@@ -2095,8 +2270,8 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"sm_{''.join(map(str, sm_version(device)))}, {torch.cuda.get_device_name(0)}",
           flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # no TF32 flag is set: the phases run under torch's defaults, as a user
+    # runs the CLIs, and the port's own policy keeps f32 full f32
     # phase 1
     t0 = time.perf_counter()
     load_library()
@@ -2159,6 +2334,27 @@ def main() -> int:
                  "launches_segresnet": segresnet_launches[v],
                  **{k: report[v][k] for k in keys}, "direct_ms": report[v]["direct_ms"]}
                 for v in STRATEGY_KERNELS]
+    # the f32 form (conv3d_tf32x3.cu): conv's launches in SegResNetVAE's bf16
+    # AMP train step (its f32 decoder, phase 10b) and time at the decoder's
+    # 32 -> 32 @128^3 site; conv_stats' and block_stats' launches in the f32
+    # DynUNet step (phase 5) and times at their phase-2 f32 sites; bound_ms
+    # the 3xTF32 bound, f32_bound_ms the f32 CUDA-core one
+    tf32_rows = [r for r in family_rows if r["name"] == "conv_tf32x3"]
+    conv_tf32 = next(r for r in tf32_rows if r["shape"] == TF32X3_CONV_AT)
+    kernels += [{"name": "conv_tf32x3", "route": "cuda", "source": TF32X3_SOURCE,
+                 "replaces": REPLACES["conv"],
+                 "launches": segresnet["step_forms"].get("conv/tf32x3", 0),
+                 "launches_segresnet_window": segresnet["window_forms"].get("conv/tf32x3", 0),
+                 "launches_train_cli_segresnet": segresnet_cli["forms"].get("conv/tf32x3", 0),
+                 **{k: conv_tf32[k] for k in keys + ("f32_bound_ms",)},
+                 "family_shapes": tf32_rows}]
+    kernels += [{"name": f"{v}_tf32x3", "route": "cuda", "source": TF32X3_SOURCE,
+                 "replaces": REPLACES[v],
+                 "launches": training["f32_step_forms"].get(f"{v}/tf32x3", 0),
+                 **{k: report[f"{v}_tf32x3"][k] for k in keys + ("f32_bound_ms",)}}
+                for v in ("conv_stats", "block_stats")]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    check(not idle, f"kernels not launched on their paths: {idle}")
     print(f"seconds per case: {json.dumps(seconds)} [{card}]")
     print(f"window: {json.dumps(dict(forward_ms=window_ms, profile=window_profile))} [{card}]")
     print(f"training: {json.dumps(training)} [{card}]")

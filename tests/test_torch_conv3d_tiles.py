@@ -108,7 +108,7 @@ def test_pack_weight_round_trips_and_lays_out_k_major_tiles(cin, cout, bn):
 
 def test_kernel_form_by_dtype_and_channels():
     w = torch.zeros(3, 3, 3, 64, 64)
-    assert K.kernel_form(torch.zeros(1, 4, 4, 4, 64), w) == "fma"
+    assert K.kernel_form(torch.zeros(1, 4, 4, 4, 64), w) == "tf32x3"
     assert K.kernel_form(torch.zeros(1, 4, 4, 4, 64, dtype=torch.bfloat16),
                          w.bfloat16()) == "wgmma"
     assert K.kernel_form(torch.zeros(1, 4, 4, 4, 4, dtype=torch.bfloat16),

@@ -2,7 +2,7 @@
 
 SegResNet's level 0 runs 32 channels, narrower than one 64-wide tile of the
 wgmma form; under AMP its decoder runs in f32 (the trilinear upsample
-returns f32), so its 3-cubed convs take the f32 form of ``conv3d.cu``; its
+returns f32), so its 3-cubed convs take the f32 form, ``conv3d_tf32x3.cu``; its
 stride-2 convs' weight gradients run ``s2_wgrad`` at 32 -> 64 @128^3 and,
 in the VAE branch, 256 -> 16 @16^3. Each is held against its plain version
 (relative to the largest value: 1e-2 bf16 and 1e-5 f32 for the conv, 1e-4
@@ -39,7 +39,7 @@ def _rel(got, want) -> float:
 @pytest.mark.cuda
 @pytest.mark.parametrize("spatial,cin,cout,dtype,form,dx_form", [
     (128, 4, 32, "bfloat16", "wgmma", "wmma"), (128, 32, 32, "bfloat16", "wgmma", "wgmma"),
-    (128, 32, 32, "float32", "fma", "fma"), (64, 64, 64, "float32", "fma", "fma")])
+    (128, 32, 32, "float32", "tf32x3", "tf32x3"), (64, 64, 64, "float32", "tf32x3", "tf32x3")])
 def test_conv_at_the_family_shapes(cuda_device, spatial, cin, cout, dtype, form, dx_form):
     """Forward and input gradient (the conv on the flipped, io-swapped
     weight), in the form each takes: a dx with 4 outputs (the U-Nets' first

@@ -251,3 +251,70 @@ def test_flexible_load_keeps_missing_and_drops_extra_keys(tmp_path):
         else:
             assert "conv3" in key or "norm3" in key
             assert torch.equal(value, before[key]), key
+
+
+# Adam, SGD with momentum and the port's own RMSprop (optax's, with momentum)
+LEGACY_CASES = [CASES[0], CASES[5], CASES[8]]
+
+
+def _write_legacy(state, path):
+    """An optax state as the JAX package's older positional file: leaf_{i}
+    in ``jax.tree_util.tree_leaves`` order."""
+    np.savez(path, **{f"leaf_{i}": np.asarray(v)
+                      for i, v in enumerate(jax.tree_util.tree_leaves(state))})
+
+
+@pytest.mark.parametrize("name,kwargs", LEGACY_CASES, ids=[c[0] for c in LEGACY_CASES])
+def test_a_legacy_positional_optimizer_file_loads_as_its_keyed_twin(name, kwargs, tmp_path):
+    params, grads = initial_params(), gradients()
+    history, state, tx = jax_run(name, kwargs, params, grads[:3])
+    state = jax.device_get(state)
+    keyed, legacy = str(tmp_path / "keyed.npz"), str(tmp_path / "legacy.npz")
+    jax_ckpt.save_opt_state(state, keyed)
+    _write_legacy(state, legacy)
+    # the JAX package reads the legacy file into the same state
+    back = jax_ckpt.load_opt_state(tx.init(_nested(history[-1])), legacy)
+    assert _keyed(back).keys() == _keyed(state).keys()
+    for key, value in _keyed(state).items():
+        np.testing.assert_array_equal(_keyed(back)[key], value, err_msg=key)
+    loaded = {}
+    for which, path in (("keyed", keyed), ("legacy", legacy)):
+        tensors = port_params(history[-1])
+        opt = optim.build_optimizer(name, list(tensors.values()), lr=LR, **kwargs)
+        checkpoint.load_opt_state(opt, list(tensors), path)
+        loaded[which] = (opt.update_count, opt.param_groups[0]["lr"],
+                         checkpoint.opt_state_arrays(opt, list(tensors)))
+    count, lr, arrays = loaded["legacy"]
+    assert (count, lr) == loaded["keyed"][:2] and count == 3
+    assert arrays.keys() == loaded["keyed"][2].keys() == set(np.load(keyed).files)
+    for key, value in loaded["keyed"][2].items():
+        np.testing.assert_array_equal(arrays[key], value, err_msg=key)
+
+
+@pytest.mark.parametrize("name,kwargs", CASES, ids=IDS)
+def test_the_port_leaf_order_is_jax_flatten_order(name, kwargs):
+    """``opt_state_keys`` spells JAX's ``tree_flatten_with_path`` order (and
+    the shapes) for every optimizer of the menu."""
+    params = initial_params()
+    _, state, _ = jax_run(name, kwargs, params, [])
+    flat, _ = jax.tree_util.tree_flatten_with_path(state)
+    tensors = port_params(params)
+    opt = optim.build_optimizer(name, list(tensors.values()), lr=LR, **kwargs)
+    keys = checkpoint.opt_state_keys(opt, list(tensors))
+    assert list(keys) == [jax.tree_util.keystr(p) for p, _ in flat]
+    assert list(keys.values()) == [tuple(np.shape(v)) for _, v in flat]
+
+
+def test_a_legacy_optimizer_file_of_another_leaf_count_raises(tmp_path):
+    params, grads = initial_params(), gradients()
+    _, state, _ = jax_run("Adam", {}, params, grads[:1])
+    leaves = [np.asarray(v) for v in jax.tree_util.tree_leaves(jax.device_get(state))]
+    tensors = port_params(params)
+    opt = optim.build_optimizer("Adam", list(tensors.values()), lr=LR)
+    for what, kept, match in (("short", leaves[:-1], "missing leaf"),
+                              ("long", leaves + [leaves[-1]], "unexpected"),
+                              ("shape", leaves[:4] + [leaves[4].T] + leaves[5:], "shape")):
+        path = str(tmp_path / f"{what}.npz")
+        np.savez(path, **{f"leaf_{i}": v for i, v in enumerate(kept)})
+        with pytest.raises(checkpoint.OptStateMismatchError, match=match):
+            checkpoint.load_opt_state(opt, list(tensors), path)

@@ -31,8 +31,8 @@ from pathlib import Path
 _PACKAGE = Path(__file__).resolve().parents[1]
 _KERNELS = _PACKAGE / "ops" / "kernels"
 SOURCES = tuple(_KERNELS / name for name in (
-    "conv3d.cu", "conv3d_wgmma.cu", "s2_wgrad.cu", "s2_wgrad_wgmma.cu", "winograd.cu",
-    "winograd_wgmma.cu"))
+    "conv3d.cu", "conv3d_wgmma.cu", "conv3d_tf32x3.cu", "s2_wgrad.cu", "s2_wgrad_wgmma.cu",
+    "winograd.cu", "winograd_wgmma.cu"))
 HEADERS = (_KERNELS / "sm90_wgmma.cuh",)  # included by the sources, hashed with them
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -114,6 +114,8 @@ def _check_wgmma_configs(lib: ctypes.CDLL) -> None:
 
     _check_configs(lib.unet3d_conv3x3x3_wgmma_config, 8, conv3d_kernel.WGMMA_CONFIGS,
                    "conv3d_wgmma.cu CONFIGS")
+    _check_configs(lib.unet3d_conv3x3x3_tf32x3_config, 8, conv3d_kernel.TF32_CONFIGS,
+                   "conv3d_tf32x3.cu CONFIGS")
     _check_configs(lib.unet3d_winograd_wgmma_config, 5, winograd_kernel.WGMMA_CONFIGS,
                    "winograd_wgmma.cu CONFIGS")
 
@@ -137,6 +139,10 @@ def load_library() -> ctypes.CDLL:
             lib.unet3d_conv3x3x3_wgmma.restype = i
             lib.unet3d_conv3x3x3_wgmma_config.argtypes = [i, ctypes.POINTER(i)]
             lib.unet3d_conv3x3x3_wgmma_config.restype = i
+            lib.unet3d_conv3x3x3_tf32x3.argtypes = lib.unet3d_conv3x3x3_wgmma.argtypes
+            lib.unet3d_conv3x3x3_tf32x3.restype = i
+            lib.unet3d_conv3x3x3_tf32x3_config.argtypes = [i, ctypes.POINTER(i)]
+            lib.unet3d_conv3x3x3_tf32x3_config.restype = i
             lib.unet3d_s2_wgrad_ndhwc.argtypes = [
                 i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, p]
             lib.unet3d_s2_wgrad_ndhwc.restype = i

@@ -2,10 +2,11 @@
 
 Counterparts of ``unet3d_tpu/models/layers.py``. ``FastConv`` trains through
 the autograd Functions of ``ops/conv3d``; ``PointwiseConv`` and
-``SubpixelConvTranspose`` are matmuls and reshapes that train through torch
-autograd (the JAX subpixel VJP is a layout device for XLA, not a kernel), and
-so do ``ConvTranspose`` (the overlapping transposed conv, cuDNN), ``Dense``
-and ``GroupNorm``. Parameters keep the Flax names and layouts (``kernel``
+``SubpixelConvTranspose`` are matmuls and reshapes (the JAX subpixel VJP is a
+layout device for XLA, not a kernel), ``ConvTranspose`` is the overlapping
+transposed conv (cuDNN), and so is ``Dense`` a matmul, each through
+``ops/conv3d``'s ``channel_matmul`` / ``cudnn_conv`` (f32 in full f32, TF32
+off); ``GroupNorm`` trains through torch autograd. Parameters keep the Flax names and layouts (``kernel``
 DHWIO or (in, out), ``scale`` / ``bias``), so a JAX checkpoint loads by key
 alone (``convert.py``). Parameters are created empty; ``init_parameters``
 fills a whole model from a ``torch.Generator``.
@@ -25,9 +26,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from unet3d_tpu_torch.ops.conv3d import conv3d, conv3d_with_stats
+from unet3d_tpu_torch.ops.conv3d import channel_matmul, conv3d, conv3d_with_stats, cudnn_conv
 from unet3d_tpu_torch.ops.conv3d_kernel import instance_stats
 
 Ints3 = Union[int, Sequence[int]]
@@ -114,7 +114,7 @@ class PointwiseConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.kernel.reshape(x.shape[-1], self.features).to(x.dtype)
-        y = torch.matmul(x, w)
+        y = channel_matmul(x, w)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -140,7 +140,7 @@ class SubpixelConvTranspose(nn.Module):
         co = self.features
         wf = torch.flip(self.kernel, dims=(0, 1, 2)).to(x.dtype)
         wm = wf.permute(3, 0, 1, 2, 4).reshape(c, k0 * k1 * k2 * co)
-        y = torch.matmul(x, wm).reshape(n, d, h, w, k0, k1, k2 * co)
+        y = channel_matmul(x, wm).reshape(n, d, h, w, k0, k1, k2 * co)
         y = y.permute(0, 1, 4, 2, 5, 3, 6).reshape(n, d * k0, h * k1, w * k2, co)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
@@ -150,7 +150,7 @@ class SubpixelConvTranspose(nn.Module):
 class ConvTranspose(nn.Module):
     """Flax ``nn.ConvTranspose`` with explicit pads: the stride-dilated input,
     padded by ``pads`` per axis, correlated with the kernel as stored (Flax
-    does not flip it). Computed by ``F.conv_transpose3d`` on the flipped
+    does not flip it). Computed by a cuDNN transposed conv on the flipped
     kernel (torch's transposed conv flips), in the result type of the input
     and the parameters."""
 
@@ -170,9 +170,8 @@ class ConvTranspose(nn.Module):
         params = [self.kernel] + ([self.bias] if self.bias is not None else [])
         dtype = _result_type(x, *params)
         w = torch.flip(self.kernel, dims=(0, 1, 2)).to(dtype).permute(3, 4, 0, 1, 2)
-        y = F.conv_transpose3d(x.to(dtype).permute(0, 4, 1, 2, 3), w,
-                               stride=self.stride, padding=self.padding,
-                               output_padding=self.output_padding)
+        y = cudnn_conv(x.to(dtype).permute(0, 4, 1, 2, 3), w, self.stride, self.padding,
+                       transposed=True, output_padding=self.output_padding)
         y = y.permute(0, 2, 3, 4, 1).contiguous()
         if self.bias is not None:
             y = y + self.bias.to(dtype)
@@ -233,7 +232,7 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         params = [self.kernel] + ([self.bias] if self.bias is not None else [])
         dtype = _result_type(x, *params)
-        y = torch.matmul(x.to(dtype), self.kernel.to(dtype))
+        y = channel_matmul(x.to(dtype), self.kernel.to(dtype))
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y

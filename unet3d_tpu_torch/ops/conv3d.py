@@ -19,6 +19,11 @@ and input gradient, as the JAX package does; at a fused block site the
 activation is then materialised first. Unset keeps the routing above; any
 other value raises (the JAX package's other strategies are TPU bisect
 handles the port does not carry).
+
+f32 on the card is full f32: every cuDNN conv here (forward and gradients)
+and the channel matmuls run under ``utils/device.full_f32``, TF32 off
+whatever the process's flags say, and the f32 3x3x3 kernel form is 3xTF32
+(``ops/conv3d_kernel``), f32-accurate.
 """
 from __future__ import annotations
 
@@ -26,7 +31,6 @@ import os
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from unet3d_tpu_torch.ops.conv3d_kernel import (affine_lrelu, conv3x3x3,
@@ -38,6 +42,7 @@ from unet3d_tpu_torch.ops.winograd_kernel import (winograd3x3x3,
                                                   winograd3x3x3_with_stats,
                                                   winograd_applies,
                                                   winograd_profitable)
+from unet3d_tpu_torch.utils.device import full_f32
 
 Pads = Tuple[Tuple[int, int], ...]
 
@@ -72,13 +77,82 @@ def _is_3x3x3(w: torch.Tensor, stride: Tuple[int, ...], pads: Pads, s: int) -> b
             and pads == ((1, 1),) * 3)
 
 
+class _FullF32Conv(torch.autograd.Function):
+    """An f32 cuDNN conv or transposed conv (channels-first operands, any
+    number of spatial axes) with its forward and both gradients under
+    ``full_f32``: torch autograd would run the gradients outside any scope
+    the forward set."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, transposed, output_padding):
+        ctx.conf = (stride, padding, (1,) * len(stride), transposed, output_padding, 1)
+        ctx.save_for_backward(x, w)
+        with full_f32(x):
+            return torch.ops.aten.convolution(x, w, None, *ctx.conf)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        with full_f32(gy):
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, *ctx.conf, (*ctx.needs_input_grad[:2], False))
+        return dx, dw, None, None, None, None
+
+
+def cudnn_conv(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
+               padding: Sequence[int], transposed: bool = False,
+               output_padding: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``F.conv{1,2,3}d`` (``F.conv_transpose*d`` when ``transposed``) of
+    channels-first ``x`` with torch's weight layout; f32 in full f32,
+    forward and gradients."""
+    stride, padding = tuple(stride), tuple(padding)
+    output_padding = tuple(output_padding or (0,) * len(stride))
+    if x.dtype == torch.float32:
+        return _FullF32Conv.apply(x, w, stride, padding, transposed, output_padding)
+    return torch.ops.aten.convolution(x, w, None, stride, padding, (1,) * len(stride),
+                                      transposed, output_padding, 1)
+
+
+class _FullF32Matmul(torch.autograd.Function):
+    """``x @ w`` for (..., Cin) ``x`` and (Cin, Cout) ``w`` in f32, its
+    forward and both gradients under ``full_f32``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with full_f32(x):
+            return torch.matmul(x, w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        with full_f32(gy):
+            if ctx.needs_input_grad[0]:
+                dx = torch.matmul(gy, w.t())
+            if ctx.needs_input_grad[1]:
+                dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(),
+                                  gy.reshape(-1, gy.shape[-1]))
+        return dx, dw
+
+
+def channel_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(x, w)`` over the channel axis of ``x``; f32 in full
+    f32, forward and gradients."""
+    if x.dtype == torch.float32:
+        return _FullF32Matmul.apply(x, w)
+    return torch.matmul(x, w)
+
+
 def conv3d_torch(x: torch.Tensor, w: torch.Tensor, stride: Tuple[int, ...],
                  pads: Pads) -> torch.Tensor:
-    """``F.conv3d`` on an NDHWC tensor with symmetric ``pads``. The NCDHW view
-    of a contiguous NDHWC tensor is already channels_last_3d, so the permutes
-    copy nothing."""
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype).permute(4, 3, 0, 1, 2),
-                 stride=tuple(stride), padding=tuple(lo for lo, _ in pads))
+    """``F.conv3d`` on an NDHWC tensor with symmetric ``pads`` (f32 in full
+    f32). The NCDHW view of a contiguous NDHWC tensor is already
+    channels_last_3d, so the permutes copy nothing."""
+    y = cudnn_conv(x.permute(0, 4, 1, 2, 3), w.to(x.dtype).permute(4, 3, 0, 1, 2),
+                   stride, tuple(lo for lo, _ in pads))
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
@@ -89,14 +163,16 @@ def flip_io(w: torch.Tensor) -> torch.Tensor:
 
 def weight_grad(x: torch.Tensor, g: torch.Tensor, w_shape, stride: int,
                 pad: int) -> torch.Tensor:
-    """cuDNN's weight gradient (f32 accumulation) of ``conv3d(x, w)`` for the
-    cotangent ``g``, DHWIO, in g's dtype. A CPU tensor computes in f32."""
+    """cuDNN's weight gradient (f32 accumulation, full f32 for f32 operands)
+    of ``conv3d(x, w)`` for the cotangent ``g``, DHWIO, in g's dtype. A CPU
+    tensor computes in f32."""
     dtype = g.dtype
     if x.device.type == "cpu":
         x, g = x.float(), g.float()
-    dw = torch.nn.grad.conv3d_weight(
-        x.permute(0, 4, 1, 2, 3), (w_shape[4], w_shape[3], *w_shape[:3]),
-        g.permute(0, 4, 1, 2, 3), stride=stride, padding=pad)
+    with full_f32(g):
+        dw = torch.nn.grad.conv3d_weight(
+            x.permute(0, 4, 1, 2, 3), (w_shape[4], w_shape[3], *w_shape[:3]),
+            g.permute(0, 4, 1, 2, 3), stride=stride, padding=pad)
     return dw.permute(2, 3, 4, 1, 0).to(dtype)
 
 
@@ -183,7 +259,7 @@ class _BlockConv3x3x3(torch.autograd.Function):
 
 class _Conv3x3x3Stride2(torch.autograd.Function):
     """3x3x3 stride-2 conv with pads of 1: forward and input gradient in
-    cuDNN, weight gradient in the s2_wgrad kernel."""
+    cuDNN (full f32 for f32), weight gradient in the s2_wgrad kernel."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -197,10 +273,11 @@ class _Conv3x3x3Stride2(torch.autograd.Function):
         g = gy.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = torch.nn.grad.conv3d_input(
-                (x.shape[0], x.shape[4], *x.shape[1:4]),
-                w.to(x.dtype).permute(4, 3, 0, 1, 2),
-                g.permute(0, 4, 1, 2, 3), stride=2, padding=1)
+            with full_f32(g):
+                dx = torch.nn.grad.conv3d_input(
+                    (x.shape[0], x.shape[4], *x.shape[1:4]),
+                    w.to(x.dtype).permute(4, 3, 0, 1, 2),
+                    g.permute(0, 4, 1, 2, 3), stride=2, padding=1)
             dx = dx.permute(0, 2, 3, 4, 1).contiguous()
         if ctx.needs_input_grad[1]:
             dw = s2_wgrad(x, g).to(w.dtype)

@@ -1,6 +1,6 @@
 """The 3x3x3 stride-1 SAME conv kernels (NDHWC / DHWIO) and their plain versions.
 
-Three variants, each in two CUDA forms:
+Three variants, each in several CUDA forms:
 
 * ``conv3x3x3``                   y = conv(x, w)
 * ``conv3x3x3_with_stats``        y plus per-(n, c) f32 sum / sum of squares of
@@ -11,15 +11,19 @@ Three variants, each in two CUDA forms:
 Forms: ``wgmma`` (``ops/kernels/conv3d_wgmma.cu``), the Hopper form, takes
 every bf16 call whose Cin is a multiple of 4 and Cout of 8 (every site of
 the DynUNet), with the weight pre-packed per call (``pack_weight``) and a
-tile configuration picked from the shape (``wgmma_plan``); ``wmma``
-(``ops/kernels/conv3d.cu``) takes the other bf16 calls, and ``fma`` (the
-same source) every f32 call.
+tile configuration picked from the shape (``wgmma_plan``); ``tf32x3``
+(``ops/kernels/conv3d_tf32x3.cu``), the Hopper form in f32, takes every f32
+call whose Cin is a multiple of 4, on the tensor cores in 3xTF32 (each f32
+operand split into a TF32 high and low part, ``tf32_split``; three products
+in an f32 accumulator keep f32 accuracy), with its own packing
+(``pack_tf32``) and plan (``tf32_plan``); ``wmma`` and ``fma``
+(``ops/kernels/conv3d.cu``) take the other bf16 and f32 calls.
 
 Each takes a CUDA tensor to its kernel, and a CPU tensor to its plain version
 (``*_reference``); any other device raises. The plain versions compute in f32
-and round once, as the kernels do, and take the statistics of the rounded y.
-``LAUNCHES`` counts kernel launches per variant, ``FORM_LAUNCHES`` per
-(variant, form).
+(TF32 off on the card, ``utils/device.full_f32``) and round once, as the
+kernels do, and take the statistics of the rounded y. ``LAUNCHES`` counts
+kernel launches per variant, ``FORM_LAUNCHES`` per (variant, form).
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from unet3d_tpu_torch.utils.device import full_f32
 
 LAUNCHES: Dict[str, int] = {"conv": 0, "conv_stats": 0, "block_stats": 0}
 FORM_LAUNCHES: Dict[Tuple[str, str], int] = collections.Counter()
@@ -47,14 +53,24 @@ WGMMA_CONFIGS = ((4, 4, 16, 64, 2, 4, 2, 1), (2, 4, 16, 96, 1, 4, 2, 1),
                  (2, 4, 16, 128, 1, 3, 1, 2))
 CHUNK = 64  # input channels per staged chunk (one 128-byte row)
 TAPS = 27
+# the tf32x3 form's tile configurations, in the order of its C table
+# (conv3d_tf32x3.cu CONFIGS), with the fields of WGMMA_CONFIGS: BN up to
+# 128 (each f32 B tile is held twice, hi and lo), two M tiles of 64 rows per
+# warpgroup up to BN = 64; the one-halo configurations for Cin <= 32
+TF32_CONFIGS = ((4, 4, 16, 8, 2, 4, 2, 1), (4, 4, 16, 16, 2, 4, 2, 1),
+                (4, 4, 16, 32, 2, 4, 2, 1), (4, 4, 16, 64, 2, 4, 2, 1),
+                (2, 4, 16, 96, 1, 4, 2, 1), (2, 4, 16, 128, 1, 3, 2, 1),
+                (2, 4, 16, 32, 1, 4, 1, 2), (4, 4, 16, 64, 2, 3, 1, 1))
+TF32_CHUNK = 32  # f32 input channels per staged chunk (one 128-byte row)
+TF32_MAX_BN = 128
 
 
 class WgmmaPlan(NamedTuple):
-    config: int                   # index of WGMMA_CONFIGS
+    config: int                   # index of WGMMA_CONFIGS (TF32_CONFIGS)
     brick: Tuple[int, int, int]   # output voxels per block, (z, y, x)
     bn: int                       # output channels per block
     n_tiles: int                  # blocks along Cout
-    chunks: int                   # 64-channel chunks along Cin
+    chunks: int                   # 64-channel (32-channel) chunks along Cin
     bricks: Tuple[int, int, int]  # bricks along (D, H, W)
 
 
@@ -93,11 +109,61 @@ def pack_weight(w: torch.Tensor, bn: int) -> torch.Tensor:
             .permute(3, 1, 0, 4, 2).contiguous())
 
 
+def tf32_plan(spatial: Tuple[int, int, int], cin: int, cout: int) -> WgmmaPlan:
+    """The tf32x3 form's tiling of a (D, H, W) volume, Cin -> Cout: the
+    fewest N tiles of at most 128 channels, each Cout / n_tiles rounded up to
+    a configured width (BN = Cout rounded up where Cout <= 128: 32 at the
+    SegResNet decoder's 32-channel sites); the one-halo configuration of
+    that width when Cin fits one 32-channel chunk and there is one, else the
+    two-halo one."""
+    chunks = -(-cin // TF32_CHUNK)
+    n_tiles = -(-cout // TF32_MAX_BN)
+    bn = next(c[3] for c in TF32_CONFIGS if c[3] >= -(-cout // n_tiles))
+    halos = 1 if chunks == 1 and (bn, 1) in {(c[3], c[6]) for c in TF32_CONFIGS} else 2
+    config = next(i for i, c in enumerate(TF32_CONFIGS) if c[3] == bn and c[6] == halos)
+    brick = TF32_CONFIGS[config][:3]
+    bricks = tuple(-(-n // b) for n, b in zip(spatial, brick))
+    return WgmmaPlan(config, brick, bn, -(-cout // bn), chunks, bricks)
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """f32 ``v`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: the low 13 bits of the
+    result are zero. Magnitudes within half a TF32 step of the f32 maximum
+    round to infinity, as there; subnormals keep their TF32 steps."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``v`` as the sum of two TF32 values, hi = rna(v) and lo =
+    rna(v - hi): |v - hi - lo| <= max(2^-22 |v|, 2^-137) (the TF32 subnormal
+    step's half). The tf32x3 kernel splits A this way in registers, and
+    ``pack_tf32`` splits the weight."""
+    hi = tf32_round(v)
+    return hi, tf32_round(v - hi)
+
+
+def pack_tf32(w: torch.Tensor, bn: int) -> torch.Tensor:
+    """f32 DHWIO ``w`` as the tf32x3 form's B tiles: (n_tiles, chunks, 27, 2,
+    bn, 32), the TF32 high part then the low part (``tf32_split``), K-major
+    (32 input channels of one output channel contiguous), zero past Cin and
+    Cout; step (chunk, tap) of N tile t is ``packed[t, chunk, tap]``."""
+    cin, cout = w.shape[3], w.shape[4]
+    chunks, n_tiles = -(-cin // TF32_CHUNK), -(-cout // bn)
+    wp = F.pad(w.reshape(TAPS, cin, cout),
+               (0, n_tiles * bn - cout, 0, chunks * TF32_CHUNK - cin))
+    parts = torch.stack(tf32_split(wp))
+    return (parts.view(2, TAPS, chunks, TF32_CHUNK, n_tiles, bn)
+            .permute(4, 2, 1, 0, 5, 3).contiguous())
+
+
 def kernel_form(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The CUDA form a call takes: ``wgmma``, ``wmma`` or ``fma``."""
-    if x.dtype == torch.float32:
-        return "fma"
+    """The CUDA form a call takes: ``wgmma`` or ``wmma`` (bf16), ``tf32x3``
+    or ``fma`` (f32)."""
     aligned = x.data_ptr() % 16 == 0
+    if x.dtype == torch.float32:
+        return "tf32x3" if x.shape[4] % 4 == 0 and aligned else "fma"
     return "wgmma" if x.shape[4] % 4 == 0 and w.shape[4] % 8 == 0 and aligned else "wmma"
 
 
@@ -115,8 +181,9 @@ def affine_lrelu(x, inv, shift, alpha):
 
 
 def conv3d_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    y = F.conv3d(x.float().permute(0, 4, 1, 2, 3),
-                 w.float().permute(4, 3, 0, 1, 2), padding=1)
+    with full_f32(x):
+        y = F.conv3d(x.float().permute(0, 4, 1, 2, 3),
+                     w.float().permute(4, 3, 0, 1, 2), padding=1)
     return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
 
 
@@ -174,10 +241,12 @@ def _launch(variant: str, x: torch.Tensor, w: torch.Tensor,
             stats.data_ptr() if stats is not None else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if form == "wgmma":
-            plan = wgmma_plan((d, h, wd), cin, cout)
-            wp = pack_weight(w, plan.bn)
-            err = lib.unet3d_conv3x3x3_wgmma(
+        if form in ("wgmma", "tf32x3"):
+            tf32 = form == "tf32x3"
+            plan = (tf32_plan if tf32 else wgmma_plan)((d, h, wd), cin, cout)
+            wp = (pack_tf32 if tf32 else pack_weight)(w, plan.bn)
+            entry = lib.unet3d_conv3x3x3_tf32x3 if tf32 else lib.unet3d_conv3x3x3_wgmma
+            err = entry(
                 _VARIANTS[variant], plan.config, x.data_ptr(), wp.data_ptr(),
                 y.data_ptr(), *ptrs, n, d, h, wd, cin, cout, *plan.bricks,
                 plan.n_tiles, plan.chunks, float(alpha), stream)

@@ -19,6 +19,8 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from unet3d_tpu_torch.utils.device import full_f32
+
 LAUNCHES: Dict[str, int] = {"s2_wgrad": 0}
 FORM_LAUNCHES: Dict[Tuple[str, str], int] = collections.Counter()
 
@@ -58,11 +60,13 @@ def reset_launches() -> None:
 
 
 def s2_wgrad_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """f32 dw of ``conv3d(x, w, stride 2, pads 1)`` for cotangent ``g``."""
+    """f32 dw of ``conv3d(x, w, stride 2, pads 1)`` for cotangent ``g``, in
+    full f32 on the card."""
     cin, cout = x.shape[-1], g.shape[-1]
-    dw = torch.nn.grad.conv3d_weight(
-        x.float().permute(0, 4, 1, 2, 3), (cout, cin, 3, 3, 3),
-        g.float().permute(0, 4, 1, 2, 3), stride=2, padding=1)
+    with full_f32(x.float()):
+        dw = torch.nn.grad.conv3d_weight(
+            x.float().permute(0, 4, 1, 2, 3), (cout, cin, 3, 3, 3),
+            g.float().permute(0, 4, 1, 2, 3), stride=2, padding=1)
     return dw.permute(2, 3, 4, 1, 0).contiguous()
 
 

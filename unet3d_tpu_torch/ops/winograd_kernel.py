@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from unet3d_tpu_torch.ops.conv3d_kernel import _DTYPES, _check, instance_stats
+from unet3d_tpu_torch.utils.device import full_f32
 
 LAUNCHES: Dict[str, int] = {"winograd": 0, "winograd_stats": 0}
 FORM_LAUNCHES: Dict[Tuple[str, str], int] = collections.Counter()
@@ -162,9 +163,10 @@ def _g_on(device: torch.device) -> torch.Tensor:
 
 def transform_weights_dh(w: torch.Tensor, dtype) -> torch.Tensor:
     """(3,3,3,C,Co) -> (48, C, Co): G x G over (dz, dy) in f32, direct over dx,
-    rounded to ``dtype``. Row (jd * 4 + jh) * 3 + dx."""
+    rounded to ``dtype``. Row (jd * 4 + jh) * 3 + dx. Full f32 on the card."""
     g = _g_on(w.device)
-    u = torch.einsum("az,by,zyxio->abxio", g, g, w.float())
+    with full_f32(g):
+        u = torch.einsum("az,by,zyxio->abxio", g, g, w.float())
     return u.reshape(48, w.shape[3], w.shape[4]).to(dtype)
 
 
@@ -174,7 +176,8 @@ def _transform(rows, j):
 
 
 def winograd_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The plain Winograd-DH conv with the JAX kernel's rounding points."""
+    """The plain Winograd-DH conv with the JAX kernel's rounding points (its
+    f32 products in full f32 on the card)."""
     n, d, h, wd, c = x.shape
     u2 = transform_weights_dh(w, x.dtype).float()
     xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
@@ -185,8 +188,9 @@ def winograd_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         rows_h = [vd[:, :, k:k + h:2] for k in range(4)]  # H rows 2s + k
         for jh in range(4):
             v = _transform(rows_h, jh).float()            # (N, D/2, H/2, W+2, C)
-            m = sum(torch.matmul(v[:, :, :, dx:dx + wd], u2[(jd * 4 + jh) * 3 + dx])
-                    for dx in range(3))
+            with full_f32(v):
+                m = sum(torch.matmul(v[:, :, :, dx:dx + wd], u2[(jd * 4 + jh) * 3 + dx])
+                        for dx in range(3))
             for od in range(2):
                 for oh in range(2):
                     sign = _AT[od][jd] * _AT[oh][jh]

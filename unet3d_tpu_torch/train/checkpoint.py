@@ -15,6 +15,12 @@ optimizer's chain (``_layout``) and maps each optax leaf onto the torch
 optimizer's per-parameter state, so a run of either package resumes in the
 other. A missing or extra key or a wrong shape raises
 ``OptStateMismatchError``, as in the JAX package.
+
+The JAX package's older positional format (``leaf_0``, ``leaf_1``, ... in the
+order of ``jax.tree_util.tree_flatten_with_path``) loads too, as it does
+there: the port spells that order itself (``opt_state_keys``: NamedTuple
+fields in declaration order, tuple items by index, dict keys sorted), and the
+leaf count and every shape must match.
 """
 from __future__ import annotations
 
@@ -103,6 +109,25 @@ def _layout(optimizer: torch.optim.Optimizer) -> Tuple[list, list]:
             [(prefix + k, key) for k, key in trees])
 
 
+def opt_state_keys(optimizer: torch.optim.Optimizer,
+                   names: Sequence[str]) -> Dict[str, tuple]:
+    """The optax state's leaves as {key: shape}, in the order of JAX's
+    ``tree_flatten_with_path``: ``InjectHyperparamsState``'s count and
+    learning rate, then the inner state's scalars (a state's count and
+    ``mu_product`` come first among its fields), then each tree (fields in
+    declaration order, e.g. ``ScaleByAdamState(count, mu, nu)``), a tree's
+    leaves by their key paths sorted (JAX sorts dict keys)."""
+    params = _params(optimizer, names)
+    scalars, trees = _layout(optimizer)
+    shapes = dict(zip(names, (tuple(p.shape) for p in params)))
+    ordered = sorted(names, key=lambda name: name.split("."))
+    keys = {_COUNT: (), _LR: ()}
+    keys.update({key: () for key, _, _ in scalars})
+    keys.update({prefix + _keystr(name): shapes[name]
+                 for prefix, _ in trees for name in ordered})
+    return keys
+
+
 def _params(optimizer: torch.optim.Optimizer, names: Sequence[str]) -> List[torch.Tensor]:
     params = [p for group in optimizer.param_groups for p in group["params"]]
     if len(params) != len(names):
@@ -159,9 +184,10 @@ def save_opt_state(optimizer: torch.optim.Optimizer, names: Sequence[str],
 def load_opt_state(optimizer: torch.optim.Optimizer, names: Sequence[str],
                    filename: str) -> None:
     """Restore a state written by either package's ``save_opt_state`` into
-    ``optimizer`` (its moments, counts and learning rate). Raises
-    ``OptStateMismatchError`` when the file cannot be read, lacks a leaf,
-    has one of another shape, or has leaves the optimizer does not."""
+    ``optimizer`` (its moments, counts and learning rate), keyed or in the
+    legacy positional ``leaf_{i}`` format. Raises ``OptStateMismatchError``
+    when the file cannot be read, lacks a leaf, has one of another shape, or
+    has leaves the optimizer does not."""
     params = _params(optimizer, names)
     try:
         with np.load(filename) as data:
@@ -170,10 +196,11 @@ def load_opt_state(optimizer: torch.optim.Optimizer, names: Sequence[str],
         raise OptStateMismatchError(
             f"Cannot read optimizer state {filename}: {error}") from error
     scalars, trees = _layout(optimizer)
-    want = {_COUNT: (), _LR: ()}
-    want.update({key: () for key, _, _ in scalars})
-    want.update({prefix + _keystr(name): tuple(p.shape)
-                 for prefix, _ in trees for name, p in zip(names, params)})
+    want = opt_state_keys(optimizer, names)
+    if all(k.startswith("leaf_") for k in loaded):  # the legacy positional file
+        for i, key in enumerate(want):
+            if f"leaf_{i}" in loaded:
+                loaded[key] = loaded.pop(f"leaf_{i}")
     for key, shape in want.items():
         if key not in loaded:
             raise OptStateMismatchError(

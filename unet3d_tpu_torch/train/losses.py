@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from unet3d_tpu_torch.ops.conv3d import cudnn_conv
+
 
 def _sum32(x: torch.Tensor, dims) -> torch.Tensor:
     return torch.sum(x, dim=dims, dtype=torch.float32)
@@ -292,7 +294,7 @@ class SSIMLoss:
         for axis in (1, 2, 3):
             y = y.movedim(axis, -1)
             shape = y.shape[:-1]
-            y = F.conv1d(y.reshape(-1, 1, y.shape[-1]), k).reshape(*shape, -1)
+            y = cudnn_conv(y.reshape(-1, 1, y.shape[-1]), k, (1,), (0,)).reshape(*shape, -1)
             y = y.movedim(-1, axis)
         return y.reshape(n, c, *y.shape[1:]).permute(0, 2, 3, 4, 1)
 

@@ -159,6 +159,28 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    LabeledVariationalAutoEncoder at 128^3: one bf16 window forward and one
    step's gradients (f32, bf16) against the plain path within the phase-5
    bounds, with their launches.
+11. the BatchNorm segmentation nets (the BraTS config with its model
+   section replaced; ``SEGRESNET_DS_MODEL``, ``BN_NETS``): the conv kernel
+   and ``s2_wgrad`` at their new shapes against their plain versions, timed
+   as in phase 2; (a) SegResNetDS at MONAI's widths: one 128^3 bf16 window
+   through ``volumetric_predictions``, kernels against the plain path
+   within relative L2 3e-2, the conv launched once per 3-cubed stride-1
+   conv, all wgmma, forward times; one bf16 AMP train step (DiceLoss, Adam):
+   its launches by form (conv: the forward's plus every input gradient but
+   conv_init's; s2_wgrad: the three downsamples), the gradients and the
+   running statistics one training forward leaves, kernels against the plain
+   path from the same statistics (f32: gradients within 1e-3, statistics
+   1e-4; bf16: statistics 1e-2, the kernels' gradients no further from the
+   plain f32 ones than 1.25 times the plain bf16 path's), step ms, peak
+   memory, a profile; (b) the train CLI on phase 8's cases and folds (fold
+   1, 2 epochs) with SegResNetDS and deep supervision on 2 heads: finite
+   losses, a ``model.npz`` whose ``batch_stats`` hold a running mean off 0
+   for every BatchNorm and that reloads strictly and equal, the predict CLI
+   on it within 3e-2 of the train CLI's prediction; (c) AttentionUnet, MONAI
+   UNet (batch norm, 2 residual units) and VNet at 128^3: one bf16 window
+   and one training forward and backward (f32, bf16) against the plain path
+   as in (a), with their launches (VNet's 5-cubed and 2-cubed convs are
+   cuDNN's on both paths: it launches no hand kernel).
 
 Exits non-zero if any phase fails or there is no CUDA device. The last lines
 are the card, a JSON object of the kernels (the bf16 forms' rows, then the
@@ -327,6 +349,46 @@ F64_EXCESS_BOUND = 1e-5
 FAMILY_S2_SHAPES = [("down1 32->64 @128^3", 128, 32, 64),
                     ("vae_down_conv 256->16 @16^3", 16, 256, 16)]
 FAMILY_KERNELS = ("conv", "s2_wgrad")
+# phase 11: the BatchNorm segmentation nets, each in the BraTS config with its
+# model section replaced. SegResNetDS at MONAI's defaults, which are the JAX
+# package's (unet3d_tpu/models/segresnet_ds.py: 32 initial filters, blocks 1,
+# 2, 2, 4, batch norm, relu, deconv); deep supervision on 2 heads in the CLI
+SEGRESNET_DS_MODEL = {"name": "SegResNetDS", "init_filters": 32, "in_channels": 4,
+                      "out_channels": 3, "blocks_down": [1, 2, 2, 4], "norm": "batch",
+                      "act": "relu", "upsample_mode": "deconv"}
+SEGRESNET_DS_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_segresnet_ds")
+# AttentionUnet and MONAI UNet at their MONAI tutorial widths (UNet with 2
+# residual units and batch norm), VNet at its defaults (ELU, dropout 0.5)
+BN_NETS = (
+    ("AttentionUnet", dict(in_channels=4, out_channels=3, channels=[16, 32, 64, 128],
+                           strides=[2, 2, 2])),
+    ("UNet", dict(in_channels=4, out_channels=3, channels=[16, 32, 64, 128, 256],
+                  strides=[2, 2, 2, 2], num_res_units=2, norm="batch")),
+    ("VNet", dict(in_channels=4, out_channels=3)),
+)
+# (label, spatial, cin, cout, dtype, form): the conv kernel at the new nets'
+# shapes: SegResNetDS's deeper blocks, AttentionUnet's 16-channel level 0 and
+# its merge conv, and UNet's last up unit (3 -> 3 channels: the wmma form)
+BN_CONV_SHAPES = [
+    ("SegResNetDS down1 block 64->64 @64^3", 64, 64, 64, torch.bfloat16, "wgmma"),
+    ("SegResNetDS down3 block 256->256 @16^3", 16, 256, 256, torch.bfloat16, "wgmma"),
+    ("AttentionUnet conv0.conv1 16->16 @128^3", 128, 16, 16, torch.bfloat16, "wgmma"),
+    ("AttentionUnet merge0 32->16 @128^3", 128, 32, 16, torch.bfloat16, "wgmma"),
+    ("UNet up_0_ru 3->3 @128^3", 128, 3, 3, torch.bfloat16, "wmma"),
+]
+# (label, spatial of x, cin, cout): s2_wgrad at the new nets' stride-2 convs
+# (UNet's first, 4 -> 16 channels, takes the wmma form of s2_wgrad.cu)
+BN_S2_SHAPES = [("SegResNetDS down1_downsample 64->128 @64^3", 64, 64, 128),
+                ("SegResNetDS down2_downsample 128->256 @32^3", 32, 128, 256),
+                ("AttentionUnet down1 16->32 @128^3", 128, 16, 32),
+                ("UNet down_0 4->16 @128^3", 128, 4, 16)]
+# the running statistics after one training forward, kernels against the
+# plain path (relative L2 over every mean and var): they are means over the
+# batch's voxels of conv outputs that agree within the kernels' own bounds
+BN_STATS_BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# bf16 gradients through the kernels no further from the plain f32 ones than
+# this many times the plain bf16 path's (two samples of bf16 rounding noise)
+BF16_EXCESS = 1.25
 
 
 class SmokeFailure(RuntimeError):
@@ -904,13 +966,9 @@ class BatchLoader:
         pass
 
 
-def grad_rel_l2(model, criterion, x, y, amp):
-    """One step's gradients, kernels against the plain path: (relative L2
-    over all parameters, worst tensor's relative L2, its name)."""
-    from unet3d_tpu_torch.train.step import forward_loss
-    names, params = zip(*model.named_parameters())
-    got = torch.autograd.grad(forward_loss(model, criterion, x, y, amp), params)
-    want = torch.autograd.grad(forward_loss(PlainNet(model), criterion, x, y, amp), params)
+def grad_gap(got, want, names):
+    """Gradients ``got`` against ``want``: (relative L2 over all parameters,
+    worst tensor's relative L2, its name)."""
     diff = sum(float((a - b).float().square().sum()) for a, b in zip(got, want))
     norm = sum(float(b.float().square().sum()) for b in want)
     # tensors whose gradient is ~0 next to the whole are left out of the worst
@@ -918,6 +976,15 @@ def grad_rel_l2(model, criterion, x, y, amp):
                 for a, b, n in zip(got, want, names)
                 if float(b.float().norm()) > 1e-6 * norm ** 0.5)
     return (diff / norm) ** 0.5, worst[0], worst[1]
+
+
+def grad_rel_l2(model, criterion, x, y, amp):
+    """One step's gradients, kernels against the plain path (``grad_gap``)."""
+    from unet3d_tpu_torch.train.step import forward_loss
+    names, params = zip(*model.named_parameters())
+    got = torch.autograd.grad(forward_loss(model, criterion, x, y, amp), params)
+    want = torch.autograd.grad(forward_loss(PlainNet(model), criterion, x, y, amp), params)
+    return grad_gap(got, want, names)
 
 
 def step_ms(step, images, labels, reps=5) -> float:
@@ -1780,18 +1847,19 @@ def plain_convs():
         layers.conv3d = real
 
 
-def phase10_kernels(device, gen):
-    """The conv kernel and s2_wgrad at the family's new shapes against their
-    plain versions, in the form each takes there, timed (device ms) beside
-    the plain composition, one PyTorch call and the bound (f32: both the f32
-    CUDA-core bound and the 3xTF32 tensor-core bound the tf32x3 form is held
-    to)."""
+def phase10_kernels(device, gen, conv_shapes=FAMILY_CONV_SHAPES, s2_shapes=FAMILY_S2_SHAPES,
+                    label="family"):
+    """The conv kernel and s2_wgrad at the family's new shapes (phase 11:
+    the BatchNorm nets') against their plain versions, in the form each
+    takes there, timed (device ms) beside the plain composition, one PyTorch
+    call and the bound (f32: both the f32 CUDA-core bound and the 3xTF32
+    tensor-core bound the tf32x3 form is held to)."""
     from unet3d_tpu_torch.ops import conv3d_kernel as K
     from unet3d_tpu_torch.ops import s2_wgrad_kernel as W
     from unet3d_tpu_torch.ops.conv3d import conv3d_torch
 
     rows = []
-    for label, s, cin, cout, dtype, expected in FAMILY_CONV_SHAPES:
+    for shape_label, s, cin, cout, dtype, expected in conv_shapes:
         x = torch.randn(1, s, s, s, cin, device=device, generator=gen).to(dtype)
         w = (torch.randn(3, 3, 3, cin, cout, device=device, generator=gen)
              / (27 * cin) ** 0.5).to(dtype)
@@ -1799,13 +1867,13 @@ def phase10_kernels(device, gen):
         got, want = K.conv3x3x3(x, w), K.conv3d_reference(x, w)
         torch.cuda.synchronize()
         rel = rel_max(got, want)
-        msg = f"family conv {label:32s} {str(dtype)[6:]:8s} {form:6s} rel {rel:.3e}"
+        msg = f"{label} conv {shape_label:32s} {str(dtype)[6:]:8s} {form:6s} rel {rel:.3e}"
         check(form == expected, f"{msg}: form, expected {expected}")
         check(rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
         ms = device_ms(lambda: K.conv3x3x3(x, w))
         plain_ms = device_ms(lambda: conv3d_torch(x, w, (1, 1, 1), ((1, 1),) * 3))
         library_ms = device_ms(library_conv(x, w))
-        row = dict(name="conv" if dtype == torch.bfloat16 else "conv_tf32x3", shape=label,
+        row = dict(name="conv" if dtype == torch.bfloat16 else "conv_tf32x3", shape=shape_label,
                    dtype=str(dtype)[6:], form=form, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms,
                    max_abs_err=(got.float() - want.float()).abs().max().item())
@@ -1822,7 +1890,7 @@ def phase10_kernels(device, gen):
         print(msg, flush=True)
         rows.append(dict(row, bound_ms=bms, bound_by=bound_by))
         del x, w, got, want
-    for label, s, cin, cout in FAMILY_S2_SHAPES:
+    for shape_label, s, cin, cout in s2_shapes:
         x = torch.randn(1, s, s, s, cin, device=device, generator=gen).to(torch.bfloat16)
         g = torch.randn(1, s // 2, s // 2, s // 2, cout, device=device,
                         generator=gen).to(torch.bfloat16)
@@ -1830,8 +1898,9 @@ def phase10_kernels(device, gen):
         got, want = W.s2_wgrad(x, g), W.s2_wgrad_reference(x, g)
         torch.cuda.synchronize()
         rel = rel_max(got, want)
-        msg = f"family s2_wgrad {label:28s} bfloat16 {form:5s} rel {rel:.3e}"
-        check(form == "wgmma", f"{msg}: form")
+        msg = f"{label} s2_wgrad {shape_label:28s} bfloat16 {form:5s} rel {rel:.3e}"
+        expected = "wgmma" if cin % 8 == 0 and cout % 8 == 0 else "wmma"
+        check(form == expected, f"{msg}: form, expected {expected}")
         check(rel < S2_BOUND, f"{msg} > {S2_BOUND}")
         xn, gn = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
         ms = device_ms(lambda: W.s2_wgrad(x, g))
@@ -1843,7 +1912,7 @@ def phase10_kernels(device, gen):
         print(f"{msg} | kernel {ms:.3f} ms, cuDNN {plain_ms:.3f} ms, bound {bms:.3f} ms "
               f"({bound_by}, {bms / ms:.1%})", flush=True)
         # the plain composition is one PyTorch call (cuDNN's dw)
-        rows.append(dict(name="s2_wgrad", shape=label, dtype="bfloat16", form=form, ms=ms,
+        rows.append(dict(name="s2_wgrad", shape=shape_label, dtype="bfloat16", form=form, ms=ms,
                          plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bms,
                          bound_by=bound_by, max_abs_err=(got - want).abs().max().item()))
         del x, g, got, want
@@ -1865,8 +1934,12 @@ def check_family_forms(where: str, wmma_conv: bool = False) -> None:
     allowed = {("conv", "wgmma"), ("conv", "tf32x3"), ("s2_wgrad", "wgmma")}
     if wmma_conv:
         allowed.add(("conv", "wmma"))
+    check_allowed_forms(where, allowed)
+
+
+def check_allowed_forms(where: str, allowed) -> None:
     off = {k: n for k, n in form_launches().items() if k not in allowed}
-    check(not off, f"{where}: launches off the wgmma / tf32x3 forms: {off}")
+    check(not off, f"{where}: launches off the allowed forms {sorted(allowed)}: {off}")
 
 
 def family_grads(model, criterion, x, y, amp, seed):
@@ -1883,12 +1956,7 @@ def family_grads(model, criterion, x, y, amp, seed):
     got = grads()
     with plain_convs():
         want = grads()
-    diff = sum(float((a - b).float().square().sum()) for a, b in zip(got, want))
-    norm = sum(float(b.float().square().sum()) for b in want)
-    worst = max((float((a - b).float().norm() / b.float().norm()), n)
-                for a, b, n in zip(got, want, names)
-                if float(b.float().norm()) > 1e-6 * norm ** 0.5)
-    return (diff / norm) ** 0.5, worst[0], worst[1]
+    return grad_gap(got, want, names)
 
 
 def rel_l2_of(got, want) -> float:
@@ -2252,6 +2320,361 @@ def phase10_family(device, seed, card):
     return out
 
 
+def conv_sites(model) -> tuple:
+    """The 3-cubed FastConvs of ``model``: (stride 1, stride 2) counts. A
+    window launches the conv kernel once per stride-1 site; a train step
+    adds each one's input gradient except where the input needs none (the
+    model's first conv), and s2_wgrad once per stride-2 site."""
+    from unet3d_tpu_torch.models.layers import FastConv
+    sites = [m.strides for m in model.modules()
+             if isinstance(m, FastConv) and m.kernel_size == (3, 3, 3)]
+    return sites.count((1, 1, 1)), sites.count((2, 2, 2))
+
+
+def bn_grads(model, criterion, images, labels, device, seed) -> dict:
+    """One training forward and backward from the same running statistics
+    (put back after), the noise drawn alike, through the kernels and the
+    plain path, in f32 and bf16 AMP: the gradients' and the running
+    statistics' relative L2, kernels against the plain path in each dtype,
+    the worst tensor's, and each path's bf16 gradients against the plain
+    f32 ones. A BatchNorm net's bf16 gradients can lie far from f32 on
+    either path (AttentionUnet's attention gate: 4.8% at 128^3 on the H100),
+    so besides phase 5's bound on kernels against the plain path, the bf16
+    check holds the kernels no further from f32 than ``BF16_EXCESS`` times
+    the plain path, as the tests hold the port against JAX
+    (tests/test_torch_batchnorm.py::check_grads)."""
+    from unet3d_tpu_torch.train.step import forward_loss, noise_generator, prepare_batch
+    names, params = zip(*model.named_parameters())
+    start = [b.clone() for b in model.buffers()]
+
+    def run(amp, plain):
+        x, y = prepare_batch(images, labels, device, amp)
+        with torch.no_grad():
+            for b, b0 in zip(model.buffers(), start):
+                b.copy_(b0)
+        with plain_convs() if plain else contextlib.nullcontext():
+            loss = forward_loss(model, criterion, x, y, amp, noise_generator(model, seed))
+            grads = torch.autograd.grad(loss, params)
+        return grads, [b.clone() for b in model.buffers()]
+
+    runs = {(amp, plain): run(amp, plain) for amp in (False, True) for plain in (False, True)}
+    with torch.no_grad():
+        for b, b0 in zip(model.buffers(), start):
+            b.copy_(b0)
+    out = {}
+    for dt, amp in (("f32", False), ("bf16", True)):
+        (got, got_stats), (want, want_stats) = runs[amp, False], runs[amp, True]
+        gap, worst, worst_name = grad_gap(got, want, names)
+        out[dt] = dict(gradients=gap, worst=worst, worst_tensor=worst_name,
+                       statistics=rel_l2_of(got_stats, want_stats))
+    f32 = runs[False, True][0]
+    out["bf16"].update(kernels_vs_f32=rel_l2_of(runs[True, False][0], f32),
+                       plain_vs_f32=rel_l2_of(runs[True, True][0], f32))
+    return out
+
+
+def check_bn_grads(name: str, result: dict) -> None:
+    """``bn_grads``' result against phase 5's bounds (kernels against the
+    plain path in the same dtype), the bf16 rule against f32 and the
+    statistics bounds."""
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        r = result[dt]
+        msg = (f"{name} {dt}, kernels vs plain path: gradients rel L2 {r['gradients']:.3e} "
+               f"(worst tensor {r['worst_tensor']} {r['worst']:.3e}); running statistics rel "
+               f"L2 {r['statistics']:.3e}")
+        if dt == "bf16":
+            msg += (f"; bf16 gradients vs the plain f32 ones: kernels {r['kernels_vs_f32']:.3e}, "
+                    f"plain {r['plain_vs_f32']:.3e}")
+        print(msg, flush=True)
+        bound = GRAD_BOUND_F32 if dt == "f32" else GRAD_BOUND_BF16
+        check(r["gradients"] < bound, f"{msg}: gradients > {bound}")
+        if dt == "bf16":
+            limit = max(GRAD_BOUND_BF16, BF16_EXCESS * r["plain_vs_f32"])
+            check(r["kernels_vs_f32"] < limit, f"{msg}: bf16 kernels vs f32 > {limit:.3e}")
+        check(r["statistics"] < BN_STATS_BOUNDS[dtype],
+              f"{msg}: statistics > {BN_STATS_BOUNDS[dtype]}")
+
+
+def check_bn_forms(where: str, wmma: bool = False, f32: bool = False) -> None:
+    """The BatchNorm nets' launches: every bf16 conv and s2_wgrad in the
+    wgmma form, and, where ``wmma`` allows it (UNet: its last up unit maps 3
+    channels to 3, its first conv takes 4 input channels), the wmma forms;
+    with ``f32`` also the f32 forms (tf32x3, and the fma forms of
+    s2_wgrad.cu and, for those channel counts, of conv3d.cu)."""
+    allowed = {("conv", "wgmma"), ("s2_wgrad", "wgmma")}
+    if wmma:
+        allowed |= {("conv", "wmma"), ("s2_wgrad", "wmma")}
+    if f32:
+        allowed |= {("conv", "tf32x3"), ("s2_wgrad", "fma")}
+    if wmma and f32:
+        allowed.add(("conv", "fma"))
+    check_allowed_forms(where, allowed)
+
+
+def phase11_segresnet_ds(device, seed, card):
+    """SegResNetDS at MONAI's widths: (a) one 128^3 bf16 window through
+    ``volumetric_predictions``, kernels against the plain path, its launches
+    by form and CUDA-event time; one bf16 AMP train step at batch 1
+    (DiceLoss, Adam): launches by form, gradients and running statistics
+    against the plain path (f32 and bf16), step ms, peak memory, a profile."""
+    from unet3d_tpu_torch.config.factory import (build_optimizer_from_config,
+                                                 build_or_load_model_from_config,
+                                                 load_criterion_from_config)
+    from unet3d_tpu_torch.data import nifti
+    from unet3d_tpu_torch.predict.volumetric import make_forward, volumetric_predictions
+    from unet3d_tpu_torch.train.step import make_train_step
+    from unet3d_tpu_torch.utils.config import load_json
+
+    config = load_json(CONFIG)
+    config["model"] = dict(SEGRESNET_DS_MODEL)
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_stats = sum(b.numel() for b in model.buffers())
+    print(f"SegResNetDS {json.dumps(SEGRESNET_DS_MODEL)}: {n_params} params, {n_stats} "
+          f"running statistics [{card}]", flush=True)
+    stride1, stride2 = conv_sites(model)
+    shape = tuple(config["dataset"]["desired_shape"])
+    rng = np.random.RandomState(seed + 50)
+    image = rng.randn(1, 4, *shape).astype(np.float32)
+    batch = {"image": image, "affine": np.eye(4)[None],
+             "source_filename": ["segresnet_ds_window.nii.gz"]}
+
+    # (a) one window through volumetric_predictions, kernels and plain path
+    outputs = {}
+    for which in ("kernels", "plain"):
+        out_dir = os.path.join(SEGRESNET_DS_CLI_DIR, "window", which)
+        torch.cuda.synchronize()
+        reset_launches()
+        with plain_convs() if which == "plain" else contextlib.nullcontext():
+            (written,) = volumetric_predictions(model, [batch], out_dir, activation="sigmoid",
+                                                amp=True)
+        torch.cuda.synchronize()
+        if which == "kernels":
+            launches, forms = launch_counts(), forms_of(FAMILY_KERNELS)
+            check_bn_forms("SegResNetDS window")
+        outputs[which] = nifti.load(written)[0]
+    rel = float(np.linalg.norm(outputs["kernels"] - outputs["plain"])
+                / np.linalg.norm(outputs["plain"]))
+    print(f"SegResNetDS window 128^3 bf16 through volumetric_predictions: kernels vs plain "
+          f"path rel L2 {rel:.3e}; launches {launches}; by form {forms}", flush=True)
+    check(outputs["kernels"].shape == shape + (3,)
+          and bool(np.isfinite(outputs["kernels"]).all()), "SegResNetDS window output")
+    check(rel < L2_BOUND, f"SegResNetDS window rel L2 {rel:.3e} > {L2_BOUND}")
+    check(launches["conv"] == stride1, f"SegResNetDS window: conv launched "
+          f"{launches['conv']} times, expected {stride1} (its 3-cubed stride-1 convs)")
+    forward = make_forward(model, amp=True)
+    window = torch.from_numpy(np.moveaxis(image, 1, -1).copy()).to(device)
+    times = {"plain": [], "kernels": []}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        with plain_convs() if which == "plain" else contextlib.nullcontext():
+            times[which].append(cuda_ms(lambda: forward(window)))
+    print(f"SegResNetDS window forward 128^3 bf16: kernels {times['kernels']} ms, plain "
+          f"{times['plain']} ms [{card}]", flush=True)
+    del forward, window
+
+    # one bf16 AMP train step at batch 1
+    criterion = load_criterion_from_config(config)
+    labels = (rng.rand(1, 3, *shape) > 0.5).astype(np.float32)
+    optimizer = build_optimizer_from_config(config, model.parameters())
+    step = make_train_step(model, criterion, optimizer, amp=True, seed=seed)
+    step(image, labels)  # warm-up: cuDNN plans, the allocator
+    torch.cuda.synchronize()
+    reset_launches()
+    loss = float(step(image, labels))
+    torch.cuda.synchronize()
+    step_launches, step_forms = launch_counts(), forms_of(FAMILY_KERNELS)
+    print(f"SegResNetDS train step: loss {loss:.6f}; launches {step_launches}; by form "
+          f"{step_forms}", flush=True)
+    check(np.isfinite(loss), f"SegResNetDS train loss {loss}")
+    check_bn_forms("SegResNetDS train step")
+    check(step_launches["conv"] == 2 * stride1 - 1,
+          f"conv launched {step_launches['conv']} times, expected {2 * stride1 - 1} "
+          f"({stride1} forward, {stride1 - 1} input gradients: none for conv_init)")
+    check(step_launches["s2_wgrad"] == stride2,
+          f"s2_wgrad launched {step_launches['s2_wgrad']} times, expected {stride2}")
+    grads = bn_grads(model, criterion, image, labels, device, seed)
+    check_bn_grads("SegResNetDS", grads)
+    torch.cuda.empty_cache()
+    step_times, peaks = {"plain": [], "kernels": []}, {}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        one = make_train_step(model, criterion, torch.optim.Adam(model.parameters(), lr=1e-6),
+                              amp=True, seed=seed)
+        with plain_convs() if which == "plain" else contextlib.nullcontext():
+            torch.cuda.reset_peak_memory_stats()
+            step_times[which].append(step_ms(one, image, labels))
+            peaks[which] = torch.cuda.max_memory_allocated() / 2**30
+    step_profile = profile_device(lambda: step(image, labels),
+                                  "SegResNetDS one bf16 train step", card)
+    print(f"SegResNetDS train step (bf16 AMP, batch 1, 128^3): kernels "
+          f"{step_times['kernels']} ms, plain {step_times['plain']} ms; peak memory kernels "
+          f"{peaks['kernels']:.2f} GiB, plain {peaks['plain']:.2f} GiB [{card}]", flush=True)
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+    return step_launches, dict(
+        window_rel_l2=rel, window_launches=launches, window_forms=forms, window_ms=times,
+        step_loss=loss, step_forms=step_forms, kernels_vs_plain=grads, step_ms=step_times,
+        peak_gib=peaks, step_profile=step_profile)
+
+
+def phase11_train_cli(device, seed, card, cases):
+    """The train CLI on phase 8's cases and folds with the BraTS config's
+    model section replaced by SegResNetDS (deep supervision on 2 heads):
+    fold 1, 2 epochs; the checkpoint's running statistics; the predict CLI
+    on that checkpoint against the train CLI's own prediction."""
+    from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
+    from unet3d_tpu_torch.convert import load_jax_variables
+    from unet3d_tpu_torch.data import nifti
+    from unet3d_tpu_torch.models.layers import BatchNorm
+    from unet3d_tpu_torch.scripts import predict
+    from unet3d_tpu_torch.scripts import train as train_cli
+    from unet3d_tpu_torch.train.checkpoint import load_checkpoint
+    from unet3d_tpu_torch.train.train import read_training_log
+    from unet3d_tpu_torch.utils.config import dump_json, load_json
+
+    shutil.rmtree(SEGRESNET_DS_CLI_DIR, ignore_errors=True)
+    os.makedirs(SEGRESNET_DS_CLI_DIR)
+    config = load_json(CONFIG)
+    config["model"] = dict(SEGRESNET_DS_MODEL, dsdepth=2)
+    config["training_filenames"] = cases
+    config["bratsvalidation_filenames"] = [{"image": cases[0]["image"]}]
+    config["training"]["n_epochs"] = TRAIN_CLI_EPOCHS
+    config["cross_validation"]["folds"] = TRAIN_CLI_FOLDS
+    config_file = os.path.join(SEGRESNET_DS_CLI_DIR, "brats2020_segresnet_ds.json")
+    dump_json(config, config_file)
+    work = os.path.join(SEGRESNET_DS_CLI_DIR, "out", "brats2020_segresnet_ds")
+    train_cli.main(["--config_filename", config_file, "--output_dir",
+                    os.path.dirname(work), "--setup_crossval_only"])
+    fold_file, fold_dir = os.path.join(work, "fold1.json"), os.path.join(work, "fold1")
+    steps, run = [], {}
+    real_run_training = train_cli.run_training
+
+    def timed_run_training(train_step, *args, **kwargs):
+        def one(images, labels):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = train_step(images, labels)
+            end.record()
+            steps.append((start, end))
+            return loss
+
+        torch.cuda.synchronize()
+        reset_launches()
+        model = real_run_training(one, *args, **kwargs)
+        torch.cuda.synchronize()
+        run.update(launches=launch_counts(), forms=forms_of(FAMILY_KERNELS))
+        check_bn_forms("SegResNetDS train CLI")
+        return model
+
+    train_cli.run_training = timed_run_training
+    try:
+        t0 = time.perf_counter()
+        result = train_cli.main(["--config_filename", fold_file, "--output_dir", work])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        train_cli.run_training = real_run_training
+    print(f"SegResNetDS train CLI training: launches {run['launches']}; by form "
+          f"{run['forms']}", flush=True)
+    for kernel in FAMILY_KERNELS:
+        check(run["launches"][kernel] > 0, f"train CLI: kernel {kernel} was not launched")
+    rows = read_training_log(os.path.join(fold_dir, "training_log.csv"))
+    print(f"SegResNetDS training_log.csv: {rows}", flush=True)
+    check(len(rows) == TRAIN_CLI_EPOCHS and all(
+        np.isfinite(r[1]) and np.isfinite(r[3]) for r in rows),
+        f"SegResNetDS training log {rows}")
+    saved = load_checkpoint(os.path.join(fold_dir, "model.npz"))
+    means = {k: float(np.abs(v).max()) for k, v in saved.items()
+             if k.startswith("batch_stats/") and k.endswith("/mean")}
+    print(f"SegResNetDS model.npz: {len(saved)} arrays, {len(means)} BatchNorms' running "
+          f"means, the smallest largest |mean| {min(means.values()):.3e}", flush=True)
+    model = result["model"]
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    check(len(means) == n_bn and min(means.values()) > 0,
+          f"SegResNetDS checkpoint: {len(means)} running means for {n_bn} BatchNorms, "
+          f"{means}")
+    fresh = build_or_load_model_from_config(config, None, device, seed=seed + 1)
+    load_jax_variables(fresh, saved, strict=True)
+    for (name, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
+        check(torch.equal(a, b), f"SegResNetDS checkpoint round trip changed {name}")
+    (written,) = result["predictions"]["bratsvalidation"]
+    data, affine, _ = nifti.load(written)
+    check(data.shape == BRATS_GRID + (3,) and bool(np.isfinite(data).all())
+          and 0.0 <= data.min() and data.max() <= 1.0
+          and np.allclose(affine, BRATS_AFFINE, atol=1e-6),
+          f"SegResNetDS train CLI prediction {data.shape}")
+    predict_dir = os.path.join(SEGRESNET_DS_CLI_DIR, "predict")
+    predict.main(["--config_filename", fold_file, "--model_filename",
+                  os.path.join(fold_dir, "model.npz"), "--output_directory", predict_dir,
+                  "--group", "bratsvalidation", "--activation", "sigmoid"])
+    (name,) = os.listdir(os.path.join(predict_dir, "predictions"))
+    want, _, _ = nifti.load(os.path.join(predict_dir, "predictions", name))
+    rel = float(np.linalg.norm(data - want) / np.linalg.norm(want))
+    step_ms_cli = [a.elapsed_time(b) for a, b in steps]
+    print(f"SegResNetDS train CLI prediction vs the predict CLI on its checkpoint: rel L2 "
+          f"{rel:.3e}; main {cli_s:.3f} s; step ms {[round(v, 3) for v in step_ms_cli]} "
+          f"[{card}]", flush=True)
+    check(rel < L2_BOUND, f"SegResNetDS train CLI vs predict CLI rel L2 {rel:.3e}")
+    del model, fresh, result
+    torch.cuda.empty_cache()
+    shutil.rmtree(SEGRESNET_DS_CLI_DIR, ignore_errors=True)
+    return run["launches"], dict(main_s=cli_s, step_ms=step_ms_cli, predict_rel_l2=rel,
+                                 log=[list(map(float, r)) for r in rows], forms=run["forms"])
+
+
+def phase11_nets(device, seed, card):
+    """AttentionUnet, MONAI UNet and VNet at 128^3: one bf16 window forward
+    and one training forward and backward (f32, bf16), kernels against the
+    plain path, with the launches; VNet's 5-cubed and 2-cubed convs are
+    cuDNN's on both paths (XLA convs in the JAX package), so it launches no
+    hand kernel."""
+    from unet3d_tpu_torch.config.factory import load_criterion_from_config
+    from unet3d_tpu_torch.models.layers import init_parameters
+    from unet3d_tpu_torch.models.registry import create_model
+    from unet3d_tpu_torch.utils.config import load_json
+
+    config = load_json(CONFIG)
+    shape = tuple(config["dataset"]["desired_shape"])
+    criterion = load_criterion_from_config(config)
+    out = {}
+    for i, (name, kwargs) in enumerate(BN_NETS):
+        model = create_model(name, **kwargs)
+        init_parameters(model, torch.Generator().manual_seed(seed + 60 + i))
+        model = model.to(device).eval()
+        stride1, stride2 = conv_sites(model)
+        rng = np.random.RandomState(seed + 70 + i)
+        window = torch.from_numpy(rng.randn(1, *shape, 4).astype(np.float32)).to(device)
+        forward, got, rel, launches, forms = window_check(model, window)
+        check(got.shape == (1, *shape, 3) and bool(torch.isfinite(got).all()),
+              f"{name} window output {tuple(got.shape)}")
+        msg = (f"{name} window {shape} bf16: kernels vs plain rel L2 {rel:.3e}; launches "
+               f"{launches}; by form {forms_of(FAMILY_KERNELS)}")
+        print(msg, flush=True)
+        check(rel < L2_BOUND, f"{msg} > {L2_BOUND}")
+        check_bn_forms(f"{name} window", wmma=name == "UNet")
+        check(launches["conv"] == stride1, f"{msg}: expected conv {stride1}")
+        window_ms = cuda_ms(lambda: forward(window))
+        del forward, got
+        images = rng.randn(1, 4, *shape).astype(np.float32)
+        labels = (rng.rand(1, 3, *shape) > 0.5).astype(np.float32)
+        reset_launches()
+        result = bn_grads(model, criterion, images, labels, device, seed)
+        step_launches, step_forms = launch_counts(), forms_of(FAMILY_KERNELS)
+        print(f"{name} training forwards and backwards (f32 and bf16, kernels and plain "
+              f"path): launches {step_launches}; by form {step_forms}", flush=True)
+        check_bn_grads(name, result)
+        # the kernels' two runs (f32, bf16): s2_wgrad once per stride-2 site each
+        check(step_launches["s2_wgrad"] == 2 * stride2,
+              f"{name}: s2_wgrad {step_launches['s2_wgrad']}, expected {2 * stride2}")
+        check_bn_forms(f"{name} train step", wmma=name == "UNet", f32=True)
+        print(f"{name} window forward {shape} bf16 {window_ms:.3f} ms [{card}]", flush=True)
+        out[name] = dict(window_rel_l2=rel, window_launches=launches, window_ms=window_ms,
+                         step_launches=step_launches, step_forms=step_forms, **result)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2302,8 +2725,14 @@ def main() -> int:
     family_rows = phase10_kernels(device, gen)
     segresnet_launches, segresnet = phase10_segresnet(device, args.seed, card)
     segresnet_cli_launches, segresnet_cli = phase10_train_cli(device, args.seed, card, cases)
-    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
     family = phase10_family(device, args.seed, card)
+    # phase 11
+    bn_rows = phase10_kernels(device, gen, BN_CONV_SHAPES, BN_S2_SHAPES, "BatchNorm nets")
+    segresnet_ds_launches, segresnet_ds = phase11_segresnet_ds(device, args.seed, card)
+    segresnet_ds_cli_launches, segresnet_ds_cli = phase11_train_cli(device, args.seed, card,
+                                                                    cases)
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    bn_nets = phase11_nets(device, args.seed, card)
     check(not any(m in sys.modules for m in ("jax", "unet3d_tpu")),
           "the port imported jax")
     # launches: the training path's (phase 5; phase 7 for the Winograd
@@ -2313,19 +2742,30 @@ def main() -> int:
     # launches_train_cli_res_remat: its first run with the residual DynUNet,
     # remat and 2 microbatches (phase 9); launches_segresnet: one bf16 train
     # step of SegResNetVAE (phase 10b), and family_shapes the kernel at the
-    # Myronenko family's new shapes (phase 10)
+    # Myronenko family's new shapes (phase 10); launches_segresnet_ds: one
+    # bf16 train step of SegResNetDS (phase 11a, by form in
+    # forms_segresnet_ds), launches_train_cli_segresnet_ds its train CLI run
+    # (phase 11b), and bn_net_shapes the kernel at the BatchNorm nets' new
+    # shapes (phase 11)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": v, "route": "cuda", "source": SOURCES[v],
                 "replaces": REPLACES[v], "launches": train_launches[v],
                 "launches_predict": launches[v], "launches_train_cli": train_cli_launches[v],
                 "launches_train_cli_res_remat": res_launches[v],
                 "launches_segresnet": segresnet_launches[v],
+                "launches_segresnet_ds": segresnet_ds_launches[v],
+                "launches_train_cli_segresnet_ds": segresnet_ds_cli_launches[v],
                 **{k: report[v][k] for k in keys}}
                for v in TRAIN_KERNELS]
     for entry in kernels:
         rows = [r for r in family_rows if r["name"] == entry["name"]]
         if rows:
             entry["family_shapes"] = rows
+        rows = [r for r in bn_rows if r["name"] == entry["name"]]
+        if rows:
+            entry["bn_net_shapes"] = rows
+            entry["forms_segresnet_ds"] = {k: n for k, n in segresnet_ds["step_forms"].items()
+                                           if k.startswith(entry["name"] + "/")}
     kernels += [{"name": v, "route": "cuda", "source": SOURCES[v],
                  "replaces": REPLACES[v], "launches": strategy_launches[v],
                  "launches_predict": cli_launches["winograd"][v],
@@ -2366,6 +2806,10 @@ def main() -> int:
     print(f"segresnet train cli: {json.dumps(dict(segresnet_cli, launches=segresnet_cli_launches))} "
           f"[{card}]")
     print(f"myronenko family: {json.dumps(family)} [{card}]")
+    print(f"segresnet_ds: {json.dumps(dict(kernel_shapes=bn_rows, **segresnet_ds))} [{card}]")
+    print(f"segresnet_ds train cli: "
+          f"{json.dumps(dict(segresnet_ds_cli, launches=segresnet_ds_cli_launches))} [{card}]")
+    print(f"batchnorm nets: {json.dumps(bn_nets)} [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,11 @@ MYRONENKO_MODULES = ("models.segresnet", "models.myronenko", "models.decoder",
                      "ops.interpolate")
 
 
+# the batch_stats collection's BatchNorm segmentation nets
+BATCHNORM_MODULES = ("models.segresnet_ds", "models.monai_unet", "models.attentionunet",
+                     "models.vnet", "models.registry", "convert")
+
+
 def _env():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
@@ -64,6 +69,7 @@ def test_every_module_imports_without_jax_or_a_build():
     assert {f"unet3d_tpu_torch.{m}" for m in TRAIN_CLI_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in TRAINING_REST_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in MYRONENKO_MODULES} <= set(names.split())
+    assert {f"unet3d_tpu_torch.{m}" for m in BATCHNORM_MODULES} <= set(names.split())
 
 
 def test_no_source_of_the_port_names_jax():

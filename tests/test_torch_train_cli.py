@@ -127,3 +127,101 @@ def test_the_training_batches_went_through_the_prefetcher(runs):
     assert type(loader).__name__ == "DevicePrefetcher" and len(loader) == 2
     assert loader.dataset.epoch == 2  # the last epoch's augmentation stream
     assert loader.device.type == "cpu"  # the caller's device: nothing pinned or copied
+
+
+# --- SegResNetDS: the batch_stats collection through both CLIs -----------------
+
+SEGRESNET_DS = {"name": "SegResNetDS", "init_filters": 4, "in_channels": 2,
+                "out_channels": 3, "blocks_down": [1, 1, 1], "dsdepth": 2}
+
+
+@pytest.fixture(scope="module")
+def ds_runs(tmp_path_factory):
+    """The same config with its model section replaced by a small
+    SegResNetDS (batch norm, deep supervision on two heads), both CLIs from
+    one JAX ``.npz`` with ``params`` and ``batch_stats`` through
+    ``--pretrained_model_filename``."""
+    from test_torch_batchnorm import bn_init
+    root = str(tmp_path_factory.mktemp("train_cli_ds"))
+    config = small_brats_config(root)
+    config["model"] = dict(SEGRESNET_DS)
+    config_file = os.path.join(root, "ds.json")
+    json.dump(config, open(config_file, "w"))
+    model = jax_create_model("SegResNetDS", **{k: v for k, v in SEGRESNET_DS.items()
+                                               if k != "name"})
+    variables = bn_init(model, np.zeros((1, 16, 16, 16, 2), np.float32))
+    model_file = os.path.join(root, "pretrained.npz")
+    save_checkpoint(variables, model_file)
+    args = ["--config_filename", config_file, "--pretrained_model_filename", model_file]
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(jax_factory, "init_params", lambda *a, **k: variables)
+        jax_train.main(args + ["--output_dir", os.path.join(root, "jax")])
+    result = train.main(args + ["--output_dir", os.path.join(root, "port")], device="cpu")
+    return root, config_file, model_file, result
+
+
+def test_segresnet_ds_logs_and_statistics_match_jax(ds_runs):
+    """The logs within relative 1e-3; both ``model.npz`` hold ``batch_stats``,
+    moved off the pretrained file's by the training forwards, the port's
+    within 1e-3 of JAX's."""
+    root, _, model_file, result = ds_runs
+    got = read_training_log(os.path.join(root, "port", "ds", "training_log.csv"))
+    want = read_training_log(os.path.join(root, "jax", "ds", "training_log.csv"))
+    assert len(got) == len(want) == 2
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-3)
+    assert all(np.isfinite(row[1]) and np.isfinite(row[3]) for row in got)
+    start = dict(np.load(model_file))
+    ours = dict(np.load(os.path.join(result["work_dir"], "model.npz")))
+    theirs = dict(np.load(os.path.join(root, "jax", "ds", "model.npz")))
+    assert set(ours) == set(theirs) == set(start)
+    stats = sorted(k for k in ours if k.startswith("batch_stats/"))
+    assert len(stats) == 5 * 2 * 2  # 5 blocks x 2 BatchNorms x (mean, var)
+    for key in stats:
+        assert not np.allclose(ours[key], start[key]), key
+        assert float(np.linalg.norm(ours[key] - theirs[key]) / np.linalg.norm(theirs[key])) \
+            < 1e-3, key
+
+
+@pytest.mark.parametrize("group,case", [("validation", "val0_t1.nii.gz"),
+                                        ("test", "test0_t1.nii.gz")])
+def test_segresnet_ds_predictions_match_jax(ds_runs, group, case):
+    root, _, _, result = ds_runs
+    assert [os.path.basename(f) for f in result["predictions"][group]] == [case]
+    got, _, _ = jax_nifti.load(os.path.join(root, "port", "ds", group, case))
+    want, _, _ = jax_nifti.load(os.path.join(root, "jax", "ds", group, case))
+    source, _, _ = jax_nifti.load(os.path.join(FIXTURES, "case_t1.nii.gz"))
+    assert got.shape == want.shape == source.shape + (3,)
+    assert float(np.linalg.norm(got - want) / np.linalg.norm(want)) < 1e-3
+
+
+def test_segresnet_ds_predict_cli_on_the_train_cli_checkpoint(ds_runs):
+    """The port's predict CLI on the checkpoint its train CLI wrote (a strict
+    load of both collections) gives the train CLI's own test prediction."""
+    from unet3d_tpu_torch.scripts import predict
+    root, config_file, _, result = ds_runs
+    out = os.path.join(root, "predict")
+    predict.main(["--config_filename", config_file, "--model_filename",
+                  os.path.join(result["work_dir"], "model.npz"), "--output_directory", out,
+                  "--group", "test", "--activation", "sigmoid"], device="cpu")
+    got, _, _ = jax_nifti.load(os.path.join(out, "predictions", "test0_t1.nii.gz"))
+    trained, _, _ = jax_nifti.load(result["predictions"]["test"][0])
+    np.testing.assert_allclose(got, trained, atol=1e-6)
+
+
+def test_segresnet_ds_dry_run_keeps_the_running_statistics(ds_runs, tmp_path):
+    """``--dry_run`` runs the step's forwards and backwards at the config's
+    shapes, then puts back the statistics they updated."""
+    from unet3d_tpu_torch.convert import model_variables
+    _, config_file, model_file, _ = ds_runs
+    built = []
+    real = train.build_or_load_model_from_config
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(train, "build_or_load_model_from_config",
+                      lambda *a, **k: built.append(real(*a, **k)) or built[-1])
+        report = train.main(["--config_filename", config_file, "--pretrained_model_filename",
+                             model_file, "--output_dir", str(tmp_path), "--dry_run"],
+                            device="cpu")
+    assert report["backend"] == "cpu" and report["images"][0] == [1, 2, 16, 16, 16]
+    start = dict(np.load(model_file))
+    for key, value in model_variables(built[0]).items():
+        np.testing.assert_array_equal(value, start[key])

@@ -1,11 +1,16 @@
-"""Carry the JAX package's parameters into the port's modules.
+"""Carry the JAX package's variables into the port's modules and back.
 
 The port keeps the Flax names and layouts (DHWIO kernels, ``scale`` / ``bias``
 norms), so a flat Flax key ``params/a/b/kernel`` is the ``state_dict`` key
-``a.b.kernel`` with the same array. A non-strict load is the JAX package's
-flexible load (``unet3d_tpu/train/checkpoint.py::match_state_shapes``): a
-tensor whose shape differs is tiled, then truncated, onto the model's shape,
-so a checkpoint of another label count initialises a fine-tuning run.
+``a.b.kernel`` with the same array. The ``batch_stats`` collection (a
+BatchNorm's running ``mean`` and ``var``) lives in module buffers:
+``batch_stats/a/b/mean`` is the buffer ``a.b.mean``, and a buffer is written
+under ``batch_stats/``, never under ``params/``. No other collection has a
+counterpart. A non-strict load is the JAX package's flexible load
+(``unet3d_tpu/train/checkpoint.py::match_state_shapes``) over both
+collections: a tensor whose shape differs is tiled, then truncated, onto the
+model's shape, so a checkpoint of another label count initialises a
+fine-tuning run.
 """
 from __future__ import annotations
 
@@ -16,32 +21,49 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-_PARAMS = "params/"
+PARAMS, BATCH_STATS = "params", "batch_stats"
 
 
 def flax_to_state_dict(flat: Mapping[str, np.ndarray],
                        strict: bool = True) -> Dict[str, torch.Tensor]:
-    """``{'params/a/b/kernel': array}`` -> ``{'a.b.kernel': tensor}``. Keys of
-    other collections (batch_stats, ...) have no counterpart yet: they raise,
+    """``{'params/a/b/kernel': array, 'batch_stats/a/b/mean': array}`` ->
+    ``{'a.b.kernel': tensor, 'a.b.mean': tensor}``. Keys of other
+    collections (VQVAE's ``codebook``, ...) have no counterpart: they raise,
     or are dropped when not ``strict`` (as the flexible load drops every key
     the model lacks)."""
     out = {}
     for key, value in flat.items():
-        if not key.startswith(_PARAMS):
+        collection, _, path = key.partition("/")
+        if collection not in (PARAMS, BATCH_STATS):
             if not strict:
                 continue
-            raise ValueError(f"checkpoint key {key!r} is outside the params "
-                             "collection; no ported model has other collections")
-        out[key[len(_PARAMS):].replace("/", ".")] = torch.from_numpy(
-            np.array(value, copy=True))
+            raise ValueError(f"checkpoint key {key!r} is outside the params and "
+                             "batch_stats collections; no ported model has others")
+        out[path.replace("/", ".")] = torch.from_numpy(np.array(value, copy=True))
     return out
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """``{'a.b.kernel': tensor}`` -> ``{'params/a/b/kernel': array}``, the
-    inverse of ``flax_to_state_dict``."""
-    return {_PARAMS + key.replace(".", "/"): value.detach().cpu().numpy()
+    inverse of ``flax_to_state_dict`` for a model without buffers; a model
+    with running statistics goes through ``model_variables``."""
+    return {f"{PARAMS}/" + key.replace(".", "/"): value.detach().cpu().numpy()
             for key, value in state_dict.items()}
+
+
+def flax_keys(model: nn.Module) -> Dict[str, str]:
+    """The flat JAX key of each ``state_dict`` entry of ``model``: its
+    parameters under ``params/``, its buffers under ``batch_stats/``."""
+    buffers = {name for name, _ in model.named_buffers()}
+    return {f"{BATCH_STATS if key in buffers else PARAMS}/" + key.replace(".", "/"): key
+            for key in model.state_dict()}
+
+
+def model_variables(model: nn.Module) -> Dict[str, np.ndarray]:
+    """``model``'s parameters and buffers as the JAX package's flat
+    variables (what its ``save_checkpoint`` writes)."""
+    sd = model.state_dict()
+    return {k: sd[v].detach().cpu().numpy() for k, v in flax_keys(model).items()}
 
 
 def match_tensor_sizes(fixed: np.ndarray, moving: np.ndarray) -> np.ndarray:
@@ -60,30 +82,32 @@ def match_tensor_sizes(fixed: np.ndarray, moving: np.ndarray) -> np.ndarray:
 
 def load_jax_variables(model: nn.Module, flat: Mapping[str, np.ndarray],
                        strict: bool = True) -> nn.Module:
-    """Copy flat JAX parameters into ``model`` in place.
+    """Copy flat JAX variables (``params`` and ``batch_stats``) into
+    ``model`` in place.
 
-    ``strict`` raises on a missing or extra key and on any shape mismatch.
-    Otherwise keys the checkpoint lacks keep the model's values, keys the
-    model lacks are dropped, and a tensor of another shape is tiled and
-    truncated onto the model's (``match_tensor_sizes``)."""
-    loaded = flax_to_state_dict(flat, strict=strict)
+    ``strict`` raises on a missing or extra key of either collection (a key
+    of another collection is extra) and on any shape mismatch. Otherwise
+    keys the checkpoint lacks keep the model's values, keys the model lacks
+    are dropped, and a tensor of another shape is tiled and truncated onto
+    the model's (``match_tensor_sizes``)."""
+    keys = flax_keys(model)
     own = model.state_dict()
     if strict:
-        missing = sorted(set(own) - set(loaded))
-        extra = sorted(set(loaded) - set(own))
-        mismatched = sorted(k for k in set(own) & set(loaded)
-                            if tuple(own[k].shape) != tuple(loaded[k].shape))
+        missing = sorted(set(keys) - set(flat))
+        extra = sorted(set(flat) - set(keys))
+        mismatched = sorted(k for k in set(keys) & set(flat)
+                            if tuple(own[keys[k]].shape) != tuple(np.shape(flat[k])))
         if missing or extra or mismatched:
             raise ValueError(
                 f"load failed (strict=True). missing: {missing[:5]} extra: {extra[:5]} "
-                f"shape mismatch: {[(k, tuple(own[k].shape), tuple(loaded[k].shape)) for k in mismatched[:5]]}")
+                "shape mismatch: "
+                f"{[(k, tuple(own[keys[k]].shape), np.shape(flat[k])) for k in mismatched[:5]]}")
     with torch.no_grad():
-        for key, target in own.items():
-            if key not in loaded:
+        for flax_key, key in keys.items():
+            if flax_key not in flat:
                 continue
-            value = loaded[key]
+            target, value = own[key], np.asarray(flat[flax_key])
             if tuple(value.shape) != tuple(target.shape):
-                value = torch.from_numpy(np.ascontiguousarray(match_tensor_sizes(
-                    np.empty(tuple(target.shape)), value.numpy())))
-            target.copy_(value.to(target.dtype))
+                value = match_tensor_sizes(np.empty(tuple(target.shape)), value)
+            target.copy_(torch.from_numpy(np.array(value, copy=True)).to(target.dtype))
     return model

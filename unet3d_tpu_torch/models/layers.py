@@ -6,10 +6,14 @@ the autograd Functions of ``ops/conv3d``; ``PointwiseConv`` and
 layout device for XLA, not a kernel), ``ConvTranspose`` is the overlapping
 transposed conv (cuDNN), and so is ``Dense`` a matmul, each through
 ``ops/conv3d``'s ``channel_matmul`` / ``cudnn_conv`` (f32 in full f32, TF32
-off); ``GroupNorm`` trains through torch autograd. Parameters keep the Flax names and layouts (``kernel``
-DHWIO or (in, out), ``scale`` / ``bias``), so a JAX checkpoint loads by key
-alone (``convert.py``). Parameters are created empty; ``init_parameters``
-fills a whole model from a ``torch.Generator``.
+off); ``Conv`` is Flax's ``nn.Conv`` with explicit pads and dilation
+(cuDNN, as the JAX package leaves it to XLA); ``GroupNorm`` and
+``BatchNorm`` train through torch autograd. Parameters keep the Flax names
+and layouts (``kernel`` DHWIO or (in, out), ``scale`` / ``bias``), and a
+BatchNorm's running statistics are buffers named as Flax's ``batch_stats``
+(``mean`` / ``var``), so a JAX checkpoint loads by key alone
+(``convert.py``). Parameters are created empty; ``init_parameters`` fills a
+whole model from a ``torch.Generator``.
 
 Flax infers a module's input channels from its first input; torch needs them
 when the module is built, so every module here takes them. The Myronenko
@@ -17,7 +21,7 @@ blocks (GroupNorm -> ReLU -> conv, twice, plus the identity) follow Flax's
 dtype rules: ``GroupNorm`` returns the result type of its input and its
 parameters and a conv casts its kernel to its input's dtype, so a block fed
 an f32 activation runs in f32 even on bf16 parameters, as the JAX block does.
-Noise (the channel dropout) is drawn from an explicit ``torch.Generator``.
+Noise (the dropout masks) is drawn from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -43,8 +47,14 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Flax's initialisers, drawn from ``generator`` in parameter order:
     ``kernel`` lecun-normal (truncated at two standard deviations, fan-in all
     axes but the last: a conv's or transposed conv's DHWIO, a Dense's (in,
-    out)), ``scale`` ones, ``bias`` zeros."""
+    out)), ``scale`` ones, ``bias`` zeros, a PReLU's ``alpha`` 0.25; the
+    BatchNorm buffers (``batch_stats``) ``mean`` zeros, ``var`` ones."""
     with torch.no_grad():
+        for name, b in module.named_buffers():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf not in ("mean", "var"):
+                raise ValueError(f"no initialiser for buffer {name}")
+            b.fill_(0.0 if leaf == "mean" else 1.0)
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf == "kernel":
@@ -58,6 +68,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 p.fill_(1.0)
             elif leaf == "bias":
                 p.zero_()
+            elif leaf == "alpha":
+                p.fill_(0.25)
             else:
                 raise ValueError(f"no initialiser for parameter {name}")
 
@@ -213,6 +225,34 @@ def conv1(in_channels: int, features: int, stride: Ints3 = 1,
                     use_bias=use_bias)
 
 
+class Conv(nn.Module):
+    """Flax ``nn.Conv`` with explicit symmetric ``padding`` per axis and
+    ``dilation``, computed by cuDNN in the result type of the input and the
+    parameters (f32 in full f32): the VALID 2-cubed stride-2 conv of VNet's
+    down transitions and the dilated convs of MONAI's ``Convolution``."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: Ints3,
+                 strides: Ints3 = 1, padding: Ints3 = 0, dilation: Ints3 = 1,
+                 use_bias: bool = True):
+        super().__init__()
+        self.kernel_size, self.strides = _triple(kernel_size), _triple(strides)
+        self.padding, self.dilation = _triple(padding), _triple(dilation)
+        self.kernel = nn.Parameter(
+            torch.empty(self.kernel_size + (in_channels, features)))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        params = [self.kernel] + ([self.bias] if self.bias is not None else [])
+        dtype = _result_type(x, *params)
+        y = cudnn_conv(x.to(dtype).permute(0, 4, 1, 2, 3),
+                       self.kernel.to(dtype).permute(4, 3, 0, 1, 2), self.strides,
+                       self.padding, dilation=self.dilation)
+        y = y.permute(0, 2, 3, 4, 1).contiguous()
+        if self.bias is not None:
+            y = y + self.bias.to(dtype)
+        return y
+
+
 def _result_type(*tensors: torch.Tensor) -> torch.dtype:
     dtype = tensors[0].dtype
     for t in tensors[1:]:
@@ -247,13 +287,13 @@ def group_norm_groups(channels: int, norm_groups: int = 8) -> int:
     return norm_groups
 
 
-def group_norm(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
-               bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def group_norm(x: torch.Tensor, num_groups: int, scale: Optional[torch.Tensor],
+               bias: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
     """Flax's GroupNorm on NDHWC ``x``: per (item, group) mean and variance
     over the spatial axes and the group's channels in f32 (f64 for an f64
     x), the variance as E[x^2] - E[x]^2 clamped at 0; ``(x - mean) *
-    (rsqrt(var + eps) * scale) + bias`` in that type; the result in the
-    result type of x, scale and bias.
+    (rsqrt(var + eps) * scale) + bias`` in that type (without the scale or
+    bias that is None); the result in the result type of x, scale and bias.
     (``F.group_norm`` takes the variance another way and refuses parameters
     of another dtype than its input.)"""
     n, c = x.shape[0], x.shape[-1]
@@ -265,34 +305,95 @@ def group_norm(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
     size = c // num_groups
     mean = mean.repeat_interleave(size, dim=-1)[:, None, None, None, :]
     var = var.repeat_interleave(size, dim=-1)[:, None, None, None, :]
-    mul = torch.rsqrt(var + eps) * scale.to(compute)
-    y = (xf - mean) * mul + bias.to(compute)
-    return y.to(_result_type(x, scale, bias))
+    mul = torch.rsqrt(var + eps)
+    if scale is not None:
+        mul = mul * scale.to(compute)
+    y = (xf - mean) * mul
+    if bias is not None:
+        y = y + bias.to(compute)
+    return y.to(_result_type(x, *(p for p in (scale, bias) if p is not None)))
 
 
 class GroupNorm(nn.Module):
     """``group_norm`` with Flax ``nn.GroupNorm`` parameters (``scale``,
-    ``bias``), eps 1e-5."""
+    ``bias``; none when not ``affine``, Flax's ``use_scale=False,
+    use_bias=False``), eps 1e-5. One group per channel is an instance norm."""
 
-    def __init__(self, channels: int, num_groups: int, eps: float = 1e-5):
+    def __init__(self, channels: int, num_groups: int, eps: float = 1e-5,
+                 affine: bool = True):
         super().__init__()
         if channels % num_groups:
             raise ValueError(f"{num_groups} groups do not divide {channels} channels")
         self.num_groups, self.eps = num_groups, eps
-        self.scale = nn.Parameter(torch.empty(channels))
-        self.bias = nn.Parameter(torch.empty(channels))
+        self.scale = nn.Parameter(torch.empty(channels)) if affine else None
+        self.bias = nn.Parameter(torch.empty(channels)) if affine else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return group_norm(x, self.num_groups, self.scale, self.bias, self.eps)
 
 
-def channel_dropout(x: torch.Tensor, rate: float, train: bool,
-                    generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Flax ``nn.Dropout(rate, broadcast_dims=(1, 2, 3))`` on NDHWC ``x``:
-    in training each (item, channel) is kept with probability 1 - rate (one
-    uniform draw from ``generator`` each, on x's device) and scaled by
-    1 / (1 - rate); otherwise x as it is. Training with a rate in (0, 1)
-    needs the generator."""
+class BatchNorm(nn.Module):
+    """Flax ``nn.BatchNorm`` on channels-last ``x``, as the nets build it:
+    ``momentum`` the weight of the old running value (0.9), eps 1e-5.
+    Parameters ``scale`` / ``bias``; buffers ``mean`` / ``var``, the
+    ``batch_stats`` collection (zeros / ones at init).
+
+    With ``train`` the statistics are the batch's, over every axis but the
+    last, in f32 (f64 for an f64 x), the variance E[x^2] - E[x]^2 clamped at
+    0 (the biased one); each call updates the running averages in place,
+    once, ``ra = momentum * ra + (1 - momentum) * batch``, in the buffers'
+    dtype (f32 under the AMP train step, which casts only parameters).
+    Otherwise the running averages as they are (bf16 under the inference
+    AMP cast). Then ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
+    the promoted type of its operands, the result in the result type of x,
+    scale and bias. The mode is the ``train`` argument, not
+    ``Module.training``. (``torch.nn.BatchNorm3d`` weights its momentum the
+    other way and stores the unbiased variance.)"""
+
+    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.scale = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=dims)
+            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+        return y.to(_result_type(x, self.scale, self.bias))
+
+
+def apply_norm(norm: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """``norm(x)``, with the mode for a ``BatchNorm`` (the other norms have
+    none)."""
+    return norm(x, train) if isinstance(norm, BatchNorm) else norm(x)
+
+
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """JAX's ``leaky_relu``: ``where(x >= 0, x, slope * x)``, derivative 1 at
+    0 (torch's ``F.leaky_relu`` takes the slope there)."""
+    return torch.where(x >= 0, x, slope * x)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator],
+            broadcast_dims: Sequence[int] = ()) -> torch.Tensor:
+    """Flax ``nn.Dropout(rate, broadcast_dims)``: in training each element
+    (one mask value shared along ``broadcast_dims``) is kept with
+    probability 1 - rate (one uniform draw from ``generator`` each, on x's
+    device) and scaled by 1 / (1 - rate); otherwise x as it is. Training
+    with a rate in (0, 1) needs the generator."""
     if not train or rate == 0.0:
         return x
     if rate == 1.0:
@@ -300,9 +401,16 @@ def channel_dropout(x: torch.Tensor, rate: float, train: bool,
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator (rng)")
     keep = 1.0 - rate
-    shape = (x.shape[0], 1, 1, 1, x.shape[-1])
+    shape = tuple(1 if i in broadcast_dims else s for i, s in enumerate(x.shape))
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def channel_dropout(x: torch.Tensor, rate: float, train: bool,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax ``nn.Dropout(rate, broadcast_dims=(1, 2, 3))`` on NDHWC ``x``:
+    one draw per (item, channel), MONAI's Dropout3d."""
+    return dropout(x, rate, train, generator, broadcast_dims=(1, 2, 3))
 
 
 class MyronenkoConvBlock(nn.Module):

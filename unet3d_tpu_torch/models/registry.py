@@ -1,7 +1,8 @@
 """Model registry: config ``name`` -> ``nn.Module``.
 
-Ported: DynUNet and the Myronenko family (SegResNet, SegResNetVAE, UNet3D,
-AutocastUNet, AutoImplantUNet and the autoencoders). The other names of
+Ported: DynUNet, the Myronenko family (SegResNet, SegResNetVAE, UNet3D,
+AutocastUNet, AutoImplantUNet and the autoencoders) and the BatchNorm
+segmentation nets (SegResNetDS, AttentionUnet, MONAI's UNet, VNet). The other names of
 ``unet3d_tpu/models/registry.py`` raise with the list of what is still to
 port (ROADMAP.md).
 """
@@ -9,12 +10,16 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+from unet3d_tpu_torch.models.attentionunet import AttentionUnet
 from unet3d_tpu_torch.models.dynunet import DynUNet
+from unet3d_tpu_torch.models.monai_unet import UNet
 from unet3d_tpu_torch.models.segresnet import SegResNet, SegResNetVAE
+from unet3d_tpu_torch.models.segresnet_ds import SegResNetDS
 from unet3d_tpu_torch.models.unet import AutocastUNet, AutoImplantUNet, UNet3D
 from unet3d_tpu_torch.models.variational import (ConvolutionalAutoEncoder,
                                                  LabeledVariationalAutoEncoder,
                                                  VariationalAutoEncoder)
+from unet3d_tpu_torch.models.vnet import VNet
 
 MODEL_REGISTRY: Dict[str, Any] = {
     "DynUNet": DynUNet,
@@ -26,19 +31,23 @@ MODEL_REGISTRY: Dict[str, Any] = {
     "ConvolutionalAutoEncoder": ConvolutionalAutoEncoder,
     "VariationalAutoEncoder": VariationalAutoEncoder,
     "LabeledVariationalAutoEncoder": LabeledVariationalAutoEncoder,
+    "SegResNetDS": SegResNetDS,
+    "AttentionUnet": AttentionUnet,
+    "UNet": UNet,
+    "VNet": VNet,
 }
 
 # names the JAX package resolves that the port does not have yet
 NOT_YET_PORTED = (
-    "AHNet", "AHnet", "Ahnet", "AttentionUnet", "AutoEncoder", "BasicUNet",
+    "AHNet", "AHnet", "Ahnet", "AutoEncoder", "BasicUNet",
     "BasicUNetPlusPlus", "BasicUnetPlusPlus", "Classifier", "Critic",
     "DenseNet", "DenseNet121", "DenseNet169", "DenseNet201", "DenseNet264",
     "DiNTS", "Discriminator", "EfficientNetBN", "FCN", "Generator",
     "GlobalNet", "GraphCMR", "HighResNet", "LocalNet", "QuickNAT", "Quicknat",
     "RegUNet", "RegularizedBasicResNet", "RegularizedResNet", "Regressor",
-    "ResNet", "ResNetWithDecoder1D", "SegResNetDS", "SwinUNETR",
+    "ResNet", "ResNetWithDecoder1D", "SwinUNETR",
     "TopologyConstruction", "TopologyInstance", "TopologySearch", "UNETR",
-    "UNet", "VNet", "VQVAE", "VarAutoEncoder", "ViT", "ViTAutoEnc",
+    "VQVAE", "VarAutoEncoder", "ViT", "ViTAutoEnc",
     "resnet_101", "resnet_152", "resnet_18", "resnet_34", "resnet_50",
     "resnext_101_32x8d", "resnext_50_32x4d",
 )

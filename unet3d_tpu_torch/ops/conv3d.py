@@ -84,8 +84,8 @@ class _FullF32Conv(torch.autograd.Function):
     the forward set."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, padding, transposed, output_padding):
-        ctx.conf = (stride, padding, (1,) * len(stride), transposed, output_padding, 1)
+    def forward(ctx, x, w, stride, padding, transposed, output_padding, dilation):
+        ctx.conf = (stride, padding, dilation, transposed, output_padding, 1)
         ctx.save_for_backward(x, w)
         with full_f32(x):
             return torch.ops.aten.convolution(x, w, None, *ctx.conf)
@@ -97,20 +97,23 @@ class _FullF32Conv(torch.autograd.Function):
         with full_f32(gy):
             dx, dw, _ = torch.ops.aten.convolution_backward(
                 gy, x, w, None, *ctx.conf, (*ctx.needs_input_grad[:2], False))
-        return dx, dw, None, None, None, None
+        return dx, dw, None, None, None, None, None
 
 
 def cudnn_conv(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
                padding: Sequence[int], transposed: bool = False,
-               output_padding: Optional[Sequence[int]] = None) -> torch.Tensor:
+               output_padding: Optional[Sequence[int]] = None,
+               dilation: Optional[Sequence[int]] = None) -> torch.Tensor:
     """``F.conv{1,2,3}d`` (``F.conv_transpose*d`` when ``transposed``) of
     channels-first ``x`` with torch's weight layout; f32 in full f32,
     forward and gradients."""
     stride, padding = tuple(stride), tuple(padding)
     output_padding = tuple(output_padding or (0,) * len(stride))
+    dilation = tuple(dilation or (1,) * len(stride))
     if x.dtype == torch.float32:
-        return _FullF32Conv.apply(x, w, stride, padding, transposed, output_padding)
-    return torch.ops.aten.convolution(x, w, None, stride, padding, (1,) * len(stride),
+        return _FullF32Conv.apply(x, w, stride, padding, transposed, output_padding,
+                                  dilation)
+    return torch.ops.aten.convolution(x, w, None, stride, padding, dilation,
                                       transposed, output_padding, 1)
 
 

@@ -99,7 +99,8 @@ def dry_run_step(work_dir, training_loader, model, criterion, amp: bool,
                  device: torch.device, grad_accum: int = 1) -> dict:
     """``--dry_run``: one batch through the real data pipeline, then the
     forwards and backwards of the train step at its shapes (``grad_accum``
-    microbatches), the gradients dropped (no optimizer update). Writes
+    microbatches), the gradients dropped (no optimizer update) and the
+    running statistics the forwards updated put back. Writes
     ``compile_report.json`` with the JAX CLI's keys that have a meaning
     here; ``per_device_peak_gib`` is the device's peak allocated memory in
     the step (CUDA only)."""
@@ -109,9 +110,13 @@ def dry_run_step(work_dir, training_loader, model, criterion, amp: bool,
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     x, y = prepare_batch(images, labels, device, amp)
+    buffers = [(b, b.clone()) for b in model.buffers()]
     accumulate_gradients(model, criterion, x, y, amp, grad_accum,
                          noise_generator(model))
     model.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        for b, before in buffers:
+            b.copy_(before)
     report = {
         "backend": device.type,
         "mesh": None,

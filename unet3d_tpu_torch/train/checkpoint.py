@@ -2,9 +2,10 @@
 model and of the optimizer state.
 
 ``unet3d_tpu/train/checkpoint.py`` saves the Flax variable tree with '/'-joined
-keys, e.g. ``params/input_block/conv1/kernel``. ``convert.py`` maps them onto
-the port's modules and back, so a checkpoint either package writes loads in
-the other.
+keys, e.g. ``params/input_block/conv1/kernel``, and a BatchNorm net's running
+statistics under ``batch_stats/`` (``batch_stats/down0_block0/norm1/mean``).
+``convert.py`` maps both collections onto the port's parameters and buffers
+and back, so a checkpoint either package writes loads in the other.
 
 The optimizer state is the JAX package's file too: a flat ``.npz`` keyed by
 ``jax.tree_util.keystr`` of the optax state, e.g.
@@ -30,7 +31,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from unet3d_tpu_torch.convert import state_dict_to_flax
+from unet3d_tpu_torch.convert import model_variables
 from unet3d_tpu_torch.train import optim
 
 
@@ -44,11 +45,12 @@ def load_checkpoint(filename: str) -> Dict[str, np.ndarray]:
 
 
 def save_checkpoint(model: torch.nn.Module, filename: str) -> None:
-    """Write ``model``'s parameters as a flat-key ``.npz``, atomically (a
-    temporary file, then a rename)."""
+    """Write ``model``'s parameters and buffers (``params`` and
+    ``batch_stats``) as a flat-key ``.npz``, atomically (a temporary file,
+    then a rename)."""
     if str(filename).endswith(".orbax"):
         raise NotImplementedError("orbax checkpoints are not ported (see ROADMAP.md)")
-    _write_npz(state_dict_to_flax(model.state_dict()), filename)
+    _write_npz(model_variables(model), filename)
 
 
 class OptStateMismatchError(RuntimeError):

@@ -8,7 +8,12 @@ it: the training engine reads it one step late.
 bf16 AMP with f32 master weights: the forward runs on bf16 copies of every f32
 parameter (norm scale and bias included, as the JAX step casts the whole
 parameter tree), through ``torch.func.functional_call``, so the gradients
-reach the f32 masters through the cast and the optimizer updates those.
+reach the f32 masters through the cast and the optimizer updates those. The
+buffers (a BatchNorm's running ``mean`` and ``var``, the ``batch_stats``
+collection) stay f32 in training, as the JAX step casts only ``params``: the
+training forward normalises with the batch's f32 statistics and updates the
+running averages in place, once per forward. The eval step casts them to
+bf16 with the parameters, as the JAX ``amp_cast`` casts every f32 leaf.
 
 A model whose forward takes ``rng`` (the dropout and VAE noise of the
 Myronenko family) draws its training noise from a ``torch.Generator`` on the
@@ -19,7 +24,9 @@ step owns it and passes it to every forward, as the JAX step splits its
 ``grad_accum`` > 1 splits each batch into that many equal microbatches (the
 JAX step's scan): one forward and backward each, the gradients summed in f32
 in the masters' ``.grad``, divided once by the count, one optimizer update,
-and the loss the mean of the microbatches'.
+and the loss the mean of the microbatches'. Each microbatch normalises with
+its own statistics and updates the running averages the one before left, as
+the scan carries ``batch_stats``.
 """
 from __future__ import annotations
 
@@ -98,7 +105,8 @@ def forward_loss(model: torch.nn.Module, criterion: Callable, x: torch.Tensor,
                  y: torch.Tensor, amp: bool,
                  rng: Optional[torch.Generator] = None) -> torch.Tensor:
     """The training forward and its loss; under ``amp`` on bf16 copies of the
-    f32 parameters. ``rng`` goes to a forward that draws noise."""
+    f32 parameters (the buffers stay the model's own, f32). ``rng`` goes to a
+    forward that draws noise."""
     kwargs = {"train": True}
     if rng is not None:
         kwargs["rng"] = rng
@@ -164,18 +172,18 @@ def make_eval_step(model: torch.nn.Module, criterion: Callable,
                    inferer: Optional[Callable] = None, amp: bool = False) -> Callable:
     """``step(images, labels) -> loss`` without gradients, the forward
     optionally through an inferer (e.g. sliding window); ``amp`` runs it on
-    bf16 copies of the parameters."""
+    bf16 copies of the parameters and buffers (the running statistics)."""
     device = _device(model)
 
     def step(images, labels) -> torch.Tensor:
         x, y = prepare_batch(images, labels, device, amp)
         with torch.no_grad():
-            params = dict(model.named_parameters())
+            variables = {**dict(model.named_parameters()), **dict(model.named_buffers())}
             if amp:
-                params = amp_cast(params)
+                variables = amp_cast(variables)
 
             def forward(z: torch.Tensor) -> torch.Tensor:
-                return functional_call(model, params, (z,))
+                return functional_call(model, variables, (z,))
 
             out = inferer(x, forward) if inferer is not None else forward(x)
             return compute_criterion(criterion, out, y)

@@ -181,6 +181,32 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    and one training forward and backward (f32, bf16) against the plain path
    as in (a), with their launches (VNet's 5-cubed and 2-cubed convs are
    cuDNN's on both paths: it launches no hand kernel).
+12. the transformers (the BraTS config with its model section replaced;
+   ``UNETR_MODEL``, ``SWIN_UNETR_MODEL``, ``VIT_MODELS``): the conv
+   kernel's three variants at their UnetResBlock sites
+   (``TRANSFORMER_CONV_SHAPES``: 16 and 48 output channels at 128^3, 768 at
+   4^3) against their plain versions, timed as in phase 2; (a) UNETR and
+   SwinUNETR at their published widths: one 128^3 bf16 window through
+   ``volumetric_predictions``, kernels against the plain path (every DynUNet
+   block through ``F.conv3d``: ``plain_blocks``) within relative L2 3e-2,
+   ``conv_stats`` and ``block_stats`` once per block (8 and 10), all
+   wgmma, forward times and a profile by group (attention matmuls, softmax,
+   LayerNorm, conv_stats, block_stats, cuDNN / cuBLAS); one bf16 AMP train
+   step at batch 1 (DiceLoss, Adam): launches (``conv`` 15 and 19: every
+   input gradient but encoder1.conv1's), gradients against the plain path
+   (f32 within 1e-3, bf16 2e-2 and no further from the plain f32 ones than
+   1.25 times the plain bf16 path's), the f32 step under torch's default
+   TF32 flags and with cuBLAS's TF32 on, each against TF32 off by the
+   caller (the plain path within 1e-5; the kernels, whose f32 atomics move
+   the step ~3e-5 run to run, within a fifth of what TF32 does with the
+   port's policy taken out), step ms, peak memory and a profile; (b) the train
+   CLI on phase 8's cases and folds (fold 1, 2 epochs) with SwinUNETR:
+   finite losses, a ``model.npz`` of ``params`` alone that reloads strictly
+   and equal, the predict CLI on it on the source grid in [0, 1], launches
+   by form, seconds per epoch and step ms; (c) ViT (classification) and
+   ViTAutoEnc at MONAI's defaults: one forward (f32, bf16) and one training
+   backward (f32) on the card against f64 on the CPU (they launch no hand
+   kernel).
 
 Exits non-zero if any phase fails or there is no CUDA device. The last lines
 are the card, a JSON object of the kernels (the bf16 forms' rows, then the
@@ -194,6 +220,7 @@ import contextlib
 import json
 import logging
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -389,6 +416,63 @@ BN_STATS_BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # bf16 gradients through the kernels no further from the plain f32 ones than
 # this many times the plain bf16 path's (two samples of bf16 rounding noise)
 BF16_EXCESS = 1.25
+# phase 12: the transformers, each in the BraTS config with its model section
+# replaced. UNETR at the paper's and MONAI's widths (Hatamizadeh et al., WACV
+# 2022, arXiv:2103.10504: hidden 768, mlp 3072, 12 heads, 12 layers, patch
+# 16, feature 16, residual blocks) on the config's 128^3 patch and window;
+# SwinUNETR at its BraTS 2021 widths (Hatamizadeh et al. 2022,
+# arXiv:2201.01266: feature 48, depths 2, 2, 2, 2, heads 3, 6, 12, 24,
+# window 7, patch 2) on a 128^3 ROI
+UNETR_MODEL = {"name": "UNETR", "in_channels": 4, "out_channels": 3,
+               "img_size": [128, 128, 128], "feature_size": 16, "hidden_size": 768,
+               "mlp_dim": 3072, "num_heads": 12, "num_layers": 12, "res_block": True}
+SWIN_UNETR_MODEL = {"name": "SwinUNETR", "img_size": [128, 128, 128], "in_channels": 4,
+                    "out_channels": 3, "feature_size": 48, "depths": [2, 2, 2, 2],
+                    "num_heads": [3, 6, 12, 24], "window_size": 7, "patch_size": 2}
+TRANSFORMERS = (("UNETR", UNETR_MODEL), ("SwinUNETR", SWIN_UNETR_MODEL))
+SWIN_UNETR_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_swin_unetr")
+# the standalone ViT (classification) and ViTAutoEnc at MONAI's defaults
+# (96^3, patch 16, hidden 768, mlp 3072, 12 heads, 12 layers), 4 channels in
+VIT_MODELS = (
+    ("ViT", dict(in_channels=4, img_size=[96, 96, 96], patch_size=[16, 16, 16],
+                 classification=True, num_classes=3)),
+    ("ViTAutoEnc", dict(in_channels=4, img_size=[96, 96, 96], patch_size=[16, 16, 16],
+                        out_channels=4)),
+)
+# their f32 forward and gradients on the card against f64 on the CPU
+VIT_F32_BOUND = 1e-4
+# the f32 step through the kernels under TF32 flags against TF32 off: at
+# most this share of what TF32 does with the policy taken out (the kernels'
+# own run-to-run spread, f32 atomics through leaky-ReLU kinks, is ~3e-5)
+TF32_SHARE = 0.2
+# (label, spatial, cin, cout, dtype, form, variant): the direct conv's three
+# variants at the transformers' UnetResBlock sites (conv1: conv_stats, conv2:
+# block_stats, their input gradients: conv), Cout 16 and 48 a quarter and
+# three quarters of a 64-wide tile, Cin 48 a part-filled chunk, 768 twelve
+TRANSFORMER_CONV_SHAPES = [
+    ("UNETR encoder1.conv1 4->16 @128^3", 128, 4, 16, torch.bfloat16, "wgmma", "conv_stats"),
+    ("UNETR encoder1.conv2 16->16 @128^3", 128, 16, 16, torch.bfloat16, "wgmma",
+     "block_stats"),
+    ("UNETR decoder2 conv1 32->16 @128^3", 128, 32, 16, torch.bfloat16, "wgmma",
+     "conv_stats"),
+    ("UNETR dx of decoder2 conv1 16->32 @128^3", 128, 16, 32, torch.bfloat16, "wgmma",
+     "conv"),
+    ("UNETR decoder3 conv2 32->32 @64^3", 64, 32, 32, torch.bfloat16, "wgmma", "block_stats"),
+    ("SwinUNETR encoder1.conv1 4->48 @128^3", 128, 4, 48, torch.bfloat16, "wgmma",
+     "conv_stats"),
+    ("SwinUNETR encoder1.conv2 48->48 @128^3", 128, 48, 48, torch.bfloat16, "wgmma",
+     "block_stats"),
+    ("SwinUNETR decoder1 conv1 96->48 @128^3", 128, 96, 48, torch.bfloat16, "wgmma",
+     "conv_stats"),
+    ("SwinUNETR dx of decoder1 conv1 48->96 @128^3", 128, 48, 96, torch.bfloat16, "wgmma",
+     "conv"),
+    ("SwinUNETR decoder2 conv1 96->48 @64^3", 64, 96, 48, torch.bfloat16, "wgmma",
+     "conv_stats"),
+    ("SwinUNETR decoder3 conv1 192->96 @32^3", 32, 192, 96, torch.bfloat16, "wgmma",
+     "conv_stats"),
+    ("SwinUNETR encoder10 conv2 768->768 @4^3", 4, 768, 768, torch.bfloat16, "wgmma",
+     "block_stats"),
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -532,33 +616,84 @@ def check_forms(where: str) -> None:
     check(not off, f"{where}: bf16 sites off the wgmma form: {off}")
 
 
+_WGMMA_VARIANT = re.compile(r"conv3x3x3_wgmma<.*(true|false), (true|false)>")
+_KERNEL_GROUPS = (("conv tf32x3", "conv3x3x3_tf32x3"), ("conv wmma/fma", "conv3x3x3_ndhwc"),
+                  ("s2_wgrad", "s2_wgrad"), ("s2_wgrad", "sum_splits"),
+                  ("winograd", "winograd3x3x3"), ("winograd", "winograd_wgmma"),
+                  ("memcpy/memset", "mem"), ("copies and casts", "copy"),
+                  ("reductions", "reduce"), ("elementwise", "elementwise"))
+
+
+def _kernel_group(name: str) -> str:
+    """A device kernel's group by its name: the wgmma direct conv by variant
+    (its template's PROLOGUE, STATS flags), the other hand kernels, then
+    torch's kernels by kind; cuDNN's and cuBLAS's fall to the last."""
+    match = _WGMMA_VARIANT.search(name)
+    if match:
+        return {("true", "true"): "block_stats", ("false", "true"): "conv_stats",
+                ("false", "false"): "conv"}[match.groups()]
+    return next((g for g, key in _KERNEL_GROUPS if key.lower() in name.lower()),
+                "cuDNN / cuBLAS (other matmuls and convs)")
+
+
 def profile_device(fn, label: str, card: str) -> dict:
-    """Device time of one call of ``fn`` by kernel group (torch.profiler),
-    its device span and idle share; printed, and returned."""
+    """Device time of one call of ``fn`` by group (torch.profiler): by kernel
+    name (``_kernel_group``), except that the kernels launched under
+    ``aten::bmm`` (the attention products, forward and backward), the
+    softmax's and those inside a ``layers.LayerNorm`` forward (its backward
+    falls among the elementwise and reduction kernels) form groups of their
+    own; its device span and idle share, and the kernels that take longest;
+    printed, and returned."""
     from torch.autograd import DeviceType
+    from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
+    from unet3d_tpu_torch.models.layers import LayerNorm
+
+    real = LayerNorm.forward
+
+    def scoped(self, x):
+        with record_function("LayerNorm"):
+            return real(self, x)
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # on the class: make_forward runs a bf16 copy of the model
+    LayerNorm.forward = scoped
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        LayerNorm.forward = real
+    events = prof.events()
+    # the LayerNorm ranges appear on the device's timeline too: not kernels
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name != "LayerNorm"
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         print(f"profile {label}: no device events traced (not measured)", flush=True)
         return {}
-    groups = (("conv wgmma", "conv3x3x3_wgmma"), ("conv tf32x3", "conv3x3x3_tf32x3"),
-              ("conv wmma/fma", "conv3x3x3_ndhwc"),
-              ("s2_wgrad", "s2_wgrad"), ("s2_wgrad", "sum_splits"),
-              ("winograd", "winograd3x3x3"), ("winograd", "winograd_wgmma"),
-              ("memcpy/memset", "mem"), ("copies and casts", "copy"),
-              ("reductions", "reduce"), ("elementwise", "elementwise"))
     by_group, by_name = {}, {}
     for e in kernels:
         ms = (e.time_range.end - e.time_range.start) / 1e3
-        lname = e.name.lower()
-        group = next((g for g, key in groups if key.lower() in lname), "other (cuDNN, cuBLAS, ...)")
+        group = _kernel_group(e.name)
         by_group[group] = by_group.get(group, 0.0) + ms
         by_name[e.name[:70]] = by_name.get(e.name[:70], 0.0) + ms
+    # each kernel is listed once, under the op that launched it
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        node, group = e, None
+        while node is not None and group is None:
+            if node.name == "LayerNorm":
+                group = "LayerNorm (forward)"
+            elif node.name in ("aten::bmm", "aten::baddbmm"):
+                group = "attention matmuls (bmm)"
+            elif node.name.startswith("aten::_softmax"):
+                group = "softmax"
+            node = node.cpu_parent
+        for k in (k for k in e.kernels if k.name != "LayerNorm") if group else ():
+            by_group[_kernel_group(k.name)] -= k.duration / 1e3
+            by_group[group] = by_group.get(group, 0.0) + k.duration / 1e3
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, spans[0][0]
     for lo, hi in spans:
@@ -570,7 +705,8 @@ def profile_device(fn, label: str, card: str) -> dict:
     print(f"profile {label}: device {total:.3f} ms in {len(kernels)} kernels, span "
           f"{span:.3f} ms, idle {idle:.1%} [{card}]", flush=True)
     for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"  {g:28s} {ms:9.3f} ms {ms / total:6.1%}", flush=True)
+        if abs(ms) > 5e-4:
+            print(f"  {g:42s} {ms:9.3f} ms {ms / total:6.1%}", flush=True)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {ms:9.3f} ms  {name}", flush=True)
     return dict(device_ms=total, span_ms=span, idle=idle, groups=by_group)
@@ -1849,47 +1985,66 @@ def plain_convs():
 
 def phase10_kernels(device, gen, conv_shapes=FAMILY_CONV_SHAPES, s2_shapes=FAMILY_S2_SHAPES,
                     label="family"):
-    """The conv kernel and s2_wgrad at the family's new shapes (phase 11:
-    the BatchNorm nets') against their plain versions, in the form each
-    takes there, timed (device ms) beside the plain composition, one PyTorch
-    call and the bound (f32: both the f32 CUDA-core bound and the 3xTF32
+    """The conv kernel (each ``conv_shapes`` entry's variant: ``conv`` unless
+    a seventh element names ``conv_stats`` or ``block_stats``) and s2_wgrad
+    at the family's new shapes (phase 11: the BatchNorm nets'; phase 12: the
+    transformers') against their plain versions, in the form each takes
+    there, timed (device ms) beside the plain composition, one PyTorch call
+    (``F.conv3d``: the conv alone, beside a statistics variant) and the bound (f32: both the f32 CUDA-core bound and the 3xTF32
     tensor-core bound the tf32x3 form is held to)."""
     from unet3d_tpu_torch.ops import conv3d_kernel as K
     from unet3d_tpu_torch.ops import s2_wgrad_kernel as W
-    from unet3d_tpu_torch.ops.conv3d import conv3d_torch
 
+    kernel = {"conv": K.conv3x3x3, "conv_stats": K.conv3x3x3_with_stats,
+              "block_stats": K.conv3x3x3_block_with_stats}
+    plain = {"conv": K.conv3d_reference, "conv_stats": K.conv3d_with_stats_reference,
+             "block_stats": K.conv3d_block_with_stats_reference}
     rows = []
-    for shape_label, s, cin, cout, dtype, expected in conv_shapes:
+    for shape_label, s, cin, cout, dtype, expected, *variant in conv_shapes:
+        variant = variant[0] if variant else "conv"
         x = torch.randn(1, s, s, s, cin, device=device, generator=gen).to(dtype)
         w = (torch.randn(3, 3, 3, cin, cout, device=device, generator=gen)
              / (27 * cin) ** 0.5).to(dtype)
+        inv = torch.rand(1, cin, device=device, generator=gen) + 0.5
+        shift = torch.randn(1, cin, device=device, generator=gen) * 0.3
+        args = (x, w, inv, shift) if variant == "block_stats" else (x, w)
         form = K.kernel_form(x, w)
-        got, want = K.conv3x3x3(x, w), K.conv3d_reference(x, w)
+        got, want = kernel[variant](*args), plain[variant](*args)
+        got_y, want_y = (got, want) if variant == "conv" else (got[0], want[0])
         torch.cuda.synchronize()
-        rel = rel_max(got, want)
-        msg = f"{label} conv {shape_label:32s} {str(dtype)[6:]:8s} {form:6s} rel {rel:.3e}"
+        rel = rel_max(got_y, want_y)
+        msg = (f"{label} {variant} {shape_label:32s} {str(dtype)[6:]:8s} {form:6s} rel "
+               f"{rel:.3e}")
         check(form == expected, f"{msg}: form, expected {expected}")
         check(rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
-        ms = device_ms(lambda: K.conv3x3x3(x, w))
-        plain_ms = device_ms(lambda: conv3d_torch(x, w, (1, 1, 1), ((1, 1),) * 3))
+        if variant != "conv":
+            s_err = stats_err(*got)
+            msg += f" stats rel {s_err:.3e}"
+            check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
+        ms = device_ms(lambda: kernel[variant](*args))
+        plain_ms = device_ms(lambda: plain_fast(variant, x, w, inv, shift))
         library_ms = device_ms(library_conv(x, w))
-        row = dict(name="conv" if dtype == torch.bfloat16 else "conv_tf32x3", shape=shape_label,
-                   dtype=str(dtype)[6:], form=form, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms,
-                   max_abs_err=(got.float() - want.float()).abs().max().item())
+        name = variant if dtype == torch.bfloat16 else f"{variant}_tf32x3"
+        row = dict(name=name, shape=shape_label, dtype=str(dtype)[6:], form=form, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   max_abs_err=(got_y.float() - want_y.float()).abs().max().item())
+        if variant != "conv":
+            # no one PyTorch call takes the statistics with the conv: F.conv3d
+            # alone is kept beside it
+            row.update(library_ms=None, conv3d_ms=library_ms)
         if dtype == torch.float32:
-            row["f32_bound_ms"], _ = conv_bound("conv", s, cin, cout, dtype=dtype)
-            bms, bound_by = tf32x3_bound("conv", s, cin, cout)
+            row["f32_bound_ms"], _ = conv_bound(variant, s, cin, cout, dtype=dtype)
+            bms, bound_by = tf32x3_bound(variant, s, cin, cout)
             msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d (TF32 off) "
                     f"{library_ms:.3f} ms, f32 bound {row['f32_bound_ms']:.3f} ms, 3xTF32 "
                     f"bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
         else:
-            bms, bound_by = conv_bound("conv", s, cin, cout, dtype=dtype)
+            bms, bound_by = conv_bound(variant, s, cin, cout, dtype=dtype)
             msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d "
                     f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
         print(msg, flush=True)
         rows.append(dict(row, bound_ms=bms, bound_by=bound_by))
-        del x, w, got, want
+        del x, w, got, want, got_y, want_y
     for shape_label, s, cin, cout in s2_shapes:
         x = torch.randn(1, s, s, s, cin, device=device, generator=gen).to(torch.bfloat16)
         g = torch.randn(1, s // 2, s // 2, s // 2, cout, device=device,
@@ -2157,30 +2312,31 @@ def phase10_segresnet(device, seed, card):
         step_profile=step_profile, default_tf32_flags_rel_l2=tf32_flags)
 
 
-def phase10_train_cli(device, seed, card, cases):
+def train_cli_fold1(model_cfg, cli_dir, config_name, cases, kernels, check_kernel_forms):
     """The train CLI on phase 8's cases and folds with the BraTS config's
-    model section replaced by SegResNetVAE: fold 1, 2 epochs, its validation
-    and bratsvalidation prediction through the CLI's own code."""
-    from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
-    from unet3d_tpu_torch.convert import load_jax_variables
-    from unet3d_tpu_torch.data import nifti
+    model section replaced by ``model_cfg``: the cross-validation set-up,
+    then fold 1 for TRAIN_CLI_EPOCHS epochs through ``scripts.train.main``
+    (its own loaders, prefetcher, steps, validation and predictions), with
+    ``run_training`` and the prefetcher wrapped to read the launches, the
+    forms of ``kernels`` (held by ``check_kernel_forms``), each step's ms by
+    CUDA events and each epoch's start. Returns (config, fold file, fold
+    dir, the CLI's result, run: launches, forms, main_s, epoch_s,
+    step_ms)."""
     from unet3d_tpu_torch.data.prefetch import DevicePrefetcher
     from unet3d_tpu_torch.scripts import train as train_cli
-    from unet3d_tpu_torch.train.checkpoint import load_checkpoint
-    from unet3d_tpu_torch.train.train import read_training_log
     from unet3d_tpu_torch.utils.config import dump_json, load_json
 
-    shutil.rmtree(SEGRESNET_CLI_DIR, ignore_errors=True)
-    os.makedirs(SEGRESNET_CLI_DIR)
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    os.makedirs(cli_dir)
     config = load_json(CONFIG)
-    config["model"] = dict(SEGRESNET_MODEL)
+    config["model"] = dict(model_cfg)
     config["training_filenames"] = cases
     config["bratsvalidation_filenames"] = [{"image": cases[0]["image"]}]
     config["training"]["n_epochs"] = TRAIN_CLI_EPOCHS
     config["cross_validation"]["folds"] = TRAIN_CLI_FOLDS
-    config_file = os.path.join(SEGRESNET_CLI_DIR, "brats2020_segresnet.json")
+    config_file = os.path.join(cli_dir, f"{config_name}.json")
     dump_json(config, config_file)
-    work = os.path.join(SEGRESNET_CLI_DIR, "out", "brats2020_segresnet")
+    work = os.path.join(cli_dir, "out", config_name)
     train_cli.main(["--config_filename", config_file, "--output_dir",
                     os.path.dirname(work), "--setup_crossval_only"])
     fold_file, fold_dir = os.path.join(work, "fold1.json"), os.path.join(work, "fold1")
@@ -2207,9 +2363,8 @@ def phase10_train_cli(device, seed, card, cases):
         reset_launches()
         model = real_run_training(step, *args, **kwargs)
         torch.cuda.synchronize()
-        run.update(end=time.perf_counter(), launches=launch_counts(),
-                   forms=forms_of(FAMILY_KERNELS))
-        check_family_forms("SegResNetVAE train CLI")
+        run.update(end=time.perf_counter(), launches=launch_counts(), forms=forms_of(kernels))
+        check_kernel_forms()
         return model
 
     train_cli.run_training, train_cli.DevicePrefetcher = timed_run_training, EpochPrefetcher
@@ -2217,9 +2372,28 @@ def phase10_train_cli(device, seed, card, cases):
         t0 = time.perf_counter()
         result = train_cli.main(["--config_filename", fold_file, "--output_dir", work])
         torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
+        run["main_s"] = time.perf_counter() - t0
     finally:
         train_cli.run_training, train_cli.DevicePrefetcher = real_run_training, DevicePrefetcher
+    starts = [t for _, t in epochs] + [run.pop("end")]
+    run.update(epoch_s=[b - a for a, b in zip(starts, starts[1:])],
+               step_ms=[a.elapsed_time(b) for a, b in steps])
+    return config, fold_file, fold_dir, result, run
+
+
+def phase10_train_cli(device, seed, card, cases):
+    """The train CLI on phase 8's cases and folds with the BraTS config's
+    model section replaced by SegResNetVAE: fold 1, 2 epochs, its validation
+    and bratsvalidation prediction through the CLI's own code."""
+    from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
+    from unet3d_tpu_torch.convert import load_jax_variables
+    from unet3d_tpu_torch.data import nifti
+    from unet3d_tpu_torch.train.checkpoint import load_checkpoint
+    from unet3d_tpu_torch.train.train import read_training_log
+
+    config, _, fold_dir, result, run = train_cli_fold1(
+        SEGRESNET_MODEL, SEGRESNET_CLI_DIR, "brats2020_segresnet", cases, FAMILY_KERNELS,
+        lambda: check_family_forms("SegResNetVAE train CLI"))
     print(f"SegResNetVAE train CLI training: launches {run['launches']}; by form "
           f"{run['forms']}", flush=True)
     for kernel in FAMILY_KERNELS:
@@ -2245,18 +2419,13 @@ def phase10_train_cli(device, seed, card, cases):
           and 0.0 <= data.min() and data.max() <= 1.0
           and np.allclose(affine, BRATS_AFFINE, atol=1e-6),
           f"SegResNetVAE train CLI prediction {data.shape}")
-    starts = [t for _, t in epochs] + [run["end"]]
-    epoch_s = [b - a for a, b in zip(starts, starts[1:])]
-    step_ms_cli = [a.elapsed_time(b) for a, b in steps]
-    print(f"SegResNetVAE train CLI: main {cli_s:.3f} s; seconds per epoch "
-          f"{[round(v, 3) for v in epoch_s]}; step ms {[round(v, 3) for v in step_ms_cli]} "
-          f"[{card}]", flush=True)
+    print(f"SegResNetVAE train CLI: main {run['main_s']:.3f} s; seconds per epoch "
+          f"{[round(v, 3) for v in run['epoch_s']]}; step ms "
+          f"{[round(v, 3) for v in run['step_ms']]} [{card}]", flush=True)
     del model, fresh, result
     torch.cuda.empty_cache()
     shutil.rmtree(SEGRESNET_CLI_DIR, ignore_errors=True)
-    return run["launches"], dict(main_s=cli_s, epoch_s=epoch_s, step_ms=step_ms_cli,
-                                 log=[list(map(float, r)) for r in rows],
-                                 forms=run["forms"])
+    return run.pop("launches"), dict(run, log=[list(map(float, r)) for r in rows])
 
 
 def phase10_family(device, seed, card):
@@ -2331,19 +2500,21 @@ def conv_sites(model) -> tuple:
     return sites.count((1, 1, 1)), sites.count((2, 2, 2))
 
 
-def bn_grads(model, criterion, images, labels, device, seed) -> dict:
+def path_grads(model, criterion, images, labels, device, seed, plain=None) -> dict:
     """One training forward and backward from the same running statistics
     (put back after), the noise drawn alike, through the kernels and the
-    plain path, in f32 and bf16 AMP: the gradients' and the running
-    statistics' relative L2, kernels against the plain path in each dtype,
+    plain path (``plain``, a context: ``plain_convs`` by default), in f32
+    and bf16 AMP: the gradients' (and a BatchNorm net's running
+    statistics') relative L2, kernels against the plain path in each dtype,
     the worst tensor's, and each path's bf16 gradients against the plain
-    f32 ones. A BatchNorm net's bf16 gradients can lie far from f32 on
-    either path (AttentionUnet's attention gate: 4.8% at 128^3 on the H100),
-    so besides phase 5's bound on kernels against the plain path, the bf16
-    check holds the kernels no further from f32 than ``BF16_EXCESS`` times
-    the plain path, as the tests hold the port against JAX
-    (tests/test_torch_batchnorm.py::check_grads)."""
+    f32 ones. A net's bf16 gradients can lie far from f32 on either path
+    (AttentionUnet's attention gate: 4.8% at 128^3 on the H100; the
+    transformers' bf16 attention), so besides phase 5's bound on kernels
+    against the plain path, the bf16 check holds the kernels no further from
+    f32 than ``BF16_EXCESS`` times the plain path, as the tests hold the port
+    against JAX (tests/test_torch_batchnorm.py::check_grads)."""
     from unet3d_tpu_torch.train.step import forward_loss, noise_generator, prepare_batch
+    plain_path = plain or plain_convs
     names, params = zip(*model.named_parameters())
     start = [b.clone() for b in model.buffers()]
 
@@ -2352,7 +2523,7 @@ def bn_grads(model, criterion, images, labels, device, seed) -> dict:
         with torch.no_grad():
             for b, b0 in zip(model.buffers(), start):
                 b.copy_(b0)
-        with plain_convs() if plain else contextlib.nullcontext():
+        with plain_path() if plain else contextlib.nullcontext():
             loss = forward_loss(model, criterion, x, y, amp, noise_generator(model, seed))
             grads = torch.autograd.grad(loss, params)
         return grads, [b.clone() for b in model.buffers()]
@@ -2365,23 +2536,25 @@ def bn_grads(model, criterion, images, labels, device, seed) -> dict:
     for dt, amp in (("f32", False), ("bf16", True)):
         (got, got_stats), (want, want_stats) = runs[amp, False], runs[amp, True]
         gap, worst, worst_name = grad_gap(got, want, names)
-        out[dt] = dict(gradients=gap, worst=worst, worst_tensor=worst_name,
-                       statistics=rel_l2_of(got_stats, want_stats))
+        out[dt] = dict(gradients=gap, worst=worst, worst_tensor=worst_name)
+        if start:
+            out[dt]["statistics"] = rel_l2_of(got_stats, want_stats)
     f32 = runs[False, True][0]
     out["bf16"].update(kernels_vs_f32=rel_l2_of(runs[True, False][0], f32),
                        plain_vs_f32=rel_l2_of(runs[True, True][0], f32))
     return out
 
 
-def check_bn_grads(name: str, result: dict) -> None:
-    """``bn_grads``' result against phase 5's bounds (kernels against the
-    plain path in the same dtype), the bf16 rule against f32 and the
-    statistics bounds."""
+def check_path_grads(name: str, result: dict) -> None:
+    """``path_grads``' result against phase 5's bounds (kernels against the
+    plain path in the same dtype), the bf16 rule against f32 and, for a
+    BatchNorm net, the statistics bounds."""
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         r = result[dt]
         msg = (f"{name} {dt}, kernels vs plain path: gradients rel L2 {r['gradients']:.3e} "
-               f"(worst tensor {r['worst_tensor']} {r['worst']:.3e}); running statistics rel "
-               f"L2 {r['statistics']:.3e}")
+               f"(worst tensor {r['worst_tensor']} {r['worst']:.3e})")
+        if "statistics" in r:
+            msg += f"; running statistics rel L2 {r['statistics']:.3e}"
         if dt == "bf16":
             msg += (f"; bf16 gradients vs the plain f32 ones: kernels {r['kernels_vs_f32']:.3e}, "
                     f"plain {r['plain_vs_f32']:.3e}")
@@ -2391,8 +2564,9 @@ def check_bn_grads(name: str, result: dict) -> None:
         if dt == "bf16":
             limit = max(GRAD_BOUND_BF16, BF16_EXCESS * r["plain_vs_f32"])
             check(r["kernels_vs_f32"] < limit, f"{msg}: bf16 kernels vs f32 > {limit:.3e}")
-        check(r["statistics"] < BN_STATS_BOUNDS[dtype],
-              f"{msg}: statistics > {BN_STATS_BOUNDS[dtype]}")
+        if "statistics" in r:
+            check(r["statistics"] < BN_STATS_BOUNDS[dtype],
+                  f"{msg}: statistics > {BN_STATS_BOUNDS[dtype]}")
 
 
 def check_bn_forms(where: str, wmma: bool = False, f32: bool = False) -> None:
@@ -2492,8 +2666,8 @@ def phase11_segresnet_ds(device, seed, card):
           f"({stride1} forward, {stride1 - 1} input gradients: none for conv_init)")
     check(step_launches["s2_wgrad"] == stride2,
           f"s2_wgrad launched {step_launches['s2_wgrad']} times, expected {stride2}")
-    grads = bn_grads(model, criterion, image, labels, device, seed)
-    check_bn_grads("SegResNetDS", grads)
+    grads = path_grads(model, criterion, image, labels, device, seed)
+    check_path_grads("SegResNetDS", grads)
     torch.cuda.empty_cache()
     step_times, peaks = {"plain": [], "kernels": []}, {}
     for which in ("plain", "kernels", "kernels", "plain"):
@@ -2526,54 +2700,12 @@ def phase11_train_cli(device, seed, card, cases):
     from unet3d_tpu_torch.data import nifti
     from unet3d_tpu_torch.models.layers import BatchNorm
     from unet3d_tpu_torch.scripts import predict
-    from unet3d_tpu_torch.scripts import train as train_cli
     from unet3d_tpu_torch.train.checkpoint import load_checkpoint
     from unet3d_tpu_torch.train.train import read_training_log
-    from unet3d_tpu_torch.utils.config import dump_json, load_json
 
-    shutil.rmtree(SEGRESNET_DS_CLI_DIR, ignore_errors=True)
-    os.makedirs(SEGRESNET_DS_CLI_DIR)
-    config = load_json(CONFIG)
-    config["model"] = dict(SEGRESNET_DS_MODEL, dsdepth=2)
-    config["training_filenames"] = cases
-    config["bratsvalidation_filenames"] = [{"image": cases[0]["image"]}]
-    config["training"]["n_epochs"] = TRAIN_CLI_EPOCHS
-    config["cross_validation"]["folds"] = TRAIN_CLI_FOLDS
-    config_file = os.path.join(SEGRESNET_DS_CLI_DIR, "brats2020_segresnet_ds.json")
-    dump_json(config, config_file)
-    work = os.path.join(SEGRESNET_DS_CLI_DIR, "out", "brats2020_segresnet_ds")
-    train_cli.main(["--config_filename", config_file, "--output_dir",
-                    os.path.dirname(work), "--setup_crossval_only"])
-    fold_file, fold_dir = os.path.join(work, "fold1.json"), os.path.join(work, "fold1")
-    steps, run = [], {}
-    real_run_training = train_cli.run_training
-
-    def timed_run_training(train_step, *args, **kwargs):
-        def one(images, labels):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            loss = train_step(images, labels)
-            end.record()
-            steps.append((start, end))
-            return loss
-
-        torch.cuda.synchronize()
-        reset_launches()
-        model = real_run_training(one, *args, **kwargs)
-        torch.cuda.synchronize()
-        run.update(launches=launch_counts(), forms=forms_of(FAMILY_KERNELS))
-        check_bn_forms("SegResNetDS train CLI")
-        return model
-
-    train_cli.run_training = timed_run_training
-    try:
-        t0 = time.perf_counter()
-        result = train_cli.main(["--config_filename", fold_file, "--output_dir", work])
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-    finally:
-        train_cli.run_training = real_run_training
+    config, fold_file, fold_dir, result, run = train_cli_fold1(
+        dict(SEGRESNET_DS_MODEL, dsdepth=2), SEGRESNET_DS_CLI_DIR, "brats2020_segresnet_ds",
+        cases, FAMILY_KERNELS, lambda: check_bn_forms("SegResNetDS train CLI"))
     print(f"SegResNetDS train CLI training: launches {run['launches']}; by form "
           f"{run['forms']}", flush=True)
     for kernel in FAMILY_KERNELS:
@@ -2610,16 +2742,16 @@ def phase11_train_cli(device, seed, card, cases):
     (name,) = os.listdir(os.path.join(predict_dir, "predictions"))
     want, _, _ = nifti.load(os.path.join(predict_dir, "predictions", name))
     rel = float(np.linalg.norm(data - want) / np.linalg.norm(want))
-    step_ms_cli = [a.elapsed_time(b) for a, b in steps]
     print(f"SegResNetDS train CLI prediction vs the predict CLI on its checkpoint: rel L2 "
-          f"{rel:.3e}; main {cli_s:.3f} s; step ms {[round(v, 3) for v in step_ms_cli]} "
-          f"[{card}]", flush=True)
+          f"{rel:.3e}; main {run['main_s']:.3f} s; seconds per epoch "
+          f"{[round(v, 3) for v in run['epoch_s']]}; step ms "
+          f"{[round(v, 3) for v in run['step_ms']]} [{card}]", flush=True)
     check(rel < L2_BOUND, f"SegResNetDS train CLI vs predict CLI rel L2 {rel:.3e}")
     del model, fresh, result
     torch.cuda.empty_cache()
     shutil.rmtree(SEGRESNET_DS_CLI_DIR, ignore_errors=True)
-    return run["launches"], dict(main_s=cli_s, step_ms=step_ms_cli, predict_rel_l2=rel,
-                                 log=[list(map(float, r)) for r in rows], forms=run["forms"])
+    return run.pop("launches"), dict(run, predict_rel_l2=rel,
+                                     log=[list(map(float, r)) for r in rows])
 
 
 def phase11_nets(device, seed, card):
@@ -2658,11 +2790,11 @@ def phase11_nets(device, seed, card):
         images = rng.randn(1, 4, *shape).astype(np.float32)
         labels = (rng.rand(1, 3, *shape) > 0.5).astype(np.float32)
         reset_launches()
-        result = bn_grads(model, criterion, images, labels, device, seed)
+        result = path_grads(model, criterion, images, labels, device, seed)
         step_launches, step_forms = launch_counts(), forms_of(FAMILY_KERNELS)
         print(f"{name} training forwards and backwards (f32 and bf16, kernels and plain "
               f"path): launches {step_launches}; by form {step_forms}", flush=True)
-        check_bn_grads(name, result)
+        check_path_grads(name, result)
         # the kernels' two runs (f32, bf16): s2_wgrad once per stride-2 site each
         check(step_launches["s2_wgrad"] == 2 * stride2,
               f"{name}: s2_wgrad {step_launches['s2_wgrad']}, expected {2 * stride2}")
@@ -2671,6 +2803,307 @@ def phase11_nets(device, seed, card):
         out[name] = dict(window_rel_l2=rel, window_launches=launches, window_ms=window_ms,
                          step_launches=step_launches, step_forms=step_forms, **result)
         del model
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def plain_blocks():
+    """Inside the block every DynUNet block (``UnetBasicBlock``,
+    ``UnetResBlock``: the transformers' conv decoders) runs ``plain_block``
+    (``F.conv3d``, the instance norm from plain statistics, the concat
+    written): the plain path, no hand kernel. The attention, LayerNorm and
+    matmuls are plain torch on both paths."""
+    from unet3d_tpu_torch.models import dynunet
+    saved = dynunet.UnetBasicBlock.forward, dynunet.UnetResBlock.forward
+    dynunet.UnetBasicBlock.forward = dynunet.UnetResBlock.forward = plain_block
+    try:
+        yield
+    finally:
+        dynunet.UnetBasicBlock.forward, dynunet.UnetResBlock.forward = saved
+
+
+def transformer_f32_policy(name, model, criterion, images, labels, device) -> dict:
+    """The port's f32 policy in one f32 step's gradients, each path against
+    itself with TF32 off by the caller: under torch's default TF32 flags
+    (cuDNN's in TF32) and with cuBLAS's TF32 on too. Through the plain path
+    (``plain_blocks``: every conv cuDNN's, every matmul cuBLAS's, the
+    attention products included; its forward is deterministic) within
+    TF32_FLAGS_BOUND. Through the kernels the forward is not: their f32
+    statistics sum by atomics, and a last-bit change carries a leaky ReLU
+    across its kink here and there, so the same step twice differs (the
+    spread, printed); each within TF32_SHARE of what TF32 does to the plain
+    path's gradients with the policy taken out (``full_f32`` a no-op, cuBLAS's
+    and cuDNN's TF32 on: the control, which must move them past that)."""
+    from unet3d_tpu_torch.ops import conv3d as conv_ops
+    from unet3d_tpu_torch.ops import conv3d_kernel
+    from unet3d_tpu_torch.train.step import forward_loss, prepare_batch
+    check(torch.backends.cudnn.allow_tf32, "cuDNN's TF32 flag is not torch's default")
+    check(not torch.backends.cuda.matmul.allow_tf32, "cuBLAS's TF32 flag is not the default")
+    x, y = prepare_batch(images, labels, device, False)
+    params = list(model.parameters())
+
+    def grads(plain, cudnn_tf32=True, matmul_tf32=False):
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+        try:
+            with plain_blocks() if plain else contextlib.nullcontext():
+                return torch.autograd.grad(forward_loss(model, criterion, x, y, False), params)
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    out = {}
+    for path, plain in (("plain", True), ("kernels", False)):
+        off = grads(plain, cudnn_tf32=False)
+        out[path] = {"default_flags": rel_l2_of(grads(plain), off),
+                     "matmul_tf32_on": rel_l2_of(grads(plain, matmul_tf32=True), off),
+                     "tf32_off_again": rel_l2_of(grads(plain, cudnn_tf32=False), off)}
+        if plain:
+            saved = conv_ops.full_f32, conv3d_kernel.full_f32
+            conv_ops.full_f32 = conv3d_kernel.full_f32 = lambda *t: contextlib.nullcontext()
+            try:
+                out[path]["no_policy_tf32_on"] = rel_l2_of(grads(plain, matmul_tf32=True), off)
+            finally:
+                conv_ops.full_f32, conv3d_kernel.full_f32 = saved
+    control = out["plain"]["no_policy_tf32_on"]
+    print(f"{name} f32 step gradients vs the same path with TF32 off by the caller, rel L2 "
+          f"{out}", flush=True)
+    for key in ("default_flags", "matmul_tf32_on"):
+        check(out["plain"][key] < TF32_FLAGS_BOUND, f"{name} f32 policy, plain path: {key} "
+              f"{out['plain'][key]:.3e} > {TF32_FLAGS_BOUND}")
+        limit = TF32_SHARE * control
+        check(out["kernels"][key] < limit, f"{name} f32 policy, kernels: {key} "
+              f"{out['kernels'][key]:.3e} > {limit:.3e} ({TF32_SHARE} of TF32's {control:.3e})")
+    check(control > TF32_FLAGS_BOUND, f"{name}: TF32 without the policy moved the gradients "
+          f"only {control:.3e}")
+    return out
+
+
+def phase12_transformer(name, model_cfg, device, seed, card):
+    """UNETR or SwinUNETR at its published widths in the BraTS config: (a)
+    one 128^3 bf16 window through ``volumetric_predictions``, kernels
+    against the plain path (``plain_blocks``), launches by form, forward
+    times and a profile; one bf16 AMP train step at batch 1 (DiceLoss,
+    Adam): launches by form, gradients against the plain path (f32, bf16),
+    the f32 policy under TF32 flags, step ms, peak memory and a profile."""
+    from unet3d_tpu_torch.config.factory import (build_optimizer_from_config,
+                                                 build_or_load_model_from_config,
+                                                 load_criterion_from_config)
+    from unet3d_tpu_torch.data import nifti
+    from unet3d_tpu_torch.models.dynunet import UnetBasicBlock
+    from unet3d_tpu_torch.predict.volumetric import make_forward, volumetric_predictions
+    from unet3d_tpu_torch.train.step import make_train_step
+    from unet3d_tpu_torch.utils.config import load_json
+
+    config = load_json(CONFIG)
+    config["model"] = dict(model_cfg)
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    # each DynUNet block launches conv_stats (conv1) and block_stats (conv2)
+    n_blocks = sum(isinstance(m, UnetBasicBlock) for m in model.modules())
+    print(f"{name} {json.dumps(model_cfg)}: {n_params} params, {n_blocks} DynUNet blocks "
+          f"[{card}]", flush=True)
+    shape = tuple(config["dataset"]["desired_shape"])
+    rng = np.random.RandomState(seed + 80)
+    image = rng.randn(1, 4, *shape).astype(np.float32)
+    batch = {"image": image, "affine": np.eye(4)[None],
+             "source_filename": [f"{name.lower()}_window.nii.gz"]}
+    out_root = os.path.join(ROOT, "build", "chip_smoke_transformers")
+
+    # (a) one window through volumetric_predictions, kernels and plain path
+    outputs = {}
+    for which in ("kernels", "plain"):
+        torch.cuda.synchronize()
+        reset_launches()
+        with plain_blocks() if which == "plain" else contextlib.nullcontext():
+            (written,) = volumetric_predictions(model, [batch], os.path.join(out_root, which),
+                                                activation="sigmoid", amp=True)
+        torch.cuda.synchronize()
+        if which == "kernels":
+            launches, forms = launch_counts(), forms_of(TRAIN_KERNELS)
+            check_forms(f"{name} window")
+        else:
+            check(not any(launch_counts().values()), f"{name}: the plain path launched a kernel")
+        outputs[which] = nifti.load(written)[0]
+    shutil.rmtree(out_root, ignore_errors=True)
+    rel = float(np.linalg.norm(outputs["kernels"] - outputs["plain"])
+                / np.linalg.norm(outputs["plain"]))
+    print(f"{name} window {shape} bf16 through volumetric_predictions: kernels vs plain path "
+          f"rel L2 {rel:.3e}; launches {launches}; by form {forms}", flush=True)
+    check(outputs["kernels"].shape == shape + (3,)
+          and bool(np.isfinite(outputs["kernels"]).all())
+          and 0.0 <= outputs["kernels"].min() and outputs["kernels"].max() <= 1.0,
+          f"{name} window output {outputs['kernels'].shape}")
+    check(rel < L2_BOUND, f"{name} window rel L2 {rel:.3e} > {L2_BOUND}")
+    want = {"conv_stats": n_blocks, "block_stats": n_blocks, "conv": 0, "s2_wgrad": 0}
+    check(all(launches[k] == n for k, n in want.items()),
+          f"{name} window launches {launches}, expected {want}")
+    forward = make_forward(model, amp=True)
+    window = torch.from_numpy(np.moveaxis(image, 1, -1).copy()).to(device)
+    times = {"plain": [], "kernels": []}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        with plain_blocks() if which == "plain" else contextlib.nullcontext():
+            times[which].append(cuda_ms(lambda: forward(window)))
+    print(f"{name} window forward {shape} bf16: kernels {times['kernels']} ms, plain "
+          f"{times['plain']} ms [{card}]", flush=True)
+    window_profile = profile_device(lambda: forward(window),
+                                         f"{name} one {shape} bf16 window forward", card)
+    del forward, window
+
+    # one bf16 AMP train step at batch 1
+    criterion = load_criterion_from_config(config)
+    labels = (rng.rand(1, 3, *shape) > 0.5).astype(np.float32)
+    optimizer = build_optimizer_from_config(config, model.parameters())
+    step = make_train_step(model, criterion, optimizer, amp=True, seed=seed)
+    step(image, labels)  # warm-up: cuDNN plans, the allocator
+    torch.cuda.synchronize()
+    reset_launches()
+    loss = float(step(image, labels))
+    torch.cuda.synchronize()
+    step_launches, step_forms = launch_counts(), forms_of(TRAIN_KERNELS)
+    print(f"{name} train step: loss {loss:.6f}; launches {step_launches}; by form "
+          f"{step_forms}", flush=True)
+    check(np.isfinite(loss), f"{name} train loss {loss}")
+    check_forms(f"{name} train step")
+    # every conv2's input gradient, and every conv1's but encoder1's (the raw input)
+    want = {"conv_stats": n_blocks, "block_stats": n_blocks, "conv": 2 * n_blocks - 1,
+            "s2_wgrad": 0}
+    check(all(step_launches[k] == n for k, n in want.items()),
+          f"{name} train step launches {step_launches}, expected {want}")
+    grads = path_grads(model, criterion, image, labels, device, seed, plain=plain_blocks)
+    check_path_grads(name, grads)
+    policy = transformer_f32_policy(name, model, criterion, image, labels, device)
+    torch.cuda.empty_cache()
+    step_times, peaks = {"plain": [], "kernels": []}, {}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        one = make_train_step(model, criterion, torch.optim.Adam(model.parameters(), lr=1e-6),
+                              amp=True, seed=seed)
+        with plain_blocks() if which == "plain" else contextlib.nullcontext():
+            torch.cuda.reset_peak_memory_stats()
+            step_times[which].append(step_ms(one, image, labels, reps=3))
+            peaks[which] = torch.cuda.max_memory_allocated() / 2**30
+    step_profile = profile_device(lambda: step(image, labels),
+                                       f"{name} one bf16 train step", card)
+    print(f"{name} train step (bf16 AMP, batch 1, {shape}): kernels {step_times['kernels']} ms, "
+          f"plain {step_times['plain']} ms; peak memory kernels {peaks['kernels']:.2f} GiB, "
+          f"plain {peaks['plain']:.2f} GiB [{card}]", flush=True)
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+    return step_launches, dict(
+        params=n_params, window_rel_l2=rel, window_launches=launches, window_forms=forms,
+        window_ms=times, window_profile=window_profile, step_loss=loss,
+        step_forms=step_forms, kernels_vs_plain=grads, f32_policy=policy,
+        step_ms=step_times, peak_gib=peaks, step_profile=step_profile)
+
+
+def phase12_train_cli(device, seed, card, cases):
+    """The train CLI on phase 8's cases and folds with the BraTS config's
+    model section replaced by SwinUNETR: fold 1, 2 epochs; the checkpoint
+    reloads strictly and equal; the predict CLI on it, on the source grid."""
+    from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
+    from unet3d_tpu_torch.convert import load_jax_variables
+    from unet3d_tpu_torch.data import nifti
+    from unet3d_tpu_torch.scripts import predict
+    from unet3d_tpu_torch.train.checkpoint import load_checkpoint
+    from unet3d_tpu_torch.train.train import read_training_log
+
+    config, fold_file, fold_dir, result, run = train_cli_fold1(
+        SWIN_UNETR_MODEL, SWIN_UNETR_CLI_DIR, "brats2020_swin_unetr", cases, TRAIN_KERNELS,
+        lambda: check_forms("SwinUNETR train CLI"))
+    print(f"SwinUNETR train CLI training: launches {run['launches']}; by form "
+          f"{run['forms']}", flush=True)
+    for kernel in ("conv", "conv_stats", "block_stats"):
+        check(run["launches"][kernel] > 0, f"train CLI: kernel {kernel} was not launched")
+    rows = read_training_log(os.path.join(fold_dir, "training_log.csv"))
+    print(f"SwinUNETR training_log.csv: {rows}", flush=True)
+    check(len(rows) == TRAIN_CLI_EPOCHS and all(
+        np.isfinite(r[1]) and np.isfinite(r[3]) for r in rows),
+        f"SwinUNETR training log {rows}")
+    saved = load_checkpoint(os.path.join(fold_dir, "model.npz"))
+    model = result["model"]
+    check(all(k.startswith("params/") for k in saved) and not list(model.buffers()),
+          "SwinUNETR checkpoint holds something other than params")
+    fresh = build_or_load_model_from_config(config, None, device, seed=seed + 1)
+    load_jax_variables(fresh, saved, strict=True)
+    for (pname, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
+        check(torch.equal(a, b), f"SwinUNETR checkpoint round trip changed {pname}")
+    (written,) = result["predictions"]["bratsvalidation"]
+    data, affine, _ = nifti.load(written)
+    check(data.shape == BRATS_GRID + (3,) and bool(np.isfinite(data).all())
+          and 0.0 <= data.min() and data.max() <= 1.0
+          and np.allclose(affine, BRATS_AFFINE, atol=1e-6),
+          f"SwinUNETR train CLI prediction {data.shape}")
+    predict_dir = os.path.join(SWIN_UNETR_CLI_DIR, "predict")
+    predict.main(["--config_filename", fold_file, "--model_filename",
+                  os.path.join(fold_dir, "model.npz"), "--output_directory", predict_dir,
+                  "--group", "bratsvalidation", "--activation", "sigmoid"])
+    (pred_name,) = os.listdir(os.path.join(predict_dir, "predictions"))
+    want, want_affine, _ = nifti.load(os.path.join(predict_dir, "predictions", pred_name))
+    check(want.shape == BRATS_GRID + (3,) and bool(np.isfinite(want).all())
+          and 0.0 <= want.min() and want.max() <= 1.0
+          and np.allclose(want_affine, BRATS_AFFINE, atol=1e-6),
+          f"SwinUNETR predict CLI prediction {want.shape}")
+    rel = float(np.linalg.norm(data - want) / np.linalg.norm(want))
+    print(f"SwinUNETR train CLI prediction vs the predict CLI on its checkpoint: rel L2 "
+          f"{rel:.3e}; main {run['main_s']:.3f} s; seconds per epoch "
+          f"{[round(v, 3) for v in run['epoch_s']]}; step ms "
+          f"{[round(v, 3) for v in run['step_ms']]} [{card}]", flush=True)
+    check(rel < L2_BOUND, f"SwinUNETR train CLI vs predict CLI rel L2 {rel:.3e}")
+    del model, fresh, result
+    torch.cuda.empty_cache()
+    shutil.rmtree(SWIN_UNETR_CLI_DIR, ignore_errors=True)
+    return run.pop("launches"), dict(run, predict_rel_l2=rel,
+                                     log=[list(map(float, r)) for r in rows])
+
+
+def phase12_vits(device, seed, card):
+    """ViT (classification) and ViTAutoEnc at MONAI's defaults: one eval
+    forward (f32 and bf16 AMP) and one training backward (f32) on the card,
+    against the same module in f64 on the CPU (the plain path: they launch
+    no hand kernel, so the check is the f32 policy's: every f32 matmul full
+    f32)."""
+    import copy
+
+    from unet3d_tpu_torch.models.layers import init_parameters
+    from unet3d_tpu_torch.models.registry import create_model
+    from unet3d_tpu_torch.predict.volumetric import make_forward
+    out = {}
+    for i, (name, kwargs) in enumerate(VIT_MODELS):
+        model = create_model(name, **kwargs)
+        init_parameters(model, torch.Generator().manual_seed(seed + 90 + i))
+        cpu = copy.deepcopy(model).double()
+        model = model.to(device).eval()
+        x = torch.from_numpy(np.random.RandomState(seed + 95 + i).randn(
+            1, *kwargs["img_size"], kwargs["in_channels"]).astype(np.float32))
+        reset_launches()
+        got = {amp: make_forward(model, amp=amp)(x.to(device)).float().cpu()
+               for amp in (False, True)}
+        xt = x.to(device).requires_grad_(True)
+        params = list(model.parameters())
+        output = model(xt, train=True)[0]
+        g = torch.from_numpy(np.random.RandomState(seed + 99).randn(*output.shape)
+                             .astype(np.float32))
+        grads = torch.autograd.grad((output * g.to(device)).sum(), params + [xt])
+        torch.cuda.synchronize()
+        check(not any(launch_counts().values()), f"{name} launched a hand kernel")
+        xd = x.double().requires_grad_(True)
+        with torch.no_grad():
+            want = cpu(x.double())[0]
+        out_d = cpu(xd, train=True)[0]
+        want_grads = torch.autograd.grad((out_d * g.double()).sum(),
+                                         list(cpu.parameters()) + [xd])
+        r = dict(f32=rel_l2_of([got[False]], [want]), bf16=rel_l2_of([got[True]], [want]),
+                 grads_f32=rel_l2_of([t.cpu() for t in grads], want_grads))
+        print(f"{name} {tuple(got[False].shape)} on the card vs f64 on the CPU, rel L2: "
+              f"forward f32 {r['f32']:.3e}, bf16 {r['bf16']:.3e}; training gradients f32 "
+              f"{r['grads_f32']:.3e} [{card}]", flush=True)
+        check(bool(torch.isfinite(got[True]).all()), f"{name}: non-finite bf16 output")
+        check(r["f32"] < VIT_F32_BOUND and r["grads_f32"] < VIT_F32_BOUND,
+              f"{name}: f32 on the card vs f64 {r}")
+        check(r["bf16"] < L2_BOUND, f"{name}: bf16 forward vs f64 {r['bf16']:.3e}")
+        out[name] = r
+        del model, cpu, grads, want_grads
         torch.cuda.empty_cache()
     return out
 
@@ -2731,8 +3164,16 @@ def main() -> int:
     segresnet_ds_launches, segresnet_ds = phase11_segresnet_ds(device, args.seed, card)
     segresnet_ds_cli_launches, segresnet_ds_cli = phase11_train_cli(device, args.seed, card,
                                                                     cases)
-    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
     bn_nets = phase11_nets(device, args.seed, card)
+    # phase 12
+    transformer_rows = phase10_kernels(device, gen, TRANSFORMER_CONV_SHAPES, [], "transformers")
+    transformer_launches, transformers = {}, {}
+    for name, model_cfg in TRANSFORMERS:
+        transformer_launches[name], transformers[name] = phase12_transformer(
+            name, model_cfg, device, args.seed, card)
+    swin_cli_launches, swin_cli = phase12_train_cli(device, args.seed, card, cases)
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    vits = phase12_vits(device, args.seed, card)
     check(not any(m in sys.modules for m in ("jax", "unet3d_tpu")),
           "the port imported jax")
     # launches: the training path's (phase 5; phase 7 for the Winograd
@@ -2746,7 +3187,10 @@ def main() -> int:
     # bf16 train step of SegResNetDS (phase 11a, by form in
     # forms_segresnet_ds), launches_train_cli_segresnet_ds its train CLI run
     # (phase 11b), and bn_net_shapes the kernel at the BatchNorm nets' new
-    # shapes (phase 11)
+    # shapes (phase 11); launches_unetr and launches_swin_unetr: one bf16
+    # train step of each (phase 12a), launches_train_cli_swin_unetr the
+    # SwinUNETR train CLI run (phase 12b), and transformer_shapes the three
+    # variants at the transformers' sites (phase 12)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": v, "route": "cuda", "source": SOURCES[v],
                 "replaces": REPLACES[v], "launches": train_launches[v],
@@ -2755,6 +3199,9 @@ def main() -> int:
                 "launches_segresnet": segresnet_launches[v],
                 "launches_segresnet_ds": segresnet_ds_launches[v],
                 "launches_train_cli_segresnet_ds": segresnet_ds_cli_launches[v],
+                "launches_unetr": transformer_launches["UNETR"][v],
+                "launches_swin_unetr": transformer_launches["SwinUNETR"][v],
+                "launches_train_cli_swin_unetr": swin_cli_launches[v],
                 **{k: report[v][k] for k in keys}}
                for v in TRAIN_KERNELS]
     for entry in kernels:
@@ -2766,6 +3213,9 @@ def main() -> int:
             entry["bn_net_shapes"] = rows
             entry["forms_segresnet_ds"] = {k: n for k, n in segresnet_ds["step_forms"].items()
                                            if k.startswith(entry["name"] + "/")}
+        rows = [r for r in transformer_rows if r["name"] == entry["name"]]
+        if rows:
+            entry["transformer_shapes"] = rows
     kernels += [{"name": v, "route": "cuda", "source": SOURCES[v],
                  "replaces": REPLACES[v], "launches": strategy_launches[v],
                  "launches_predict": cli_launches["winograd"][v],
@@ -2810,6 +3260,11 @@ def main() -> int:
     print(f"segresnet_ds train cli: "
           f"{json.dumps(dict(segresnet_ds_cli, launches=segresnet_ds_cli_launches))} [{card}]")
     print(f"batchnorm nets: {json.dumps(bn_nets)} [{card}]")
+    print(f"transformers: {json.dumps(dict(kernel_shapes=transformer_rows, **transformers))} "
+          f"[{card}]")
+    print(f"swin_unetr train cli: {json.dumps(dict(swin_cli, launches=swin_cli_launches))} "
+          f"[{card}]")
+    print(f"vits: {json.dumps(vits)} [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -639,7 +639,8 @@ def check_dtype_flow(n: Net, train: bool) -> None:
         _, state = jax.eval_shape(lambda: n.jmod.apply(
             v, xb, train, capture_intermediates=True,
             mutable=["intermediates", "batch_stats"] if train else ["intermediates"]))
-    want = {".".join(p[:-1]) or "<model>": str(value[0].dtype)
+    # a module that returns a tuple (a ViT's tokens and states): its first array
+    want = {".".join(p[:-1]) or "<model>": str(jax.tree_util.tree_leaves(value[0])[0].dtype)
             for p, value in flatten_dict(state["intermediates"]).items() if p[-1] == "__call__"}
     net = copy.deepcopy(n.port())
     got, handles = {}, []

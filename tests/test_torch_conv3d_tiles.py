@@ -13,8 +13,8 @@ import torch
 
 from unet3d_tpu_torch.ops import conv3d_kernel as K
 
-# (D, H, W), Cin, Cout: the DynUNet's bf16 sites at 128^3, ragged volumes and
-# SegResNet's 32-channel level 0
+# (D, H, W), Cin, Cout: the DynUNet's bf16 sites at 128^3, ragged volumes,
+# SegResNet's 32-channel level 0 and the transformers' decoders
 PLANS = [
     ((128, 128, 128), 64, 64), ((128, 128, 128), 128, 64), ((128, 128, 128), 64, 128),
     ((64, 64, 64), 96, 96), ((64, 64, 64), 192, 96), ((16, 16, 16), 256, 256),
@@ -23,6 +23,14 @@ PLANS = [
     ((9, 12, 20), 96, 192), ((5, 7, 33), 64, 64), ((3, 5, 17), 200, 320),
     # the Myronenko family's bf16 sites narrower than a 64-wide tile
     ((128, 128, 128), 4, 32), ((128, 128, 128), 32, 32),
+    # UNETR's (feature 16) and SwinUNETR's (feature 48) UnetResBlock sites
+    # and their input gradients: Cout 16 and 48 in a 64-wide tile, Cin 48 a
+    # part-filled chunk, Cin 768 twelve chunks at 4^3
+    ((128, 128, 128), 4, 16), ((128, 128, 128), 16, 16), ((128, 128, 128), 32, 16),
+    ((64, 64, 64), 32, 32), ((128, 128, 128), 16, 32),
+    ((128, 128, 128), 4, 48), ((128, 128, 128), 48, 48), ((128, 128, 128), 96, 48),
+    ((64, 64, 64), 96, 48), ((32, 32, 32), 192, 96), ((4, 4, 4), 768, 768),
+    ((128, 128, 128), 48, 96), ((64, 64, 64), 48, 96), ((32, 32, 32), 96, 192),
 ]
 SMEM_PER_BLOCK = 232448  # bytes a block of an H100 can use
 SMEM_PER_SM = 233472     # bytes an H100 SM holds, 1024 reserved per block

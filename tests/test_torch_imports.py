@@ -48,6 +48,9 @@ MYRONENKO_MODULES = ("models.segresnet", "models.myronenko", "models.decoder",
 # the batch_stats collection's BatchNorm segmentation nets
 BATCHNORM_MODULES = ("models.segresnet_ds", "models.monai_unet", "models.attentionunet",
                      "models.vnet", "models.registry", "convert")
+# the transformers
+TRANSFORMER_MODULES = ("models.unetr", "models.vit", "models.swin_unetr", "models.layers",
+                       "models.registry", "ops.conv3d")
 
 
 def _env():
@@ -70,6 +73,7 @@ def test_every_module_imports_without_jax_or_a_build():
     assert {f"unet3d_tpu_torch.{m}" for m in TRAINING_REST_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in MYRONENKO_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in BATCHNORM_MODULES} <= set(names.split())
+    assert {f"unet3d_tpu_torch.{m}" for m in TRANSFORMER_MODULES} <= set(names.split())
 
 
 def test_no_source_of_the_port_names_jax():

@@ -225,3 +225,68 @@ def test_segresnet_ds_dry_run_keeps_the_running_statistics(ds_runs, tmp_path):
     start = dict(np.load(model_file))
     for key, value in model_variables(built[0]).items():
         np.testing.assert_array_equal(value, start[key])
+
+
+# --- UNETR: a transformer through both CLIs ---------------------------------------
+
+UNETR = {"name": "UNETR", "in_channels": 2, "out_channels": 3, "img_size": 32,
+         "feature_size": 4, "hidden_size": 32, "mlp_dim": 64, "num_heads": 2, "num_layers": 4}
+
+
+@pytest.fixture(scope="module")
+def unetr_runs(tmp_path_factory):
+    """The same config with a small UNETR (a 2^3 patch grid, so 8 tokens
+    attend) at a 32^3 ``desired_shape`` and window (UNETR takes only its
+    ``img_size``), both CLIs from one JAX ``.npz`` through
+    ``--pretrained_model_filename``."""
+    from test_torch_batchnorm import bn_init
+    root = str(tmp_path_factory.mktemp("train_cli_unetr"))
+    config = small_brats_config(root)
+    config["model"] = dict(UNETR)
+    config["dataset"]["desired_shape"] = [32, 32, 32]
+    config["inference"]["roi_size"] = [32, 32, 32]
+    config_file = os.path.join(root, "unetr.json")
+    json.dump(config, open(config_file, "w"))
+    model = jax_create_model("UNETR", **{k: v for k, v in UNETR.items() if k != "name"})
+    variables = bn_init(model, np.zeros((1, 32, 32, 32, 2), np.float32))
+    model_file = os.path.join(root, "pretrained.npz")
+    save_checkpoint(variables, model_file)
+    args = ["--config_filename", config_file, "--pretrained_model_filename", model_file]
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(jax_factory, "init_params", lambda *a, **k: variables)
+        jax_train.main(args + ["--output_dir", os.path.join(root, "jax")])
+    result = train.main(args + ["--output_dir", os.path.join(root, "port")], device="cpu")
+    return root, model_file, result
+
+
+def test_unetr_logs_and_checkpoints_match_jax(unetr_runs):
+    """The logs within relative 1e-3; both ``model.npz`` hold the same keys
+    (``params`` only: no attention constant is a variable), moved off the
+    pretrained file's by training."""
+    root, model_file, result = unetr_runs
+    got = read_training_log(os.path.join(root, "port", "unetr", "training_log.csv"))
+    want = read_training_log(os.path.join(root, "jax", "unetr", "training_log.csv"))
+    assert len(got) == len(want) == 2
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-3)
+    assert all(np.isfinite(row[1]) and np.isfinite(row[3]) for row in got)
+    start = dict(np.load(model_file))
+    ours = dict(np.load(os.path.join(result["work_dir"], "model.npz")))
+    theirs = dict(np.load(os.path.join(root, "jax", "unetr", "model.npz")))
+    assert set(ours) == set(theirs) == set(start)
+    assert all(k.startswith("params/") for k in ours)
+    key = "params/vit/block0/attn/qkv/kernel"
+    assert not np.allclose(ours[key], start[key])
+    assert float(np.linalg.norm(ours[key] - theirs[key]) / np.linalg.norm(theirs[key])) < 1e-3
+
+
+@pytest.mark.parametrize("group,case", [("validation", "val0_t1.nii.gz"),
+                                        ("test", "test0_t1.nii.gz")])
+def test_unetr_predictions_match_jax(unetr_runs, group, case):
+    root, _, result = unetr_runs
+    assert [os.path.basename(f) for f in result["predictions"][group]] == [case]
+    got, _, _ = jax_nifti.load(os.path.join(root, "port", "unetr", group, case))
+    want, _, _ = jax_nifti.load(os.path.join(root, "jax", "unetr", group, case))
+    source, _, _ = jax_nifti.load(os.path.join(FIXTURES, "case_t1.nii.gz"))
+    assert got.shape == want.shape == source.shape + (3,)
+    assert float(np.linalg.norm(got - want) / np.linalg.norm(want)) < 1e-3
+    assert 0.0 <= got.min() and got.max() <= 1.0

@@ -7,8 +7,9 @@ layout device for XLA, not a kernel), ``ConvTranspose`` is the overlapping
 transposed conv (cuDNN), and so is ``Dense`` a matmul, each through
 ``ops/conv3d``'s ``channel_matmul`` / ``cudnn_conv`` (f32 in full f32, TF32
 off); ``Conv`` is Flax's ``nn.Conv`` with explicit pads and dilation
-(cuDNN, as the JAX package leaves it to XLA); ``GroupNorm`` and
-``BatchNorm`` train through torch autograd. Parameters keep the Flax names
+(cuDNN, as the JAX package leaves it to XLA), and ``PatchConv`` its
+kernel = stride, VALID form as a patchify and one channel matmul;
+``GroupNorm``, ``LayerNorm`` and ``BatchNorm`` train through torch autograd. Parameters keep the Flax names
 and layouts (``kernel`` DHWIO or (in, out), ``scale`` / ``bias``), and a
 BatchNorm's running statistics are buffers named as Flax's ``batch_stats``
 (``mean`` / ``var``), so a JAX checkpoint loads by key alone
@@ -48,7 +49,11 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     ``kernel`` lecun-normal (truncated at two standard deviations, fan-in all
     axes but the last: a conv's or transposed conv's DHWIO, a Dense's (in,
     out)), ``scale`` ones, ``bias`` zeros, a PReLU's ``alpha`` 0.25; the
-    BatchNorm buffers (``batch_stats``) ``mean`` zeros, ``var`` ones."""
+    transformers' ``pos_embedding`` normal(0.02), ``cls_token`` zeros and
+    ``relative_position_bias_table`` Flax's ``truncated_normal(0.02)`` (a
+    standard normal cut at +-2, times 0.02: not rescaled to a 0.02 standard
+    deviation, as the kernels' draw is); the BatchNorm buffers
+    (``batch_stats``) ``mean`` zeros, ``var`` ones."""
     with torch.no_grad():
         for name, b in module.named_buffers():
             leaf = name.rsplit(".", 1)[-1]
@@ -70,6 +75,12 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 p.zero_()
             elif leaf == "alpha":
                 p.fill_(0.25)
+            elif leaf == "pos_embedding":
+                p.normal_(0.0, 0.02, generator=generator)
+            elif leaf == "cls_token":
+                p.zero_()
+            elif leaf == "relative_position_bias_table":
+                nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=generator)
             else:
                 raise ValueError(f"no initialiser for parameter {name}")
 
@@ -276,6 +287,69 @@ class Dense(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y
+
+
+class PatchConv(nn.Module):
+    """Flax ``nn.Conv`` with kernel = stride and VALID padding (the
+    transformers' patch embeddings): each patch flattened in (d, h, w, c)
+    order, one channel matmul with the DHWIO kernel reshaped to (patch * C,
+    features); in the result type of the input and the parameters."""
+
+    def __init__(self, in_channels: int, features: int, patch_size: Ints3,
+                 use_bias: bool = True):
+        super().__init__()
+        self.patch_size = _triple(patch_size)
+        self.kernel = nn.Parameter(torch.empty(self.patch_size + (in_channels, features)))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        params = [self.kernel] + ([self.bias] if self.bias is not None else [])
+        dtype = _result_type(x, *params)
+        (p0, p1, p2), (n, d, h, w, c) = self.patch_size, x.shape
+        if d % p0 or h % p1 or w % p2:
+            raise ValueError(f"spatial dims {(d, h, w)} are not multiples of the patch "
+                             f"{self.patch_size}")
+        x = x.to(dtype).reshape(n, d // p0, p0, h // p1, p1, w // p2, p2, c)
+        x = x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(n, d // p0, h // p1, w // p2, -1)
+        y = channel_matmul(x, self.kernel.to(dtype).reshape(x.shape[-1], -1))
+        if self.bias is not None:
+            y = y + self.bias.to(dtype)
+        return y
+
+
+def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor],
+               bias: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+    """Flax's LayerNorm over the last axis: mean and variance in f32 (f64
+    for an f64 x), the variance as E[x^2] - E[x]^2 clamped at 0; ``(x -
+    mean) * (rsqrt(var + eps) * scale) + bias`` in that type (without the
+    scale or bias that is None); the result in the result type of x, scale
+    and bias. (``F.layer_norm`` takes the variance in two passes and keeps
+    its input's dtype.)"""
+    compute = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(compute)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + eps)
+    if scale is not None:
+        mul = mul * scale.to(compute)
+    y = (xf - mean) * mul
+    if bias is not None:
+        y = y + bias.to(compute)
+    return y.to(_result_type(x, *(p for p in (scale, bias) if p is not None)))
+
+
+class LayerNorm(nn.Module):
+    """``layer_norm`` with Flax ``nn.LayerNorm`` parameters (``scale``,
+    ``bias``). ``eps`` has no default: Flax's is 1e-6, the nets pass 1e-5."""
+
+    def __init__(self, channels: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.scale, self.bias, self.eps)
 
 
 def group_norm_groups(channels: int, norm_groups: int = 8) -> int:

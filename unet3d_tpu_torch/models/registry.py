@@ -1,8 +1,9 @@
 """Model registry: config ``name`` -> ``nn.Module``.
 
 Ported: DynUNet, the Myronenko family (SegResNet, SegResNetVAE, UNet3D,
-AutocastUNet, AutoImplantUNet and the autoencoders) and the BatchNorm
-segmentation nets (SegResNetDS, AttentionUnet, MONAI's UNet, VNet). The other names of
+AutocastUNet, AutoImplantUNet and the autoencoders), the BatchNorm
+segmentation nets (SegResNetDS, AttentionUnet, MONAI's UNet, VNet) and the
+transformers (UNETR, SwinUNETR, ViT, ViTAutoEnc). The other names of
 ``unet3d_tpu/models/registry.py`` raise with the list of what is still to
 port (ROADMAP.md).
 """
@@ -15,10 +16,13 @@ from unet3d_tpu_torch.models.dynunet import DynUNet
 from unet3d_tpu_torch.models.monai_unet import UNet
 from unet3d_tpu_torch.models.segresnet import SegResNet, SegResNetVAE
 from unet3d_tpu_torch.models.segresnet_ds import SegResNetDS
+from unet3d_tpu_torch.models.swin_unetr import SwinUNETR
 from unet3d_tpu_torch.models.unet import AutocastUNet, AutoImplantUNet, UNet3D
+from unet3d_tpu_torch.models.unetr import UNETR
 from unet3d_tpu_torch.models.variational import (ConvolutionalAutoEncoder,
                                                  LabeledVariationalAutoEncoder,
                                                  VariationalAutoEncoder)
+from unet3d_tpu_torch.models.vit import ViT, ViTAutoEnc
 from unet3d_tpu_torch.models.vnet import VNet
 
 MODEL_REGISTRY: Dict[str, Any] = {
@@ -35,6 +39,10 @@ MODEL_REGISTRY: Dict[str, Any] = {
     "AttentionUnet": AttentionUnet,
     "UNet": UNet,
     "VNet": VNet,
+    "UNETR": UNETR,
+    "SwinUNETR": SwinUNETR,
+    "ViT": ViT,
+    "ViTAutoEnc": ViTAutoEnc,
 }
 
 # names the JAX package resolves that the port does not have yet
@@ -45,9 +53,9 @@ NOT_YET_PORTED = (
     "DiNTS", "Discriminator", "EfficientNetBN", "FCN", "Generator",
     "GlobalNet", "GraphCMR", "HighResNet", "LocalNet", "QuickNAT", "Quicknat",
     "RegUNet", "RegularizedBasicResNet", "RegularizedResNet", "Regressor",
-    "ResNet", "ResNetWithDecoder1D", "SwinUNETR",
-    "TopologyConstruction", "TopologyInstance", "TopologySearch", "UNETR",
-    "VQVAE", "VarAutoEncoder", "ViT", "ViTAutoEnc",
+    "ResNet", "ResNetWithDecoder1D",
+    "TopologyConstruction", "TopologyInstance", "TopologySearch",
+    "VQVAE", "VarAutoEncoder",
     "resnet_101", "resnet_152", "resnet_18", "resnet_34", "resnet_50",
     "resnext_101_32x8d", "resnext_50_32x4d",
 )

@@ -21,7 +21,8 @@ other value raises (the JAX package's other strategies are TPU bisect
 handles the port does not carry).
 
 f32 on the card is full f32: every cuDNN conv here (forward and gradients)
-and the channel matmuls run under ``utils/device.full_f32``, TF32 off
+and the channel matmuls (the attention products too) run under
+``utils/device.full_f32``, TF32 off
 whatever the process's flags say, and the f32 3x3x3 kernel form is 3xTF32
 (``ops/conv3d_kernel``), f32-accurate.
 """
@@ -118,7 +119,8 @@ def cudnn_conv(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
 
 
 class _FullF32Matmul(torch.autograd.Function):
-    """``x @ w`` for (..., Cin) ``x`` and (Cin, Cout) ``w`` in f32, its
+    """``x @ w`` in f32, for (..., Cin) ``x`` and a (Cin, Cout) ``w`` or for
+    (..., m, k) and (..., k, n) operands of the same batch shape, its
     forward and both gradients under ``full_f32``."""
 
     @staticmethod
@@ -134,16 +136,17 @@ class _FullF32Matmul(torch.autograd.Function):
         dx = dw = None
         with full_f32(gy):
             if ctx.needs_input_grad[0]:
-                dx = torch.matmul(gy, w.t())
+                dx = torch.matmul(gy, w.transpose(-1, -2))
             if ctx.needs_input_grad[1]:
-                dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(),
-                                  gy.reshape(-1, gy.shape[-1]))
+                dw = (torch.matmul(x.reshape(-1, x.shape[-1]).t(), gy.reshape(-1, gy.shape[-1]))
+                      if w.dim() == 2 else torch.matmul(x.transpose(-1, -2), gy))
         return dx, dw
 
 
 def channel_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``torch.matmul(x, w)`` over the channel axis of ``x``; f32 in full
-    f32, forward and gradients."""
+    """``torch.matmul(x, w)`` over the channel axis of ``x`` with a (Cin,
+    Cout) ``w``, or of two operands with the same batch axes (the attention
+    products); f32 in full f32, forward and gradients."""
     if x.dtype == torch.float32:
         return _FullF32Matmul.apply(x, w)
     return torch.matmul(x, w)

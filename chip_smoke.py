@@ -474,6 +474,44 @@ TRANSFORMER_CONV_SHAPES = [
      "block_stats"),
 ]
 
+# phase 13: the MONAI conv stacks without BatchNorm, each in the BraTS config
+# with its model section replaced, at MONAI's default widths (the JAX
+# package's): BasicUNet and BasicUNetPlusPlus with features 32, 32, 64, 128,
+# 256, 32; QuickNAT with 64 filters, kernel 5, kernel_c 1, pool 2 (a 128^3
+# window is 128 slices of 128^2); DiNTS on TopologyInstance's defaults
+# (channel_mul 1, 6 blocks, 3 depths, downsampling: filters 16, 32, 64, all
+# 42 edges conv_3x3x3)
+BASIC_UNET_MODEL = {"name": "BasicUNet", "in_channels": 4, "out_channels": 3,
+                    "features": [32, 32, 64, 128, 256, 32], "dropout": 0.0}
+QUICKNAT_MODEL = {"name": "Quicknat", "num_classes": 3, "num_channels": 4, "num_filters": 64,
+                  "kernel_size": 5, "kernel_c": 1, "pool": 2, "stride_pool": 2,
+                  "se_block": "None"}
+DINTS_MODEL = {"name": "DiNTS", "in_channels": 4, "num_classes": 3}
+CONV_STACKS = (("BasicUNet", BASIC_UNET_MODEL),
+               ("BasicUNetPlusPlus", dict(BASIC_UNET_MODEL, name="BasicUNetPlusPlus")),
+               ("QuickNAT", QUICKNAT_MODEL), ("DiNTS", DINTS_MODEL))
+# the nets whose 3^3 convs are FastConvs (the hand conv kernel), and those
+# whose f32 step is held under torch's default TF32 flags
+KERNEL_STACKS = ("BasicUNet", "BasicUNetPlusPlus")
+F32_POLICY_STACKS = ("BasicUNet", "DiNTS")
+# QuickNAT's second window (both squeeze-and-excitation gates) and the DiNTS
+# supernet on the same space (all five ops on every edge)
+QUICKNAT_CSSE_MODEL = dict(QUICKNAT_MODEL, se_block="CSSE")
+DINTS_SEARCH_MODEL = dict(DINTS_MODEL, dints_space={"search": True})
+BASIC_UNET_PP_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_basicunetpp")
+# (label, spatial, cin, cout, dtype, form): the conv kernel at the UpCats'
+# new sites: 32 output channels (half a 64-wide tile) at 128^3 from the
+# concatenated 64, 96, 128 and 160 channels (96 and 160 part-filled
+# chunks), an input gradient 32 -> 64 at 128^3 and 256 -> 128 at 16^3
+CONV_STACK_SHAPES = [
+    ("BasicUNet upcat_1 conv_0 64->32 @128^3", 128, 64, 32, torch.bfloat16, "wgmma"),
+    ("BasicUNet++ upcat_0_2 conv_0 96->32 @128^3", 128, 96, 32, torch.bfloat16, "wgmma"),
+    ("BasicUNet++ upcat_0_3 conv_0 128->32 @128^3", 128, 128, 32, torch.bfloat16, "wgmma"),
+    ("BasicUNet++ upcat_0_4 conv_0 160->32 @128^3", 128, 160, 32, torch.bfloat16, "wgmma"),
+    ("BasicUNet dx of upcat_1 conv_0 32->64 @128^3", 128, 32, 64, torch.bfloat16, "wgmma"),
+    ("BasicUNet upcat_4 conv_0 256->128 @16^3", 16, 256, 128, torch.bfloat16, "wgmma"),
+]
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -3001,6 +3039,21 @@ def phase12_train_cli(device, seed, card, cases):
     """The train CLI on phase 8's cases and folds with the BraTS config's
     model section replaced by SwinUNETR: fold 1, 2 epochs; the checkpoint
     reloads strictly and equal; the predict CLI on it, on the source grid."""
+    return train_and_predict_cli("SwinUNETR", SWIN_UNETR_MODEL, SWIN_UNETR_CLI_DIR,
+                                 "brats2020_swin_unetr", ("conv", "conv_stats", "block_stats"),
+                                 lambda: check_forms("SwinUNETR train CLI"), device, seed,
+                                 card, cases)
+
+
+def train_and_predict_cli(name, model_cfg, cli_dir, config_name, kernels, check_kernel_forms,
+                          device, seed, card, cases):
+    """The train CLI on phase 8's cases and folds with the BraTS config's
+    model section replaced by ``model_cfg``: fold 1, 2 epochs, each of
+    ``kernels`` launched, forms held by ``check_kernel_forms``; finite logs;
+    a checkpoint of ``params`` alone that reloads strictly and equal; the
+    train CLI's ``bratsvalidation`` prediction and the predict CLI's on that
+    checkpoint on the source grid in [0, 1], within L2_BOUND of each
+    other."""
     from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
     from unet3d_tpu_torch.convert import load_jax_variables
     from unet3d_tpu_torch.data import nifti
@@ -3009,32 +3062,31 @@ def phase12_train_cli(device, seed, card, cases):
     from unet3d_tpu_torch.train.train import read_training_log
 
     config, fold_file, fold_dir, result, run = train_cli_fold1(
-        SWIN_UNETR_MODEL, SWIN_UNETR_CLI_DIR, "brats2020_swin_unetr", cases, TRAIN_KERNELS,
-        lambda: check_forms("SwinUNETR train CLI"))
-    print(f"SwinUNETR train CLI training: launches {run['launches']}; by form "
+        model_cfg, cli_dir, config_name, cases, TRAIN_KERNELS, check_kernel_forms)
+    print(f"{name} train CLI training: launches {run['launches']}; by form "
           f"{run['forms']}", flush=True)
-    for kernel in ("conv", "conv_stats", "block_stats"):
+    for kernel in kernels:
         check(run["launches"][kernel] > 0, f"train CLI: kernel {kernel} was not launched")
     rows = read_training_log(os.path.join(fold_dir, "training_log.csv"))
-    print(f"SwinUNETR training_log.csv: {rows}", flush=True)
+    print(f"{name} training_log.csv: {rows}", flush=True)
     check(len(rows) == TRAIN_CLI_EPOCHS and all(
         np.isfinite(r[1]) and np.isfinite(r[3]) for r in rows),
-        f"SwinUNETR training log {rows}")
+        f"{name} training log {rows}")
     saved = load_checkpoint(os.path.join(fold_dir, "model.npz"))
     model = result["model"]
     check(all(k.startswith("params/") for k in saved) and not list(model.buffers()),
-          "SwinUNETR checkpoint holds something other than params")
+          f"{name} checkpoint holds something other than params")
     fresh = build_or_load_model_from_config(config, None, device, seed=seed + 1)
     load_jax_variables(fresh, saved, strict=True)
     for (pname, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
-        check(torch.equal(a, b), f"SwinUNETR checkpoint round trip changed {pname}")
+        check(torch.equal(a, b), f"{name} checkpoint round trip changed {pname}")
     (written,) = result["predictions"]["bratsvalidation"]
     data, affine, _ = nifti.load(written)
     check(data.shape == BRATS_GRID + (3,) and bool(np.isfinite(data).all())
           and 0.0 <= data.min() and data.max() <= 1.0
           and np.allclose(affine, BRATS_AFFINE, atol=1e-6),
-          f"SwinUNETR train CLI prediction {data.shape}")
-    predict_dir = os.path.join(SWIN_UNETR_CLI_DIR, "predict")
+          f"{name} train CLI prediction {data.shape}")
+    predict_dir = os.path.join(cli_dir, "predict")
     predict.main(["--config_filename", fold_file, "--model_filename",
                   os.path.join(fold_dir, "model.npz"), "--output_directory", predict_dir,
                   "--group", "bratsvalidation", "--activation", "sigmoid"])
@@ -3043,16 +3095,16 @@ def phase12_train_cli(device, seed, card, cases):
     check(want.shape == BRATS_GRID + (3,) and bool(np.isfinite(want).all())
           and 0.0 <= want.min() and want.max() <= 1.0
           and np.allclose(want_affine, BRATS_AFFINE, atol=1e-6),
-          f"SwinUNETR predict CLI prediction {want.shape}")
+          f"{name} predict CLI prediction {want.shape}")
     rel = float(np.linalg.norm(data - want) / np.linalg.norm(want))
-    print(f"SwinUNETR train CLI prediction vs the predict CLI on its checkpoint: rel L2 "
+    print(f"{name} train CLI prediction vs the predict CLI on its checkpoint: rel L2 "
           f"{rel:.3e}; main {run['main_s']:.3f} s; seconds per epoch "
           f"{[round(v, 3) for v in run['epoch_s']]}; step ms "
           f"{[round(v, 3) for v in run['step_ms']]} [{card}]", flush=True)
-    check(rel < L2_BOUND, f"SwinUNETR train CLI vs predict CLI rel L2 {rel:.3e}")
+    check(rel < L2_BOUND, f"{name} train CLI vs predict CLI rel L2 {rel:.3e}")
     del model, fresh, result
     torch.cuda.empty_cache()
-    shutil.rmtree(SWIN_UNETR_CLI_DIR, ignore_errors=True)
+    shutil.rmtree(cli_dir, ignore_errors=True)
     return run.pop("launches"), dict(run, predict_rel_l2=rel,
                                      log=[list(map(float, r)) for r in rows])
 
@@ -3108,6 +3160,186 @@ def phase12_vits(device, seed, card):
     return out
 
 
+def conv_stack_window(name, model, shape, seed, card, profile=True) -> dict:
+    """One 128^3 bf16 window of a conv-stack net through ``make_forward``,
+    kernels against the plain path (``plain_convs``: QuickNAT's and DiNTS's
+    convs are cuDNN's on both), launches by form (a FastConv net: ``conv``
+    once per 3^3 conv, all wgmma; the others: no hand kernel), CUDA-event
+    times (plain, kernels, kernels, plain) and a profile."""
+    stride1, stride2 = conv_sites(model)
+    device = next(model.parameters()).device
+    rng = np.random.RandomState(seed)
+    window = torch.from_numpy(rng.randn(1, *shape, 4).astype(np.float32)).to(device)
+    forward, got, rel, launches, forms = window_check(model, window)
+    forms = forms_of(TRAIN_KERNELS)
+    msg = (f"{name} window {shape} bf16: kernels vs plain path rel L2 {rel:.3e}; launches "
+           f"{launches}; by form {forms}")
+    print(msg, flush=True)
+    check(got.shape == (1, *shape, 3) and bool(torch.isfinite(got).all()),
+          f"{name} window output {tuple(got.shape)}")
+    check(rel < L2_BOUND, f"{msg} > {L2_BOUND}")
+    want = {k: 0 for k in launches}
+    want["conv"] = stride1
+    check(launches == want and stride2 == 0, f"{msg}: expected {want}")
+    check_allowed_forms(f"{name} window", {("conv", "wgmma")})
+    times = {"plain": [], "kernels": []}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        with plain_convs() if which == "plain" else contextlib.nullcontext():
+            times[which].append(cuda_ms(lambda: forward(window), reps=3))
+    print(f"{name} window forward {shape} bf16: kernels {times['kernels']} ms, plain "
+          f"{times['plain']} ms [{card}]", flush=True)
+    out = dict(window_rel_l2=rel, window_launches=launches, window_forms=forms,
+               window_ms=times)
+    if profile:
+        out["window_profile"] = profile_device(lambda: forward(window),
+                                               f"{name} one {shape} bf16 window forward", card)
+    del forward, window, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def conv_stack_step(name, model, criterion, images, labels, seed, card, optimizer) -> tuple:
+    """One bf16 AMP train step at batch 1 after a warm-up step: launches by
+    form (a FastConv net: ``conv`` once per 3^3 conv and once per input
+    gradient but the first conv's, which reads the raw input; the others:
+    none); (step launches, loss, forms, the step)."""
+    from unet3d_tpu_torch.train.step import make_train_step
+    stride1, _ = conv_sites(model)
+    step = make_train_step(model, criterion, optimizer, amp=True, seed=seed)
+    step(images, labels)  # warm-up: cuDNN plans, the allocator
+    torch.cuda.synchronize()
+    reset_launches()
+    loss = float(step(images, labels))
+    torch.cuda.synchronize()
+    step_launches, forms = launch_counts(), forms_of(TRAIN_KERNELS)
+    print(f"{name} train step: loss {loss:.6f}; launches {step_launches}; by form {forms}",
+          flush=True)
+    check(np.isfinite(loss), f"{name} train loss {loss}")
+    want = {k: 0 for k in step_launches}
+    want["conv"] = 2 * stride1 - 1 if stride1 else 0
+    check(step_launches == want, f"{name} train step launches {step_launches}, expected {want}")
+    check_allowed_forms(f"{name} train step", {("conv", "wgmma")})
+    return step_launches, loss, forms, step
+
+
+def phase13_net(index, name, model_cfg, device, seed, card):
+    """One of the MONAI conv stacks at MONAI's widths in the BraTS config:
+    (b) one 128^3 bf16 window (``conv_stack_window``); (c) one bf16 AMP train
+    step at batch 1 (DiceLoss, Adam; ``conv_stack_step``), gradients against
+    the plain path (f32, bf16: ``path_grads``, phase 11's rules), for
+    F32_POLICY_STACKS the f32 step under torch's default TF32 flags
+    (``default_tf32_flags``), step ms and peak memory (plain, kernels,
+    kernels, plain) and a profile."""
+    from unet3d_tpu_torch.config.factory import (build_optimizer_from_config,
+                                                 build_or_load_model_from_config,
+                                                 load_criterion_from_config)
+    from unet3d_tpu_torch.train.step import make_train_step
+    from unet3d_tpu_torch.utils.config import load_json
+
+    t0 = time.perf_counter()
+    config = load_json(CONFIG)
+    config["model"] = dict(model_cfg)
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    stride1, _ = conv_sites(model)
+    print(f"{name} {json.dumps(model_cfg)}: {n_params} params, {stride1} 3^3 FastConvs "
+          f"[{card}]", flush=True)
+    check((stride1 > 0) == (name in KERNEL_STACKS), f"{name}: {stride1} FastConvs")
+    shape = tuple(config["dataset"]["desired_shape"])
+    out = dict(params=n_params,
+               **conv_stack_window(name, model, shape, seed + 110 + index, card))
+
+    criterion = load_criterion_from_config(config)
+    rng = np.random.RandomState(seed + 120 + index)
+    images = rng.randn(1, 4, *shape).astype(np.float32)
+    labels = (rng.rand(1, 3, *shape) > 0.5).astype(np.float32)
+    step_launches, loss, forms, step = conv_stack_step(
+        name, model, criterion, images, labels, seed, card,
+        build_optimizer_from_config(config, model.parameters()))
+    grads = path_grads(model, criterion, images, labels, device, seed)
+    check_path_grads(name, grads)
+    if name in F32_POLICY_STACKS:
+        out["f32_policy"] = default_tf32_flags(model, criterion, images, labels, device, seed)
+    torch.cuda.empty_cache()
+    step_times, peaks = {"plain": [], "kernels": []}, {}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        one = make_train_step(model, criterion, torch.optim.Adam(model.parameters(), lr=1e-6),
+                              amp=True, seed=seed)
+        with plain_convs() if which == "plain" else contextlib.nullcontext():
+            torch.cuda.reset_peak_memory_stats()
+            step_times[which].append(step_ms(one, images, labels, reps=3))
+            peaks[which] = torch.cuda.max_memory_allocated() / 2**30
+    step_profile = profile_device(lambda: step(images, labels),
+                                  f"{name} one bf16 train step", card)
+    print(f"{name} train step (bf16 AMP, batch 1, {shape}): kernels {step_times['kernels']} ms, "
+          f"plain {step_times['plain']} ms; peak memory kernels {peaks['kernels']:.2f} GiB, "
+          f"plain {peaks['plain']:.2f} GiB; {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    return step_launches, dict(out, step_loss=loss, step_forms=forms, kernels_vs_plain=grads,
+                               step_ms=step_times, peak_gib=peaks, step_profile=step_profile)
+
+
+def phase13_variants(device, seed, card) -> dict:
+    """QuickNAT's second window with both squeeze-and-excitation gates
+    ("CSSE"), and one bf16 AMP train step of the DiNTS supernet
+    (``TopologySearch`` on DiNTS's space, all five ops on every edge
+    weighted by the architecture logits, which must receive gradients):
+    neither launches a hand kernel."""
+    from unet3d_tpu_torch.config.factory import (build_optimizer_from_config,
+                                                 build_or_load_model_from_config,
+                                                 load_criterion_from_config)
+    from unet3d_tpu_torch.utils.config import load_json
+
+    out = {}
+    config = load_json(CONFIG)
+    shape = tuple(config["dataset"]["desired_shape"])
+    config["model"] = dict(QUICKNAT_CSSE_MODEL)
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    out["quicknat_csse"] = dict(params=sum(p.numel() for p in model.parameters()),
+                                **conv_stack_window("QuickNAT CSSE", model, shape,
+                                                    seed + 130, card, profile=False))
+    del model
+    torch.cuda.empty_cache()
+    config["model"] = dict(DINTS_SEARCH_MODEL)
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    criterion = load_criterion_from_config(config)
+    rng = np.random.RandomState(seed + 131)
+    images = rng.randn(1, 4, *shape).astype(np.float32)
+    labels = (rng.rand(1, 3, *shape) > 0.5).astype(np.float32)
+    optimizer = build_optimizer_from_config(config, model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    step_launches, loss, forms, step = conv_stack_step(
+        "DiNTS supernet", model, criterion, images, labels, seed, card, optimizer)
+    grads = {k: float(model.get_parameter(k).grad.abs().max())
+             for k in ("log_alpha_a", "log_alpha_c")}
+    check(all(v > 0 for v in grads.values()), f"DiNTS supernet: logits' gradients {grads}")
+    ms = step_ms(step, images, labels, reps=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"DiNTS supernet ({n_params} params): train step (bf16 AMP, batch 1, {shape}) "
+          f"{ms:.3f} ms, peak memory {peak:.2f} GiB, the logits' largest |gradient| {grads} "
+          f"[{card}]", flush=True)
+    out["dints_search"] = dict(params=n_params, step_loss=loss, step_launches=step_launches,
+                               step_ms=ms, peak_gib=peak, logit_grads=grads)
+    del model, step, optimizer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase13_train_cli(device, seed, card, cases):
+    """The train CLI on phase 8's cases and folds with BasicUNetPlusPlus
+    (deep supervision: the four heads train), then the predict CLI on its
+    checkpoint (``train_and_predict_cli``); every bf16 conv in the wgmma
+    form."""
+    return train_and_predict_cli(
+        "BasicUNetPlusPlus", dict(CONV_STACKS[1][1], deep_supervision=True),
+        BASIC_UNET_PP_CLI_DIR, "brats2020_basicunetpp", ("conv",),
+        lambda: check_allowed_forms("BasicUNetPlusPlus train CLI", {("conv", "wgmma")}),
+        device, seed, card, cases)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3119,6 +3351,7 @@ def main() -> int:
     from unet3d_tpu_torch.utils.device import require_cuda, sm_version
 
     os.environ.pop("UNET3D_TPU_CONV", None)  # phases 3-5 run the default routing
+    t_start = time.perf_counter()
     # phase 0
     card = card_line()
     print(card, flush=True)
@@ -3172,8 +3405,19 @@ def main() -> int:
         transformer_launches[name], transformers[name] = phase12_transformer(
             name, model_cfg, device, args.seed, card)
     swin_cli_launches, swin_cli = phase12_train_cli(device, args.seed, card, cases)
-    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
     vits = phase12_vits(device, args.seed, card)
+    # phase 13
+    t13 = time.perf_counter()
+    stack_rows = phase10_kernels(device, gen, CONV_STACK_SHAPES, [], "conv stacks")
+    stack_launches, stacks = {}, {}
+    for i, (name, model_cfg) in enumerate(CONV_STACKS):
+        stack_launches[name], stacks[name] = phase13_net(i, name, model_cfg, device,
+                                                         args.seed, card)
+    stacks.update(phase13_variants(device, args.seed, card))
+    pp_cli_launches, pp_cli = phase13_train_cli(device, args.seed, card, cases)
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    print(f"phase 13 {time.perf_counter() - t13:.1f} s; the smoke so far "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     check(not any(m in sys.modules for m in ("jax", "unet3d_tpu")),
           "the port imported jax")
     # launches: the training path's (phase 5; phase 7 for the Winograd
@@ -3190,7 +3434,10 @@ def main() -> int:
     # shapes (phase 11); launches_unetr and launches_swin_unetr: one bf16
     # train step of each (phase 12a), launches_train_cli_swin_unetr the
     # SwinUNETR train CLI run (phase 12b), and transformer_shapes the three
-    # variants at the transformers' sites (phase 12)
+    # variants at the transformers' sites (phase 12); launches_basicunet and
+    # launches_basicunetplusplus: one bf16 train step of each (phase 13c),
+    # launches_train_cli_basicunetplusplus its train CLI run (phase 13d), and
+    # conv_stack_shapes the conv kernel at their UpCats' sites (phase 13a)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": v, "route": "cuda", "source": SOURCES[v],
                 "replaces": REPLACES[v], "launches": train_launches[v],
@@ -3202,6 +3449,9 @@ def main() -> int:
                 "launches_unetr": transformer_launches["UNETR"][v],
                 "launches_swin_unetr": transformer_launches["SwinUNETR"][v],
                 "launches_train_cli_swin_unetr": swin_cli_launches[v],
+                "launches_basicunet": stack_launches["BasicUNet"][v],
+                "launches_basicunetplusplus": stack_launches["BasicUNetPlusPlus"][v],
+                "launches_train_cli_basicunetplusplus": pp_cli_launches[v],
                 **{k: report[v][k] for k in keys}}
                for v in TRAIN_KERNELS]
     for entry in kernels:
@@ -3216,6 +3466,9 @@ def main() -> int:
         rows = [r for r in transformer_rows if r["name"] == entry["name"]]
         if rows:
             entry["transformer_shapes"] = rows
+        rows = [r for r in stack_rows if r["name"] == entry["name"]]
+        if rows:
+            entry["conv_stack_shapes"] = rows
     kernels += [{"name": v, "route": "cuda", "source": SOURCES[v],
                  "replaces": REPLACES[v], "launches": strategy_launches[v],
                  "launches_predict": cli_launches["winograd"][v],
@@ -3265,6 +3518,10 @@ def main() -> int:
     print(f"swin_unetr train cli: {json.dumps(dict(swin_cli, launches=swin_cli_launches))} "
           f"[{card}]")
     print(f"vits: {json.dumps(vits)} [{card}]")
+    print(f"conv stacks: {json.dumps(dict(kernel_shapes=stack_rows, **stacks))} [{card}]")
+    print(f"basicunetplusplus train cli: "
+          f"{json.dumps(dict(pp_cli, launches=pp_cli_launches))} [{card}]")
+    print(f"smoke wall time {time.perf_counter() - t_start:.1f} s [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -423,10 +423,10 @@ COMPILE = {"xla_backend_optimization_level": 1}
 
 class Net:
     """A net of the JAX registry at a small size: its JAX module, variables
-    (``bn_init``), input, two batches of its size (images and binary
-    labels), the port module's constructor arguments, and each package's
-    runs, kept for the file's other tests (each JAX compile takes
-    seconds)."""
+    (``bn_init``), input, two batches of its size (images and binary labels
+    of ``out_channels``, or ``num_classes``, channels), the port module's
+    constructor arguments, and each package's runs, kept for the file's
+    other tests (each JAX compile takes seconds)."""
 
     def __init__(self, name, kwargs, shape, seed=0):
         self.name, self.kwargs = name, dict(kwargs)
@@ -437,9 +437,9 @@ class Net:
         self.flat = _flat(self.variables)
         rng = np.random.RandomState(seed + 3)
         n, *spatial = self.x.shape[:4]
+        n_out = kwargs["out_channels"] if "out_channels" in kwargs else kwargs["num_classes"]
         self.batches = [(rng.randn(n, shape[-1], *spatial).astype(np.float32),
-                         (rng.rand(n, kwargs["out_channels"], *spatial) > 0.5).astype(
-                             np.float32))
+                         (rng.rand(n, n_out, *spatial) > 0.5).astype(np.float32))
                         for _ in range(2)]
 
     def fresh(self, dtype=np.float32):

@@ -14,7 +14,7 @@ import torch
 from unet3d_tpu_torch.ops import conv3d_kernel as K
 
 # (D, H, W), Cin, Cout: the DynUNet's bf16 sites at 128^3, ragged volumes,
-# SegResNet's 32-channel level 0 and the transformers' decoders
+# SegResNet's 32-channel level 0, the transformers' decoders and the BasicUNets
 PLANS = [
     ((128, 128, 128), 64, 64), ((128, 128, 128), 128, 64), ((128, 128, 128), 64, 128),
     ((64, 64, 64), 96, 96), ((64, 64, 64), 192, 96), ((16, 16, 16), 256, 256),
@@ -31,6 +31,11 @@ PLANS = [
     ((128, 128, 128), 4, 48), ((128, 128, 128), 48, 48), ((128, 128, 128), 96, 48),
     ((64, 64, 64), 96, 48), ((32, 32, 32), 192, 96), ((4, 4, 4), 768, 768),
     ((128, 128, 128), 48, 96), ((64, 64, 64), 48, 96), ((32, 32, 32), 96, 192),
+    # BasicUNet's and BasicUNetPlusPlus's UpCats: Cout 32 at 128^3 from the
+    # concatenated 64, 96, 128 and 160 channels (96 and 160 part-filled
+    # chunks), the input gradient 32 -> 64, 256 -> 128 at 16^3
+    ((128, 128, 128), 64, 32), ((128, 128, 128), 96, 32), ((128, 128, 128), 128, 32),
+    ((128, 128, 128), 160, 32), ((128, 128, 128), 32, 64), ((16, 16, 16), 256, 128),
 ]
 SMEM_PER_BLOCK = 232448  # bytes a block of an H100 can use
 SMEM_PER_SM = 233472     # bytes an H100 SM holds, 1024 reserved per block

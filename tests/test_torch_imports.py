@@ -51,6 +51,9 @@ BATCHNORM_MODULES = ("models.segresnet_ds", "models.monai_unet", "models.attenti
 # the transformers
 TRANSFORMER_MODULES = ("models.unetr", "models.vit", "models.swin_unetr", "models.layers",
                        "models.registry", "ops.conv3d")
+# the MONAI conv stacks without BatchNorm
+CONV_STACK_MODULES = ("models.basicunet", "models.basicunetplusplus", "models.quicknat",
+                      "models.dints", "models.registry", "models.layers")
 
 
 def _env():
@@ -74,6 +77,7 @@ def test_every_module_imports_without_jax_or_a_build():
     assert {f"unet3d_tpu_torch.{m}" for m in MYRONENKO_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in BATCHNORM_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in TRANSFORMER_MODULES} <= set(names.split())
+    assert {f"unet3d_tpu_torch.{m}" for m in CONV_STACK_MODULES} <= set(names.split())
 
 
 def test_no_source_of_the_port_names_jax():

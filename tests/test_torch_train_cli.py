@@ -290,3 +290,79 @@ def test_unetr_predictions_match_jax(unetr_runs, group, case):
     assert got.shape == want.shape == source.shape + (3,)
     assert float(np.linalg.norm(got - want) / np.linalg.norm(want)) < 1e-3
     assert 0.0 <= got.min() and got.max() <= 1.0
+
+
+# --- BasicUNetPlusPlus with deep supervision through both CLIs -------------------
+
+BASIC_UNET_PP = {"name": "BasicUNetPlusPlus", "in_channels": 2, "out_channels": 3,
+                 "features": [4, 4, 8, 8, 16, 4], "deep_supervision": True}
+
+
+@pytest.fixture(scope="module")
+def basicunetpp_runs(tmp_path_factory):
+    """The same config with a small BasicUNetPlusPlus whose four heads train
+    (the stack through the criterion's 1/2^i weighting), both CLIs from one
+    JAX ``.npz`` through ``--pretrained_model_filename``; then the port's
+    predict CLI on the train CLI's checkpoint."""
+    from test_torch_batchnorm import bn_init
+    root = str(tmp_path_factory.mktemp("train_cli_basicunetpp"))
+    config = small_brats_config(root)
+    config["model"] = dict(BASIC_UNET_PP)
+    config_file = os.path.join(root, "basicunetpp.json")
+    json.dump(config, open(config_file, "w"))
+    model = jax_create_model("BasicUNetPlusPlus",
+                             **{k: v for k, v in BASIC_UNET_PP.items() if k != "name"})
+    variables = bn_init(model, np.zeros((1, 16, 16, 16, 2), np.float32))
+    model_file = os.path.join(root, "pretrained.npz")
+    save_checkpoint(variables, model_file)
+    args = ["--config_filename", config_file, "--pretrained_model_filename", model_file]
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(jax_factory, "init_params", lambda *a, **k: variables)
+        jax_train.main(args + ["--output_dir", os.path.join(root, "jax")])
+    result = train.main(args + ["--output_dir", os.path.join(root, "port")], device="cpu")
+    return root, model_file, result
+
+
+def test_basicunetpp_logs_and_checkpoints_match_jax(basicunetpp_runs):
+    """The logs within relative 1e-3; both ``model.npz`` hold the pretrained
+    file's keys (the three extra heads among them), moved by training."""
+    root, model_file, result = basicunetpp_runs
+    got = read_training_log(os.path.join(root, "port", "basicunetpp", "training_log.csv"))
+    want = read_training_log(os.path.join(root, "jax", "basicunetpp", "training_log.csv"))
+    assert len(got) == len(want) == 2
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-3)
+    start = dict(np.load(model_file))
+    ours = dict(np.load(os.path.join(result["work_dir"], "model.npz")))
+    theirs = dict(np.load(os.path.join(root, "jax", "basicunetpp", "model.npz")))
+    assert set(ours) == set(theirs) == set(start)
+    for key in ("params/final_conv_0_1/kernel", "params/upcat_0_4/convs/conv_0/conv/kernel"):
+        assert not np.allclose(ours[key], start[key])
+        assert float(np.linalg.norm(ours[key] - theirs[key]) / np.linalg.norm(theirs[key])) < 1e-3
+
+
+@pytest.mark.parametrize("group,case", [("validation", "val0_t1.nii.gz"),
+                                        ("test", "test0_t1.nii.gz")])
+def test_basicunetpp_predictions_match_jax(basicunetpp_runs, group, case):
+    root, _, result = basicunetpp_runs
+    assert [os.path.basename(f) for f in result["predictions"][group]] == [case]
+    got, _, _ = jax_nifti.load(os.path.join(root, "port", "basicunetpp", group, case))
+    want, _, _ = jax_nifti.load(os.path.join(root, "jax", "basicunetpp", group, case))
+    source, _, _ = jax_nifti.load(os.path.join(FIXTURES, "case_t1.nii.gz"))
+    assert got.shape == want.shape == source.shape + (3,)
+    assert float(np.linalg.norm(got - want) / np.linalg.norm(want)) < 1e-3
+
+
+def test_basicunetpp_predict_cli_on_the_train_cli_checkpoint(basicunetpp_runs):
+    """The predict CLI on the train CLI's ``model.npz`` gives the train
+    CLI's own test prediction."""
+    from unet3d_tpu_torch.scripts import predict
+    root, _, result = basicunetpp_runs
+    out = os.path.join(root, "predict")
+    predict.main(["--config_filename", os.path.join(root, "basicunetpp.json"),
+                  "--model_filename", os.path.join(result["work_dir"], "model.npz"),
+                  "--output_directory", out, "--group", "test", "--activation", "sigmoid"],
+                 device="cpu")
+    got, _, _ = jax_nifti.load(os.path.join(out, "predictions", "test0_t1.nii.gz"))
+    want, _, _ = jax_nifti.load(os.path.join(root, "port", "basicunetpp", "test",
+                                             "test0_t1.nii.gz"))
+    assert float(np.linalg.norm(got - want) / np.linalg.norm(want)) < 1e-6

@@ -39,8 +39,12 @@ Ints3 = Union[int, Sequence[int]]
 
 
 def _triple(v: Ints3) -> Tuple[int, int, int]:
+    return _ntuple(v, 3)
+
+
+def _ntuple(v: Ints3, n: int) -> Tuple[int, ...]:
     if isinstance(v, int):
-        return (v, v, v)
+        return (v,) * n
     return tuple(int(x) for x in v)
 
 
@@ -52,7 +56,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     transformers' ``pos_embedding`` normal(0.02), ``cls_token`` zeros and
     ``relative_position_bias_table`` Flax's ``truncated_normal(0.02)`` (a
     standard normal cut at +-2, times 0.02: not rescaled to a 0.02 standard
-    deviation, as the kernels' draw is); the BatchNorm buffers
+    deviation, as the kernels' draw is); DiNTS's architecture logits
+    ``log_alpha_a`` zeros and ``log_alpha_c`` normal(1e-3); the BatchNorm buffers
     (``batch_stats``) ``mean`` zeros, ``var`` ones."""
     with torch.no_grad():
         for name, b in module.named_buffers():
@@ -81,6 +86,10 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 p.zero_()
             elif leaf == "relative_position_bias_table":
                 nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=generator)
+            elif leaf == "log_alpha_a":
+                p.zero_()
+            elif leaf == "log_alpha_c":
+                p.normal_(0.0, 1e-3, generator=generator)
             else:
                 raise ValueError(f"no initialiser for parameter {name}")
 
@@ -237,28 +246,49 @@ def conv1(in_channels: int, features: int, stride: Ints3 = 1,
 
 
 class Conv(nn.Module):
-    """Flax ``nn.Conv`` with explicit symmetric ``padding`` per axis and
-    ``dilation``, computed by cuDNN in the result type of the input and the
-    parameters (f32 in full f32): the VALID 2-cubed stride-2 conv of VNet's
-    down transitions and the dilated convs of MONAI's ``Convolution``."""
+    """Flax ``nn.Conv`` with ``padding`` and ``dilation``, computed by cuDNN
+    in the result type of the input and the parameters (f32 in full f32):
+    the VALID 2-cubed stride-2 conv of VNet's down transitions, the dilated
+    convs of MONAI's ``Convolution``, DiNTS's convs and QuickNAT's 2-D ones.
+    A ``kernel_size`` tuple sets the number of spatial axes (2 on NHWC
+    slices; an int means 3). ``padding`` is symmetric per axis, or "SAME",
+    XLA's: ``max((ceil(n / s) - 1) * s + (k - 1) * d + 1 - n, 0)`` in all on
+    an axis of size n, the odd one at the high side."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: Ints3,
-                 strides: Ints3 = 1, padding: Ints3 = 0, dilation: Ints3 = 1,
+                 strides: Ints3 = 1, padding: Union[str, Ints3] = 0, dilation: Ints3 = 1,
                  use_bias: bool = True):
         super().__init__()
-        self.kernel_size, self.strides = _triple(kernel_size), _triple(strides)
-        self.padding, self.dilation = _triple(padding), _triple(dilation)
+        nd = 3 if isinstance(kernel_size, int) else len(kernel_size)
+        self.kernel_size, self.strides = _ntuple(kernel_size, nd), _ntuple(strides, nd)
+        self.padding = padding if padding == "SAME" else _ntuple(padding, nd)
+        self.dilation = _ntuple(dilation, nd)
         self.kernel = nn.Parameter(
             torch.empty(self.kernel_size + (in_channels, features)))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
+    def _pads(self, spatial: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+        if self.padding != "SAME":
+            return tuple((p, p) for p in self.padding)
+        pads = []
+        for n, k, s, d in zip(spatial, self.kernel_size, self.strides, self.dilation):
+            total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return tuple(pads)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         params = [self.kernel] + ([self.bias] if self.bias is not None else [])
         dtype = _result_type(x, *params)
-        y = cudnn_conv(x.to(dtype).permute(0, 4, 1, 2, 3),
-                       self.kernel.to(dtype).permute(4, 3, 0, 1, 2), self.strides,
-                       self.padding, dilation=self.dilation)
-        y = y.permute(0, 2, 3, 4, 1).contiguous()
+        nd = len(self.kernel_size)
+        pads = self._pads(x.shape[1:-1])
+        x = x.to(dtype).movedim(-1, 1)
+        if any(lo != hi for lo, hi in pads):
+            x = torch.nn.functional.pad(x, [p for pair in reversed(pads) for p in pair])
+            pads = ((0, 0),) * nd
+        w = self.kernel.to(dtype).permute(nd + 1, nd, *range(nd))
+        y = cudnn_conv(x, w, self.strides, tuple(lo for lo, _ in pads),
+                       dilation=self.dilation)
+        y = y.movedim(1, -1).contiguous()
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y
@@ -363,8 +393,8 @@ def group_norm_groups(channels: int, norm_groups: int = 8) -> int:
 
 def group_norm(x: torch.Tensor, num_groups: int, scale: Optional[torch.Tensor],
                bias: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
-    """Flax's GroupNorm on NDHWC ``x``: per (item, group) mean and variance
-    over the spatial axes and the group's channels in f32 (f64 for an f64
+    """Flax's GroupNorm on channels-last ``x`` (NDHWC, or NHWC for the 2-D
+    nets): per (item, group) mean and variance over the spatial axes and the group's channels in f32 (f64 for an f64
     x), the variance as E[x^2] - E[x]^2 clamped at 0; ``(x - mean) *
     (rsqrt(var + eps) * scale) + bias`` in that type (without the scale or
     bias that is None); the result in the result type of x, scale and bias.
@@ -377,8 +407,9 @@ def group_norm(x: torch.Tensor, num_groups: int, scale: Optional[torch.Tensor],
     mean = xg.mean(dim=(1, 3))
     var = torch.clamp((xg * xg).mean(dim=(1, 3)) - mean * mean, min=0.0)
     size = c // num_groups
-    mean = mean.repeat_interleave(size, dim=-1)[:, None, None, None, :]
-    var = var.repeat_interleave(size, dim=-1)[:, None, None, None, :]
+    stat_shape = (n,) + (1,) * (x.dim() - 2) + (c,)
+    mean = mean.repeat_interleave(size, dim=-1).reshape(stat_shape)
+    var = var.repeat_interleave(size, dim=-1).reshape(stat_shape)
     mul = torch.rsqrt(var + eps)
     if scale is not None:
         mul = mul * scale.to(compute)

@@ -207,6 +207,41 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    ViTAutoEnc at MONAI's defaults: one forward (f32, bf16) and one training
    backward (f32) on the card against f64 on the CPU (they launch no hand
    kernel).
+13. the MONAI conv stacks without BatchNorm (``CONV_STACKS``): the conv
+   kernel at their UpCats' sites; BasicUNet, BasicUNetPlusPlus, QuickNAT
+   and DiNTS at MONAI's widths, one 128^3 bf16 window and one bf16 step
+   each against the plain path; QuickNAT's CSSE window, a DiNTS supernet
+   step; the train and predict CLIs with BasicUNetPlusPlus.
+14. the last MONAI conv nets (``LAST_CONV_NETS``, ``LAST_HEADS``): (a) the
+   conv kernel at the registration nets' new sites (an extraction head 16
+   -> 3 @128^3 and its input gradient 3 -> 16, both in the wmma form;
+   LocalNet's 16 -> 16 @128^3) and ``s2_wgrad`` at RegUNet's pool_conv_0
+   (16 -> 16) and the AutoEncoder's first stride-2 conv (4 -> 4, wmma),
+   against their plain versions, timed as in phase 2; (b) LocalNet,
+   RegUNet (stride-2 encoder, concatenated skips, levels 0 and 3),
+   GlobalNet, AutoEncoder, VarAutoEncoder, HighResNet and AHNet at full
+   width: one 128^3 bf16 window through ``make_forward`` against the plain
+   path within relative L2 3e-2, launches by kernel and form as their 3^3
+   FastConvs predict (one ``conv`` each, wmma where a channel count is no
+   multiple of 8 / 4; HighResNet's and AHNet's convs are cuDNN's: none),
+   times; GlobalNet's DDF at init exactly 0 and ``warp_image`` of the
+   window by it; AHNet's second window in "trilinear" mode; (c) one bf16
+   AMP train step each: launches by form as its calls predict (the input
+   gradients in/out swapped, ``s2_wgrad`` once per stride-2 conv), the
+   gradients and running statistics against the plain path (phase 11's
+   rules; VarAutoEncoder's on the means over three noise draws),
+   LocalNet's and HighResNet's (at 64^3) f32 step under torch's
+   default TF32 flags against TF32 off (each path within a fifth of what
+   TF32 does with the port's policy taken out: a last-bit change of cuDNN's
+   weight gradients moves these BatchNorm nets' f32 step ~2e-5 run to run
+   on an H100),
+   step ms, peak memory and a profile; (d) Regressor,
+   Classifier, Discriminator, Critic and Generator at their defaults: one
+   forward (f32, bf16) and one f32 backward on the card against f64 on the
+   CPU, with their launches; (e) the train CLI with LocalNet on phase 8's
+   cases (fold 1, 2 epochs): a ``params`` + ``batch_stats`` checkpoint that
+   reloads strictly, the predict CLI on it on the source grid within 3e-2
+   of the train CLI's prediction.
 
 Exits non-zero if any phase fails or there is no CUDA device. The last lines
 are the card, a JSON object of the kernels (the bf16 forms' rows, then the
@@ -511,6 +546,59 @@ CONV_STACK_SHAPES = [
     ("BasicUNet dx of upcat_1 conv_0 32->64 @128^3", 128, 32, 64, torch.bfloat16, "wgmma"),
     ("BasicUNet upcat_4 conv_0 256->128 @16^3", 16, 256, 128, torch.bfloat16, "wgmma"),
 ]
+
+# phase 14: the last MONAI conv nets in the BraTS config (4 -> 3 channels,
+# 128^3), batch 1, at the JAX package's defaults (MONAI's where it has them):
+# the registration nets at 16 initial channels, depth 3 (RegUNet with the
+# stride-2 encoder, the concatenated skips and levels 0 and 3; LocalNet with
+# every level, kernel 7 at level 0; GlobalNet, whose DDF then warps the
+# window), HighResNet's fixed plan, AHNet at MONAI's defaults (a second
+# window in "trilinear" mode), the autoencoders at channels (4, 8, 16)
+LOCALNET_MODEL = {"name": "LocalNet", "in_channels": 4, "out_channels": 3,
+                  "num_channel_initial": 16, "depth": 3}
+REGUNET_MODEL = dict(LOCALNET_MODEL, name="RegUNet", extract_levels=[0, 3], pooling=False,
+                     concat_skip=True)
+GLOBALNET_MODEL = {"name": "GlobalNet", "in_channels": 4, "num_channel_initial": 16,
+                   "depth": 3}
+AUTOENCODER_MODEL = {"name": "AutoEncoder", "in_channels": 4, "out_channels": 3,
+                     "channels": [4, 8, 16], "strides": [2, 2, 2], "num_res_units": 2,
+                     "inter_channels": [16, 16], "inter_dilations": [1, 2]}
+VAR_AUTOENCODER_MODEL = dict(
+    {k: v for k, v in AUTOENCODER_MODEL.items() if k != "in_channels"},
+    name="VarAutoEncoder", in_shape=[4, 128, 128, 128], latent_size=16)
+AHNET_MODEL = {"name": "AHNet", "in_channels": 4, "out_channels": 3}
+LAST_CONV_NETS = (("LocalNet", LOCALNET_MODEL), ("RegUNet", REGUNET_MODEL),
+                  ("GlobalNet", GLOBALNET_MODEL), ("AutoEncoder", AUTOENCODER_MODEL),
+                  ("VarAutoEncoder", VAR_AUTOENCODER_MODEL),
+                  ("HighResNet", {"name": "HighResNet", "in_channels": 4, "out_channels": 3}),
+                  ("AHNet", AHNET_MODEL))
+AHNET_TRILINEAR_MODEL = dict(AHNET_MODEL, upsample_mode="trilinear")
+# the nets whose f32 step is held under torch's default TF32 flags, and the
+# window each is held at (HighResNet's seven f32 steps at 64^3)
+F32_POLICY_LAST = {"LocalNet": 128, "HighResNet": 64}
+# the heads at their defaults on a (4, 128^3) input, the Generator from its
+# 64-element latent
+LAST_HEADS = (("Regressor", {"in_shape": [4, 128, 128, 128]}),
+              ("Classifier", {"in_shape": [4, 128, 128, 128]}),
+              ("Discriminator", {"in_shape": [4, 128, 128, 128]}),
+              ("Critic", {"in_shape": [4, 128, 128, 128]}),
+              ("Generator", {}))
+HEAD_F32_BOUND = 1e-4
+# noise draws over which a sampling net's bf16 gradients are held
+NOISE_DRAWS = 3
+LOCALNET_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_localnet")
+# (label, spatial, cin, cout, dtype, form): the conv kernel at the
+# registration nets' new sites: an extraction head to 3 channels at 128^3
+# and its input gradient (the wmma form), LocalNet's level-0 decoder conv;
+# s2_wgrad at RegUNet's pool_conv_0 and the AutoEncoder's first stride-2
+# conv (4 channels: the wmma form)
+LAST_CONV_SHAPES = [
+    ("RegUNet extract_0 16->3 @128^3", 128, 16, 3, torch.bfloat16, "wmma"),
+    ("RegUNet dx of extract_0 3->16 @128^3", 128, 3, 16, torch.bfloat16, "wmma"),
+    ("LocalNet decode_0 16->16 @128^3", 128, 16, 16, torch.bfloat16, "wgmma"),
+]
+LAST_S2_SHAPES = [("RegUNet pool_conv_0 x 128^3 16->16", 128, 16, 16),
+                  ("AutoEncoder encode_0 x 128^3 4->4", 128, 4, 4)]
 
 
 class SmokeFailure(RuntimeError):
@@ -2733,6 +2821,21 @@ def phase11_train_cli(device, seed, card, cases):
     model section replaced by SegResNetDS (deep supervision on 2 heads):
     fold 1, 2 epochs; the checkpoint's running statistics; the predict CLI
     on that checkpoint against the train CLI's own prediction."""
+    return bn_train_and_predict_cli(
+        "SegResNetDS", dict(SEGRESNET_DS_MODEL, dsdepth=2), SEGRESNET_DS_CLI_DIR,
+        "brats2020_segresnet_ds", FAMILY_KERNELS,
+        lambda: check_bn_forms("SegResNetDS train CLI"), device, seed, card, cases)
+
+
+def bn_train_and_predict_cli(name, model_cfg, cli_dir, config_name, kernels,
+                             check_kernel_forms, device, seed, card, cases):
+    """The train CLI on phase 8's cases and folds with a BatchNorm net
+    (``train_cli_fold1``): each of ``kernels`` launched, forms held by
+    ``check_kernel_forms``; finite logs; a ``model.npz`` whose
+    ``batch_stats`` hold a running mean off 0 for every BatchNorm and that
+    reloads strictly and equal; the train CLI's ``bratsvalidation``
+    prediction on the source grid in [0, 1], and the predict CLI on the
+    checkpoint within L2_BOUND of it."""
     from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
     from unet3d_tpu_torch.convert import load_jax_variables
     from unet3d_tpu_torch.data import nifti
@@ -2742,52 +2845,54 @@ def phase11_train_cli(device, seed, card, cases):
     from unet3d_tpu_torch.train.train import read_training_log
 
     config, fold_file, fold_dir, result, run = train_cli_fold1(
-        dict(SEGRESNET_DS_MODEL, dsdepth=2), SEGRESNET_DS_CLI_DIR, "brats2020_segresnet_ds",
-        cases, FAMILY_KERNELS, lambda: check_bn_forms("SegResNetDS train CLI"))
-    print(f"SegResNetDS train CLI training: launches {run['launches']}; by form "
+        model_cfg, cli_dir, config_name, cases, kernels, check_kernel_forms)
+    print(f"{name} train CLI training: launches {run['launches']}; by form "
           f"{run['forms']}", flush=True)
-    for kernel in FAMILY_KERNELS:
+    for kernel in kernels:
         check(run["launches"][kernel] > 0, f"train CLI: kernel {kernel} was not launched")
     rows = read_training_log(os.path.join(fold_dir, "training_log.csv"))
-    print(f"SegResNetDS training_log.csv: {rows}", flush=True)
+    print(f"{name} training_log.csv: {rows}", flush=True)
     check(len(rows) == TRAIN_CLI_EPOCHS and all(
         np.isfinite(r[1]) and np.isfinite(r[3]) for r in rows),
-        f"SegResNetDS training log {rows}")
+        f"{name} training log {rows}")
     saved = load_checkpoint(os.path.join(fold_dir, "model.npz"))
     means = {k: float(np.abs(v).max()) for k, v in saved.items()
              if k.startswith("batch_stats/") and k.endswith("/mean")}
-    print(f"SegResNetDS model.npz: {len(saved)} arrays, {len(means)} BatchNorms' running "
+    print(f"{name} model.npz: {len(saved)} arrays, {len(means)} BatchNorms' running "
           f"means, the smallest largest |mean| {min(means.values()):.3e}", flush=True)
     model = result["model"]
     n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
     check(len(means) == n_bn and min(means.values()) > 0,
-          f"SegResNetDS checkpoint: {len(means)} running means for {n_bn} BatchNorms, "
-          f"{means}")
+          f"{name} checkpoint: {len(means)} running means for {n_bn} BatchNorms, {means}")
     fresh = build_or_load_model_from_config(config, None, device, seed=seed + 1)
     load_jax_variables(fresh, saved, strict=True)
-    for (name, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
-        check(torch.equal(a, b), f"SegResNetDS checkpoint round trip changed {name}")
+    for (key, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
+        check(torch.equal(a, b), f"{name} checkpoint round trip changed {key}")
     (written,) = result["predictions"]["bratsvalidation"]
     data, affine, _ = nifti.load(written)
     check(data.shape == BRATS_GRID + (3,) and bool(np.isfinite(data).all())
           and 0.0 <= data.min() and data.max() <= 1.0
           and np.allclose(affine, BRATS_AFFINE, atol=1e-6),
-          f"SegResNetDS train CLI prediction {data.shape}")
-    predict_dir = os.path.join(SEGRESNET_DS_CLI_DIR, "predict")
+          f"{name} train CLI prediction {data.shape}")
+    predict_dir = os.path.join(cli_dir, "predict")
     predict.main(["--config_filename", fold_file, "--model_filename",
                   os.path.join(fold_dir, "model.npz"), "--output_directory", predict_dir,
                   "--group", "bratsvalidation", "--activation", "sigmoid"])
-    (name,) = os.listdir(os.path.join(predict_dir, "predictions"))
-    want, _, _ = nifti.load(os.path.join(predict_dir, "predictions", name))
+    (pred_name,) = os.listdir(os.path.join(predict_dir, "predictions"))
+    want, want_affine, _ = nifti.load(os.path.join(predict_dir, "predictions", pred_name))
+    check(want.shape == BRATS_GRID + (3,) and bool(np.isfinite(want).all())
+          and 0.0 <= want.min() and want.max() <= 1.0
+          and np.allclose(want_affine, BRATS_AFFINE, atol=1e-6),
+          f"{name} predict CLI prediction {want.shape}")
     rel = float(np.linalg.norm(data - want) / np.linalg.norm(want))
-    print(f"SegResNetDS train CLI prediction vs the predict CLI on its checkpoint: rel L2 "
+    print(f"{name} train CLI prediction vs the predict CLI on its checkpoint: rel L2 "
           f"{rel:.3e}; main {run['main_s']:.3f} s; seconds per epoch "
           f"{[round(v, 3) for v in run['epoch_s']]}; step ms "
           f"{[round(v, 3) for v in run['step_ms']]} [{card}]", flush=True)
-    check(rel < L2_BOUND, f"SegResNetDS train CLI vs predict CLI rel L2 {rel:.3e}")
+    check(rel < L2_BOUND, f"{name} train CLI vs predict CLI rel L2 {rel:.3e}")
     del model, fresh, result
     torch.cuda.empty_cache()
-    shutil.rmtree(SEGRESNET_DS_CLI_DIR, ignore_errors=True)
+    shutil.rmtree(cli_dir, ignore_errors=True)
     return run.pop("launches"), dict(run, predict_rel_l2=rel,
                                      log=[list(map(float, r)) for r in rows])
 
@@ -2861,18 +2966,23 @@ def plain_blocks():
         dynunet.UnetBasicBlock.forward, dynunet.UnetResBlock.forward = saved
 
 
-def transformer_f32_policy(name, model, criterion, images, labels, device) -> dict:
+def transformer_f32_policy(name, model, criterion, images, labels, device,
+                           plain=None, plain_deterministic=True) -> dict:
     """The port's f32 policy in one f32 step's gradients, each path against
     itself with TF32 off by the caller: under torch's default TF32 flags
     (cuDNN's in TF32) and with cuBLAS's TF32 on too. Through the plain path
-    (``plain_blocks``: every conv cuDNN's, every matmul cuBLAS's, the
-    attention products included; its forward is deterministic) within
-    TF32_FLAGS_BOUND. Through the kernels the forward is not: their f32
-    statistics sum by atomics, and a last-bit change carries a leaky ReLU
-    across its kink here and there, so the same step twice differs (the
-    spread, printed); each within TF32_SHARE of what TF32 does to the plain
-    path's gradients with the policy taken out (``full_f32`` a no-op, cuBLAS's
-    and cuDNN's TF32 on: the control, which must move them past that)."""
+    (``plain``, a context: ``plain_blocks`` by default, every conv cuDNN's,
+    every matmul cuBLAS's, the attention products included; its forward is
+    deterministic) within TF32_FLAGS_BOUND. Through the kernels the forward
+    is not: their f32 statistics sum by atomics, and a last-bit change
+    carries a leaky ReLU across its kink here and there, so the same step
+    twice differs (the spread, printed); each within TF32_SHARE of what TF32
+    does to the plain path's gradients with the policy taken out
+    (``full_f32`` a no-op, cuBLAS's and cuDNN's TF32 on: the control, which
+    must move them past that). Without ``plain_deterministic`` the plain path
+    is held as the kernels are: phase 14's BatchNorm nets at batch 1 carry a
+    last-bit change of cuDNN's weight gradients to ~2e-5 of the step (on an
+    H100)."""
     from unet3d_tpu_torch.ops import conv3d as conv_ops
     from unet3d_tpu_torch.ops import conv3d_kernel
     from unet3d_tpu_torch.train.step import forward_loss, prepare_batch
@@ -2881,11 +2991,13 @@ def transformer_f32_policy(name, model, criterion, images, labels, device) -> di
     x, y = prepare_batch(images, labels, device, False)
     params = list(model.parameters())
 
+    plain_path = plain or plain_blocks
+
     def grads(plain, cudnn_tf32=True, matmul_tf32=False):
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
         try:
-            with plain_blocks() if plain else contextlib.nullcontext():
+            with plain_path() if plain else contextlib.nullcontext():
                 return torch.autograd.grad(forward_loss(model, criterion, x, y, False), params)
         finally:
             torch.backends.cudnn.allow_tf32 = True
@@ -2908,8 +3020,9 @@ def transformer_f32_policy(name, model, criterion, images, labels, device) -> di
     print(f"{name} f32 step gradients vs the same path with TF32 off by the caller, rel L2 "
           f"{out}", flush=True)
     for key in ("default_flags", "matmul_tf32_on"):
-        check(out["plain"][key] < TF32_FLAGS_BOUND, f"{name} f32 policy, plain path: {key} "
-              f"{out['plain'][key]:.3e} > {TF32_FLAGS_BOUND}")
+        limit = TF32_FLAGS_BOUND if plain_deterministic else TF32_SHARE * control
+        check(out["plain"][key] < limit, f"{name} f32 policy, plain path: {key} "
+              f"{out['plain'][key]:.3e} > {limit:.3e}")
         limit = TF32_SHARE * control
         check(out["kernels"][key] < limit, f"{name} f32 policy, kernels: {key} "
               f"{out['kernels'][key]:.3e} > {limit:.3e} ({TF32_SHARE} of TF32's {control:.3e})")
@@ -3128,6 +3241,15 @@ def phase12_vits(device, seed, card):
         model = model.to(device).eval()
         x = torch.from_numpy(np.random.RandomState(seed + 95 + i).randn(
             1, *kwargs["img_size"], kwargs["in_channels"]).astype(np.float32))
+        # the features the Dense ``final`` reads (a head's few outputs sum
+        # ~10^5 bf16 products: their relative error is the sum's conditioning)
+        feats = {}
+
+        def keep(m, args, _):
+            feats[args[0].dtype] = args[0].detach().double().cpu()
+
+        hooks = [net.final.register_forward_hook(keep) for net in (model, cpu)
+                 if hasattr(net, "final")]
         reset_launches()
         got = {amp: make_forward(model, amp=amp)(x.to(device)).float().cpu()
                for amp in (False, True)}
@@ -3340,6 +3462,337 @@ def phase13_train_cli(device, seed, card, cases):
         device, seed, card, cases)
 
 
+def bf16_conv_form(cin: int, cout: int) -> str:
+    """The form a bf16 3^3 conv takes: wgmma for Cin % 4 == 0 and Cout % 8
+    == 0, else wmma (``ops/conv3d_kernel.kernel_form``)."""
+    return "wgmma" if cin % 4 == 0 and cout % 8 == 0 else "wmma"
+
+
+def bf16_s2_form(cin: int, cout: int) -> str:
+    return "wgmma" if cin % 8 == 0 and cout % 8 == 0 else "wmma"
+
+
+def expected_forms(calls) -> dict:
+    """The launches by ``kernel/form`` that 3^3 FastConv calls (stride,
+    Cin, Cout, the input needs a gradient) take in a bf16 forward and, with
+    ``calls`` from a training forward, its backward: ``conv`` once per
+    stride-1 call and once more (the input gradient, in/out swapped) where
+    its input needs one; ``s2_wgrad`` once per stride-2 call."""
+    out = {}
+    for stride, cin, cout, needs_dx in calls:
+        keys = []
+        if stride == (1, 1, 1):
+            keys.append(f"conv/{bf16_conv_form(cin, cout)}")
+            if needs_dx:
+                keys.append(f"conv/{bf16_conv_form(cout, cin)}")
+        else:
+            keys.append(f"s2_wgrad/{bf16_s2_form(cin, cout)}")
+        for key in keys:
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+@contextlib.contextmanager
+def conv_calls(model):
+    """Record each 3^3 FastConv call of ``model`` (its copies included) as
+    (stride, Cin, Cout, whether its input needs a gradient)."""
+    from unet3d_tpu_torch.models.layers import FastConv
+    calls = []
+
+    def hook(m, args):
+        calls.append((m.strides, m.kernel.shape[3], m.kernel.shape[4], args[0].requires_grad))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, FastConv) and m.kernel_size == (3, 3, 3)]
+    try:
+        yield calls
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def static_window_forms(model) -> dict:
+    """A window's launches by ``kernel/form``: one ``conv`` per stride-1
+    3^3 FastConv (no gradients: stride-2 sites launch nothing)."""
+    from unet3d_tpu_torch.models.layers import FastConv
+    return expected_forms([(m.strides, m.kernel.shape[3], m.kernel.shape[4], False)
+                           for m in model.modules() if isinstance(m, FastConv)
+                           and m.kernel_size == (3, 3, 3) and m.strides == (1, 1, 1)])
+
+
+def globalnet_warp(model, window, card) -> dict:
+    """GlobalNet at init: the head's zero kernel and identity bias give a
+    DDF of exactly 0 and ``warp_image`` the window unchanged. Then a
+    non-zero head (so the step's encoder gradients are not vacuous), the
+    window's DDF and the warped window: finite, the window's shape."""
+    from unet3d_tpu_torch.models.regunet import warp_image
+    from unet3d_tpu_torch.predict.volumetric import make_forward
+    ddf = make_forward(model, amp=True)(window)
+    warped = warp_image(window, ddf)
+    check(bool((ddf == 0).all()) and torch.equal(warped, window),
+          f"GlobalNet at init: DDF max |d| {float(ddf.abs().max()):.3e}, warp changed the "
+          "window")
+    gen = torch.Generator(device=window.device).manual_seed(7)
+    with torch.no_grad():
+        fc = model.affine_head.fc.kernel
+        fc.copy_(torch.randn(fc.shape, generator=gen, device=fc.device) * 1e-5)
+    ddf = make_forward(model, amp=True)(window)
+    warped = warp_image(window, ddf)
+    moved = float(ddf.abs().max())
+    print(f"GlobalNet: DDF at init exactly 0, warp_image the identity; with a non-zero head "
+          f"max |DDF| {moved:.3f} voxels, warped window {tuple(warped.shape)} [{card}]",
+          flush=True)
+    check(moved > 0 and bool(torch.isfinite(warped).all()) and warped.shape == window.shape,
+          f"GlobalNet warp: DDF {moved}, warped {tuple(warped.shape)}")
+    return dict(ddf_max_voxels=moved)
+
+
+def phase14_net(index, name, model_cfg, device, seed, card, profile_window=False):
+    """One of the last MONAI conv nets at full width in the BraTS config:
+    (b) one 128^3 bf16 window through ``make_forward`` against the plain path
+    (``plain_convs``) within L2_BOUND, its launches by kernel and form as the
+    3^3 FastConvs predict (``static_window_forms``: none for HighResNet and
+    AHNet, whose convs are cuDNN's), times (plain, kernels, kernels, plain);
+    GlobalNet's DDF warps the window (``globalnet_warp``); (c) one bf16 AMP
+    train step at batch 1 (the config's DiceLoss and Adam) after a warm-up:
+    launches by form as its calls predict (``expected_forms``), the
+    gradients and running statistics against the plain path
+    (``path_grads_over_draws``), for F32_POLICY_LAST the f32 step under torch's
+    default TF32 flags (``transformer_f32_policy`` through ``plain_convs``,
+    both paths held to TF32_SHARE of TF32's effect), step ms and peak memory
+    (plain, kernels, kernels, plain) and a profile."""
+    import copy
+
+    from unet3d_tpu_torch.config.factory import (build_optimizer_from_config,
+                                                 build_or_load_model_from_config,
+                                                 load_criterion_from_config)
+    from unet3d_tpu_torch.train.step import make_train_step
+    from unet3d_tpu_torch.utils.config import load_json
+
+    t0 = time.perf_counter()
+    config = load_json(CONFIG)
+    config["model"] = dict(model_cfg)
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    shape = tuple(config["dataset"]["desired_shape"])
+    rng = np.random.RandomState(seed + 140 + index)
+    window = torch.from_numpy(rng.randn(1, *shape, 4).astype(np.float32)).to(device)
+    out = dict(params=n_params)
+    if name == "GlobalNet":
+        out["warp"] = globalnet_warp(model, window, card)
+    forward, got, rel, launches, forms = window_check(model, window)
+    forms = forms_of(TRAIN_KERNELS)
+    want_forms = static_window_forms(model)
+    msg = (f"{name} ({n_params} params) window {shape} bf16: kernels vs plain path rel L2 "
+           f"{rel:.3e}; launches {launches}; by form {forms}, expected {want_forms}")
+    print(msg, flush=True)
+    channels = 3
+    check(tuple(got.shape) == (1, *shape, channels) and bool(torch.isfinite(got).all()),
+          f"{name} window output {tuple(got.shape)}")
+    check(rel < L2_BOUND, f"{msg} > {L2_BOUND}")
+    check(forms == want_forms and not launches["s2_wgrad"], f"{msg}: forms")
+    times = {"plain": [], "kernels": []}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        with plain_convs() if which == "plain" else contextlib.nullcontext():
+            times[which].append(cuda_ms(lambda: forward(window), reps=3))
+    print(f"{name} window forward {shape} bf16: kernels {times['kernels']} ms, plain "
+          f"{times['plain']} ms [{card}]", flush=True)
+    out.update(window_rel_l2=rel, window_launches=launches, window_forms=forms,
+               window_ms=times)
+    if profile_window:
+        out["window_profile"] = profile_device(lambda: forward(window),
+                                               f"{name} one {shape} bf16 window forward", card)
+    del forward, got
+    torch.cuda.empty_cache()
+
+    criterion = load_criterion_from_config(config)
+    images = np.ascontiguousarray(np.moveaxis(window.cpu().numpy(), -1, 1))
+    labels = (rng.rand(1, 3, *shape) > 0.5).astype(np.float32)
+    # the counted step and the gradients below start from the window's
+    # weights: one Adam step at the config's lr moves each weight by ~lr, so
+    # the Dense layers over 65,536 (VarAutoEncoder) and 524,288 (GlobalNet's
+    # head) inputs move by ~65 and ~500: the VAE's exp(logvar / 2) overflows
+    # and GlobalNet's DDF saturates the sigmoid, zeroing every gradient
+    start = copy.deepcopy(model.state_dict())
+    step = make_train_step(model, criterion, build_optimizer_from_config(
+        config, model.parameters()), amp=True, seed=seed)
+    step(images, labels)  # warm-up: cuDNN plans, the allocator
+    model.load_state_dict(start)
+    torch.cuda.synchronize()
+    reset_launches()
+    with conv_calls(model) as calls:
+        loss = float(step(images, labels))
+    torch.cuda.synchronize()
+    model.load_state_dict(start)
+    step_launches, step_forms = launch_counts(), forms_of(TRAIN_KERNELS)
+    want_forms = expected_forms(calls)
+    msg = (f"{name} train step: loss {loss:.6f}; launches {step_launches}; by form "
+           f"{step_forms}, expected {want_forms}")
+    print(msg, flush=True)
+    check(np.isfinite(loss), f"{name} train loss {loss}")
+    check(step_forms == want_forms, f"{msg}: forms")
+    grads = path_grads_over_draws(model, criterion, images, labels, device, seed)
+    check_path_grads(name, grads)
+    if name in F32_POLICY_LAST:
+        s = F32_POLICY_LAST[name]
+        out["f32_policy"] = transformer_f32_policy(
+            name, model, criterion, images[..., :s, :s, :s], labels[..., :s, :s, :s], device,
+            plain=plain_convs, plain_deterministic=False)
+    torch.cuda.empty_cache()
+    step_times, peaks = {"plain": [], "kernels": []}, {}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        one = make_train_step(model, criterion, torch.optim.Adam(model.parameters(), lr=1e-6),
+                              amp=True, seed=seed)
+        with plain_convs() if which == "plain" else contextlib.nullcontext():
+            torch.cuda.reset_peak_memory_stats()
+            step_times[which].append(step_ms(one, images, labels, reps=3))
+            peaks[which] = torch.cuda.max_memory_allocated() / 2**30
+    step_profile = profile_device(lambda: step(images, labels),
+                                  f"{name} one bf16 train step", card)
+    print(f"{name} train step (bf16 AMP, batch 1, {shape}): kernels {step_times['kernels']} ms, "
+          f"plain {step_times['plain']} ms; peak memory kernels {peaks['kernels']:.2f} GiB, "
+          f"plain {peaks['plain']:.2f} GiB; {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    return step_launches, dict(out, step_loss=loss, step_forms=step_forms,
+                               kernels_vs_plain=grads, step_ms=step_times, peak_gib=peaks,
+                               step_profile=step_profile)
+
+
+def path_grads_over_draws(model, criterion, images, labels, device, seed) -> dict:
+    """``path_grads``; for a net whose forward draws noise (VarAutoEncoder's
+    latent sample) the mean of each distance over NOISE_DRAWS draws, both
+    paths drawing alike in each (each draw's distances and the worst tensor
+    of the draw farthest apart kept beside). Two bf16 evaluations of the VAE
+    at 128^3 on an H100 lie ~1e-2 apart and each 1.1e-2-1.8e-2 from f32,
+    the kernels 0.87-1.12 times as far as the plain path over five seeds
+    (``tools/vae_grad_spread.py``): one draw's gap and ratio are noise, the
+    mean is what the phase-5 bound and the BF16_EXCESS rule read."""
+    from unet3d_tpu_torch.train.step import noise_generator
+    if noise_generator(model, seed) is None:
+        return path_grads(model, criterion, images, labels, device, seed)
+    runs = [path_grads(model, criterion, images, labels, device, seed + i)
+            for i in range(NOISE_DRAWS)]
+    out = {}
+    for dt in ("f32", "bf16"):
+        out[dt] = dict(max(runs, key=lambda r: r[dt]["gradients"])[dt])
+        for key in [k for k in out[dt] if not k.startswith("worst")]:
+            out[dt][f"{key}_draws"] = [r[dt][key] for r in runs]
+            out[dt][key] = _mean(out[dt][f"{key}_draws"])
+    return out
+
+
+def phase14_ahnet_trilinear(device, seed, card) -> dict:
+    """AHNet's second window, in "trilinear" mode (``jax.image.resize``'s
+    up-samples in bf16, no transposed convs): finite, launching no hand
+    kernel, within L2_BOUND of the plain path."""
+    from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
+    from unet3d_tpu_torch.utils.config import load_json
+    config = load_json(CONFIG)
+    config["model"] = dict(AHNET_TRILINEAR_MODEL)
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    shape = tuple(config["dataset"]["desired_shape"])
+    window = torch.from_numpy(np.random.RandomState(seed + 150).randn(1, *shape, 4)
+                              .astype(np.float32)).to(device)
+    forward, got, rel, launches, _ = window_check(model, window)
+    ms = cuda_ms(lambda: forward(window), reps=3)
+    print(f"AHNet trilinear window {shape} bf16: rel L2 vs plain {rel:.3e}, launches "
+          f"{launches}, {ms:.3f} ms [{card}]", flush=True)
+    check(tuple(got.shape) == (1, *shape, 3) and bool(torch.isfinite(got).all())
+          and not any(launches.values()) and rel < L2_BOUND,
+          f"AHNet trilinear window {tuple(got.shape)} {launches} {rel}")
+    del model, forward, got
+    torch.cuda.empty_cache()
+    return dict(window_rel_l2=rel, window_ms=ms)
+
+
+def phase14_heads(device, seed, card) -> dict:
+    """(d) The heads at their defaults (Regressor, Classifier,
+    Discriminator, Critic on a (2, 128^3, 4) input; Generator from a (2,
+    64) latent): one forward (f32, bf16 AMP) and one backward of
+    ``sum(out * g)`` in f32 on the card against the same module in f64 on
+    the CPU (f32 within HEAD_F32_BOUND; bf16 within L2_BOUND on the
+    Generator's volume and on the features the other heads' last Dense
+    reads, whose one or two outputs per item are printed beside) (its FastConvs through ``F.conv3d``; the eval path: the
+    Discriminator's and Critic's dropout draws could not match across
+    devices), with their kernel launches."""
+    import copy
+
+    from unet3d_tpu_torch.models.layers import init_parameters
+    from unet3d_tpu_torch.models.registry import create_model
+    from unet3d_tpu_torch.predict.volumetric import make_forward
+    out = {}
+    for i, (name, kwargs) in enumerate(LAST_HEADS):
+        model = create_model(name, **kwargs)
+        init_parameters(model, torch.Generator().manual_seed(seed + 160 + i))
+        cpu = copy.deepcopy(model).double()
+        model = model.to(device).eval()
+        c, *grid = kwargs.get("in_shape", (64,))
+        in_shape = (2, c) if name == "Generator" else (2, *grid, c)
+        x = torch.from_numpy(np.random.RandomState(seed + 165 + i).randn(*in_shape)
+                             .astype(np.float32))
+        # the features the Dense ``final`` reads (a head's few outputs sum
+        # ~10^5 bf16 products: their relative error is the sum's conditioning)
+        feats = {}
+
+        def keep(m, args, _):
+            feats[args[0].dtype] = args[0].detach().double().cpu()
+
+        hooks = [net.final.register_forward_hook(keep) for net in (model, cpu)
+                 if hasattr(net, "final")]
+        reset_launches()
+        got = {amp: make_forward(model, amp=amp)(x.to(device)).float().cpu()
+               for amp in (False, True)}
+        xt = x.to(device).requires_grad_(True)
+        params = list(model.parameters())
+        output = model(xt)
+        g = torch.from_numpy(np.random.RandomState(seed + 170 + i).randn(*output.shape)
+                             .astype(np.float32))
+        grads = torch.autograd.grad((output * g.to(device)).sum(), params + [xt])
+        torch.cuda.synchronize()
+        launches, forms = launch_counts(), forms_of(TRAIN_KERNELS)
+        xd = x.double().requires_grad_(True)
+        with plain_convs():  # the kernels take f32 and bf16 only
+            with torch.no_grad():
+                want = cpu(x.double())
+            want_grads = torch.autograd.grad((cpu(xd) * g.double()).sum(),
+                                             list(cpu.parameters()) + [xd])
+        for hook in hooks:
+            hook.remove()
+        r = dict(f32=rel_l2_of([got[False]], [want]), bf16=rel_l2_of([got[True]], [want]),
+                 grads_f32=rel_l2_of([t.cpu() for t in grads], want_grads),
+                 launches=launches, forms=forms)
+        if feats:
+            r["bf16_features"] = rel_l2_of([feats[torch.bfloat16]], [feats[torch.float64]])
+        print(f"{name} {tuple(got[False].shape)} on the card vs f64 on the CPU, rel L2: "
+              f"forward f32 {r['f32']:.3e}, bf16 {r['bf16']:.3e} (the features the last "
+              f"Dense reads: {r.get('bf16_features', r['bf16']):.3e}); gradients f32 "
+              f"{r['grads_f32']:.3e}; launches {launches}, by form {forms} [{card}]",
+              flush=True)
+        check(bool(torch.isfinite(got[True]).all()), f"{name}: non-finite bf16 output")
+        check(r["f32"] < HEAD_F32_BOUND and r["grads_f32"] < HEAD_F32_BOUND,
+              f"{name}: f32 on the card vs f64 {r}")
+        bf16 = r.get("bf16_features", r["bf16"])
+        check(bf16 < L2_BOUND, f"{name}: bf16 forward vs f64 {bf16:.3e}")
+        check(launches["conv"] > 0, f"{name}: the conv kernel was not launched")
+        out[name] = r
+        del model, cpu, grads, want_grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase14_train_cli(device, seed, card, cases):
+    """(e) The train CLI on phase 8's cases and folds with LocalNet, then
+    the predict CLI on its ``params`` + ``batch_stats`` checkpoint
+    (``bn_train_and_predict_cli``); its bf16 convs in the wgmma form and,
+    at the 3-channel extraction heads and their input gradients, the wmma
+    form."""
+    return bn_train_and_predict_cli(
+        "LocalNet", LOCALNET_MODEL, LOCALNET_CLI_DIR, "brats2020_localnet", ("conv",),
+        lambda: check_allowed_forms("LocalNet train CLI", {("conv", "wgmma"), ("conv", "wmma")}),
+        device, seed, card, cases)
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3415,8 +3868,21 @@ def main() -> int:
                                                          args.seed, card)
     stacks.update(phase13_variants(device, args.seed, card))
     pp_cli_launches, pp_cli = phase13_train_cli(device, args.seed, card, cases)
-    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
     print(f"phase 13 {time.perf_counter() - t13:.1f} s; the smoke so far "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    # phase 14
+    t14 = time.perf_counter()
+    last_rows = phase10_kernels(device, gen, LAST_CONV_SHAPES, LAST_S2_SHAPES,
+                                "last conv nets")
+    last_launches, last_nets = {}, {}
+    for i, (name, model_cfg) in enumerate(LAST_CONV_NETS):
+        last_launches[name], last_nets[name] = phase14_net(
+            i, name, model_cfg, device, args.seed, card, profile_window=name == "LocalNet")
+    last_nets["AHNet trilinear"] = phase14_ahnet_trilinear(device, args.seed, card)
+    heads = phase14_heads(device, args.seed, card)
+    localnet_cli_launches, localnet_cli = phase14_train_cli(device, args.seed, card, cases)
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    print(f"phase 14 {time.perf_counter() - t14:.1f} s; the smoke so far "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     check(not any(m in sys.modules for m in ("jax", "unet3d_tpu")),
           "the port imported jax")
@@ -3437,7 +3903,12 @@ def main() -> int:
     # variants at the transformers' sites (phase 12); launches_basicunet and
     # launches_basicunetplusplus: one bf16 train step of each (phase 13c),
     # launches_train_cli_basicunetplusplus its train CLI run (phase 13d), and
-    # conv_stack_shapes the conv kernel at their UpCats' sites (phase 13a)
+    # conv_stack_shapes the conv kernel at their UpCats' sites (phase 13a);
+    # launches_localnet, launches_regunet, launches_globalnet and
+    # launches_autoencoder: one bf16 train step of each (phase 14c),
+    # launches_train_cli_localnet its train CLI run (phase 14e), and
+    # last_conv_net_shapes the conv kernel and s2_wgrad at their new sites
+    # (phase 14a)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": v, "route": "cuda", "source": SOURCES[v],
                 "replaces": REPLACES[v], "launches": train_launches[v],
@@ -3452,6 +3923,11 @@ def main() -> int:
                 "launches_basicunet": stack_launches["BasicUNet"][v],
                 "launches_basicunetplusplus": stack_launches["BasicUNetPlusPlus"][v],
                 "launches_train_cli_basicunetplusplus": pp_cli_launches[v],
+                "launches_localnet": last_launches["LocalNet"][v],
+                "launches_regunet": last_launches["RegUNet"][v],
+                "launches_globalnet": last_launches["GlobalNet"][v],
+                "launches_autoencoder": last_launches["AutoEncoder"][v],
+                "launches_train_cli_localnet": localnet_cli_launches[v],
                 **{k: report[v][k] for k in keys}}
                for v in TRAIN_KERNELS]
     for entry in kernels:
@@ -3469,6 +3945,9 @@ def main() -> int:
         rows = [r for r in stack_rows if r["name"] == entry["name"]]
         if rows:
             entry["conv_stack_shapes"] = rows
+        rows = [r for r in last_rows if r["name"] == entry["name"]]
+        if rows:
+            entry["last_conv_net_shapes"] = rows
     kernels += [{"name": v, "route": "cuda", "source": SOURCES[v],
                  "replaces": REPLACES[v], "launches": strategy_launches[v],
                  "launches_predict": cli_launches["winograd"][v],
@@ -3521,6 +4000,10 @@ def main() -> int:
     print(f"conv stacks: {json.dumps(dict(kernel_shapes=stack_rows, **stacks))} [{card}]")
     print(f"basicunetplusplus train cli: "
           f"{json.dumps(dict(pp_cli, launches=pp_cli_launches))} [{card}]")
+    print(f"last conv nets: {json.dumps(dict(kernel_shapes=last_rows, heads=heads, **last_nets))} "
+          f"[{card}]")
+    print(f"localnet train cli: "
+          f"{json.dumps(dict(localnet_cli, launches=localnet_cli_launches))} [{card}]")
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))

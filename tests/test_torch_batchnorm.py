@@ -611,17 +611,19 @@ def check_train_steps(n: Net, grad_accum: int, amp: bool = False) -> None:
     assert all(want[k].dtype == np.float32 and ours[k].dtype == np.float32 for k in want)
 
 
-def check_amp_eval_step(n: Net) -> None:
+def check_amp_eval_step(n: Net, dtype: torch.dtype = torch.bfloat16) -> None:
     """Both packages' AMP eval steps, whose forward runs on bf16 copies of
     the parameters and the running statistics, on ``n.x`` (a criterion that
-    returns the output): bf16 outputs, the port's within ``BF16`` of JAX's
+    returns the output): outputs of ``dtype`` (bf16; f32 for the registration
+    nets, whose resized heads and grids are f32 in both), the port's within
+    ``BF16`` of JAX's
     f32 eval output or no further from it than 1.25 times JAX's bf16 one
     (two samples of the same rounding noise, as ``check_grads`` holds bf16)."""
     images = np.ascontiguousarray(np.moveaxis(n.x, -1, 1))
     state = jax_step.create_train_state(n.fresh(), jax_optim.build_optimizer("SGD", lr=0.1))
     want = jax_step.make_eval_step(n.jmod, lambda o, y: o, amp=True)(state, images, images)
     got = step.make_eval_step(n.port(), lambda o, y: o, amp=True)(images, images)
-    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert got.dtype == dtype and str(want.dtype) == str(dtype).replace("torch.", "")
     ref = n.jax_f32[0]
     want = np.asarray(want.astype(jnp.float32))
     assert _rel(got.float().numpy(), ref) <= max(BF16, 1.25 * _rel(want, ref)), (

@@ -54,6 +54,10 @@ TRANSFORMER_MODULES = ("models.unetr", "models.vit", "models.swin_unetr", "model
 # the MONAI conv stacks without BatchNorm
 CONV_STACK_MODULES = ("models.basicunet", "models.basicunetplusplus", "models.quicknat",
                       "models.dints", "models.registry", "models.layers")
+# the last MONAI conv nets
+LAST_CONV_NET_MODULES = ("models.monai_autoencoder", "models.monai_heads",
+                         "models.highresnet", "models.ahnet", "models.regunet",
+                         "ops.interpolate", "ops.resample")
 
 
 def _env():
@@ -78,6 +82,7 @@ def test_every_module_imports_without_jax_or_a_build():
     assert {f"unet3d_tpu_torch.{m}" for m in BATCHNORM_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in TRANSFORMER_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in CONV_STACK_MODULES} <= set(names.split())
+    assert {f"unet3d_tpu_torch.{m}" for m in LAST_CONV_NET_MODULES} <= set(names.split())
 
 
 def test_no_source_of_the_port_names_jax():

@@ -103,7 +103,7 @@ def test_unported_names_still_raise():
         assert isinstance(create_model(name), torch.nn.Module)
     from unet3d_tpu_torch.models.registry import MODEL_REGISTRY, NOT_YET_PORTED
     assert not set(MODEL_REGISTRY) & set(NOT_YET_PORTED)
-    for name in ("ResNet", "resnet_18", "DenseNet121", "EfficientNetBN", "HighResNet"):
+    for name in ("ResNet", "resnet_18", "DenseNet121", "EfficientNetBN", "VQVAE"):
         with pytest.raises(ValueError, match=f"not ported to PyTorch yet.*{name}"):
             create_model(name)
     with pytest.raises(ValueError, match="is unknown"):

@@ -225,8 +225,13 @@ def build_or_load_model_from_config(config, model_filename: Optional[str],
     checkpoint."""
     model_cfg = config["model"]
     kwargs = get_kwargs(model_cfg)
+    cls = MODEL_REGISTRY.get(model_cfg["name"])
+    if (cls is not None and "image_size" in inspect.signature(cls).parameters
+            and "image_size" not in kwargs):
+        # GlobalNet's affine head and AHNet's PSP up-samples are sized by
+        # the input, as the JAX CLI sizes them by initialising on it
+        kwargs["image_size"] = model_input_shape_from_config(config)[:3]
     if remat:
-        cls = MODEL_REGISTRY.get(model_cfg["name"])
         if cls is not None and "remat" not in inspect.signature(cls).parameters:
             raise NotImplementedError(
                 f"training.remat for {model_cfg['name']}: the port recomputes "

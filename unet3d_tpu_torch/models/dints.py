@@ -48,7 +48,7 @@ import torch
 import torch.nn as nn
 
 from unet3d_tpu_torch.models.layers import Conv, GroupNorm, SubpixelConvTranspose, _result_type
-from unet3d_tpu_torch.ops.interpolate import resize_ndhwc
+from unet3d_tpu_torch.ops.interpolate import image_resize
 
 # op index -> (kernel factorization list); each entry is one ReLU-conv-IN stage
 _OPS: Tuple[Tuple[Tuple[int, int, int], ...], ...] = (
@@ -299,16 +299,9 @@ class TopologySearch:
 
 
 def _resize(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """``jax.image.resize(x, spatial * factor, "trilinear")`` on NDHWC ``x``:
-    one axis at a time (the JAX einsum's contractions), each with half-pixel
-    centres, clamped at the edges (where JAX renormalises the weights: the
-    same values for an upsample), in f32 and rounded to x's dtype."""
-    dtype = x.dtype
-    for axis in range(3):
-        out = list(x.shape[1:4])
-        out[axis] *= factor
-        x = resize_ndhwc(x, out, "trilinear").to(dtype)
-    return x
+    """``jax.image.resize(x, spatial * factor, "trilinear")`` on NDHWC ``x``
+    (``ops/interpolate.image_resize``)."""
+    return image_resize(x, (factor,) * 3, "trilinear")
 
 
 def _add_adapter(parent: nn.Module, in_channels: int, features: int, resize: int) -> None:

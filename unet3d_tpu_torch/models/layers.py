@@ -58,7 +58,15 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     standard normal cut at +-2, times 0.02: not rescaled to a 0.02 standard
     deviation, as the kernels' draw is); DiNTS's architecture logits
     ``log_alpha_a`` zeros and ``log_alpha_c`` normal(1e-3); the BatchNorm buffers
-    (``batch_stats``) ``mean`` zeros, ``var`` ones."""
+    (``batch_stats``) ``mean`` zeros, ``var`` ones. A submodule with an
+    ``init_own_parameters(generator)`` method (GlobalNet's affine head: zero
+    kernel, identity bias) sets its own parameters instead."""
+    owners = [(prefix, m) for prefix, m in module.named_modules()
+              if hasattr(m, "init_own_parameters")]
+    owned = {f"{prefix}.{name}" if prefix else name
+             for prefix, m in owners for name, _ in m.named_parameters()}
+    for _, m in owners:
+        m.init_own_parameters(generator)
     with torch.no_grad():
         for name, b in module.named_buffers():
             leaf = name.rsplit(".", 1)[-1]
@@ -67,6 +75,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             b.fill_(0.0 if leaf == "mean" else 1.0)
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
+            if name in owned:
+                continue
             if leaf == "kernel":
                 fan_in = math.prod(p.shape[:-1])
                 # flax's truncated normal: stddev of the truncated draw is

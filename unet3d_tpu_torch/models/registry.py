@@ -5,7 +5,11 @@ AutocastUNet, AutoImplantUNet and the autoencoders), the BatchNorm
 segmentation nets (SegResNetDS, AttentionUnet, MONAI's UNet, VNet), the
 transformers (UNETR, SwinUNETR, ViT, ViTAutoEnc) and the MONAI conv stacks
 without BatchNorm (BasicUNet, BasicUNetPlusPlus, Quicknat, DiNTS with its
-topology spaces, which resolve by name as in JAX). The other names of
+topology spaces, which resolve by name as in JAX), and the last MONAI conv
+nets: AutoEncoder, VarAutoEncoder, the Regressor / Classifier /
+Discriminator / Critic / Generator heads, HighResNet, AHNet (also as AHnet
+and Ahnet) and the registration nets RegUNet, GlobalNet and LocalNet. The
+other names of
 ``unet3d_tpu/models/registry.py`` raise with the list of what is still to
 port (ROADMAP.md).
 """
@@ -13,13 +17,19 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+from unet3d_tpu_torch.models.ahnet import AHNet
 from unet3d_tpu_torch.models.attentionunet import AttentionUnet
 from unet3d_tpu_torch.models.basicunet import BasicUNet
 from unet3d_tpu_torch.models.basicunetplusplus import BasicUNetPlusPlus
 from unet3d_tpu_torch.models.dints import DiNTS, TopologyInstance, TopologySearch
 from unet3d_tpu_torch.models.dynunet import DynUNet
+from unet3d_tpu_torch.models.highresnet import HighResNet
+from unet3d_tpu_torch.models.monai_autoencoder import AutoEncoder, VarAutoEncoder
+from unet3d_tpu_torch.models.monai_heads import (Classifier, Critic, Discriminator, Generator,
+                                                 Regressor)
 from unet3d_tpu_torch.models.monai_unet import UNet
 from unet3d_tpu_torch.models.quicknat import Quicknat
+from unet3d_tpu_torch.models.regunet import GlobalNet, LocalNet, RegUNet
 from unet3d_tpu_torch.models.segresnet import SegResNet, SegResNetVAE
 from unet3d_tpu_torch.models.segresnet_ds import SegResNetDS
 from unet3d_tpu_torch.models.swin_unetr import SwinUNETR
@@ -58,16 +68,28 @@ MODEL_REGISTRY: Dict[str, Any] = {
     "TopologyInstance": TopologyInstance,     # the search spaces resolve by
     "TopologySearch": TopologySearch,         # name, as in JAX
     "TopologyConstruction": TopologyInstance,  # MONAI's base-class name
+    "AutoEncoder": AutoEncoder,
+    "VarAutoEncoder": VarAutoEncoder,
+    "Regressor": Regressor,
+    "Classifier": Classifier,
+    "Discriminator": Discriminator,
+    "Critic": Critic,
+    "Generator": Generator,
+    "HighResNet": HighResNet,
+    "AHNet": AHNet,
+    "AHnet": AHNet,                           # MONAI's aliases
+    "Ahnet": AHNet,
+    "RegUNet": RegUNet,
+    "GlobalNet": GlobalNet,
+    "LocalNet": LocalNet,
 }
 
 # names the JAX package resolves that the port does not have yet
 NOT_YET_PORTED = (
-    "AHNet", "AHnet", "Ahnet", "AutoEncoder", "Classifier", "Critic",
     "DenseNet", "DenseNet121", "DenseNet169", "DenseNet201", "DenseNet264",
-    "Discriminator", "EfficientNetBN", "FCN", "Generator",
-    "GlobalNet", "GraphCMR", "HighResNet", "LocalNet",
-    "RegUNet", "RegularizedBasicResNet", "RegularizedResNet", "Regressor",
-    "ResNet", "ResNetWithDecoder1D", "VQVAE", "VarAutoEncoder",
+    "EfficientNetBN", "FCN", "GraphCMR",
+    "RegularizedBasicResNet", "RegularizedResNet",
+    "ResNet", "ResNetWithDecoder1D", "VQVAE",
     "resnet_101", "resnet_152", "resnet_18", "resnet_34", "resnet_50",
     "resnext_101_32x8d", "resnext_50_32x4d",
 )

@@ -58,3 +58,20 @@ def upsample_ndhwc(x: torch.Tensor, scale: int = 2, mode: str = "trilinear",
     """scale_factor-style upsample (torch semantics: out = floor(in * scale))."""
     out_spatial = tuple(int(s * scale) for s in x.shape[1:4])
     return resize_ndhwc(x, out_spatial, mode=mode, align_corners=align_corners)
+
+
+def image_resize(x: torch.Tensor, factors: Sequence[int],
+                 method: str = "trilinear") -> torch.Tensor:
+    """``jax.image.resize(x, spatial * factors, method)`` on NDHWC ``x`` for
+    integer upsampling ``factors`` (one per spatial axis): one axis at a time
+    (the JAX einsum's contractions), each with half-pixel centres, clamped at
+    the edges (where JAX renormalises the weights: the same values for an
+    upsample), in f32 and rounded to x's dtype; ``nearest`` takes source
+    index ``floor((i + 0.5) / factor)``, JAX's nearest."""
+    dtype = x.dtype
+    mode = "trilinear" if method == "trilinear" else "nearest-exact"
+    for axis, factor in enumerate(factors):
+        out = list(x.shape[1:4])
+        out[axis] *= int(factor)
+        x = resize_ndhwc(x, out, mode).to(dtype)
+    return x

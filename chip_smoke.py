@@ -231,17 +231,38 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    gradients and running statistics against the plain path (phase 11's
    rules; VarAutoEncoder's on the means over three noise draws),
    LocalNet's and HighResNet's (at 64^3) f32 step under torch's
-   default TF32 flags against TF32 off (each path within a fifth of what
-   TF32 does with the port's policy taken out: a last-bit change of cuDNN's
-   weight gradients moves these BatchNorm nets' f32 step ~2e-5 run to run
-   on an H100),
-   step ms, peak memory and a profile; (d) Regressor,
+   default TF32 flags against TF32 off, with cuDNN deterministic (the plain
+   path within 1e-5; the kernels within a fifth of what TF32 does with the
+   port's policy taken out), step ms, peak memory and a profile; (d) Regressor,
    Classifier, Discriminator, Critic and Generator at their defaults: one
    forward (f32, bf16) and one f32 backward on the card against f64 on the
    CPU, with their launches; (e) the train CLI with LocalNet on phase 8's
    cases (fold 1, 2 epochs): a ``params`` + ``batch_stats`` checkpoint that
    reloads strictly, the predict CLI on it on the source grid within 3e-2
    of the train CLI's prediction.
+
+15. the classifiers (``CLASSIFIERS``) at their published widths on the
+   input of MONAI's 3-D classification tutorial (batch 2, one channel, 96^3,
+   two classes): (a) the conv kernel at DenseNet121's conv2 sites (128 ->
+   32 and its input gradient 32 -> 128 at 24^3 to 3^3) against its plain
+   version, timed as in phase 2; (b) resnet_50, resnext_50_32x4d (grouped
+   convs), DenseNet121, EfficientNetBN b0 (depthwise convs),
+   RegularizedResNet, RegularizedBasicResNet, ResNetWithDecoder1D and the
+   FCN: one bf16 and one f32 forward of every output, the hand kernels
+   against the plain path within relative L2 3e-2, launches by form
+   (DenseNet121 ``conv`` 58, RegularizedResNet ``conv``, the others none),
+   the bf16 forward timed; (c) one bf16 AMP ``make_train_step`` each
+   (CrossEntropyLoss on one-hot targets; ``sum(out * g)`` for the 1-D
+   decoder): launches by form (DenseNet121 ``conv`` 116, RegularizedResNet
+   ``conv`` and ``s2_wgrad``), the gradients of every output and the
+   running statistics against the plain path with cuDNN deterministic
+   (phase 11's rules; where BatchNorm's invariances carry the f32 paths'
+   noise past 1e-3, as in DenseNet121 and RegularizedResNet at batch 2, the
+   kernels held to the plain path's f64 gradients: no further from them
+   than 1.25 times the plain path, in f32 and bf16), step ms, peak memory and
+   the idle share; (d) resnet_152, resnext_101_32x8d, DenseNet264 and
+   efficientnet-b7: one bf16 forward each, finite logits (DenseNet264
+   ``conv`` 130).
 
 Exits non-zero if any phase fails or there is no CUDA device. The last lines
 are the card, a JSON object of the kernels (the bf16 forms' rows, then the
@@ -451,6 +472,10 @@ BN_STATS_BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # bf16 gradients through the kernels no further from the plain f32 ones than
 # this many times the plain bf16 path's (two samples of bf16 rounding noise)
 BF16_EXCESS = 1.25
+# where the f32 paths' gradients lie GRAD_BOUND_F32 or more apart, each is
+# held to f64: the kernels' no further from it than this many times the
+# plain path's (phase 15; the tests' rule against JAX's f64 evaluation)
+F64_EXCESS = 1.25
 # phase 12: the transformers, each in the BraTS config with its model section
 # replaced. UNETR at the paper's and MONAI's widths (Hatamizadeh et al., WACV
 # 2022, arXiv:2103.10504: hidden 768, mlp 3072, 12 heads, 12 layers, patch
@@ -599,6 +624,48 @@ LAST_CONV_SHAPES = [
 ]
 LAST_S2_SHAPES = [("RegUNet pool_conv_0 x 128^3 16->16", 128, 16, 16),
                   ("AutoEncoder encode_0 x 128^3 4->4", 128, 4, 4)]
+
+# phase 15: the classifiers at the JAX package's (MONAI's and torchvision's)
+# published widths, on the input of MONAI's 3-D classification tutorial
+# (3d_classification/: DenseNet121 on IXI): batch 2, one channel, 96^3, two
+# classes. RegularizedResNet sizes its variational layer from the input;
+# ResNetWithDecoder1D decodes 512 logits into one value per vertex of an
+# fs_LR 32k hemisphere (32492); the FCN reads the flattened volume.
+CLASSIFIER_SHAPE = (96, 96, 96)
+CLASSIFIER_BATCH = 2
+CLASSIFIERS = (
+    ("resnet_50", {"name": "resnet_50", "n_features": 1, "n_outputs": 2}),
+    ("resnext_50_32x4d", {"name": "resnext_50_32x4d", "n_features": 1, "n_outputs": 2}),
+    ("DenseNet121", {"name": "DenseNet121", "in_channels": 1, "out_channels": 2}),
+    ("EfficientNetBN", {"name": "EfficientNetBN", "model_name": "efficientnet-b0",
+                        "in_channels": 1, "num_classes": 2}),
+    ("RegularizedResNet", {"name": "RegularizedResNet", "n_outputs": 2,
+                           "input_shape": list(CLASSIFIER_SHAPE), "n_features": 1}),
+    ("RegularizedBasicResNet", {"name": "RegularizedBasicResNet", "n_features": 1,
+                                "n_outputs": 2}),
+    ("ResNetWithDecoder1D", {"name": "ResNetWithDecoder1D", "n_fc_outputs": 512,
+                             "n_outputs": 32492}),
+    ("FCN", {"name": "FCN", "hidden_layers_list": [128, 64],
+             "n_inputs": int(np.prod(CLASSIFIER_SHAPE)), "n_outputs": 2}),
+)
+# the deepest and widest factories: one bf16 forward each
+CLASSIFIERS_LARGE = (
+    ("resnet_152", {"name": "resnet_152", "n_features": 1, "n_outputs": 2}),
+    ("resnext_101_32x8d", {"name": "resnext_101_32x8d", "n_features": 1, "n_outputs": 2}),
+    ("DenseNet264", {"name": "DenseNet264", "in_channels": 1, "out_channels": 2}),
+    ("efficientnet-b7", {"name": "EfficientNetBN", "model_name": "efficientnet-b7",
+                         "in_channels": 1, "num_classes": 2}),
+)
+# the nets whose 3^3 stride-1 convs are FastConvs (the hand conv kernel):
+# DenseNet121's 58 dense layers' conv2, RegularizedResNet's Myronenko blocks
+CLASSIFIER_KERNEL_NETS = ("DenseNet121", "RegularizedResNet")
+# (label, spatial, cin, cout, dtype, form): DenseNet121's conv2 (bn_size 4 x
+# growth 32 = 128 -> 32) and its input gradient (32 -> 128) at each dense
+# block's size on the 96^3 input, one item
+DENSENET_CONV_SHAPES = [
+    (f"DenseNet121 {label} @{s}^3", s, cin, cout, torch.bfloat16, "wgmma")
+    for s in (24, 12, 6, 3)
+    for label, cin, cout in (("conv2 128->32", 128, 32), ("dx of conv2 32->128", 32, 128))]
 
 
 class SmokeFailure(RuntimeError):
@@ -2626,7 +2693,8 @@ def conv_sites(model) -> tuple:
     return sites.count((1, 1, 1)), sites.count((2, 2, 2))
 
 
-def path_grads(model, criterion, images, labels, device, seed, plain=None) -> dict:
+def path_grads(model, criterion, images, labels, device, seed, plain=None,
+               objective=None, f64=False) -> dict:
     """One training forward and backward from the same running statistics
     (put back after), the noise drawn alike, through the kernels and the
     plain path (``plain``, a context: ``plain_convs`` by default), in f32
@@ -2638,9 +2706,18 @@ def path_grads(model, criterion, images, labels, device, seed, plain=None) -> di
     transformers' bf16 attention), so besides phase 5's bound on kernels
     against the plain path, the bf16 check holds the kernels no further from
     f32 than ``BF16_EXCESS`` times the plain path, as the tests hold the port
-    against JAX (tests/test_torch_batchnorm.py::check_grads)."""
+    against JAX (tests/test_torch_batchnorm.py::check_grads). ``objective``
+    (model, x, y, amp, rng) -> loss replaces the step's ``forward_loss`` of
+    ``criterion``. With ``f64``, where the f32 paths lie GRAD_BOUND_F32 or
+    more apart, each path's gradients are also held to the plain path's in
+    f64 on a double copy of the model (``check_path_grads`` then reads
+    those distances)."""
+    import copy
+
     from unet3d_tpu_torch.train.step import forward_loss, noise_generator, prepare_batch
     plain_path = plain or plain_convs
+    objective = objective or (lambda m, x, y, amp, rng: forward_loss(m, criterion, x, y, amp,
+                                                                     rng))
     names, params = zip(*model.named_parameters())
     start = [b.clone() for b in model.buffers()]
 
@@ -2650,7 +2727,7 @@ def path_grads(model, criterion, images, labels, device, seed, plain=None) -> di
             for b, b0 in zip(model.buffers(), start):
                 b.copy_(b0)
         with plain_path() if plain else contextlib.nullcontext():
-            loss = forward_loss(model, criterion, x, y, amp, noise_generator(model, seed))
+            loss = objective(model, x, y, amp, noise_generator(model, seed))
             grads = torch.autograd.grad(loss, params)
         return grads, [b.clone() for b in model.buffers()]
 
@@ -2668,13 +2745,30 @@ def path_grads(model, criterion, images, labels, device, seed, plain=None) -> di
     f32 = runs[False, True][0]
     out["bf16"].update(kernels_vs_f32=rel_l2_of(runs[True, False][0], f32),
                        plain_vs_f32=rel_l2_of(runs[True, True][0], f32))
+    if f64 and out["f32"]["gradients"] >= GRAD_BOUND_F32:
+        double = copy.deepcopy(model).double()
+        x, y = prepare_batch(images, labels, device, False)
+        with plain_path():
+            loss = objective(double, x.double(), y.double(), False,
+                             noise_generator(double, seed))
+            exact = torch.autograd.grad(loss, list(double.parameters()))
+        del double, loss
+        torch.cuda.empty_cache()
+        for dt, amp in (("f32", False), ("bf16", True)):
+            out[dt].update(kernels_vs_f64=rel_l2_of(runs[amp, False][0], exact),
+                           plain_vs_f64=rel_l2_of(runs[amp, True][0], exact))
     return out
 
 
 def check_path_grads(name: str, result: dict) -> None:
     """``path_grads``' result against phase 5's bounds (kernels against the
     plain path in the same dtype), the bf16 rule against f32 and, for a
-    BatchNorm net, the statistics bounds."""
+    BatchNorm net, the statistics bounds. Where ``path_grads`` took the f64
+    gradients (its f32 paths GRAD_BOUND_F32 or more apart: the f32 noise of
+    either path, carried up by the BatchNorms' invariances, past the bound),
+    the kernels' gradients in each dtype are held no further from them than
+    F64_EXCESS times the plain path's, as the tests hold the port against
+    JAX's f64 evaluation (tests/test_torch_batchnorm.py::_check_f32)."""
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         r = result[dt]
         msg = (f"{name} {dt}, kernels vs plain path: gradients rel L2 {r['gradients']:.3e} "
@@ -2684,9 +2778,16 @@ def check_path_grads(name: str, result: dict) -> None:
         if dt == "bf16":
             msg += (f"; bf16 gradients vs the plain f32 ones: kernels {r['kernels_vs_f32']:.3e}, "
                     f"plain {r['plain_vs_f32']:.3e}")
+        if "kernels_vs_f64" in r:
+            msg += (f"; vs the plain path in f64: kernels {r['kernels_vs_f64']:.3e}, plain "
+                    f"{r['plain_vs_f64']:.3e}")
         print(msg, flush=True)
         bound = GRAD_BOUND_F32 if dt == "f32" else GRAD_BOUND_BF16
-        check(r["gradients"] < bound, f"{msg}: gradients > {bound}")
+        if "kernels_vs_f64" in r:
+            limit = max(bound, F64_EXCESS * r["plain_vs_f64"])
+            check(r["kernels_vs_f64"] < limit, f"{msg}: kernels vs f64 > {limit:.3e}")
+        else:
+            check(r["gradients"] < bound, f"{msg}: gradients > {bound}")
         if dt == "bf16":
             limit = max(GRAD_BOUND_BF16, BF16_EXCESS * r["plain_vs_f32"])
             check(r["kernels_vs_f32"] < limit, f"{msg}: bf16 kernels vs f32 > {limit:.3e}")
@@ -2966,23 +3067,37 @@ def plain_blocks():
         dynunet.UnetBasicBlock.forward, dynunet.UnetResBlock.forward = saved
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """``torch.backends.cudnn.deterministic`` inside the block, restored
+    after it."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 def transformer_f32_policy(name, model, criterion, images, labels, device,
-                           plain=None, plain_deterministic=True) -> dict:
+                           plain=None) -> dict:
     """The port's f32 policy in one f32 step's gradients, each path against
     itself with TF32 off by the caller: under torch's default TF32 flags
-    (cuDNN's in TF32) and with cuBLAS's TF32 on too. Through the plain path
-    (``plain``, a context: ``plain_blocks`` by default, every conv cuDNN's,
-    every matmul cuBLAS's, the attention products included; its forward is
-    deterministic) within TF32_FLAGS_BOUND. Through the kernels the forward
-    is not: their f32 statistics sum by atomics, and a last-bit change
-    carries a leaky ReLU across its kink here and there, so the same step
-    twice differs (the spread, printed); each within TF32_SHARE of what TF32
-    does to the plain path's gradients with the policy taken out
-    (``full_f32`` a no-op, cuBLAS's and cuDNN's TF32 on: the control, which
-    must move them past that). Without ``plain_deterministic`` the plain path
-    is held as the kernels are: phase 14's BatchNorm nets at batch 1 carry a
-    last-bit change of cuDNN's weight gradients to ~2e-5 of the step (on an
-    H100)."""
+    (cuDNN's in TF32) and with cuBLAS's TF32 on too, every run with cuDNN
+    deterministic (``cudnn_deterministic``): a BatchNorm net at batch 1
+    carries a last-bit change of cuDNN's weight gradients to 5e-5 of
+    LocalNet's step by default, 7.7e-7 with cuDNN deterministic (on an H100,
+    ``tools/f32_step_determinism.py``). Through the plain path (``plain``, a
+    context: ``plain_blocks`` by default, every conv cuDNN's, every matmul
+    cuBLAS's, the attention products included) within TF32_FLAGS_BOUND.
+    Through the kernels the step is not reproducible: the f32 statistics of
+    ``conv_stats`` and ``block_stats`` sum by atomics
+    (``ops/kernels/conv3d_wgmma.cu``), and a last-bit change carries a leaky
+    ReLU across its kink here and there, so the same step twice differs (the
+    spread, printed); each within TF32_SHARE of what TF32 does to the plain
+    path's gradients with the policy taken out (``full_f32`` a no-op,
+    cuBLAS's and cuDNN's TF32 on: the control, which must move them past
+    that)."""
     from unet3d_tpu_torch.ops import conv3d as conv_ops
     from unet3d_tpu_torch.ops import conv3d_kernel
     from unet3d_tpu_torch.train.step import forward_loss, prepare_batch
@@ -2997,7 +3112,7 @@ def transformer_f32_policy(name, model, criterion, images, labels, device,
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
         try:
-            with plain_path() if plain else contextlib.nullcontext():
+            with plain_path() if plain else contextlib.nullcontext(), cudnn_deterministic():
                 return torch.autograd.grad(forward_loss(model, criterion, x, y, False), params)
         finally:
             torch.backends.cudnn.allow_tf32 = True
@@ -3020,9 +3135,9 @@ def transformer_f32_policy(name, model, criterion, images, labels, device,
     print(f"{name} f32 step gradients vs the same path with TF32 off by the caller, rel L2 "
           f"{out}", flush=True)
     for key in ("default_flags", "matmul_tf32_on"):
-        limit = TF32_FLAGS_BOUND if plain_deterministic else TF32_SHARE * control
-        check(out["plain"][key] < limit, f"{name} f32 policy, plain path: {key} "
-              f"{out['plain'][key]:.3e} > {limit:.3e}")
+        check(out["plain"][key] < TF32_FLAGS_BOUND, f"{name} f32 policy, plain path: {key} "
+              f"{out['plain'][key]:.3e} > {TF32_FLAGS_BOUND:.3e}")
+        # the kernels' atomic f32 statistics keep their path on the share rule
         limit = TF32_SHARE * control
         check(out["kernels"][key] < limit, f"{name} f32 policy, kernels: {key} "
               f"{out['kernels'][key]:.3e} > {limit:.3e} ({TF32_SHARE} of TF32's {control:.3e})")
@@ -3558,8 +3673,9 @@ def phase14_net(index, name, model_cfg, device, seed, card, profile_window=False
     launches by form as its calls predict (``expected_forms``), the
     gradients and running statistics against the plain path
     (``path_grads_over_draws``), for F32_POLICY_LAST the f32 step under torch's
-    default TF32 flags (``transformer_f32_policy`` through ``plain_convs``,
-    both paths held to TF32_SHARE of TF32's effect), step ms and peak memory
+    default TF32 flags (``transformer_f32_policy`` through ``plain_convs``:
+    the plain path within TF32_FLAGS_BOUND, the kernels within TF32_SHARE of
+    TF32's effect), step ms and peak memory
     (plain, kernels, kernels, plain) and a profile."""
     import copy
 
@@ -3637,7 +3753,7 @@ def phase14_net(index, name, model_cfg, device, seed, card, profile_window=False
         s = F32_POLICY_LAST[name]
         out["f32_policy"] = transformer_f32_policy(
             name, model, criterion, images[..., :s, :s, :s], labels[..., :s, :s, :s], device,
-            plain=plain_convs, plain_deterministic=False)
+            plain=plain_convs)
     torch.cuda.empty_cache()
     step_times, peaks = {"plain": [], "kernels": []}, {}
     for which in ("plain", "kernels", "kernels", "plain"):
@@ -3793,6 +3909,273 @@ def phase14_train_cli(device, seed, card, cases):
         lambda: check_allowed_forms("LocalNet train CLI", {("conv", "wgmma"), ("conv", "wmma")}),
         device, seed, card, cases)
 
+class ProjectionLoss:
+    """``sum(out * y)``: the targets are the cotangent (ResNetWithDecoder1D's
+    signal has no classes)."""
+
+    def __call__(self, out: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        return (out.float() * target).sum()
+
+
+def classifier_objective(criterion, gs):
+    """``path_grads``' objective for a classifier: the step's ``criterion``
+    on the first output plus ``sum(e * g)`` of each further one (the
+    hybrids' reconstruction, mu and logvar, which the train step's criterion
+    does not read), through the train step's AMP forward (bf16 copies of
+    the parameters, the buffers as they are)."""
+    from torch.func import functional_call
+
+    from unet3d_tpu_torch.train.step import amp_cast
+
+    def objective(model, x, y, amp, rng):
+        kwargs = {"train": True} if rng is None else {"train": True, "rng": rng}
+        if amp:
+            out = functional_call(model, amp_cast(dict(model.named_parameters())), (x,), kwargs)
+        else:
+            out = model(x, **kwargs)
+        outs = out if isinstance(out, tuple) else (out,)
+        loss = criterion(outs[0], y)
+        for e, g in zip(outs[1:], gs):
+            loss = loss + (e.float() * g).sum()
+        return loss
+
+    return objective
+
+
+def one_path_grads(name, model, objective, images, labels, device, seed) -> dict:
+    """A net without a hand kernel has one path: its f32 and bf16 AMP
+    training gradients of ``objective`` (the running statistics put back
+    after each), finite; the bf16 ones' relative L2 from the f32 ones."""
+    from unet3d_tpu_torch.train.step import noise_generator, prepare_batch
+    params = list(model.parameters())
+    start = [b.clone() for b in model.buffers()]
+    grads = {}
+    for amp in (False, True):
+        x, y = prepare_batch(images, labels, device, amp)
+        loss = objective(model, x, y, amp, noise_generator(model, seed))
+        grads[amp] = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            for b, b0 in zip(model.buffers(), start):
+                b.copy_(b0)
+    finite = all(bool(torch.isfinite(g).all()) for gs in grads.values() for g in gs)
+    out = dict(bf16_vs_f32=rel_l2_of(grads[True], grads[False]))
+    print(f"{name} gradients (one path: no hand kernel): finite {finite}; bf16 vs f32 rel L2 "
+          f"{out['bf16_vs_f32']:.3e}", flush=True)
+    check(finite, f"{name}: non-finite gradients")
+    return out
+
+
+def forward_all(model, amp: bool):
+    """``make_forward``'s forward (bf16 copies of the parameters and buffers
+    under ``amp``), every output of a tuple kept, each as f32."""
+    import copy
+    net = copy.deepcopy(model).to(torch.bfloat16) if amp else model
+    net.eval()
+
+    def forward(x):
+        with torch.inference_mode():
+            out = net(x.to(torch.bfloat16) if amp else x)
+        return [t.float() for t in (out if isinstance(out, tuple) else (out,))]
+
+    return forward
+
+
+def classifier_input(name, seed, index, device):
+    """Phase 15's batch: (2, 96^3, 1) NDHWC, flattened for the FCN."""
+    rng = np.random.RandomState(seed + 200 + index)
+    x = torch.from_numpy(rng.randn(CLASSIFIER_BATCH, *CLASSIFIER_SHAPE, 1)
+                         .astype(np.float32)).to(device)
+    return x.reshape(CLASSIFIER_BATCH, -1) if name == "FCN" else x
+
+
+def phase15_net(index, name, model_cfg, device, seed, card):
+    """One classifier at its published widths on phase 15's batch: (b) one
+    bf16 and one f32 forward of every output (``forward_all``), kernels
+    against the plain path (``plain_convs``) within L2_BOUND, launches by form
+    (DenseNet121: ``conv`` once per dense layer, all wgmma;
+    RegularizedResNet: ``conv``, its one-channel first conv in the wmma form
+    and, under AMP, the f32 decoder's in tf32x3; the others: none), the
+    bf16 ``make_forward`` window timed; (c) one bf16 AMP ``make_train_step``
+    (CrossEntropyLoss on one-hot targets, ``ProjectionLoss`` for
+    ResNetWithDecoder1D; Adam at MONAI's tutorial rate 1e-4) after a
+    warm-up: launches by form (DenseNet121's as its calls predict, 116; the
+    hybrid's ``conv`` and ``s2_wgrad``); the gradients of every output and
+    the running statistics against the plain path (``path_grads`` with
+    ``classifier_objective`` under cuDNN deterministic, phase 11's rules;
+    where the f32 paths lie GRAD_BOUND_F32 or more apart, each dtype's
+    kernels no further from the plain path's f64 gradients than F64_EXCESS
+    times the plain path's); step ms, peak memory and a profile (the idle
+    share). A net without a hand kernel runs one path: its forwards and its
+    gradients (``one_path_grads``) finite."""
+    import copy
+
+    from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
+    from unet3d_tpu_torch.predict.volumetric import make_forward
+    from unet3d_tpu_torch.train.losses import CrossEntropyLoss
+    from unet3d_tpu_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    config = {"model": dict(model_cfg), "dataset": {"desired_shape": list(CLASSIFIER_SHAPE)}}
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    x = classifier_input(name, seed, index, device)
+    kernels = name in CLASSIFIER_KERNEL_NETS
+    n = CLASSIFIER_BATCH
+    out = dict(params=n_params)
+    bf16_allowed = {("conv", "wgmma"), ("conv", "wmma"), ("conv", "tf32x3")}
+    outputs = {}
+    for amp in (True, False):
+        forward = forward_all(model, amp)
+        torch.cuda.synchronize()
+        reset_launches()
+        got = forward(x)
+        torch.cuda.synchronize()
+        launches, forms = launch_counts(), forms_of(TRAIN_KERNELS)
+        if kernels:
+            with plain_convs():
+                want = forward(x)
+            check(launch_counts() == launches, f"{name}: the plain path launched a hand kernel")
+        else:
+            want = got  # one path: no hand kernel
+        rel = max(rel_l2_of([g], [w]) for g, w in zip(got, want))
+        dt = "bf16" if amp else "f32"
+        msg = (f"{name} ({n_params} params) {dt} forward {tuple(x.shape)}: outputs "
+               f"{[tuple(t.shape) for t in got]}, kernels vs plain path rel L2 {rel:.3e}; "
+               f"launches {launches}; by form {forms}")
+        print(msg, flush=True)
+        check(all(bool(torch.isfinite(t).all()) for t in got), f"{msg}: not finite")
+        check(rel < L2_BOUND, f"{msg} > {L2_BOUND}")
+        check(not launches["s2_wgrad"] and not launches["winograd"], f"{msg}: launches")
+        if name == "DenseNet121":
+            want_forms = (static_window_forms(model) if amp
+                          else {"conv/tf32x3": static_window_forms(model)["conv/wgmma"]})
+            check(forms == want_forms, f"{msg}: forms, expected {want_forms}")
+        elif kernels:
+            check(launches["conv"] > 0, f"{msg}: the conv kernel was not launched")
+            check_allowed_forms(f"{name} {dt} forward", bf16_allowed if amp else
+                                {("conv", "tf32x3"), ("conv", "fma")})
+        else:
+            check(not any(launches.values()), f"{msg}: a hand kernel was launched")
+        out[f"{dt}_forward"] = dict(rel_l2=rel, launches=launches, forms=forms)
+        outputs[dt] = [tuple(t.shape) for t in got]
+        del forward, got, want
+    first = outputs["bf16"][0]
+    want_first = ((n, model_cfg["n_outputs"], 1) if name == "ResNetWithDecoder1D"
+                  else (n, 2))
+    check(first == want_first, f"{name}: output {first}, expected {want_first}")
+    window = make_forward(model, amp=True)
+    paths = ("plain", "kernels", "kernels", "plain") if kernels else ("kernels",)
+    times = {p: [] for p in set(paths)}
+    for which in paths:
+        with plain_convs() if which == "plain" else contextlib.nullcontext():
+            times[which].append(cuda_ms(lambda: window(x), reps=3))
+    print(f"{name} bf16 forward {tuple(x.shape)} (make_forward): {times} ms [{card}]",
+          flush=True)
+    out["window_ms"] = times
+    del window
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(seed + 220 + index)
+    xn = x.cpu().numpy()
+    images = xn if name == "FCN" else np.ascontiguousarray(np.moveaxis(xn, -1, 1))
+    if name == "ResNetWithDecoder1D":
+        criterion = ProjectionLoss()
+        labels = (rng.randn(*first) / np.sqrt(first[1])).astype(np.float32)
+    else:
+        criterion = CrossEntropyLoss()
+        labels = np.eye(2, dtype=np.float32)[rng.randint(2, size=n)]
+    gs = [torch.from_numpy((rng.randn(*shape) / np.sqrt(np.prod(shape[1:])))
+                           .astype(np.float32)).to(device) for shape in outputs["f32"][1:]]
+    start = copy.deepcopy(model.state_dict())
+    step = make_train_step(model, criterion, torch.optim.Adam(model.parameters(), lr=1e-4),
+                           amp=True, seed=seed)
+    step(images, labels)  # warm-up: cuDNN plans, the allocator
+    model.load_state_dict(start)
+    torch.cuda.synchronize()
+    reset_launches()
+    with conv_calls(model) as calls:
+        loss = float(step(images, labels))
+    torch.cuda.synchronize()
+    model.load_state_dict(start)
+    step_launches, step_forms = launch_counts(), forms_of(TRAIN_KERNELS)
+    msg = (f"{name} train step: loss {loss:.6f}; launches {step_launches}; by form "
+           f"{step_forms}")
+    print(msg, flush=True)
+    check(np.isfinite(loss), f"{name} train loss {loss}")
+    if name == "DenseNet121":
+        want_forms = expected_forms(calls)
+        check(step_forms == want_forms, f"{msg}: forms, expected {want_forms}")
+    elif kernels:
+        # the step's loss reads the logits alone, so the decoder's convs
+        # take no input gradient: no count to predict but that both run
+        check(step_launches["conv"] > 0 and step_launches["s2_wgrad"] > 0, f"{msg}: kernels")
+        check_allowed_forms(f"{name} train step", bf16_allowed | {("s2_wgrad", "wgmma"),
+                                                                  ("s2_wgrad", "wmma")})
+    else:
+        check(not any(step_launches.values()), f"{msg}: a hand kernel was launched")
+    objective = classifier_objective(criterion, gs)
+    if kernels:
+        # cuDNN deterministic: the gap is the kernels', not cuDNN's own
+        # run-to-run spread (which BatchNorm's invariances carry up too)
+        with cudnn_deterministic():
+            grads = path_grads(model, criterion, images, labels, device, seed,
+                               objective=objective, f64=True)
+        check_path_grads(name, grads)
+    else:
+        grads = one_path_grads(name, model, objective, images, labels, device, seed)
+    torch.cuda.empty_cache()
+    step_times, peaks = {p: [] for p in set(paths)}, {}
+    for which in paths:
+        one = make_train_step(model, criterion, torch.optim.Adam(model.parameters(), lr=1e-6),
+                              amp=True, seed=seed)
+        with plain_convs() if which == "plain" else contextlib.nullcontext():
+            torch.cuda.reset_peak_memory_stats()
+            step_times[which].append(step_ms(one, images, labels, reps=3))
+            peaks[which] = torch.cuda.max_memory_allocated() / 2**30
+    model.load_state_dict(start)
+    step_profile = profile_device(lambda: step(images, labels),
+                                  f"{name} one bf16 train step", card)
+    model.load_state_dict(start)
+    print(f"{name} train step (bf16 AMP, batch {n}, {tuple(x.shape[1:])}): {step_times} ms; "
+          f"peak memory {peaks} GiB; {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    del model, step, start
+    torch.cuda.empty_cache()
+    return step_launches, dict(out, step_loss=loss, step_forms=step_forms,
+                               kernels_vs_plain=grads, step_ms=step_times, peak_gib=peaks,
+                               step_profile=step_profile)
+
+
+def phase15_large(device, seed, card) -> dict:
+    """(d) The deepest and widest factories (``CLASSIFIERS_LARGE``): one bf16
+    ``make_forward`` of phase 15's batch each, finite logits of shape (2,
+    2), launches by form as the 3^3 FastConvs predict (DenseNet264: one
+    ``conv`` a dense layer), timed."""
+    from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
+    from unet3d_tpu_torch.predict.volumetric import make_forward
+    out = {}
+    for i, (name, model_cfg) in enumerate(CLASSIFIERS_LARGE):
+        config = {"model": dict(model_cfg), "dataset": {"desired_shape": list(CLASSIFIER_SHAPE)}}
+        model = build_or_load_model_from_config(config, None, device, seed=seed)
+        n_params = sum(p.numel() for p in model.parameters())
+        x = classifier_input(name, seed, 10 + i, device)
+        forward = make_forward(model, amp=True)
+        reset_launches()
+        y = forward(x)
+        torch.cuda.synchronize()
+        launches, forms = launch_counts(), forms_of(TRAIN_KERNELS)
+        ms = cuda_ms(lambda: forward(x), reps=2)
+        print(f"{name} ({n_params} params) bf16 forward {tuple(x.shape)}: logits "
+              f"{tuple(y.shape)}, {ms:.3f} ms, launches by form {forms} [{card}]", flush=True)
+        # DenseNet264's 130 dense layers run conv once each, the others none
+        check(tuple(y.shape) == (CLASSIFIER_BATCH, 2) and bool(torch.isfinite(y).all())
+              and forms == static_window_forms(model), f"{name}: logits {tuple(y.shape)}, "
+              f"{forms}, expected {static_window_forms(model)}")
+        out[name] = dict(params=n_params, ms=ms, forms=forms)
+        del model, forward, y
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3884,6 +4267,16 @@ def main() -> int:
     shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
     print(f"phase 14 {time.perf_counter() - t14:.1f} s; the smoke so far "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    # phase 15
+    t15 = time.perf_counter()
+    classifier_rows = phase10_kernels(device, gen, DENSENET_CONV_SHAPES, [], "classifiers")
+    classifier_launches, classifiers = {}, {}
+    for i, (name, model_cfg) in enumerate(CLASSIFIERS):
+        classifier_launches[name], classifiers[name] = phase15_net(
+            i, name, model_cfg, device, args.seed, card)
+    classifiers["large"] = phase15_large(device, args.seed, card)
+    print(f"phase 15 {time.perf_counter() - t15:.1f} s; the smoke so far "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     check(not any(m in sys.modules for m in ("jax", "unet3d_tpu")),
           "the port imported jax")
     # launches: the training path's (phase 5; phase 7 for the Winograd
@@ -3908,7 +4301,9 @@ def main() -> int:
     # launches_autoencoder: one bf16 train step of each (phase 14c),
     # launches_train_cli_localnet its train CLI run (phase 14e), and
     # last_conv_net_shapes the conv kernel and s2_wgrad at their new sites
-    # (phase 14a)
+    # (phase 14a); launches_densenet121 and launches_regularizedresnet: one
+    # bf16 train step of each (phase 15c), and classifier_shapes the conv
+    # kernel at DenseNet121's conv2 sites (phase 15a)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": v, "route": "cuda", "source": SOURCES[v],
                 "replaces": REPLACES[v], "launches": train_launches[v],
@@ -3928,6 +4323,8 @@ def main() -> int:
                 "launches_globalnet": last_launches["GlobalNet"][v],
                 "launches_autoencoder": last_launches["AutoEncoder"][v],
                 "launches_train_cli_localnet": localnet_cli_launches[v],
+                "launches_densenet121": classifier_launches["DenseNet121"][v],
+                "launches_regularizedresnet": classifier_launches["RegularizedResNet"][v],
                 **{k: report[v][k] for k in keys}}
                for v in TRAIN_KERNELS]
     for entry in kernels:
@@ -3948,6 +4345,9 @@ def main() -> int:
         rows = [r for r in last_rows if r["name"] == entry["name"]]
         if rows:
             entry["last_conv_net_shapes"] = rows
+        rows = [r for r in classifier_rows if r["name"] == entry["name"]]
+        if rows:
+            entry["classifier_shapes"] = rows
     kernels += [{"name": v, "route": "cuda", "source": SOURCES[v],
                  "replaces": REPLACES[v], "launches": strategy_launches[v],
                  "launches_predict": cli_launches["winograd"][v],
@@ -4004,6 +4404,8 @@ def main() -> int:
           f"[{card}]")
     print(f"localnet train cli: "
           f"{json.dumps(dict(localnet_cli, launches=localnet_cli_launches))} [{card}]")
+    print(f"classifiers: {json.dumps(dict(kernel_shapes=classifier_rows, **classifiers))} "
+          f"[{card}]")
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))

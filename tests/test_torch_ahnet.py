@@ -37,7 +37,7 @@ from unet3d_tpu.models.registry import create_model as jax_create_model
 
 from unet3d_tpu_torch.convert import load_jax_variables
 from unet3d_tpu_torch.models import ahnet
-from unet3d_tpu_torch.models.layers import SubpixelConvTranspose
+from unet3d_tpu_torch.models.layers import SubpixelConvTranspose, max_pool
 from unet3d_tpu_torch.models.registry import create_model
 
 from test_torch_batchnorm import few_threads  # noqa: F401 (autouse)
@@ -125,7 +125,7 @@ def test_max_pool_gradient_on_ties_matches_xla(window, strides, padding):
     want, want_dx = jax.jit(lambda v, c: (f(v), jax.vjp(f, v)[1](c)[0]))(
         xj, jnp.asarray(g).astype(jnp.bfloat16))
     xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
-    y = ahnet._max_pool(xt, window, strides, padding)
+    y = max_pool(xt, window, strides, padding)
     y = y + xt if strides == (1, 1, 1) else y
     y.backward(torch.from_numpy(g).to(torch.bfloat16))
     np.testing.assert_array_equal(y.detach().float().numpy(), np.asarray(want, np.float32))

@@ -241,12 +241,12 @@ def test_fastconv_tuple_split_matches_flax(strides):
 
 def test_unported_options_raise():
     """res_block and remat are ported (tests/test_torch_res_remat.py); a 2D
-    DynUNet raises in both packages, other models (ResNet) are still to
+    DynUNet raises in both packages, other models (VQVAE) are still to
     port."""
     create_model("DynUNet", **dict(MODEL_KWARGS, res_block=True, remat=True))
     with pytest.raises(NotImplementedError):
         create_model("DynUNet", **dict(MODEL_KWARGS, spatial_dims=2))
     with pytest.raises(ValueError, match="not ported"):
-        create_model("ResNet")
+        create_model("VQVAE")
     with pytest.raises(ValueError):
         init_parameters(torch.nn.Linear(2, 2), torch.Generator())

@@ -58,6 +58,9 @@ CONV_STACK_MODULES = ("models.basicunet", "models.basicunetplusplus", "models.qu
 LAST_CONV_NET_MODULES = ("models.monai_autoencoder", "models.monai_heads",
                          "models.highresnet", "models.ahnet", "models.regunet",
                          "ops.interpolate", "ops.resample")
+# the classifiers
+CLASSIFIER_MODULES = ("models.resnet", "models.densenet", "models.efficientnet",
+                      "models.custom", "models.fcn", "models.registry", "ops.conv3d")
 
 
 def _env():
@@ -83,6 +86,7 @@ def test_every_module_imports_without_jax_or_a_build():
     assert {f"unet3d_tpu_torch.{m}" for m in TRANSFORMER_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in CONV_STACK_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in LAST_CONV_NET_MODULES} <= set(names.split())
+    assert {f"unet3d_tpu_torch.{m}" for m in CLASSIFIER_MODULES} <= set(names.split())
 
 
 def test_no_source_of_the_port_names_jax():

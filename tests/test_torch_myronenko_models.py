@@ -96,14 +96,14 @@ def test_autoimplant_unet_matches_jax():
 
 def test_unported_names_still_raise():
     """The family's names and the BatchNorm segmentation nets resolve; a name
-    of the JAX registry not ported yet (ResNet, DenseNet, ...), and an
-    unknown one, raise with the list."""
+    of the JAX registry not ported yet (VQVAE, GraphCMR), and an unknown
+    one, raise with the list."""
     for name in ("SegResNet", "UNet3D", "AutocastUNet", "AutoImplantUNet",
                  "ConvolutionalAutoEncoder", "SegResNetDS", "AttentionUnet", "UNet", "VNet"):
         assert isinstance(create_model(name), torch.nn.Module)
     from unet3d_tpu_torch.models.registry import MODEL_REGISTRY, NOT_YET_PORTED
     assert not set(MODEL_REGISTRY) & set(NOT_YET_PORTED)
-    for name in ("ResNet", "resnet_18", "DenseNet121", "EfficientNetBN", "VQVAE"):
+    for name in ("GraphCMR", "VQVAE"):
         with pytest.raises(ValueError, match=f"not ported to PyTorch yet.*{name}"):
             create_model(name)
     with pytest.raises(ValueError, match="is unknown"):

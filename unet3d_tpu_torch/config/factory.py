@@ -231,6 +231,10 @@ def build_or_load_model_from_config(config, model_filename: Optional[str],
         # GlobalNet's affine head and AHNet's PSP up-samples are sized by
         # the input, as the JAX CLI sizes them by initialising on it
         kwargs["image_size"] = model_input_shape_from_config(config)[:3]
+    if (cls is not None and "input_channels" in inspect.signature(cls).parameters
+            and "input_channels" not in kwargs):
+        # ResNetWithDecoder1D's input width, which Flax infers from the input
+        kwargs["input_channels"] = model_input_shape_from_config(config)[-1]
     if remat:
         if cls is not None and "remat" not in inspect.signature(cls).parameters:
             raise NotImplementedError(

@@ -42,9 +42,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from unet3d_tpu_torch.models.layers import BatchNorm, Conv, SubpixelConvTranspose
+from unet3d_tpu_torch.models.layers import BatchNorm, Conv, SubpixelConvTranspose, max_pool
 from unet3d_tpu_torch.ops.interpolate import image_resize
 
 PLANES = (64, 128, 256, 512)
@@ -52,14 +51,6 @@ PLANES = (64, 128, 256, 512)
 
 def _half(n: int) -> int:
     return -(-n // 2)
-
-
-def _max_pool(x: torch.Tensor, window: Sequence[int], strides: Sequence[int],
-              padding: Sequence[int]) -> torch.Tensor:
-    """Max-pool of NDHWC ``x`` with symmetric -inf pads; the gradient goes
-    to each window's first maximum."""
-    y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), tuple(window), tuple(strides), tuple(padding))
-    return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
 def _upsampler(mode: str, channels: int, scale: Tuple[int, int, int]) -> Optional[nn.Module]:
@@ -95,7 +86,7 @@ class Bottleneck3x3x1(nn.Module):
         out = torch.relu(self.bn1(self.conv1(x), train))
         out = self.conv2(out)
         # through-plane context: the (1, 1, 3) max-pool added in
-        out = out + _max_pool(out, (1, 1, 3), (1, 1, 1), (0, 0, 1))
+        out = out + max_pool(out, (1, 1, 3), (1, 1, 1), (0, 0, 1))
         out = torch.relu(self.bn2(out, train))
         out = self.bn3(self.conv3(out), train)
         residual = self.down_bn(self.down_conv(x), train) if self.downsample else x
@@ -152,7 +143,7 @@ class PSP(nn.Module):
                     f"AHNet PSP level {i}: the features' in-plane extent {tuple(x.shape[1:3])} "
                     f"pools by {window[:2]}, but its up-sample was built for {built[:2]}; build "
                     "the model with image_size set to the input's spatial size")
-            p = getattr(self, f"proj{i}")(_max_pool(x, window, window, (0, 0, 0)))
+            p = getattr(self, f"proj{i}")(max_pool(x, window, window, (0, 0, 0)))
             outs.append(_upsample(getattr(self, f"up{i}", None), p, window,
                                   self.upsample_mode))
         return torch.cat(outs, dim=-1)
@@ -212,7 +203,7 @@ class AHNet(nn.Module):
             if d % need:
                 raise ValueError(f"AHNet: spatial dim {i} = {d} must be divisible by {need}")
         h = torch.relu(self.bn0(self.conv1(x), train))
-        h = _max_pool(h, (3, 3, 3), (2, 2, 2), (1, 1, 1))
+        h = max_pool(h, (3, 3, 3), (2, 2, 2), (1, 1, 1))
         feats = []
         for li, n_blocks in enumerate(self.layers):
             for b in range(n_blocks):

@@ -263,18 +263,22 @@ class Conv(nn.Module):
     A ``kernel_size`` tuple sets the number of spatial axes (2 on NHWC
     slices; an int means 3). ``padding`` is symmetric per axis, or "SAME",
     XLA's: ``max((ceil(n / s) - 1) * s + (k - 1) * d + 1 - n, 0)`` in all on
-    an axis of size n, the odd one at the high side."""
+    an axis of size n, the odd one at the high side. ``groups`` is Flax's
+    ``feature_group_count``: the kernel is ``(*k, Cin / groups, Cout)``."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: Ints3,
                  strides: Ints3 = 1, padding: Union[str, Ints3] = 0, dilation: Ints3 = 1,
-                 use_bias: bool = True):
+                 use_bias: bool = True, groups: int = 1):
         super().__init__()
+        if in_channels % groups or features % groups:
+            raise ValueError(f"{groups} groups do not divide {in_channels} -> {features} "
+                             "channels")
         nd = 3 if isinstance(kernel_size, int) else len(kernel_size)
         self.kernel_size, self.strides = _ntuple(kernel_size, nd), _ntuple(strides, nd)
         self.padding = padding if padding == "SAME" else _ntuple(padding, nd)
-        self.dilation = _ntuple(dilation, nd)
+        self.dilation, self.groups = _ntuple(dilation, nd), groups
         self.kernel = nn.Parameter(
-            torch.empty(self.kernel_size + (in_channels, features)))
+            torch.empty(self.kernel_size + (in_channels // groups, features)))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
     def _pads(self, spatial: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
@@ -297,11 +301,21 @@ class Conv(nn.Module):
             pads = ((0, 0),) * nd
         w = self.kernel.to(dtype).permute(nd + 1, nd, *range(nd))
         y = cudnn_conv(x, w, self.strides, tuple(lo for lo, _ in pads),
-                       dilation=self.dilation)
+                       dilation=self.dilation, groups=self.groups)
         y = y.movedim(1, -1).contiguous()
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y
+
+
+def max_pool(x: torch.Tensor, window: Sequence[int], strides: Sequence[int],
+             padding: Sequence[int]) -> torch.Tensor:
+    """Flax's ``nn.max_pool`` of NDHWC ``x`` with symmetric ``padding`` per
+    axis: the pads are -inf, and the gradient goes to each window's first
+    maximum (XLA's and torch's rule)."""
+    y = torch.nn.functional.max_pool3d(x.permute(0, 4, 1, 2, 3), tuple(window),
+                                       tuple(strides), tuple(padding))
+    return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
 def _result_type(*tensors: torch.Tensor) -> torch.dtype:

@@ -8,10 +8,12 @@ without BatchNorm (BasicUNet, BasicUNetPlusPlus, Quicknat, DiNTS with its
 topology spaces, which resolve by name as in JAX), and the last MONAI conv
 nets: AutoEncoder, VarAutoEncoder, the Regressor / Classifier /
 Discriminator / Critic / Generator heads, HighResNet, AHNet (also as AHnet
-and Ahnet) and the registration nets RegUNet, GlobalNet and LocalNet. The
-other names of
-``unet3d_tpu/models/registry.py`` raise with the list of what is still to
-port (ROADMAP.md).
+and Ahnet) and the registration nets RegUNet, GlobalNet and LocalNet; the
+classifiers: ResNet with its ``resnet_*`` / ``resnext_*`` factories,
+DenseNet with ``DenseNet121`` to ``264``, EfficientNetBN, the hybrids
+RegularizedResNet, RegularizedBasicResNet and ResNetWithDecoder1D, and
+the FCN. The other names of ``unet3d_tpu/models/registry.py`` raise with
+the list of what is still to port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -21,8 +23,14 @@ from unet3d_tpu_torch.models.ahnet import AHNet
 from unet3d_tpu_torch.models.attentionunet import AttentionUnet
 from unet3d_tpu_torch.models.basicunet import BasicUNet
 from unet3d_tpu_torch.models.basicunetplusplus import BasicUNetPlusPlus
+from unet3d_tpu_torch.models.custom import (RegularizedBasicResNet, RegularizedResNet,
+                                            ResNetWithDecoder1D)
+from unet3d_tpu_torch.models.densenet import (DenseNet, DenseNet121, DenseNet169,
+                                              DenseNet201, DenseNet264)
 from unet3d_tpu_torch.models.dints import DiNTS, TopologyInstance, TopologySearch
 from unet3d_tpu_torch.models.dynunet import DynUNet
+from unet3d_tpu_torch.models.efficientnet import EfficientNetBN
+from unet3d_tpu_torch.models.fcn import FCN
 from unet3d_tpu_torch.models.highresnet import HighResNet
 from unet3d_tpu_torch.models.monai_autoencoder import AutoEncoder, VarAutoEncoder
 from unet3d_tpu_torch.models.monai_heads import (Classifier, Critic, Discriminator, Generator,
@@ -30,6 +38,7 @@ from unet3d_tpu_torch.models.monai_heads import (Classifier, Critic, Discriminat
 from unet3d_tpu_torch.models.monai_unet import UNet
 from unet3d_tpu_torch.models.quicknat import Quicknat
 from unet3d_tpu_torch.models.regunet import GlobalNet, LocalNet, RegUNet
+from unet3d_tpu_torch.models import resnet
 from unet3d_tpu_torch.models.segresnet import SegResNet, SegResNetVAE
 from unet3d_tpu_torch.models.segresnet_ds import SegResNetDS
 from unet3d_tpu_torch.models.swin_unetr import SwinUNETR
@@ -82,17 +91,29 @@ MODEL_REGISTRY: Dict[str, Any] = {
     "RegUNet": RegUNet,
     "GlobalNet": GlobalNet,
     "LocalNet": LocalNet,
+    "DenseNet": DenseNet,
+    "EfficientNetBN": EfficientNetBN,
+    "ResNet": resnet.ResNet,
+    "FCN": FCN,
+    "RegularizedResNet": RegularizedResNet,
+    "RegularizedBasicResNet": RegularizedBasicResNet,
+    "ResNetWithDecoder1D": ResNetWithDecoder1D,
+    # the factories (JAX's _FACTORIES)
+    "DenseNet121": DenseNet121,
+    "DenseNet169": DenseNet169,
+    "DenseNet201": DenseNet201,
+    "DenseNet264": DenseNet264,
+    "resnet_18": resnet.resnet_18,
+    "resnet_34": resnet.resnet_34,
+    "resnet_50": resnet.resnet_50,
+    "resnet_101": resnet.resnet_101,
+    "resnet_152": resnet.resnet_152,
+    "resnext_50_32x4d": resnet.resnext_50_32x4d,
+    "resnext_101_32x8d": resnet.resnext_101_32x8d,
 }
 
 # names the JAX package resolves that the port does not have yet
-NOT_YET_PORTED = (
-    "DenseNet", "DenseNet121", "DenseNet169", "DenseNet201", "DenseNet264",
-    "EfficientNetBN", "FCN", "GraphCMR",
-    "RegularizedBasicResNet", "RegularizedResNet",
-    "ResNet", "ResNetWithDecoder1D", "VQVAE",
-    "resnet_101", "resnet_152", "resnet_18", "resnet_34", "resnet_50",
-    "resnext_101_32x8d", "resnext_50_32x4d",
-)
+NOT_YET_PORTED = ("GraphCMR", "VQVAE")
 
 
 def create_model(model_name: str, /, **kwargs):

@@ -118,12 +118,18 @@ class MyronenkoVariationalLayer(nn.Module):
         self.out_conv = conv1(reduced_features, in_features, use_bias=False)
 
     def forward(self, x: torch.Tensor, sample: bool = True,
-                rng: Optional[torch.Generator] = None):
-        x = self.in_conv(x)
-        x, mu, logvar = self.var_block(x.reshape(x.shape[0], -1), sample, rng)
+                rng: Optional[torch.Generator] = None, return_reduced: bool = False):
+        """``(x, mu, logvar)``; with ``return_reduced`` also the flattened
+        output of the strided conv (RegularizedResNet's classifier reads
+        it)."""
+        reduced = self.in_conv(x)
+        reduced = reduced.reshape(reduced.shape[0], -1)
+        x, mu, logvar = self.var_block(reduced, sample, rng)
         x = torch.relu(x).reshape((-1,) + self.reduced_shape + (self.reduced_features,))
         x = upsample_ndhwc(self.out_conv(x), self.conv_stride, self.upsampling_mode,
                            self.align_corners)
+        if return_reduced:
+            return x, mu, logvar, reduced
         return x, mu, logvar
 
 

@@ -80,13 +80,13 @@ def _is_3x3x3(w: torch.Tensor, stride: Tuple[int, ...], pads: Pads, s: int) -> b
 
 class _FullF32Conv(torch.autograd.Function):
     """An f32 cuDNN conv or transposed conv (channels-first operands, any
-    number of spatial axes) with its forward and both gradients under
-    ``full_f32``: torch autograd would run the gradients outside any scope
-    the forward set."""
+    number of spatial axes, ``groups``) with its forward and both gradients
+    under ``full_f32``: torch autograd would run the gradients outside any
+    scope the forward set."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, padding, transposed, output_padding, dilation):
-        ctx.conf = (stride, padding, dilation, transposed, output_padding, 1)
+    def forward(ctx, x, w, stride, padding, transposed, output_padding, dilation, groups):
+        ctx.conf = (stride, padding, dilation, transposed, output_padding, groups)
         ctx.save_for_backward(x, w)
         with full_f32(x):
             return torch.ops.aten.convolution(x, w, None, *ctx.conf)
@@ -98,24 +98,26 @@ class _FullF32Conv(torch.autograd.Function):
         with full_f32(gy):
             dx, dw, _ = torch.ops.aten.convolution_backward(
                 gy, x, w, None, *ctx.conf, (*ctx.needs_input_grad[:2], False))
-        return dx, dw, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None
 
 
 def cudnn_conv(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
                padding: Sequence[int], transposed: bool = False,
                output_padding: Optional[Sequence[int]] = None,
-               dilation: Optional[Sequence[int]] = None) -> torch.Tensor:
+               dilation: Optional[Sequence[int]] = None, groups: int = 1) -> torch.Tensor:
     """``F.conv{1,2,3}d`` (``F.conv_transpose*d`` when ``transposed``) of
-    channels-first ``x`` with torch's weight layout; f32 in full f32,
-    forward and gradients."""
+    channels-first ``x`` with torch's weight layout, ``(Cout, Cin / groups,
+    ...)`` for a grouped conv (the outputs ordered by group, as Flax's
+    ``feature_group_count`` orders them); f32 in full f32, forward and
+    gradients."""
     stride, padding = tuple(stride), tuple(padding)
     output_padding = tuple(output_padding or (0,) * len(stride))
     dilation = tuple(dilation or (1,) * len(stride))
     if x.dtype == torch.float32:
         return _FullF32Conv.apply(x, w, stride, padding, transposed, output_padding,
-                                  dilation)
+                                  dilation, groups)
     return torch.ops.aten.convolution(x, w, None, stride, padding, dilation,
-                                      transposed, output_padding, 1)
+                                      transposed, output_padding, groups)
 
 
 class _FullF32Matmul(torch.autograd.Function):

@@ -18,7 +18,9 @@ import numpy as np
 import torch
 
 
-def _axis_coords(s_in: int, s_out: int, mode: str, align_corners: bool) -> np.ndarray:
+def axis_coords(s_in: int, s_out: int, mode: str, align_corners: bool) -> np.ndarray:
+    """The source coordinate of each of ``s_out`` samples along an axis of
+    ``s_in``, as ``torch.nn.functional.interpolate`` places them."""
     v = np.arange(s_out, dtype=np.float64)
     if mode == "nearest":
         return np.clip(np.floor(v * (s_in / s_out)), 0, s_in - 1)
@@ -38,7 +40,7 @@ def resize_ndhwc(x: torch.Tensor, out_spatial: Sequence[int], mode: str = "trili
         s_out = int(s_out)
         if s_in == s_out:
             continue
-        coords = _axis_coords(s_in, s_out, mode, align_corners)
+        coords = axis_coords(s_in, s_out, mode, align_corners)
         if nearest:
             index = torch.from_numpy(coords.astype(np.int64)).to(x.device)
             x = torch.index_select(x, axis, index)

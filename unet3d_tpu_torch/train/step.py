@@ -94,11 +94,13 @@ def noise_generator(model: torch.nn.Module, seed: int = 0) -> Optional[torch.Gen
 
 def prepare_batch(images, labels, device: torch.device, amp: bool):
     """(B, C, D, H, W) images / labels -> NDHWC tensors on ``device``: images
-    in bf16 under ``amp``, else f32; labels in f32. A batch already on the
+    in bf16 under ``amp``, else f32; labels in f32. Other ranks pass as they
+    are (a classifier's ``(B, classes)`` targets, the FCN's ``(B, features)``
+    inputs, which the JAX step's transpose refuses). A batch already on the
     device in that dtype is taken as it is; casts happen on the device."""
     x = as_tensor(images).to(device).to(torch.bfloat16 if amp else torch.float32)
     y = as_tensor(labels).to(device).float()
-    return to_ndhwc(x), (to_ndhwc(y) if y.dim() == 5 else y)
+    return (to_ndhwc(x) if x.dim() == 5 else x), (to_ndhwc(y) if y.dim() == 5 else y)
 
 
 def forward_loss(model: torch.nn.Module, criterion: Callable, x: torch.Tensor,

@@ -264,6 +264,28 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    efficientnet-b7: one bf16 forward each, finite logits (DenseNet264
    ``conv`` 130).
 
+16. the last models and whole-model remat: (a) VQVAE at the JAX defaults
+   (4 channels in) on the 128^3 window: a bf16 and an f32 forward (finite
+   reconstruction, positive ``diff``; cuDNN and plain matmuls only), the
+   bf16 window timed; one ``make_train_step`` step in each dtype (MSELoss on
+   the input plus ``diff``), the codebook it leaves against the EMA formula
+   in f64 on the host from the forward's own codes and inputs (1e-5 in f32,
+   1e-2 in bf16: the AMP step's counts and sums round to bf16), the loss
+   falling over 4 bf16 steps on the batch, step ms, peak, profiles; (b)
+   GraphCMR at the JAX defaults on an icosphere of 10242 vertices (a GIFTI
+   file the config names), batch 2 of one channel at 128^3: a bf16 and an
+   f32 forward, one bf16 step on ``sum(out * g)``, the running statistics
+   finite and moved, ms, peak, profiles; (c) ``training.remat`` recomputing
+   the whole SegResNetVAE, SegResNetDS and VQVAE: one step with and one
+   without in f32 and bf16 on one batch and generator seed, the gradients
+   within phase 5's bounds, the running statistics within 1e-4 / 1e-2, the
+   codebook equal (also with VQVAE's root checkpointed as one block, the
+   codebook update inside the checkpoint), the launches by form with and
+   without (``conv`` exactly the step's without plus the remat blocks'
+   forward launches, ``s2_wgrad`` as often), peak memory lower with remat,
+   SegResNetVAE's remat gradients through the kernels against the plain
+   path, step ms each way and a profile.
+
 Exits non-zero if any phase fails or there is no CUDA device. The last lines
 are the card, a JSON object of the kernels (the bf16 forms' rows, then the
 f32 form's: ``conv_tf32x3``, ``conv_stats_tf32x3``, ``block_stats_tf32x3``,
@@ -666,6 +688,25 @@ DENSENET_CONV_SHAPES = [
     (f"DenseNet121 {label} @{s}^3", s, cin, cout, torch.bfloat16, "wgmma")
     for s in (24, 12, 6, 3)
     for label, cin, cout in (("conv2 128->32", 128, 32), ("dx of conv2 32->128", 32, 128))]
+
+
+# phase 16: VQVAE and GraphCMR at the JAX package's defaults (VQVAE on the
+# BraTS window's 4 channels; GraphCMR on an icosphere of fsaverage5's vertex
+# count and topology, 10242 vertices and 20480 faces, batch 2, one channel),
+# and whole-model remat of three nets of earlier phases
+VQVAE_MODEL = {"name": "VQVAE", "in_channel": 4}
+VQVAE_SHAPE = (128, 128, 128)
+VQ_LOSS_STEPS = 4
+GRAPH_CMR_SUBDIVISIONS = 5
+GRAPH_CMR_SHAPE = (128, 128, 128)
+GRAPH_CMR_BATCH = 2
+GRAPH_CMR_DIR = os.path.join(ROOT, "build", "chip_smoke_graph")
+REMAT_NETS = (("SegResNetVAE", SEGRESNET_MODEL), ("SegResNetDS", SEGRESNET_DS_MODEL),
+              ("VQVAE", VQVAE_MODEL))
+REMAT_SHAPE = (128, 128, 128)
+# the EMA codebook against its f64 evaluation on the host: f32, and bf16
+# (the AMP step's one-hot counts and sums round to bf16, as in JAX)
+EMA_BOUNDS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -4176,6 +4217,450 @@ def phase15_large(device, seed, card) -> dict:
     return out
 
 
+def icosphere(subdivisions: int):
+    """Unit icosphere: vertices (V, 3) float32 and faces (F, 3) int32, each
+    face split in four per subdivision (V = 10 * 4^n + 2)."""
+    t = (1.0 + 5 ** 0.5) / 2
+    verts = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t), (0, 1, t),
+             (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1), (-t, 0, -1), (-t, 0, 1)]
+    verts = [np.asarray(v, np.float64) / np.linalg.norm(v) for v in verts]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11), (1, 5, 9),
+             (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2),
+             (3, 2, 6), (3, 6, 8), (3, 8, 9), (4, 9, 5), (2, 4, 11), (6, 2, 10),
+             (8, 6, 7), (9, 8, 1)]
+    for _ in range(subdivisions):
+        mid = {}
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                v = verts[a] + verts[b]
+                verts.append(v / np.linalg.norm(v))
+                mid[key] = len(verts) - 1
+            return mid[key]
+
+        new = []
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = new
+    return np.asarray(verts, np.float32), np.asarray(faces, np.int32)
+
+
+def write_gifti(path: str, vertices: np.ndarray, faces: np.ndarray) -> None:
+    """A GIFTI surface of two GZip-Base64 DataArrays: the POINTSET and the
+    TRIANGLE."""
+    import base64
+    import gzip
+
+    def array(intent, data, dtype):
+        text = base64.b64encode(gzip.compress(np.ascontiguousarray(data).tobytes())).decode()
+        return (f'<DataArray Intent="{intent}" DataType="{dtype}" Dimensionality="2" '
+                f'Dim0="{data.shape[0]}" Dim1="{data.shape[1]}" Encoding="GZipBase64Binary" '
+                f'ArrayIndexingOrder="RowMajorOrder"><Data>{text}</Data></DataArray>')
+
+    with open(path, "w") as f:
+        f.write('<?xml version="1.0" encoding="UTF-8"?>\n<GIFTI Version="1.0" '
+                'NumberOfDataArrays="2">'
+                + array("NIFTI_INTENT_POINTSET", vertices.astype(np.float32),
+                        "NIFTI_TYPE_FLOAT32")
+                + array("NIFTI_INTENT_TRIANGLE", faces.astype(np.int32), "NIFTI_TYPE_INT32")
+                + "</GIFTI>")
+
+
+@contextlib.contextmanager
+def quantizer_inputs(model):
+    """Each ``Quantize`` of ``model``'s first forward in the block: its
+    flattened input and its codes, {name: (flatten, codes)}."""
+    from unet3d_tpu_torch.models.vqvae2 import Quantize
+    seen, handles = {}, []
+    for name, module in model.named_modules():
+        if isinstance(module, Quantize):
+            def hook(m, inp, out, name=name):
+                if name not in seen:
+                    seen[name] = (inp[0].detach().reshape(-1, m.dim).clone(),
+                                  out[2].detach().reshape(-1).clone())
+            handles.append(module.register_forward_hook(hook))
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def ema_reference(quantizer, before: dict, flatten, codes) -> dict:
+    """The EMA update of one quantiser in f64 on the host, from the codebook
+    of before and the forward's own flattened input and codes."""
+    f = flatten.double().cpu().numpy()
+    k, decay, eps = quantizer.n_embed, quantizer.decay, quantizer.eps
+    ind = codes.cpu().numpy()
+    counts = np.bincount(ind, minlength=k).astype(np.float64)
+    sums = np.zeros((k, f.shape[1]))
+    np.add.at(sums, ind, f)
+    cluster = decay * before["cluster_size"] + (1 - decay) * counts
+    avg = decay * before["embed_avg"] + (1 - decay) * sums.T
+    n = cluster.sum()
+    norm = (cluster + eps) / (n + k * eps) * n
+    return {"cluster_size": cluster, "embed_avg": avg, "embed": avg / norm[None, :]}
+
+
+def codebook_gap(model, before_sd, seen) -> float:
+    """The worst relative L2 of the codebook the step left against
+    ``ema_reference`` over both quantisers and their three buffers."""
+    worst = 0.0
+    for name, (flatten, codes) in seen.items():
+        q = model.get_submodule(name)
+        before = {b: before_sd[f"{name}.{b}"].double().cpu().numpy()
+                  for b in ("cluster_size", "embed_avg", "embed")}
+        want = ema_reference(q, before, flatten, codes)
+        for b, w in want.items():
+            got = getattr(q, b).double().cpu().numpy()
+            worst = max(worst, float(np.linalg.norm(got - w) / np.linalg.norm(w)))
+    return worst
+
+
+def phase16_vqvae(device, seed, card) -> dict:
+    """(a) VQVAE at the JAX defaults (channel 128, 2 res blocks of 32, 512
+    codes of 64) on the BraTS window: a bf16 and an f32 forward (finite
+    reconstruction, positive ``diff``; no hand kernel: cuDNN convs and
+    plain matmuls), the bf16 ``make_forward`` timed and profiled; one
+    ``make_train_step`` step in each dtype (MSELoss on the input plus
+    ``diff``) with the codebook it leaves held against the EMA formula in
+    f64 from the forward's own codes and inputs; the loss over
+    ``VQ_LOSS_STEPS`` bf16 steps on the batch; step ms, peak, profile."""
+    import copy
+
+    from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
+    from unet3d_tpu_torch.predict.volumetric import make_forward
+    from unet3d_tpu_torch.train.losses import MSELoss
+    from unet3d_tpu_torch.train.step import make_train_step
+
+    config = {"model": dict(VQVAE_MODEL), "dataset": {"desired_shape": list(VQVAE_SHAPE)}}
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(seed + 300)
+    x = torch.from_numpy(rng.randn(1, *VQVAE_SHAPE, 4).astype(np.float32)).to(device)
+    out = dict(params=n_params)
+    reset_launches()
+    for amp in (True, False):
+        rec, diff = forward_all(model, amp)(x)
+        dt = "bf16" if amp else "f32"
+        msg = (f"VQVAE ({n_params} params) {dt} forward {tuple(x.shape)}: reconstruction "
+               f"{tuple(rec.shape)}, diff {float(diff):.6f}")
+        print(msg, flush=True)
+        check(tuple(rec.shape) == tuple(x.shape) and bool(torch.isfinite(rec).all())
+              and np.isfinite(float(diff)) and float(diff) > 0, msg)
+        out[f"{dt}_diff"] = float(diff)
+    check(not any(launch_counts().values()), f"VQVAE forward launched {launch_counts()}")
+    window = make_forward(model, amp=True)
+    out["window_ms"] = cuda_ms(lambda: window(x), reps=3)
+    out["window_profile"] = profile_device(lambda: window(x), "VQVAE one 128^3 bf16 window",
+                                           card)
+    print(f"VQVAE bf16 window {tuple(x.shape)}: {out['window_ms']:.3f} ms [{card}]",
+          flush=True)
+    del window
+    images = np.ascontiguousarray(np.moveaxis(x.cpu().numpy(), -1, 1))
+    criterion = MSELoss()
+    start = copy.deepcopy(model.state_dict())
+    for amp in (True, False):
+        dt, dtype = ("bf16", torch.bfloat16) if amp else ("f32", torch.float32)
+        model.load_state_dict(start)
+        step = make_train_step(model, criterion, torch.optim.Adam(model.parameters(), lr=1e-4),
+                               amp=amp, seed=seed)
+        with quantizer_inputs(model) as seen:
+            loss = float(step(images, images))
+        gap = codebook_gap(model, start, seen)
+        msg = (f"VQVAE {dt} train step: loss {loss:.6f}; codebook vs the EMA formula in f64 "
+               f"(the forward's codes and inputs): worst rel L2 {gap:.3e}; codes used "
+               f"{[int(c.unique().numel()) for _, c in seen.values()]}")
+        print(msg, flush=True)
+        check(np.isfinite(loss), msg)
+        check(gap < EMA_BOUNDS[dtype], f"{msg} > {EMA_BOUNDS[dtype]}")
+        out[f"{dt}_step"] = dict(loss=loss, codebook_rel_l2=gap)
+    model.load_state_dict(start)
+    step = make_train_step(model, criterion, torch.optim.Adam(model.parameters(), lr=3e-4),
+                           amp=True, seed=seed)
+    curve = [float(step(images, images)) for _ in range(VQ_LOSS_STEPS)]
+    print(f"VQVAE bf16 loss over {VQ_LOSS_STEPS} steps on one batch: {curve}", flush=True)
+    check(all(np.isfinite(curve)) and curve[-1] < curve[0], f"VQVAE loss {curve}")
+    model.load_state_dict(start)
+    torch.cuda.reset_peak_memory_stats()
+    out["step_ms"] = step_ms(step, images, images, reps=3)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["step_profile"] = profile_device(lambda: step(images, images),
+                                         "VQVAE one bf16 train step", card)
+    print(f"VQVAE train step (bf16 AMP, batch 1, 128^3): {out['step_ms']:.3f} ms; peak "
+          f"{out['peak_gib']:.2f} GiB [{card}]", flush=True)
+    out["loss_curve"] = curve
+    del model, step, start
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase16_graphcmr(device, seed, card) -> dict:
+    """(b) GraphCMR at the JAX defaults (5 layers of 256 channels, a 512-wide
+    ResNet-18 encoder) on an icosphere of 10242 vertices (a GIFTI file the
+    config's ``reference_filename`` names), batch 2 of one channel at 128^3:
+    a bf16 and an f32 forward, the bf16 ``make_forward`` timed; one bf16
+    ``make_train_step`` on ``sum(out * g)``: the running statistics finite
+    and moved; step ms, peak, profiles."""
+    import copy
+
+    from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
+    from unet3d_tpu_torch.predict.volumetric import make_forward
+    from unet3d_tpu_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    verts, faces = icosphere(GRAPH_CMR_SUBDIVISIONS)
+    os.makedirs(GRAPH_CMR_DIR, exist_ok=True)
+    surface = os.path.join(GRAPH_CMR_DIR, f"ico{GRAPH_CMR_SUBDIVISIONS}.surf.gii")
+    write_gifti(surface, verts, faces)
+    config = {"model": {"name": "GraphCMR", "reference_filename": surface},
+              "dataset": {"desired_shape": list(GRAPH_CMR_SHAPE)}}
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    n_vertices = int(model.ref_vertices.shape[-1])
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"GraphCMR ({n_params} params): icosphere {len(verts)} vertices, {len(faces)} faces "
+          f"(GIFTI read and adjacency {time.perf_counter() - t0:.1f} s); template "
+          f"{model.ref_vertices.dtype} on {model.adjacency.device}", flush=True)
+    check(n_vertices == 10242 and len(faces) == 20480
+          and model.adjacency.device == device, "GraphCMR template")
+    rng = np.random.RandomState(seed + 310)
+    x = torch.from_numpy(rng.randn(GRAPH_CMR_BATCH, *GRAPH_CMR_SHAPE, 1)
+                         .astype(np.float32)).to(device)
+    out = dict(params=n_params, vertices=n_vertices)
+    reset_launches()
+    for amp in (True, False):
+        (y,) = forward_all(model, amp)(x)
+        dt = "bf16" if amp else "f32"
+        msg = f"GraphCMR {dt} forward {tuple(x.shape)}: vertices {tuple(y.shape)}"
+        print(msg, flush=True)
+        check(tuple(y.shape) == (GRAPH_CMR_BATCH, 3, n_vertices)
+              and bool(torch.isfinite(y).all()), msg)
+    check(not any(launch_counts().values()), f"GraphCMR forward launched {launch_counts()}")
+    window = make_forward(model, amp=True)
+    out["window_ms"] = cuda_ms(lambda: window(x), reps=3)
+    out["window_profile"] = profile_device(lambda: window(x), "GraphCMR one bf16 forward",
+                                           card)
+    print(f"GraphCMR bf16 forward {tuple(x.shape)}: {out['window_ms']:.3f} ms [{card}]",
+          flush=True)
+    del window
+    images = np.ascontiguousarray(np.moveaxis(x.cpu().numpy(), -1, 1))
+    labels = (rng.randn(GRAPH_CMR_BATCH, 3, n_vertices)
+              / np.sqrt(3 * n_vertices)).astype(np.float32)
+    start = copy.deepcopy(model.state_dict())
+    stats0 = {k: b.clone() for k, b in model.named_buffers()}
+    step = make_train_step(model, ProjectionLoss(),
+                           torch.optim.Adam(model.parameters(), lr=1e-4), amp=True, seed=seed)
+    loss = float(step(images, labels))
+    moved = sum(int(not torch.equal(b, stats0[k])) for k, b in model.named_buffers())
+    finite = all(bool(torch.isfinite(b).all()) for b in model.buffers())
+    msg = (f"GraphCMR bf16 train step: loss {loss:.6f}; running statistics finite {finite}, "
+           f"{moved} of {len(stats0)} moved")
+    print(msg, flush=True)
+    check(np.isfinite(loss) and finite and moved == len(stats0), msg)
+    model.load_state_dict(start)
+    torch.cuda.reset_peak_memory_stats()
+    out["step_ms"] = step_ms(step, images, labels, reps=3)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["step_profile"] = profile_device(lambda: step(images, labels),
+                                         "GraphCMR one bf16 train step", card)
+    print(f"GraphCMR train step (bf16 AMP, batch {GRAPH_CMR_BATCH}, 128^3, {n_vertices} "
+          f"vertices): {out['step_ms']:.3f} ms; peak {out['peak_gib']:.2f} GiB [{card}]",
+          flush=True)
+    out["step_loss"] = loss
+    del model, step, start
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def launches_in_blocks(model, count):
+    """``[n]``: the rise of ``count()`` over the outermost calls of
+    ``model``'s remat blocks (``models/remat.remat_blocks``) while the
+    context is open. Over a forward, these are the launches that remat's
+    recompute runs again in the backward."""
+    from unet3d_tpu_torch.models.remat import remat_blocks
+    total, marks = [0], {}
+
+    def pre(block, args):
+        marks.setdefault(id(block), []).append(count())
+
+    def post(block, args, out):
+        start = marks[id(block)].pop()
+        if not marks[id(block)]:   # a checkpointed block calls itself inside
+            total[0] += count() - start
+
+    handles = [h for b in remat_blocks(model)
+               for h in (b.register_forward_pre_hook(pre), b.register_forward_hook(post))]
+    try:
+        yield total
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def remat_run(model, criterion, images, labels, device, amp, seed):
+    """One step's forward and backward (``forward_loss`` and
+    ``autograd.grad``; the noise from the step's generator seeded with
+    ``seed``): the gradients, the buffers it leaves, the launches and forms
+    of the hand kernels, the peak memory, and the ``conv`` launches of the
+    remat blocks' forward."""
+    from unet3d_tpu_torch.train.step import forward_loss, noise_generator, prepare_batch
+    params = [p for _, p in model.named_parameters()]
+    x, y = prepare_batch(images, labels, device, amp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with launches_in_blocks(model, lambda: launch_counts()["conv"]) as in_blocks:
+        loss = forward_loss(model, criterion, x, y, amp, noise_generator(model, seed))
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    return dict(loss=float(loss.detach()), grads=grads,
+                buffers={k: b.clone() for k, b in model.named_buffers()},
+                launches=launch_counts(), forms=forms_of(FAMILY_KERNELS),
+                blocks_conv=in_blocks[0], peak=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase16_remat(device, seed, card) -> tuple:
+    """(c) ``training.remat`` recomputing the whole model: SegResNetVAE
+    (phase 10's config), SegResNetDS (phase 11's) and VQVAE (part a's), each
+    built by the config factory with and without remat from one seed, one
+    step each way in f32 and bf16 AMP on one batch with the noise drawn
+    alike: the gradients within phase 5's bounds of each other, the state
+    the step leaves (running statistics within 1e-4 / 1e-2; the codebook
+    equal, cuDNN deterministic), the launches by form with and without remat
+    (``conv`` exactly the step's without plus its remat blocks' forward
+    launches, counted in the step without; ``s2_wgrad`` as often), peak
+    memory lower with remat; VQVAE also with its root checkpointed as one
+    block, so that the codebook update runs inside the checkpoint (remat's
+    blocks leave ``Quantize``, a leaf, outside); SegResNetVAE's remat
+    gradients, kernels against the plain path (``family_grads``); bf16 step
+    ms each way and a profile of the remat step."""
+    from unet3d_tpu_torch.config.factory import (build_or_load_model_from_config,
+                                                 load_criterion_from_config)
+    from unet3d_tpu_torch.models.remat import checkpointed_blocks, remat_class
+    from unet3d_tpu_torch.train.losses import MSELoss
+    from unet3d_tpu_torch.train.step import make_train_step, prepare_batch
+    from unet3d_tpu_torch.utils.config import load_json
+
+    results, launches = {}, {}
+    rng = np.random.RandomState(seed + 320)
+    shape = REMAT_SHAPE
+    for name, model_cfg in REMAT_NETS:
+        config = load_json(CONFIG)
+        config["model"] = dict(model_cfg)
+        vq = name == "VQVAE"
+        criterion = MSELoss() if vq else load_criterion_from_config(config)
+        images = rng.randn(1, 4, *shape).astype(np.float32)
+        labels = images if vq else (rng.rand(1, 3, *shape) > 0.5).astype(np.float32)
+        # "root": the VQVAE checkpointed as one block, its codebook inside
+        variants = ("remat", "root") if vq else ("remat",)
+        models = {which: build_or_load_model_from_config(config, None, device, seed=seed,
+                                                         remat=which == "remat")
+                  for which in ("plain", *variants)}
+        if vq:
+            models["root"].__class__ = remat_class(type(models["root"]))
+        check(all(checkpointed_blocks(models[which]) and models[which].state_dict().keys()
+                  == models["plain"].state_dict().keys() for which in variants),
+              f"{name}: remat model")
+        start = {k: v.clone() for k, v in models["plain"].state_dict().items()}
+        out = {}
+        for amp in (False, True):
+            dt, dtype = ("bf16", torch.bfloat16) if amp else ("f32", torch.float32)
+            runs = {}
+            with cudnn_deterministic():
+                # each run once to warm up, then the one kept
+                for which in ("plain", *variants) * 2:
+                    models[which].load_state_dict(start)
+                    runs[which] = remat_run(models[which], criterion, images, labels, device,
+                                            amp, seed)
+            names = [n for n, _ in models["plain"].named_parameters()]
+            keys = sorted(runs["plain"]["buffers"])
+            p = runs["plain"]["launches"]
+            for which in variants:
+                run = runs[which]
+                rel, worst, worst_name = grad_gap(run["grads"], runs["plain"]["grads"], names)
+                bound = GRAD_BOUND_BF16 if amp else GRAD_BOUND_F32
+                if vq:
+                    state_gap = max((float((run["buffers"][k] - runs["plain"]["buffers"][k])
+                                           .abs().max()) for k in keys), default=0.0)
+                else:
+                    state_gap = rel_l2_of([run["buffers"][k] for k in keys],
+                                          [runs["plain"]["buffers"][k] for k in keys]) \
+                        if keys else 0.0
+                label = f"{name} {dt} step, {'root as one block' if which == 'root' else 'remat'}"
+                msg = (f"{label} vs not: loss {run['loss']:.6f} / {runs['plain']['loss']:.6f}; "
+                       f"gradients rel L2 {rel:.3e} (worst {worst_name} {worst:.3e}); "
+                       f"{'codebook max abs' if vq else 'statistics rel L2'} {state_gap:.3e}; "
+                       f"launches {run['launches']} / {p} (remat blocks' forward conv "
+                       f"{runs['plain']['blocks_conv']}); by form {run['forms']} / "
+                       f"{runs['plain']['forms']}; peak {run['peak']:.2f} / "
+                       f"{runs['plain']['peak']:.2f} GiB [{card}]")
+                print(msg, flush=True)
+                check(rel < bound, f"{msg}: gradients > {bound}")
+                check(state_gap == 0.0 if vq else state_gap < BN_STATS_BOUNDS[dtype],
+                      f"{msg}: state after the step")
+                if which == "root":   # one checkpoint around the whole forward keeps the peak
+                    out[f"{dt}_root"] = dict(grad_rel_l2=rel, state_gap=state_gap,
+                                             peak_gib=run["peak"])
+                    continue
+                r = run["launches"]
+                check(r["conv"] == p["conv"] + runs["plain"]["blocks_conv"]
+                      and run["blocks_conv"] == runs["plain"]["blocks_conv"]
+                      and r["s2_wgrad"] == p["s2_wgrad"]
+                      and (vq or runs["plain"]["blocks_conv"] > 0),
+                      f"{msg}: the recompute's conv launches")
+                check(run["peak"] < runs["plain"]["peak"], f"{msg}: peak memory")
+                if name == "SegResNetVAE":
+                    check(r["s2_wgrad"] > 0, f"{msg}: s2_wgrad not launched")
+                    if amp:
+                        check_family_forms(f"SegResNetVAE {dt} remat step")
+                    else:
+                        check_allowed_forms(f"SegResNetVAE {dt} remat step",
+                                            {("conv", "tf32x3"), ("s2_wgrad", "fma")})
+                out[dt] = dict(
+                    loss=[run["loss"], runs["plain"]["loss"]], grad_rel_l2=rel,
+                    state_gap=state_gap, launches_remat=r, launches_plain=p,
+                    blocks_conv=runs["plain"]["blocks_conv"], forms_remat=run["forms"],
+                    forms_plain=runs["plain"]["forms"], peak_gib_remat=run["peak"],
+                    peak_gib_plain=runs["plain"]["peak"])
+            if amp:
+                launches[name] = runs["remat"]["launches"]
+            del runs
+            torch.cuda.empty_cache()
+        model = models["remat"]
+        if name == "SegResNetVAE":
+            for amp, bound in ((False, GRAD_BOUND_F32), (True, GRAD_BOUND_BF16)):
+                model.load_state_dict(start)
+                x, y = prepare_batch(images, labels, device, amp)
+                grel, worst, worst_name = family_grads(model, criterion, x, y, amp, seed)
+                msg = (f"SegResNetVAE remat gradients {'bf16' if amp else 'f32'}, kernels vs "
+                       f"plain path: rel L2 {grel:.3e}; worst {worst_name} {worst:.3e}")
+                print(msg, flush=True)
+                check(grel < bound, f"{msg} > {bound}")
+                out[f"kernels_vs_plain_{'bf16' if amp else 'f32'}"] = grel
+        times = {}
+        for which in ("plain", "remat", "remat", "plain"):
+            models[which].load_state_dict(start)
+            one = make_train_step(models[which], criterion,
+                                  torch.optim.Adam(models[which].parameters(), lr=1e-6),
+                                  amp=True, seed=seed)
+            times.setdefault(which, []).append(step_ms(one, images, labels, reps=3))
+        model.load_state_dict(start)
+        one = make_train_step(model, criterion, torch.optim.Adam(model.parameters(), lr=1e-6),
+                              amp=True, seed=seed)
+        out["step_profile_remat"] = profile_device(lambda: one(images, labels),
+                                                   f"{name} one bf16 remat train step", card)
+        print(f"{name} bf16 train step (batch 1, {shape}): remat {times['remat']} ms, without "
+              f"{times['plain']} ms [{card}]", flush=True)
+        out["step_ms"] = times
+        results[name] = out
+        del models, model, one, start
+        torch.cuda.empty_cache()
+    return launches, results
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4277,6 +4762,14 @@ def main() -> int:
     classifiers["large"] = phase15_large(device, args.seed, card)
     print(f"phase 15 {time.perf_counter() - t15:.1f} s; the smoke so far "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    # phase 16
+    t16 = time.perf_counter()
+    vqvae = phase16_vqvae(device, args.seed, card)
+    graph_cmr = phase16_graphcmr(device, args.seed, card)
+    remat_launches, remat = phase16_remat(device, args.seed, card)
+    shutil.rmtree(GRAPH_CMR_DIR, ignore_errors=True)
+    print(f"phase 16 {time.perf_counter() - t16:.1f} s; the smoke so far "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     check(not any(m in sys.modules for m in ("jax", "unet3d_tpu")),
           "the port imported jax")
     # launches: the training path's (phase 5; phase 7 for the Winograd
@@ -4303,7 +4796,9 @@ def main() -> int:
     # last_conv_net_shapes the conv kernel and s2_wgrad at their new sites
     # (phase 14a); launches_densenet121 and launches_regularizedresnet: one
     # bf16 train step of each (phase 15c), and classifier_shapes the conv
-    # kernel at DenseNet121's conv2 sites (phase 15a)
+    # kernel at DenseNet121's conv2 sites (phase 15a); launches_segresnet_remat
+    # and launches_segresnet_ds_remat: one bf16 step's forward and backward
+    # of each under whole-model remat (phase 16c)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": v, "route": "cuda", "source": SOURCES[v],
                 "replaces": REPLACES[v], "launches": train_launches[v],
@@ -4325,6 +4820,8 @@ def main() -> int:
                 "launches_train_cli_localnet": localnet_cli_launches[v],
                 "launches_densenet121": classifier_launches["DenseNet121"][v],
                 "launches_regularizedresnet": classifier_launches["RegularizedResNet"][v],
+                "launches_segresnet_remat": remat_launches["SegResNetVAE"][v],
+                "launches_segresnet_ds_remat": remat_launches["SegResNetDS"][v],
                 **{k: report[v][k] for k in keys}}
                for v in TRAIN_KERNELS]
     for entry in kernels:
@@ -4406,6 +4903,9 @@ def main() -> int:
           f"{json.dumps(dict(localnet_cli, launches=localnet_cli_launches))} [{card}]")
     print(f"classifiers: {json.dumps(dict(kernel_shapes=classifier_rows, **classifiers))} "
           f"[{card}]")
+    print(f"vqvae: {json.dumps(vqvae)} [{card}]")
+    print(f"graph_cmr: {json.dumps(graph_cmr)} [{card}]")
+    print(f"whole-model remat: {json.dumps(remat)} [{card}]")
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -251,9 +251,10 @@ def test_flax_keys_of_each_collection(ds):
     assert set(model_variables(model)) == set(flat)
     assert set(state_dict_to_flax(dict(model.named_parameters()))) == {
         k for k in flat if k.startswith("params/")}
+    assert set(flax_to_state_dict({"codebook/x/embed": np.zeros(2)})) == {"x.embed"}
     with pytest.raises(ValueError, match="outside"):
-        flax_to_state_dict({"codebook/x/embedding": np.zeros(2)})
-    assert flax_to_state_dict({"codebook/x/embedding": np.zeros(2)}, strict=False) == {}
+        flax_to_state_dict({"intermediates/x/y": np.zeros(2)})
+    assert flax_to_state_dict({"intermediates/x/y": np.zeros(2)}, strict=False) == {}
 
 
 def test_init_parameters_sets_flax_buffer_and_prelu_init():

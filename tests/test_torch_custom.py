@@ -174,15 +174,14 @@ REQUIRED = {"FCN": FCN, "RegularizedBasicResNet": dict(n_features=1),
 
 def test_every_classifier_name_resolves():
     """The 18 names build in the port (``ResNet`` and ``DenseNet`` at their
-    defaults as ``resnet_18`` and ``DenseNet121``); only VQVAE and GraphCMR
-    are still to port."""
-    assert NOT_YET_PORTED == ("GraphCMR", "VQVAE")
+    defaults as ``resnet_18`` and ``DenseNet121``); nothing of the JAX
+    registry is left to port, and an unknown name still raises."""
+    assert NOT_YET_PORTED == ()
     shapes = {}
     for name in CLASSIFIERS:
         model = create_model(name, **REQUIRED.get(name, {}))
         shapes[name] = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     assert shapes["ResNet"] == shapes["resnet_18"]
     assert shapes["DenseNet"] == shapes["DenseNet121"]
-    for name in NOT_YET_PORTED:
-        with pytest.raises(ValueError, match="not ported"):
-            create_model(name)
+    with pytest.raises(ValueError, match="is unknown"):
+        create_model("NoSuchClassifier")

@@ -167,9 +167,11 @@ def test_flax_keys_map_to_state_dict(jax_dynunet):
     _, variables, _, _ = jax_dynunet
     sd = flax_to_state_dict(_flat(variables))
     assert set(sd) == set(create_model("DynUNet", **MODEL_KWARGS).state_dict())
-    # batch_stats is carried (tests/test_torch_batchnorm.py); others raise
+    # batch_stats and codebook are carried (tests/test_torch_batchnorm.py,
+    # tests/test_torch_vqvae.py); others raise
+    assert set(flax_to_state_dict({"codebook/x/embed": np.zeros(2)})) == {"x.embed"}
     with pytest.raises(ValueError):
-        flax_to_state_dict({"codebook/x/embedding": np.zeros(2)})
+        flax_to_state_dict({"intermediates/x/y": np.zeros(2)})
 
 
 def _jax_layer(module, x, seed=0):
@@ -241,12 +243,11 @@ def test_fastconv_tuple_split_matches_flax(strides):
 
 def test_unported_options_raise():
     """res_block and remat are ported (tests/test_torch_res_remat.py); a 2D
-    DynUNet raises in both packages, other models (VQVAE) are still to
-    port."""
+    DynUNet raises in both packages; VQVAE, the last names of the JAX
+    registry with GraphCMR, builds."""
     create_model("DynUNet", **dict(MODEL_KWARGS, res_block=True, remat=True))
     with pytest.raises(NotImplementedError):
         create_model("DynUNet", **dict(MODEL_KWARGS, spatial_dims=2))
-    with pytest.raises(ValueError, match="not ported"):
-        create_model("VQVAE")
+    assert type(create_model("VQVAE")).__name__ == "VQVAE"
     with pytest.raises(ValueError):
         init_parameters(torch.nn.Linear(2, 2), torch.Generator())

@@ -32,6 +32,7 @@ from unet3d_tpu.scripts import train as jax_train
 from unet3d_tpu.train import checkpoint as jax_checkpoint
 
 from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
+from unet3d_tpu_torch.models.remat import checkpointed_blocks
 from unet3d_tpu_torch.scripts import predict, train
 from unet3d_tpu_torch.train.train import read_training_log
 
@@ -148,11 +149,15 @@ def test_port_clis_train_and_predict_unet3d(tmp_path):
 
 
 def test_remat_is_refused_for_the_family():
-    """``training.remat`` recomputes per block in DynUNet only: the JAX
-    package wraps another net whole in ``nn.remat``, which the port does not
-    carry, so it raises rather than train without it."""
+    """``training.remat`` builds the family's nets too: the port recomputes
+    them in the backward block by block, as the JAX package wraps them in
+    ``nn.remat`` (tests/test_torch_whole_remat.py), with the variables of
+    the net without remat; the name is kept from when the port refused it."""
     config = {"model": dict(SEGRESNET_VAE)}
-    with pytest.raises(NotImplementedError, match="remat"):
-        build_or_load_model_from_config(config, None, torch.device("cpu"), remat=True)
+    remat = build_or_load_model_from_config(config, None, torch.device("cpu"), remat=True)
     model = build_or_load_model_from_config(config, None, torch.device("cpu"))
-    assert type(model).__name__ == "SegResNetVAE"
+    assert type(model).__name__ == type(remat).__name__ == "SegResNetVAE"
+    assert checkpointed_blocks(remat) and not checkpointed_blocks(model)
+    assert remat.state_dict().keys() == model.state_dict().keys()
+    for key, value in model.state_dict().items():
+        assert torch.equal(remat.state_dict()[key], value), key

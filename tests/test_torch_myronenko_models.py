@@ -95,16 +95,16 @@ def test_autoimplant_unet_matches_jax():
 
 
 def test_unported_names_still_raise():
-    """The family's names and the BatchNorm segmentation nets resolve; a name
-    of the JAX registry not ported yet (VQVAE, GraphCMR), and an unknown
-    one, raise with the list."""
+    """The family's names and the BatchNorm segmentation nets resolve; the
+    last names of the JAX registry (VQVAE, GraphCMR) are ported, so nothing
+    is left to port; an unknown name raises with the list."""
     for name in ("SegResNet", "UNet3D", "AutocastUNet", "AutoImplantUNet",
-                 "ConvolutionalAutoEncoder", "SegResNetDS", "AttentionUnet", "UNet", "VNet"):
+                 "ConvolutionalAutoEncoder", "SegResNetDS", "AttentionUnet", "UNet", "VNet",
+                 "VQVAE"):
         assert isinstance(create_model(name), torch.nn.Module)
     from unet3d_tpu_torch.models.registry import MODEL_REGISTRY, NOT_YET_PORTED
-    assert not set(MODEL_REGISTRY) & set(NOT_YET_PORTED)
-    for name in ("GraphCMR", "VQVAE"):
-        with pytest.raises(ValueError, match=f"not ported to PyTorch yet.*{name}"):
-            create_model(name)
-    with pytest.raises(ValueError, match="is unknown"):
+    assert NOT_YET_PORTED == () and {"GraphCMR", "VQVAE"} <= set(MODEL_REGISTRY)
+    with pytest.raises(ValueError, match="GraphCMR needs ref_vertices"):
+        create_model("GraphCMR")
+    with pytest.raises(ValueError, match="is unknown; ported: .*VQVAE"):
         create_model("NoSuchNet")

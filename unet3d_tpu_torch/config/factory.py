@@ -21,6 +21,7 @@ from unet3d_tpu_torch.data.image import Volume
 from unet3d_tpu_torch.data.loader import build_loader
 from unet3d_tpu_torch.models.layers import init_parameters
 from unet3d_tpu_torch.models.registry import MODEL_REGISTRY, create_model
+from unet3d_tpu_torch.models.remat import whole_model_remat
 from unet3d_tpu_torch.predict.sliding_window import build_inferer
 from unet3d_tpu_torch.train.checkpoint import load_checkpoint
 from unet3d_tpu_torch.train.losses import load_criterion
@@ -216,13 +217,16 @@ def model_input_shape_from_config(config, default_shape=(64, 64, 64)):
 def build_or_load_model_from_config(config, model_filename: Optional[str],
                                     device: torch.device, strict: bool = True,
                                     seed: int = 0, remat: bool = False) -> torch.nn.Module:
-    """Create the configured model (with per-block ``remat``), initialise it
-    from a ``torch.Generator`` seeded with ``seed``, load ``model_filename``
-    (a JAX ``.npz``) when it exists, and return it on ``device`` in eval
-    mode. ``strict`` False is the JAX package's flexible load: tensors of
-    other shapes are tiled and truncated onto the model's
-    (``convert.load_jax_variables``), as the train CLI loads a pretrained
-    checkpoint."""
+    """Create the configured model, initialise it from a ``torch.Generator``
+    seeded with ``seed``, load ``model_filename`` (a JAX ``.npz``) when it
+    exists, and return it on ``device`` in eval mode. ``remat`` recomputes
+    each block of the root in the backward
+    (``models/remat.whole_model_remat``, for JAX's ``nn.remat`` of the
+    class, or of DynUNet's blocks), with the same variables either way.
+    ``strict`` False is the JAX
+    package's flexible load: tensors of other shapes are tiled and truncated
+    onto the model's (``convert.load_jax_variables``), as the train CLI
+    loads a pretrained checkpoint."""
     model_cfg = config["model"]
     kwargs = get_kwargs(model_cfg)
     cls = MODEL_REGISTRY.get(model_cfg["name"])
@@ -233,15 +237,12 @@ def build_or_load_model_from_config(config, model_filename: Optional[str],
         kwargs["image_size"] = model_input_shape_from_config(config)[:3]
     if (cls is not None and "input_channels" in inspect.signature(cls).parameters
             and "input_channels" not in kwargs):
-        # ResNetWithDecoder1D's input width, which Flax infers from the input
+        # ResNetWithDecoder1D's and GraphCMR's input width, which Flax
+        # infers from the input
         kwargs["input_channels"] = model_input_shape_from_config(config)[-1]
-    if remat:
-        if cls is not None and "remat" not in inspect.signature(cls).parameters:
-            raise NotImplementedError(
-                f"training.remat for {model_cfg['name']}: the port recomputes "
-                "per block in DynUNet only (see ROADMAP.md)")
-        kwargs["remat"] = True
     model = create_model(model_cfg["name"], **kwargs)
+    if remat and isinstance(model, torch.nn.Module):
+        whole_model_remat(model)   # (the DiNTS search spaces compute nothing)
     init_parameters(model, torch.Generator().manual_seed(seed))
     if model_filename and os.path.exists(model_filename):
         logging.info("Loading model weights from %s (strict=%s)", model_filename, strict)

@@ -21,10 +21,10 @@ default.
 same fused conv1 / conv2 pair, norm2 without its activation, and a projected
 identity (1x1x1 conv and a plain instance norm) where the channels or the
 stride change. ``remat`` recomputes each down, bottleneck and up block in the
-backward pass from its input (``torch.utils.checkpoint``, the JAX model's
-per-block ``nn.remat``): the block's parameters enter the checkpointed
-function as inputs, so a recompute under the train step's bf16 parameter
-copies runs on those copies, not on the f32 masters it finds on the module.
+backward pass from its input (the JAX model's per-block ``nn.remat``) through
+``models/remat.whole_model_remat``, the remat of every other net, whose
+blocks are these: the output and deep-supervision heads, lone convs, run
+plainly.
 """
 from __future__ import annotations
 
@@ -33,11 +33,10 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
 
 from unet3d_tpu_torch.models.layers import (FastConv, PointwiseConv, _triple,
                                             transposed_conv)
+from unet3d_tpu_torch.models.remat import checkpointed_blocks, whole_model_remat
 from unet3d_tpu_torch.ops.conv3d import conv3d_block_with_stats
 from unet3d_tpu_torch.ops.conv3d_kernel import instance_stats
 from unet3d_tpu_torch.ops.interpolate import resize_ndhwc
@@ -155,7 +154,6 @@ class DynUNet(nn.Module):
             filters = [min(2 ** (5 + i), 320) for i in range(n)]
         filters = [int(f) for f in filters]
         self.n_levels = n
-        self.remat = remat
         block = UnetResBlock if res_block else UnetBasicBlock
         self.input_block = block(in_channels, filters[0], kernel_size[0], strides[0])
         for i in range(1, n - 1):
@@ -173,35 +171,29 @@ class DynUNet(nn.Module):
         self.output_block = PointwiseConv(filters[0], out_channels)
         self.deep_supervision = deep_supervision
         self.deep_supr_num = deep_supr_num
+        self.remat = remat
 
-    def _block(self, name: str, *inputs: torch.Tensor) -> torch.Tensor:
-        """Block ``name`` on ``inputs``; under ``remat`` with gradients on, a
-        checkpoint that keeps only the inputs and recomputes the rest in the
-        backward pass."""
-        block = getattr(self, name)
-        if not (self.remat and torch.is_grad_enabled()):
-            return block(*inputs)
-        names, params = zip(*block.named_parameters())
-        n_in = len(inputs)
+    @property
+    def remat(self) -> bool:
+        """Whether the blocks recompute in the backward; set it to turn that
+        on or off."""
+        return bool(checkpointed_blocks(self))
 
-        def run(*args):
-            return functional_call(block, dict(zip(names, args[n_in:])), args[:n_in])
-
-        # the block draws no random numbers: no RNG state to stash
-        return checkpoint(run, *inputs, *params, use_reentrant=False,
-                          preserve_rng_state=False)
+    @remat.setter
+    def remat(self, on: bool) -> None:
+        whole_model_remat(self, on)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """NDHWC logits; with deep supervision and ``train``, the output and
         the heads (nearest-upsampled to full size) stacked on axis 1."""
         n = self.n_levels
-        skips = [self._block("input_block", x)]
+        skips = [self.input_block(x)]
         for i in range(1, n - 1):
-            skips.append(self._block(f"downsample{i - 1}", skips[-1]))
-        x = self._block("bottleneck", skips[-1])
+            skips.append(getattr(self, f"downsample{i - 1}")(skips[-1]))
+        x = self.bottleneck(skips[-1])
         heads = []
         for i in range(n - 2, -1, -1):
-            x = self._block(f"upsample{n - 2 - i}", x, skips[i])
+            x = getattr(self, f"upsample{n - 2 - i}")(x, skips[i])
             if self.deep_supervision and train and 0 < i <= self.deep_supr_num:
                 heads.append(getattr(self, f"deep_supervision_head{i}")(x))
         out = self.output_block(x)

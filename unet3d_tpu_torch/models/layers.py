@@ -60,15 +60,20 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     ``log_alpha_a`` zeros and ``log_alpha_c`` normal(1e-3); the BatchNorm buffers
     (``batch_stats``) ``mean`` zeros, ``var`` ones. A submodule with an
     ``init_own_parameters(generator)`` method (GlobalNet's affine head: zero
-    kernel, identity bias) sets its own parameters instead."""
+    kernel, identity bias; the graph layers' uniform draws; VQVAE's
+    quantizers, whose codebook buffers it fills) sets its own parameters and
+    buffers instead."""
     owners = [(prefix, m) for prefix, m in module.named_modules()
               if hasattr(m, "init_own_parameters")]
     owned = {f"{prefix}.{name}" if prefix else name
-             for prefix, m in owners for name, _ in m.named_parameters()}
+             for prefix, m in owners
+             for name, _ in [*m.named_parameters(), *m.named_buffers()]}
     for _, m in owners:
         m.init_own_parameters(generator)
     with torch.no_grad():
         for name, b in module.named_buffers():
+            if name in owned:
+                continue
             leaf = name.rsplit(".", 1)[-1]
             if leaf not in ("mean", "var"):
                 raise ValueError(f"no initialiser for buffer {name}")
@@ -417,8 +422,9 @@ def group_norm_groups(channels: int, norm_groups: int = 8) -> int:
 
 def group_norm(x: torch.Tensor, num_groups: int, scale: Optional[torch.Tensor],
                bias: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
-    """Flax's GroupNorm on channels-last ``x`` (NDHWC, or NHWC for the 2-D
-    nets): per (item, group) mean and variance over the spatial axes and the group's channels in f32 (f64 for an f64
+    """Flax's GroupNorm on channels-last ``x`` of any rank (NDHWC, NHWC for
+    the 2-D nets, (B, V, C) for the graph blocks): per (item, group) mean
+    and variance over the other axes and the group's channels in f32 (f64 for an f64
     x), the variance as E[x^2] - E[x]^2 clamped at 0; ``(x - mean) *
     (rsqrt(var + eps) * scale) + bias`` in that type (without the scale or
     bias that is None); the result in the result type of x, scale and bias.
@@ -478,6 +484,8 @@ class BatchNorm(nn.Module):
     scale and bias. The mode is the ``train`` argument, not
     ``Module.training``. (``torch.nn.BatchNorm3d`` weights its momentum the
     other way and stores the unbiased variance.)"""
+
+    BUFFER_COLLECTION = "batch_stats"
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()

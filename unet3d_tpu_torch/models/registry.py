@@ -12,8 +12,9 @@ and Ahnet) and the registration nets RegUNet, GlobalNet and LocalNet; the
 classifiers: ResNet with its ``resnet_*`` / ``resnext_*`` factories,
 DenseNet with ``DenseNet121`` to ``264``, EfficientNetBN, the hybrids
 RegularizedResNet, RegularizedBasicResNet and ResNetWithDecoder1D, and
-the FCN. The other names of ``unet3d_tpu/models/registry.py`` raise with
-the list of what is still to port (ROADMAP.md).
+the FCN; the two-level ``VQVAE`` and the mesh regressor ``GraphCMR``.
+Every name of ``unet3d_tpu/models/registry.py`` resolves; another raises
+with the list.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from unet3d_tpu_torch.models.dints import DiNTS, TopologyInstance, TopologySearc
 from unet3d_tpu_torch.models.dynunet import DynUNet
 from unet3d_tpu_torch.models.efficientnet import EfficientNetBN
 from unet3d_tpu_torch.models.fcn import FCN
+from unet3d_tpu_torch.models.graph import GraphCMR
 from unet3d_tpu_torch.models.highresnet import HighResNet
 from unet3d_tpu_torch.models.monai_autoencoder import AutoEncoder, VarAutoEncoder
 from unet3d_tpu_torch.models.monai_heads import (Classifier, Critic, Discriminator, Generator,
@@ -48,6 +50,7 @@ from unet3d_tpu_torch.models.variational import (ConvolutionalAutoEncoder,
                                                  LabeledVariationalAutoEncoder,
                                                  VariationalAutoEncoder)
 from unet3d_tpu_torch.models.vit import ViT, ViTAutoEnc
+from unet3d_tpu_torch.models.vqvae2 import VQVAE
 from unet3d_tpu_torch.models.vnet import VNet
 
 MODEL_REGISTRY: Dict[str, Any] = {
@@ -94,7 +97,9 @@ MODEL_REGISTRY: Dict[str, Any] = {
     "DenseNet": DenseNet,
     "EfficientNetBN": EfficientNetBN,
     "ResNet": resnet.ResNet,
+    "VQVAE": VQVAE,
     "FCN": FCN,
+    "GraphCMR": GraphCMR,
     "RegularizedResNet": RegularizedResNet,
     "RegularizedBasicResNet": RegularizedBasicResNet,
     "ResNetWithDecoder1D": ResNetWithDecoder1D,
@@ -112,17 +117,14 @@ MODEL_REGISTRY: Dict[str, Any] = {
     "resnext_101_32x8d": resnet.resnext_101_32x8d,
 }
 
-# names the JAX package resolves that the port does not have yet
-NOT_YET_PORTED = ("GraphCMR", "VQVAE")
+# names the JAX package resolves that the port does not have yet: none
+NOT_YET_PORTED = ()
 
 
 def create_model(model_name: str, /, **kwargs):
     """Instantiate a model from config-section kwargs (JSON lists accepted)."""
     if model_name not in MODEL_REGISTRY:
-        state = ("is not ported to PyTorch yet" if model_name in NOT_YET_PORTED
-                 else "is unknown")
         raise ValueError(
-            f"model name {model_name} {state}; ported: "
-            f"{', '.join(sorted(MODEL_REGISTRY))}; still to port: "
-            f"{', '.join(NOT_YET_PORTED)}")
+            f"model name {model_name} is unknown; ported: "
+            f"{', '.join(sorted(MODEL_REGISTRY))}")
     return MODEL_REGISTRY[model_name](**kwargs)

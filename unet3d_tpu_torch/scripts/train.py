@@ -16,9 +16,10 @@ into ``<work dir>/X/`` with the config's inferer and activation.
 The model runs on the first CUDA GPU, which must be an sm_90 card
 (``utils.device.require_cuda``; with none the CLI raises and never falls
 back to the CPU); ``run`` / ``main`` take ``device="cpu"`` to run the plain
-PyTorch path on purpose, as the tests do. ``training.remat`` recomputes each
-block in the backward pass, ``training.gradient_accumulation_steps`` splits
-each batch into microbatches with one optimizer update, and
+PyTorch path on purpose, as the tests do. ``training.remat`` recomputes
+activations in the backward pass (each block of the net's root),
+``training.gradient_accumulation_steps`` splits each batch into microbatches
+with one optimizer update, and
 ``training.save_optimizer`` keeps the optimizer state across a resume, as in
 the JAX CLI. Multi-GPU (``--ngpus > 1``, ``--mesh``) and orbax checkpoints
 are not ported yet and raise.

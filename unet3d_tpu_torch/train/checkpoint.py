@@ -2,9 +2,10 @@
 model and of the optimizer state.
 
 ``unet3d_tpu/train/checkpoint.py`` saves the Flax variable tree with '/'-joined
-keys, e.g. ``params/input_block/conv1/kernel``, and a BatchNorm net's running
-statistics under ``batch_stats/`` (``batch_stats/down0_block0/norm1/mean``).
-``convert.py`` maps both collections onto the port's parameters and buffers
+keys, e.g. ``params/input_block/conv1/kernel``, a BatchNorm net's running
+statistics under ``batch_stats/`` (``batch_stats/down0_block0/norm1/mean``)
+and VQVAE's codebooks under ``codebook/`` (``codebook/quantize_t/embed``).
+``convert.py`` maps the collections onto the port's parameters and buffers
 and back, so a checkpoint either package writes loads in the other.
 
 The optimizer state is the JAX package's file too: a flat ``.npz`` keyed by
@@ -45,8 +46,8 @@ def load_checkpoint(filename: str) -> Dict[str, np.ndarray]:
 
 
 def save_checkpoint(model: torch.nn.Module, filename: str) -> None:
-    """Write ``model``'s parameters and buffers (``params`` and
-    ``batch_stats``) as a flat-key ``.npz``, atomically (a temporary file,
+    """Write ``model``'s parameters and buffers (``params``, ``batch_stats``,
+    ``codebook``) as a flat-key ``.npz``, atomically (a temporary file,
     then a rename)."""
     if str(filename).endswith(".orbax"):
         raise NotImplementedError("orbax checkpoints are not ported (see ROADMAP.md)")

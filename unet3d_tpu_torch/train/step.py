@@ -10,10 +10,11 @@ parameter (norm scale and bias included, as the JAX step casts the whole
 parameter tree), through ``torch.func.functional_call``, so the gradients
 reach the f32 masters through the cast and the optimizer updates those. The
 buffers (a BatchNorm's running ``mean`` and ``var``, the ``batch_stats``
-collection) stay f32 in training, as the JAX step casts only ``params``: the
-training forward normalises with the batch's f32 statistics and updates the
-running averages in place, once per forward. The eval step casts them to
-bf16 with the parameters, as the JAX ``amp_cast`` casts every f32 leaf.
+collection; VQVAE's ``codebook``) stay f32 in training, as the JAX step casts
+only ``params``: the training forward normalises with the batch's f32
+statistics and updates the running averages (the EMA codebook) in place,
+once per forward. The eval step casts them to bf16 with the parameters, as
+the JAX ``amp_cast`` casts every f32 leaf.
 
 A model whose forward takes ``rng`` (the dropout and VAE noise of the
 Myronenko family) draws its training noise from a ``torch.Generator`` on the
@@ -25,8 +26,8 @@ step owns it and passes it to every forward, as the JAX step splits its
 JAX step's scan): one forward and backward each, the gradients summed in f32
 in the masters' ``.grad``, divided once by the count, one optimizer update,
 and the loss the mean of the microbatches'. Each microbatch normalises with
-its own statistics and updates the running averages the one before left, as
-the scan carries ``batch_stats``.
+its own statistics and updates the running averages (and codebook) the one
+before left, as the scan carries ``batch_stats`` and ``codebook``.
 """
 from __future__ import annotations
 

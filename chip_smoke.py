@@ -286,6 +286,25 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    SegResNetVAE's remat gradients through the kernels against the plain
    path, step ms each way and a profile.
 
+17. data-parallel training (``unet3d_tpu_torch/parallel/``) on the one
+   card, the BraTS DynUNet at full width, batch 2 of 128^3, one SGD step
+   (lr 1: the update is the gradient): (a) ``make_sharded_train_step`` at
+   world size 1 over NCCL against ``make_train_step`` from the same weights
+   in bf16 AMP: the updates within twice the plain step's own run-to-run
+   spread (1e-5 at least), the four training kernels' launches equal, the
+   step ms of each, the all-reduce's ms and bytes, a profile of the sharded
+   step; (b) two ranks sharing the card over gloo, one item each (two
+   processes on one card: not a scaling figure), against the
+   single-process batch-2 step: the updates within 1e-4 (f32; twice that
+   step's own run-to-run spread where it is larger) and 2e-2 (bf16, phase
+   5's gradient bound) on each rank, each rank's launches the
+   batch-2 step's, the ranks' bf16 step ms and all-reduce ms; (c)
+   SegResNetDS at MONAI's widths on the same two ranks: the running
+   statistics after one f32 step within 1e-4 of the single-process step;
+   (d) the train CLI with ``--ngpus 2`` on phase 8's cases: clamped to the
+   one card (world size 1), one epoch, the log written once, the kernels
+   launched.
+
 Exits non-zero if any phase fails or there is no CUDA device. The last lines
 are the card, a JSON object of the kernels (the bf16 forms' rows, then the
 f32 form's: ``conv_tf32x3``, ``conv_stats_tf32x3``, ``block_stats_tf32x3``,
@@ -707,6 +726,15 @@ REMAT_SHAPE = (128, 128, 128)
 # the EMA codebook against its f64 evaluation on the host: f32, and bf16
 # (the AMP step's one-hot counts and sums round to bf16, as in JAX)
 EMA_BOUNDS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# phase 17: data-parallel training on the one card (two ranks share it over
+# gloo); the updates of two ranks against the single-process step
+DP_BATCH = 2
+DP_DIR = os.path.join(ROOT, "build", "chip_smoke_dp")
+DP_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_dp_cli")
+DP_TIMED_STEPS = 3
+DP_BOUNDS = {"f32": 1e-4, "bf16": GRAD_BOUND_BF16}
+DP_WORLD1_FLOOR = 1e-5
+DP_STATS_BOUND = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -4661,6 +4689,282 @@ def phase16_remat(device, seed, card) -> tuple:
     return launches, results
 
 
+def dp_model(model_cfg, device, seed):
+    """The BraTS config's model (its model section ``model_cfg`` when given)
+    built by the config factory from ``seed``, and the config's criterion."""
+    from unet3d_tpu_torch.config.factory import (build_or_load_model_from_config,
+                                                 load_criterion_from_config)
+    from unet3d_tpu_torch.utils.config import load_json
+    config = load_json(CONFIG)
+    if model_cfg is not None:
+        config["model"] = dict(model_cfg)
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    return model, load_criterion_from_config(config)
+
+
+def dp_batch(seed):
+    """Phase 17's global batch: DP_BATCH items of 4 x 128^3, 3 labels."""
+    shape = (128, 128, 128)
+    rng = np.random.RandomState(seed + 70)
+    return (torch.from_numpy(rng.randn(DP_BATCH, 4, *shape).astype(np.float32)),
+            torch.from_numpy((rng.rand(DP_BATCH, 3, *shape) > 0.5).astype(np.float32)))
+
+
+def dp_step(model, criterion, amp, mesh=None, lr=1.0):
+    """``make_train_step`` with SGD at ``lr``, or ``make_sharded_train_step``
+    on ``mesh`` fed this rank's share of each global batch."""
+    from unet3d_tpu_torch.parallel.mesh import make_sharded_train_step, shard_batch
+    from unet3d_tpu_torch.train.step import make_train_step
+    opt = torch.optim.SGD(model.parameters(), lr=lr)
+    if mesh is None:
+        return make_train_step(model, criterion, opt, amp=amp)
+    step = make_sharded_train_step(model, criterion, opt, mesh, amp=amp)
+    return lambda images, labels: step(shard_batch(images, mesh), shard_batch(labels, mesh))
+
+
+def dp_update(model, criterion, images, labels, amp, mesh=None) -> dict:
+    """One SGD step (lr 1) from the model's weights, which are put back
+    after it: each parameter's update and each buffer after the step (f32,
+    on the host), the loss and the training kernels' launches in the step."""
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    step = dp_step(model, criterion, amp, mesh)
+    torch.cuda.synchronize()
+    reset_launches()
+    loss = float(step(images, labels))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    out = dict(loss=loss, launches={k: launches[k] for k in TRAIN_KERNELS},
+               updates={k: (p.detach() - before[k]).float().cpu()
+                        for k, p in model.named_parameters()},
+               buffers={k: b.detach().float().cpu() for k, b in model.named_buffers()})
+    model.load_state_dict(before)
+    return out
+
+
+def dict_gap(got: dict, want: dict) -> float:
+    """Relative L2 of ``got`` against ``want`` over all their tensors."""
+    diff = sum(float((got[k] - want[k]).double().square().sum()) for k in want)
+    norm = sum(float(want[k].double().square().sum()) for k in want)
+    return (diff / norm) ** 0.5
+
+
+@contextlib.contextmanager
+def timed_all_reduce(spans):
+    """Each gradient all-reduce of the sharded step (``parallel.mesh.
+    average_gradients``) timed by the host clock between synchronisations."""
+    from unet3d_tpu_torch.parallel import mesh as mesh_module
+    real = mesh_module.average_gradients
+
+    def timed(model, loss, mesh, *whole):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(model, loss, mesh, *whole)
+        torch.cuda.synchronize()
+        spans.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    mesh_module.average_gradients = timed
+    try:
+        yield
+    finally:
+        mesh_module.average_gradients = real
+
+
+def dp_step_ms(model, criterion, images, labels, amp, mesh=None, steps=DP_TIMED_STEPS):
+    """ms per step (host clock, synchronised) over ``steps`` steps at a tiny
+    lr after one warm-up, and the gradient all-reduce's ms per step (None
+    without a mesh)."""
+    step = dp_step(model, criterion, amp, mesh, lr=1e-9)
+    step(images, labels)
+    spans = []
+    with timed_all_reduce(spans):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(images, labels)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps, (sum(spans) / len(spans) if spans else None)
+
+
+def phase17_world1(device, seed, card) -> tuple:
+    """(a) The sharded step at world size 1 over NCCL against the plain
+    step from the same weights (bf16 AMP, batch 2): the updates, the
+    launches, step and all-reduce ms, a profile of the sharded step."""
+    from unet3d_tpu_torch.parallel import launch
+    from unet3d_tpu_torch.parallel.mesh import make_mesh
+
+    model, criterion = dp_model(None, device, seed)
+    images, labels = dp_batch(seed)
+    plain = [dp_update(model, criterion, images, labels, True) for _ in range(2)]
+    spread = dict_gap(plain[1]["updates"], plain[0]["updates"])
+
+    def world1():
+        mesh = make_mesh()
+        sharded = dp_update(model, criterion, images, labels, True, mesh)
+        times, spans = {"plain": [], "sharded": []}, []
+        for which in ("plain", "sharded", "sharded", "plain"):
+            ms, span = dp_step_ms(model, criterion, images, labels, True,
+                                  mesh if which == "sharded" else None)
+            times[which].append(ms)
+            if span is not None:
+                spans.append(span)
+        step = dp_step(model, criterion, True, mesh, lr=1e-9)
+        profile = profile_device(lambda: step(images, labels),
+                                 "one bf16 sharded train step (world size 1, NCCL)", card)
+        return dict(mesh.shape), sharded, times, spans, profile
+
+    shape, sharded, times, spans, profile = launch.launch(
+        world1, (), launch.Plan(1, {"data": 1}, {}), device=device, backend="nccl")[0]
+    gap = dict_gap(sharded["updates"], plain[0]["updates"])
+    bound = max(2 * spread, DP_WORLD1_FLOOR)
+    n_grad = sum(v.numel() for v in sharded["updates"].values())
+    print(f"data parallel (a) world size 1 over NCCL, mesh {shape}, batch {DP_BATCH} bf16: "
+          f"updates vs make_train_step rel L2 {gap:.3e} (plain run-to-run {spread:.3e}, bound "
+          f"{bound:.1e}); launches sharded {sharded['launches']} plain {plain[0]['launches']}; "
+          f"step ms sharded {times['sharded']} plain {times['plain']}; all-reduce {spans} ms "
+          f"of {4 * (n_grad + 1)} bytes a step [{card}]", flush=True)
+    check(gap <= bound, f"world size 1: updates rel L2 {gap:.3e} > {bound:.1e}")
+    check(sharded["launches"] == plain[0]["launches"],
+          f"world size 1 launches {sharded['launches']} != {plain[0]['launches']}")
+    check(all(sharded["launches"][k] > 0 for k in TRAIN_KERNELS),
+          f"a kernel was not launched in the sharded step: {sharded['launches']}")
+    check(np.isfinite(sharded["loss"]) and abs(sharded["loss"] - plain[0]["loss"]) < 1e-3,
+          f"sharded loss {sharded['loss']} vs {plain[0]['loss']}")
+    del model
+    torch.cuda.empty_cache()
+    return sharded["launches"], dict(
+        update_rel_l2=gap, plain_run_to_run=spread,
+        step_ms={k: sum(v) / len(v) for k, v in times.items()}, step_ms_runs=times,
+        all_reduce_ms=spans, all_reduce_bytes=4 * (n_grad + 1), profile=profile)
+
+
+def phase17_rank(path, seed):
+    """One of (b)'s and (c)'s two ranks (a spawned process sharing the card
+    over gloo): its share of the global batch through the sharded step, the
+    updates and statistics against the single-process references saved in
+    ``path``; its launches, bf16 step ms and all-reduce ms."""
+    from unet3d_tpu_torch.parallel import distributed
+    from unet3d_tpu_torch.parallel.mesh import make_mesh, shard_batch
+
+    device = distributed.rank_device()
+    ref = torch.load(path)
+    mesh = make_mesh()
+    images, labels = ref["images"], ref["labels"]
+    model, criterion = dp_model(None, device, seed)
+    out = {"rank": mesh.rank, "items": shard_batch(torch.arange(DP_BATCH), mesh).tolist()}
+    for name, amp in (("f32", False), ("bf16", True)):
+        run = dp_update(model, criterion, images, labels, amp, mesh)
+        out[name] = dict_gap(run["updates"], {k[len(name) + 1:]: v for k, v in ref.items()
+                                              if k.startswith(name + "/")})
+        out[f"launches_{name}"] = run["launches"]
+    out["step_ms"], out["all_reduce_ms"] = dp_step_ms(model, criterion, images, labels, True,
+                                                      mesh)
+    del model
+    torch.cuda.empty_cache()
+    ds_model, ds_criterion = dp_model(SEGRESNET_DS_MODEL, device, seed)
+    run = dp_update(ds_model, ds_criterion, images, labels, False, mesh)
+    out["stats"] = dict_gap(run["buffers"], {k[len("stats/"):]: v for k, v in ref.items()
+                                             if k.startswith("stats/")})
+    return out
+
+
+def phase17_two_ranks(device, seed, card) -> tuple:
+    """(b) and (c): the single-process batch-2 references here, then two
+    ranks sharing the card over gloo (``phase17_rank``)."""
+    from unet3d_tpu_torch.parallel import launch
+
+    images, labels = dp_batch(seed)
+    ref = {"images": images, "labels": labels}
+    model, criterion = dp_model(None, device, seed)
+    plain = {}
+    for name, amp in (("f32", False), ("bf16", True)):
+        plain[name] = dp_update(model, criterion, images, labels, amp)
+        ref.update({f"{name}/{k}": v for k, v in plain[name]["updates"].items()})
+    # the f32 kernels' own run-to-run spread (their statistics' atomics through
+    # the leaky-ReLU kinks): two ranks cannot come nearer than the step to itself
+    spread = dict_gap(dp_update(model, criterion, images, labels, False)["updates"],
+                      plain["f32"]["updates"])
+    bounds = dict(DP_BOUNDS, f32=max(DP_BOUNDS["f32"], 2 * spread))
+    plain_ms, _ = dp_step_ms(model, criterion, images, labels, True)
+    del model
+    ds_model, ds_criterion = dp_model(SEGRESNET_DS_MODEL, device, seed)
+    ref.update({f"stats/{k}": v for k, v in dp_update(
+        ds_model, ds_criterion, images, labels, False)["buffers"].items()})
+    del ds_model
+    torch.cuda.empty_cache()
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    path = os.path.join(DP_DIR, "references.pt")
+    torch.save(ref, path)
+    t0 = time.perf_counter()
+    ranks = launch.launch(phase17_rank, (path, seed), launch.Plan(2, {"data": 2}, {}),
+                          device=torch.device("cuda", device.index or 0), backend="gloo")
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    for r in ranks:
+        print(f"data parallel (b, c) rank {r['rank']} of 2 over gloo on one card, items "
+              f"{r['items']}: updates vs the batch-{DP_BATCH} step rel L2 f32 {r['f32']:.3e} "
+              f"bf16 {r['bf16']:.3e}; SegResNetDS running statistics (f32) {r['stats']:.3e}; "
+              f"launches {r['launches_bf16']}; bf16 step {r['step_ms']:.1f} ms (two processes "
+              f"on one card, not a scaling figure), all-reduce {r['all_reduce_ms']:.1f} ms "
+              f"[{card}]", flush=True)
+        for name in ("f32", "bf16"):
+            check(r[name] <= bounds[name],
+                  f"rank {r['rank']} {name} updates rel L2 {r[name]:.3e} > {bounds[name]:.1e}")
+            check(r[f"launches_{name}"] == plain[name]["launches"],
+                  f"rank {r['rank']} {name} launches {r[f'launches_{name}']} != "
+                  f"{plain[name]['launches']}")
+        check(r["stats"] <= DP_STATS_BOUND,
+              f"rank {r['rank']} running statistics rel L2 {r['stats']:.3e} > {DP_STATS_BOUND}")
+    check(sorted(i for r in ranks for i in r["items"]) == list(range(DP_BATCH)),
+          f"the ranks' items {[r['items'] for r in ranks]}")
+    print(f"data parallel (b, c): the two ranks' run {seconds:.1f} s (spawn, library load, "
+          f"steps); the single-process batch-{DP_BATCH} f32 step's run-to-run spread "
+          f"{spread:.3e} (f32 bound {bounds['f32']:.1e}), its bf16 step {plain_ms:.1f} ms "
+          f"[{card}]", flush=True)
+    return ranks[0]["launches_bf16"], dict(
+        ranks=[{k: v for k, v in r.items() if not k.startswith("launches_")} for r in ranks],
+        plain_f32_run_to_run=spread, plain_step_ms=plain_ms, seconds=seconds)
+
+
+def phase17_train_cli(card, cases) -> tuple:
+    """(d) The train CLI with ``--ngpus 2`` on the one card: clamped to one
+    rank (world size 1 over NCCL), one epoch on two of phase 8's cases, the
+    log written once, the training kernels launched."""
+    from unet3d_tpu_torch.scripts import train as train_cli
+    from unet3d_tpu_torch.train.train import read_training_log
+    from unet3d_tpu_torch.utils.config import dump_json, load_json
+
+    shutil.rmtree(DP_CLI_DIR, ignore_errors=True)
+    os.makedirs(DP_CLI_DIR)
+    config = load_json(CONFIG)
+    for key in ("cross_validation", "bratsvalidation_filenames"):
+        config.pop(key, None)
+    config["training_filenames"] = cases[:2]
+    config["training"]["n_epochs"] = 1
+    config_file = os.path.join(DP_CLI_DIR, "dp.json")
+    dump_json(config, config_file)
+    out = os.path.join(DP_CLI_DIR, "out")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = train_cli.main(["--config_filename", config_file, "--output_dir", out,
+                             "--ngpus", "2", "--n_examples", "0"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: launch_counts()[k] for k in TRAIN_KERNELS}
+    rows = read_training_log(os.path.join(out, "dp", "training_log.csv"))
+    files = sorted(os.listdir(os.path.join(out, "dp")))
+    print(f"data parallel (d) train CLI --ngpus 2 on {torch.cuda.device_count()} card: world "
+          f"size {result['world_size']}, log {rows}, files {files}, launches {launches}, "
+          f"{seconds:.1f} s [{card}]", flush=True)
+    check(result["world_size"] == 1, f"--ngpus 2 on one card ran {result['world_size']} ranks")
+    check(len(rows) == 1 and np.isfinite(rows[0][1]), f"train CLI log {rows}")
+    check(all(launches[k] > 0 for k in TRAIN_KERNELS), f"train CLI launches {launches}")
+    shutil.rmtree(DP_CLI_DIR, ignore_errors=True)
+    return launches, dict(seconds=seconds, log=rows)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4672,7 +4976,16 @@ def main() -> int:
     from unet3d_tpu_torch.utils.device import require_cuda, sm_version
 
     os.environ.pop("UNET3D_TPU_CONV", None)  # phases 3-5 run the default routing
-    t_start = time.perf_counter()
+    t_start = t_phase = time.perf_counter()
+
+    def phase_done(n: int) -> None:
+        """Prints phase ``n``'s seconds and the smoke's so far."""
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase {n} {now - t_phase:.1f} s; the smoke so far {now - t_start:.1f} s",
+              flush=True)
+        t_phase = now
+
     # phase 0
     card = card_line()
     print(card, flush=True)
@@ -4682,43 +4995,55 @@ def main() -> int:
           flush=True)
     # no TF32 flag is set: the phases run under torch's defaults, as a user
     # runs the CLIs, and the port's own policy keeps f32 full f32
+    phase_done(0)
     # phase 1
     t0 = time.perf_counter()
     load_library()
     print(f"kernel build {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_done(1)
     # phase 2
     gen = torch.Generator(device=device).manual_seed(args.seed)
     report = phase2(device, gen)
     phase2_backward(device, gen, report)
     phase2_winograd(device, gen, report)
+    phase_done(2)
     # phase 3
     model, launches, seconds, window_profile = phase3(device, args.seed, card)
+    phase_done(3)
     # phase 4
     window_ms = phase4(model, launches, device, args.seed, card)
     del model
     torch.cuda.empty_cache()
+    phase_done(4)
     # phase 5
     train_launches, training = phase5(device, args.seed, card)
+    phase_done(5)
     # phase 6
     cli_launches, cli = phase6_cli(args.seed, card)
+    phase_done(6)
     # phase 7
     strategy_launches, strategy = phase7_strategy_step(device, args.seed, card)
+    phase_done(7)
     # phase 8
     train_cli_launches, train_cli, cases = phase8_train_cli(device, args.seed, card)
     torch.cuda.empty_cache()
+    phase_done(8)
     # phase 9
     res_launches, res = phase9_train_cli_res(device, args.seed, card, cases)
+    phase_done(9)
     # phase 10
     family_rows = phase10_kernels(device, gen)
     segresnet_launches, segresnet = phase10_segresnet(device, args.seed, card)
     segresnet_cli_launches, segresnet_cli = phase10_train_cli(device, args.seed, card, cases)
     family = phase10_family(device, args.seed, card)
+    phase_done(10)
     # phase 11
     bn_rows = phase10_kernels(device, gen, BN_CONV_SHAPES, BN_S2_SHAPES, "BatchNorm nets")
     segresnet_ds_launches, segresnet_ds = phase11_segresnet_ds(device, args.seed, card)
     segresnet_ds_cli_launches, segresnet_ds_cli = phase11_train_cli(device, args.seed, card,
                                                                     cases)
     bn_nets = phase11_nets(device, args.seed, card)
+    phase_done(11)
     # phase 12
     transformer_rows = phase10_kernels(device, gen, TRANSFORMER_CONV_SHAPES, [], "transformers")
     transformer_launches, transformers = {}, {}
@@ -4727,8 +5052,8 @@ def main() -> int:
             name, model_cfg, device, args.seed, card)
     swin_cli_launches, swin_cli = phase12_train_cli(device, args.seed, card, cases)
     vits = phase12_vits(device, args.seed, card)
+    phase_done(12)
     # phase 13
-    t13 = time.perf_counter()
     stack_rows = phase10_kernels(device, gen, CONV_STACK_SHAPES, [], "conv stacks")
     stack_launches, stacks = {}, {}
     for i, (name, model_cfg) in enumerate(CONV_STACKS):
@@ -4736,10 +5061,8 @@ def main() -> int:
                                                          args.seed, card)
     stacks.update(phase13_variants(device, args.seed, card))
     pp_cli_launches, pp_cli = phase13_train_cli(device, args.seed, card, cases)
-    print(f"phase 13 {time.perf_counter() - t13:.1f} s; the smoke so far "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    phase_done(13)
     # phase 14
-    t14 = time.perf_counter()
     last_rows = phase10_kernels(device, gen, LAST_CONV_SHAPES, LAST_S2_SHAPES,
                                 "last conv nets")
     last_launches, last_nets = {}, {}
@@ -4749,27 +5072,27 @@ def main() -> int:
     last_nets["AHNet trilinear"] = phase14_ahnet_trilinear(device, args.seed, card)
     heads = phase14_heads(device, args.seed, card)
     localnet_cli_launches, localnet_cli = phase14_train_cli(device, args.seed, card, cases)
-    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
-    print(f"phase 14 {time.perf_counter() - t14:.1f} s; the smoke so far "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    phase_done(14)
     # phase 15
-    t15 = time.perf_counter()
     classifier_rows = phase10_kernels(device, gen, DENSENET_CONV_SHAPES, [], "classifiers")
     classifier_launches, classifiers = {}, {}
     for i, (name, model_cfg) in enumerate(CLASSIFIERS):
         classifier_launches[name], classifiers[name] = phase15_net(
             i, name, model_cfg, device, args.seed, card)
     classifiers["large"] = phase15_large(device, args.seed, card)
-    print(f"phase 15 {time.perf_counter() - t15:.1f} s; the smoke so far "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    phase_done(15)
     # phase 16
-    t16 = time.perf_counter()
     vqvae = phase16_vqvae(device, args.seed, card)
     graph_cmr = phase16_graphcmr(device, args.seed, card)
     remat_launches, remat = phase16_remat(device, args.seed, card)
     shutil.rmtree(GRAPH_CMR_DIR, ignore_errors=True)
-    print(f"phase 16 {time.perf_counter() - t16:.1f} s; the smoke so far "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    phase_done(16)
+    # phase 17
+    dp_launches, dp_world1 = phase17_world1(device, args.seed, card)
+    dp_rank_launches, dp_ranks = phase17_two_ranks(device, args.seed, card)
+    dp_cli_launches, dp_cli = phase17_train_cli(card, cases)
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    phase_done(17)
     check(not any(m in sys.modules for m in ("jax", "unet3d_tpu")),
           "the port imported jax")
     # launches: the training path's (phase 5; phase 7 for the Winograd
@@ -4798,7 +5121,11 @@ def main() -> int:
     # bf16 train step of each (phase 15c), and classifier_shapes the conv
     # kernel at DenseNet121's conv2 sites (phase 15a); launches_segresnet_remat
     # and launches_segresnet_ds_remat: one bf16 step's forward and backward
-    # of each under whole-model remat (phase 16c)
+    # of each under whole-model remat (phase 16c); launches_data_parallel:
+    # the bf16 sharded step at world size 1 over NCCL (phase 17a),
+    # launches_data_parallel_rank one of two ranks' share of it (phase 17b)
+    # and launches_train_cli_data_parallel the train CLI's epoch at --ngpus 2
+    # (phase 17d)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": v, "route": "cuda", "source": SOURCES[v],
                 "replaces": REPLACES[v], "launches": train_launches[v],
@@ -4822,6 +5149,9 @@ def main() -> int:
                 "launches_regularizedresnet": classifier_launches["RegularizedResNet"][v],
                 "launches_segresnet_remat": remat_launches["SegResNetVAE"][v],
                 "launches_segresnet_ds_remat": remat_launches["SegResNetDS"][v],
+                "launches_data_parallel": dp_launches[v],
+                "launches_data_parallel_rank": dp_rank_launches[v],
+                "launches_train_cli_data_parallel": dp_cli_launches[v],
                 **{k: report[v][k] for k in keys}}
                for v in TRAIN_KERNELS]
     for entry in kernels:
@@ -4906,6 +5236,8 @@ def main() -> int:
     print(f"vqvae: {json.dumps(vqvae)} [{card}]")
     print(f"graph_cmr: {json.dumps(graph_cmr)} [{card}]")
     print(f"whole-model remat: {json.dumps(remat)} [{card}]")
+    print(f"data parallel: {json.dumps(dict(world1=dp_world1, two_ranks=dp_ranks, cli=dp_cli))} "
+          f"[{card}]")
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))

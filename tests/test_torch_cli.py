@@ -132,8 +132,9 @@ def test_parsers_take_the_jax_flags():
 
 
 @pytest.mark.parametrize("model_file,machine", [
-    ("model.u3dexp", {"n_gpus": 1}), ("model.npz", {"n_gpus": 2}),
-    ("model.npz", {"n_gpus": 1, "mesh": "data2"})])
+    ("model.u3dexp", {"n_gpus": 1}), ("model.npz", {"n_gpus": 2, "mesh": "space2"}),
+    ("model.npz", {"n_gpus": 1, "mesh": "data1,space2"}),
+    ("model.npz", {"n_gpus": 1, "mesh": "model2"})])
 def test_unported_options_raise(setup, tmp_path, model_file, machine):
     config = json.load(open(setup[0]))
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -61,6 +61,10 @@ LAST_CONV_NET_MODULES = ("models.monai_autoencoder", "models.monai_heads",
 # the classifiers
 CLASSIFIER_MODULES = ("models.resnet", "models.densenet", "models.efficientnet",
                       "models.custom", "models.fcn", "models.registry", "ops.conv3d")
+# data-parallel training and prediction
+PARALLEL_MODULES = ("parallel.distributed", "parallel.mesh", "parallel.launch",
+                    "data.loader", "data.prefetch", "train.train", "scripts.train",
+                    "scripts.predict", "kernels.build")
 
 
 def _env():
@@ -87,6 +91,7 @@ def test_every_module_imports_without_jax_or_a_build():
     assert {f"unet3d_tpu_torch.{m}" for m in CONV_STACK_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in LAST_CONV_NET_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in CLASSIFIER_MODULES} <= set(names.split())
+    assert {f"unet3d_tpu_torch.{m}" for m in PARALLEL_MODULES} <= set(names.split())
 
 
 def test_no_source_of_the_port_names_jax():

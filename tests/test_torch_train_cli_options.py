@@ -1,5 +1,6 @@
 """The port's train CLI: its flags against the JAX CLI's, the device it
-needs, the options it refuses (multi-GPU and orbax only), the options it
+needs, the options it refuses (the space and model mesh axes and orbax
+only), the options it
 took over from the JAX CLI (gradient accumulation with its checks, remat,
 the optimizer state, flexible pretrained loading), cross-validation,
 ``--dry_run``, ``--debug`` and ``--batch_size``, on copies of the fixture
@@ -55,9 +56,9 @@ def test_train_without_a_gpu_raises_unless_given_the_cpu(config_file, tmp_path, 
 
 
 @pytest.mark.parametrize("flags,training", [
-    (["--ngpus", "2"], {}), (["--mesh", "data2"], {}),
-    ([], {"checkpoint_backend": "orbax"})],
-    ids=["ngpus", "mesh", "orbax"])
+    (["--ngpus", "2", "--mesh", "space2"], {}), (["--mesh", "data1,space2"], {}),
+    (["--mesh", "model2"], {}), ([], {"checkpoint_backend": "orbax"})],
+    ids=["ngpus", "mesh", "model", "orbax"])
 def test_unported_options_raise(tmp_path, flags, training):
     config = small_brats_config(str(tmp_path), n_train=1, n_val=0, test=False)
     config["training"].update(training)

@@ -6,6 +6,7 @@ and inferer, and the debug example dumps.
 """
 from __future__ import annotations
 
+import functools
 import inspect
 import logging
 import os
@@ -22,6 +23,8 @@ from unet3d_tpu_torch.data.loader import build_loader
 from unet3d_tpu_torch.models.layers import init_parameters
 from unet3d_tpu_torch.models.registry import MODEL_REGISTRY, create_model
 from unet3d_tpu_torch.models.remat import whole_model_remat
+from unet3d_tpu_torch.parallel.distributed import is_primary_host
+from unet3d_tpu_torch.parallel.mesh import local_items
 from unet3d_tpu_torch.predict.sliding_window import build_inferer
 from unet3d_tpu_torch.train.checkpoint import load_checkpoint
 from unet3d_tpu_torch.train.losses import load_criterion
@@ -30,8 +33,9 @@ from unet3d_tpu_torch.utils.config import dump_json, get_kwargs, in_config, load
 
 
 def add_machine_config_to_parser(parser):
-    """The JAX CLI's machine flags. ``--ngpus`` above 1 and ``--mesh`` are
-    refused by the CLIs until multi-GPU is ported."""
+    """The JAX CLI's machine flags. ``--ngpus`` N starts N ranks (one
+    process per GPU, ``parallel/launch.py``); ``--mesh`` takes the ``data``
+    axis only (a ``space`` or ``model`` axis above 1 raises)."""
     parser.add_argument("--machine_config_filename", required=False,
                         help="JSON configuration file containing the number of "
                              "devices and threads available for model training.")
@@ -43,8 +47,8 @@ def add_machine_config_to_parser(parser):
     parser.add_argument("--pin_memory", action="store_true", default=False)
     parser.add_argument("--mesh", required=False,
                         help="Device-mesh layout for multi-device runs, e.g. "
-                             "'data2,space4'. Not ported yet: the port runs on "
-                             "one GPU.")
+                             "'data2'. The port shards the batch over the data "
+                             "axis only; a space or model axis raises.")
 
 
 def get_machine_config(namespace):
@@ -139,12 +143,15 @@ def transfer_dtype_from_config(config):
 
 
 def build_data_loaders_from_config(config, system_config, output_dir, dataset_class,
-                                   metric_to_monitor="val_loss"):
+                                   metric_to_monitor="val_loss", mesh=None):
     """The training loader (shuffled), the validation loader (None without
     ``validation_filenames``, and then the monitored metric falls back to
     ``loss``) and the metric; ``dataset.add_contours`` doubles
     ``n_outputs``; ``training.test_input`` writes that many transformed
-    training samples under ``output_dir/data_loader_testing``."""
+    training samples under ``output_dir/data_loader_testing`` (rank 0 of a
+    data-parallel run). With a data-parallel ``mesh`` both loaders load this
+    rank's share of each batch, the training one in the microbatch layout of
+    ``training.gradient_accumulation_steps``."""
     if in_config("add_contours", config["dataset"], False):
         config["n_outputs"] = config.get("n_outputs", 0) * 2
 
@@ -159,15 +166,21 @@ def build_data_loaders_from_config(config, system_config, output_dir, dataset_cl
     dataset_kwargs = dataset_kwargs_from_config(config)
     transfer_dtype = transfer_dtype_from_config(config)
     collate = in_config("collate", config["training"], None)
+    train_share = val_share = None
+    if mesh is not None:
+        grad_accum = int(in_config("gradient_accumulation_steps", config["training"], 1))
+        train_share = functools.partial(local_items, mesh=mesh, microbatches=grad_accum)
+        val_share = functools.partial(local_items, mesh=mesh)
 
     training_dataset = dataset_class(filenames=config["training_filenames"],
                                      **training_kwargs, **dataset_kwargs)
     training_loader = build_loader(training_dataset, batch_size=batch_size,
                                    shuffle=True, num_workers=n_workers,
                                    prefetch_factor=prefetch_factor,
-                                   transfer_dtype=transfer_dtype, collate=collate)
+                                   transfer_dtype=transfer_dtype, collate=collate,
+                                   share=train_share)
 
-    if test_input:
+    if test_input and is_primary_host():
         write_dataset_examples(test_input, training_dataset,
                                output_dir=os.path.join(output_dir, "data_loader_testing"))
 
@@ -183,7 +196,7 @@ def build_data_loaders_from_config(config, system_config, output_dir, dataset_cl
                                          batch_size=validation_batch_size,
                                          shuffle=False, num_workers=n_workers,
                                          prefetch_factor=prefetch_factor,
-                                         transfer_dtype=transfer_dtype)
+                                         transfer_dtype=transfer_dtype, share=val_share)
     return training_loader, validation_loader, metric_to_monitor
 
 

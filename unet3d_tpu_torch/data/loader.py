@@ -10,6 +10,7 @@ AMP: ``config/factory.py``); ``data/prefetch.py`` moves them to the GPU.
 """
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 from collections import deque
@@ -60,11 +61,18 @@ class DataLoader:
     stacking, so batches cross the host->device link compact: a torch dtype
     (e.g. ``{"image": torch.bfloat16}``, which numpy lacks) makes the key a
     torch tensor of that dtype. Floating arrays only.
+
+    ``share`` (a data-parallel rank's: ``parallel.mesh.local_items`` for its
+    mesh) maps a global batch's item count to the positions of this rank's
+    items, or None for a batch that runs whole: every rank walks the same
+    global order (``seed + epoch``) and loads only its items of each batch,
+    which carries ``global_batch_size`` and ``whole_batch``.
     """
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  num_workers: int = 1, seed: int = 0, prefetch_factor: int = 2,
-                 drop_last: bool = False, transfer_dtype=None, collate=None):
+                 drop_last: bool = False, transfer_dtype=None, collate=None,
+                 share=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -81,7 +89,27 @@ class DataLoader:
         if collate is None and getattr(dataset, "multi_sample", False):
             collate = collate_flatten
         self.collate = collate
+        self.share = share
+        self.cases = None  # (rank, ranks): rank_cases' deal
         self.epoch = 0
+
+    def rank_cases(self, rank: int, ranks: int) -> "DataLoader":
+        """A copy of this loader over the cases ``rank``, ``rank + ranks``,
+        ... of its order (case i to rank i mod ranks), for prediction."""
+        out = copy.copy(self)
+        out.cases = (rank, ranks)
+        return out
+
+    def _load(self, idxs) -> Dict[str, Any]:
+        """The batch of the items at ``idxs`` (a global batch's: its
+        rank's share under ``share``)."""
+        if self.share is None:
+            return self._stack([self.dataset[int(i)] for i in idxs])
+        mine = self.share(len(idxs))
+        batch = self._stack([self.dataset[int(i)]
+                             for i in (idxs if mine is None else idxs[mine])])
+        batch.update(global_batch_size=len(idxs), whole_batch=mine is None)
+        return batch
 
     def _stack(self, samples) -> Dict[str, Any]:
         batch = _stack_batch(samples)
@@ -102,6 +130,8 @@ class DataLoader:
 
     def __len__(self) -> int:
         n = len(self.dataset)
+        if self.cases is not None:
+            n = len(range(self.cases[0], n, self.cases[1]))
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -110,6 +140,8 @@ class DataLoader:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(order)
+        if self.cases is not None:
+            order = order[self.cases[0]::self.cases[1]]
         return order
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
@@ -120,7 +152,7 @@ class DataLoader:
             batches = [b for b in batches if len(b) == self.batch_size]
         if self.num_workers <= 1:
             for idxs in batches:
-                yield self._stack([self.dataset[int(i)] for i in idxs])
+                yield self._load(idxs)
             return
         # Threaded pipeline: samples are produced by a pool, batches assembled
         # in order. Submission is lazy — at most num_workers + prefetch_factor
@@ -151,8 +183,7 @@ class DataLoader:
                         idxs = next(batch_iter, None)
                         if idxs is None:
                             break
-                        pending.append(pool.submit(lambda ii=idxs: self._stack(
-                            [self.dataset[int(i)] for i in ii])))
+                        pending.append(pool.submit(self._load, idxs))
                     if not pending:
                         put(("done", None))
                         return
@@ -206,7 +237,7 @@ _COLLATE_REGISTRY = {
 def build_loader(dataset, batch_size: int = 1, shuffle: bool = False,
                  num_workers: int = 1, pin_memory: bool = False,
                  prefetch_factor: int = 2, seed: int = 0,
-                 transfer_dtype=None, collate=None) -> DataLoader:
+                 transfer_dtype=None, collate=None, share=None) -> DataLoader:
     """Factory with the reference's DataLoader kwarg surface; ``pin_memory`` is
     accepted for parity (``data/prefetch.py`` always copies through pinned
     memory).
@@ -220,4 +251,5 @@ def build_loader(dataset, batch_size: int = 1, shuffle: bool = False,
         collate = _COLLATE_REGISTRY[collate]
     return DataLoader(dataset, batch_size=batch_size, shuffle=shuffle,
                       num_workers=num_workers, prefetch_factor=prefetch_factor,
-                      seed=seed, transfer_dtype=transfer_dtype, collate=collate)
+                      seed=seed, transfer_dtype=transfer_dtype, collate=collate,
+                      share=share)

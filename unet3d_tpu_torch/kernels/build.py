@@ -14,13 +14,18 @@ synchronisation.
 
 The library goes to ``build/torch_ext/`` in the checkout (git ignores it),
 named after a hash of the sources and flags, so a rebuilt checkout reuses it
-and an edited source builds anew. Nothing is built when the package is
+and an edited source builds anew. A file lock in that directory makes the
+first of several processes that start at once (the ranks of a
+data-parallel run) build the library, and the others wait for it and load
+it. Nothing is built when the package is
 imported: the first kernel call builds, and ``load_library()`` may be called
 ahead of it to time the build.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -99,6 +104,18 @@ def _compile(out: Path) -> None:
             obj.unlink(missing_ok=True)
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on ``BUILD_DIR/.lock`` held across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _check_configs(getter, width: int, expected, what: str) -> None:
     """A C table of wgmma tile configurations is its wrapper's."""
     out = (ctypes.c_int * width)()
@@ -127,7 +144,9 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             out = library_path()
             if not out.exists():
-                _compile(out)
+                with _build_lock():
+                    if not out.exists():
+                        _compile(out)
             lib = ctypes.CDLL(str(out))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.unet3d_conv3x3x3_ndhwc.argtypes = [

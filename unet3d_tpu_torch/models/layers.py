@@ -34,6 +34,7 @@ import torch.nn as nn
 
 from unet3d_tpu_torch.ops.conv3d import channel_matmul, conv3d, conv3d_with_stats, cudnn_conv
 from unet3d_tpu_torch.ops.conv3d_kernel import instance_stats
+from unet3d_tpu_torch.parallel.distributed import data_size, mean_over_data
 
 Ints3 = Union[int, Sequence[int]]
 
@@ -475,10 +476,12 @@ class BatchNorm(nn.Module):
 
     With ``train`` the statistics are the batch's, over every axis but the
     last, in f32 (f64 for an f64 x), the variance E[x^2] - E[x]^2 clamped at
-    0 (the biased one); each call updates the running averages in place,
-    once, ``ra = momentum * ra + (1 - momentum) * batch``, in the buffers'
-    dtype (f32 under the AMP train step, which casts only parameters).
-    Otherwise the running averages as they are (bf16 under the inference
+    0 (the biased one); in a data-parallel step E[x] and E[x^2] are the
+    global batch's, averaged over the data axis (SyncBN: Flax under SPMD),
+    so every rank normalises and updates alike; each call updates the
+    running averages in place, once, ``ra = momentum * ra + (1 - momentum) *
+    batch``, in the buffers' dtype (f32 under the AMP train step, which
+    casts only parameters). Otherwise the running averages as they are (bf16 under the inference
     AMP cast). Then ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
     the promoted type of its operands, the result in the result type of x,
     scale and bias. The mode is the ``train`` argument, not
@@ -499,8 +502,10 @@ class BatchNorm(nn.Module):
         if train:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=dims)
-            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+            mean, mean_sq = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+            if data_size() > 1:
+                mean, mean_sq = mean_over_data(torch.stack([mean, mean_sq])).unbind(0)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

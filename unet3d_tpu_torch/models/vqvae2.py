@@ -35,6 +35,7 @@ import torch
 import torch.nn as nn
 
 from unet3d_tpu_torch.models.layers import Conv, _result_type, transposed_conv
+from unet3d_tpu_torch.parallel.distributed import data_size, sum_over_data
 from unet3d_tpu_torch.utils.device import full_f32
 
 
@@ -48,7 +49,9 @@ class Quantize(nn.Module):
     sums round to bf16 before they meet the f32 averages, as in JAX):
     ``cluster_size = decay * cluster_size + (1 - decay) * counts``,
     ``embed_avg = decay * embed_avg + (1 - decay) * f^T onehot``, and
-    ``embed`` the averages over the Laplace-smoothed counts. Returns the
+    ``embed`` the averages over the Laplace-smoothed counts; in a
+    data-parallel step the counts and sums are the global batch's, summed
+    over the data axis, so every rank's codebook moves alike. Returns the
     straight-through output ``x + sg(q - x)``, ``diff = mean((sg(q) -
     x)^2)`` and the codes."""
 
@@ -90,8 +93,11 @@ class Quantize(nn.Module):
         onehot = torch.nn.functional.one_hot(embed_ind, self.n_embed).to(flatten.dtype)
         # JAX rounds (1 - decay) to the counts' dtype (a weak-typed scalar)
         rate = torch.full((), 1 - self.decay, dtype=flatten.dtype, device=flatten.device)
-        new_cluster = self.cluster_size * self.decay + rate * onehot.sum(0)
-        new_avg = self.embed_avg * self.decay + rate * (flatten.t() @ onehot)
+        counts, sums = onehot.sum(0), flatten.t() @ onehot
+        if data_size() > 1:  # the global batch's, summed in f32
+            counts, sums = (sum_over_data(t.float()).to(t.dtype) for t in (counts, sums))
+        new_cluster = self.cluster_size * self.decay + rate * counts
+        new_avg = self.embed_avg * self.decay + rate * sums
         n = new_cluster.sum()
         normalized = (new_cluster + self.eps) / (n + self.n_embed * self.eps) * n
         self.cluster_size.copy_(new_cluster)

@@ -133,15 +133,21 @@ def volumetric_predictions(model: torch.nn.Module, dataloader,
                            resample: bool = False,
                            inferer: Optional[Callable] = None,
                            amp: bool = False,
-                           interpolation: str = "trilinear") -> List[str]:
+                           interpolation: str = "trilinear", mesh=None) -> List[str]:
     """Predict every case of ``dataloader`` on the model's device and write
     one NIfTI each; returns the filenames.
+
+    With a data-parallel ``mesh`` of R ranks, rank r predicts and writes
+    the cases r, r + R, ... of the loader (``DataLoader.rank_cases``); the
+    ranks' files together are the single-device run's.
 
     Batches are dicts with ``image`` (B, C, D, H, W), ``affine`` (B, 4, 4) and
     ``source_filename``; ``amp`` runs the forward in bf16. ``resample`` maps
     each prediction back onto its source file's grid (``interpolation``)
     before it is written, with the source's affine."""
     os.makedirs(prediction_dir, exist_ok=True)
+    if mesh is not None and mesh.size > 1:
+        dataloader = dataloader.rank_cases(mesh.rank, mesh.size)
     forward = make_forward(model, amp=amp)
     device = next(model.parameters()).device
     written: List[str] = []

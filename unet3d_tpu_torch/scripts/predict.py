@@ -13,6 +13,14 @@ never falls back to the CPU); ``run_inference`` / ``main`` take
 ``device="cpu"`` to run the plain PyTorch path on purpose, as the tests do.
 ``UNET3D_TPU_CONV=winograd`` routes the large stride-1 convs through the
 Winograd-DH kernels (``ops/conv3d.py``).
+
+``--ngpus N`` (``n_gpus``) or ``--mesh dataN`` predicts on N ranks, one
+process per GPU (``parallel/launch.py``; gloo processes on the CPU under
+``device="cpu"``): rank r predicts and writes the cases r, r + N, ..., and
+the files are the single-device run's. (JAX's CLI lays N devices on a
+``space`` axis by default, sharding each case's depth; the port's default
+is this data layout until the space axis is ported, and an explicit
+``space`` or ``model`` axis raises.)
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ from unet3d_tpu_torch.config.factory import (add_machine_config_to_parser,
                                              get_machine_config)
 from unet3d_tpu_torch.data.dataset import load_dataset_class
 from unet3d_tpu_torch.data.loader import build_loader
+from unet3d_tpu_torch.parallel import distributed, launch
+from unet3d_tpu_torch.parallel.mesh import make_mesh
 from unet3d_tpu_torch.predict.volumetric import volumetric_predictions
 from unet3d_tpu_torch.scripts.segment import format_parser as format_segmentation_parser
 from unet3d_tpu_torch.utils.config import in_config, load_json
@@ -57,19 +67,31 @@ def parse_args(args=None):
     return format_parser().parse_args(args)
 
 
+def _predict_rank(config, output_directory, model_filename, group, activation,
+                  system_config):
+    """One rank of a data-parallel prediction: its written files."""
+    return run_inference(config, output_directory, model_filename, group, activation,
+                         system_config, device=distributed.rank_device())
+
+
 def run_inference(config, output_directory, model_filename, group, activation,
                   system_config, device=None):
-    """The JAX ``run_inference`` on one device: ``device`` when given, else
-    the first CUDA GPU (``require_cuda``, which raises without one)."""
+    """The JAX ``run_inference`` on ``device`` when given, else the first
+    CUDA GPU (``require_cuda``, which raises without one); on N ranks for a
+    machine config of N devices (see the module docstring). Returns the
+    written files in the loader's order."""
     if str(model_filename).endswith(".u3dexp"):
         raise NotImplementedError(
             f"{model_filename}: exported model artifacts are not ported yet "
             "(see ROADMAP.md)")
-    n_devices = int(in_config("n_gpus", system_config, 1))
-    if n_devices > 1 or in_config("mesh", system_config, None) is not None:
-        raise NotImplementedError(
-            "multi-device prediction (--ngpus > 1, --mesh) is not ported yet "
-            "(see ROADMAP.md)")
+    run_plan = launch.plan(system_config, device or "cuda")
+    if run_plan is not None and not distributed.is_initialized():
+        if device is None:
+            require_cuda()
+        return launch.interleave(launch.launch(
+            _predict_rank, (config, output_directory, model_filename, group, activation,
+                            system_config), run_plan, device=device or "cuda"))
+    mesh = make_mesh(run_plan.mesh) if run_plan is not None else None
     device = torch.device(device) if device is not None else require_cuda()
     logging.info("Output directory: %s", output_directory)
     work_dir = os.path.abspath(output_directory)
@@ -101,7 +123,7 @@ def run_inference(config, output_directory, model_filename, group, activation,
     return volumetric_predictions(model, dataloader, prediction_dir,
                                   activation=activation,
                                   resample=in_config("resample", config["dataset"], False),
-                                  amp=amp, interpolation="trilinear")
+                                  amp=amp, interpolation="trilinear", mesh=mesh)
 
 
 def main(args=None, device=None):

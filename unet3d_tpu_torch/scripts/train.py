@@ -21,8 +21,20 @@ activations in the backward pass (each block of the net's root),
 ``training.gradient_accumulation_steps`` splits each batch into microbatches
 with one optimizer update, and
 ``training.save_optimizer`` keeps the optimizer state across a resume, as in
-the JAX CLI. Multi-GPU (``--ngpus > 1``, ``--mesh``) and orbax checkpoints
-are not ported yet and raise.
+the JAX CLI. Orbax checkpoints are not ported and raise.
+
+``--ngpus N`` (the machine config's ``n_gpus``) or ``--mesh dataN`` trains
+data-parallel, as the JAX CLI's ``data`` axis does: the same command starts
+N processes, one per GPU over NCCL (gloo processes on the CPU under
+``device="cpu"``; N is clamped to the visible GPUs), each taking its share
+of every batch, with the JAX sharded step's global-batch semantics
+(``parallel/mesh.py``); rank 0 writes the log and checkpoints, and each
+rank predicts its share of the cases. Under ``torchrun`` each process is a
+rank and nothing is spawned; the machine config's ``coordinator_address``,
+``n_nodes`` and ``node_rank`` join the nodes. A ``space`` or ``model`` mesh
+axis is not ported yet and raises; the batch size must divide by the data
+axis, as in JAX, and by the data axis times
+``training.gradient_accumulation_steps``.
 """
 from __future__ import annotations
 
@@ -31,6 +43,7 @@ import json
 import logging
 import os
 import warnings
+from typing import Optional
 
 import torch
 
@@ -48,6 +61,10 @@ from unet3d_tpu_torch.config.factory import (add_machine_config_to_parser,
                                              setup_cross_validation)
 from unet3d_tpu_torch.data.dataset import load_dataset_class, validate_filenames
 from unet3d_tpu_torch.data.prefetch import DevicePrefetcher
+from unet3d_tpu_torch.parallel import distributed, launch
+from unet3d_tpu_torch.parallel.mesh import (make_mesh, make_sharded_eval_step,
+                                            make_sharded_train_step, replicate_state,
+                                            sharded_gradients)
 from unet3d_tpu_torch.predict.volumetric import volumetric_predictions
 from unet3d_tpu_torch.train.optim import get_learning_rate
 from unet3d_tpu_torch.train.step import (accumulate_gradients, make_eval_step,
@@ -97,32 +114,38 @@ def _dtype_name(dtype) -> str:
 
 
 def dry_run_step(work_dir, training_loader, model, criterion, amp: bool,
-                 device: torch.device, grad_accum: int = 1) -> dict:
+                 device: torch.device, grad_accum: int = 1, mesh=None) -> dict:
     """``--dry_run``: one batch through the real data pipeline, then the
     forwards and backwards of the train step at its shapes (``grad_accum``
-    microbatches), the gradients dropped (no optimizer update) and the
-    running statistics the forwards updated put back. Writes
+    microbatches; with a data-parallel ``mesh`` each rank's share and the
+    gradients' all-reduce), the gradients dropped (no optimizer update) and
+    the running statistics the forwards updated put back. Rank 0 writes
     ``compile_report.json`` with the JAX CLI's keys that have a meaning
-    here; ``per_device_peak_gib`` is the device's peak allocated memory in
-    the step (CUDA only)."""
+    here (``mesh`` the axis sizes, the global batch's shapes);
+    ``per_device_peak_gib`` is the device's peak allocated memory in the
+    step (CUDA only)."""
     batch = next(iter(training_loader))
     images, labels = batch["image"], batch["label"]
+    n = batch.get("global_batch_size", images.shape[0])
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     x, y = prepare_batch(images, labels, device, amp)
     buffers = [(b, b.clone()) for b in model.buffers()]
-    accumulate_gradients(model, criterion, x, y, amp, grad_accum,
-                         noise_generator(model))
+    if mesh is None:
+        accumulate_gradients(model, criterion, x, y, amp, grad_accum, noise_generator(model))
+    else:
+        sharded_gradients(model, criterion, x, y, mesh, amp, grad_accum,
+                          noise_generator(model), batch.get("whole_batch", False))
     model.zero_grad(set_to_none=True)
     with torch.no_grad():
         for b, before in buffers:
             b.copy_(before)
     report = {
         "backend": device.type,
-        "mesh": None,
-        "images": [[int(s) for s in images.shape], _dtype_name(images.dtype)],
-        "labels": [[int(s) for s in labels.shape], _dtype_name(labels.dtype)],
+        "mesh": dict(mesh.shape) if mesh is not None else None,
+        "images": [[n, *map(int, images.shape[1:])], _dtype_name(images.dtype)],
+        "labels": [[n, *map(int, labels.shape[1:])], _dtype_name(labels.dtype)],
         "amp": bool(amp),
         "gradient_accumulation_steps": int(grad_accum),
     }
@@ -131,23 +154,59 @@ def dry_run_step(work_dir, training_loader, model, criterion, amp: bool,
         report["per_device_peak_gib"] = round(
             torch.cuda.max_memory_allocated(device) / 2 ** 30, 3)
     path = os.path.join(work_dir, "compile_report.json")
-    with open(path, "w") as f:
-        json.dump(report, f, indent=1)
+    if distributed.is_primary_host():
+        with open(path, "w") as f:
+            json.dump(report, f, indent=1)
+    distributed.barrier()
     logging.info("Dry run: train step ran OK -> %s", path)
     logging.info("Compile report: %s", json.dumps(report))
     return report
 
 
-def _refuse_unported(config, system_config) -> None:
-    n_devices = int(in_config("n_gpus", system_config, 1))
-    if n_devices > 1 or in_config("mesh", system_config, None) is not None:
-        raise NotImplementedError(
-            "multi-device training (--ngpus > 1, --mesh) is not ported yet "
-            "(see ROADMAP.md)")
+def _refuse_unported(config, system_config, device) -> Optional[launch.Plan]:
+    """The data-parallel plan of the machine config (None: one device);
+    a ``space`` or ``model`` mesh axis and orbax checkpoints raise."""
+    run_plan = launch.plan(system_config, device)
     training = config.get("training", {})
     if in_config("checkpoint_backend", training, "npz") == "orbax":
         raise NotImplementedError("checkpoint_backend 'orbax' is not ported yet "
                                   "(see ROADMAP.md)")
+    return run_plan
+
+
+def check_batch_divides(batch_size: int, data_axis: int, grad_accum: int = 1) -> None:
+    """The JAX CLI's check, with its hint: the data axis divides the batch.
+    Then the port's own: with ``grad_accum`` microbatches the data axis
+    divides each microbatch too (rank r's share of each, as JAX's scan lays
+    it out; a batch that did not divide would run whole on every rank)."""
+    if batch_size % data_axis:
+        hint = ""
+        if batch_size and data_axis % batch_size == 0:
+            hint = f" (e.g. --mesh data{batch_size},space{data_axis // batch_size})"
+        raise ValueError(
+            f"batch_size={batch_size} is not divisible by the mesh's "
+            f"data axis ({data_axis}); pick a mesh whose data axis "
+            f"divides the batch{hint}")
+    if batch_size % (data_axis * grad_accum):
+        raise ValueError(
+            f"batch_size={batch_size} in gradient_accumulation_steps={grad_accum} "
+            f"microbatches does not divide over the mesh's data axis ({data_axis}); "
+            f"pick a batch size that {data_axis * grad_accum} divides, or fewer "
+            f"microbatches")
+
+
+def _train_rank(config_filename, output_dir, namespace):
+    """One rank of a data-parallel run: ``run`` on the rank's device; what
+    it wrote (the work dir, the rank's predictions by group, the dry run's
+    report)."""
+    result = run(config_filename, output_dir, namespace, device=distributed.rank_device())
+    if not isinstance(result, dict) or "work_dir" not in result:
+        return result
+    return {"work_dir": result["work_dir"], "predictions": result["predictions"]}
+
+
+def _grad_accum(config) -> int:
+    return int(in_config("gradient_accumulation_steps", config["training"], 1))
 
 
 def check_gradient_accumulation(criterion, grad_accum: int) -> None:
@@ -204,7 +263,20 @@ def run(config_filename, output_dir, namespace, device=None):
         return folds
 
     system_config = get_machine_config(namespace)
-    _refuse_unported(config, system_config)
+    run_plan = _refuse_unported(config, system_config, device or "cuda")
+    if run_plan is not None and not distributed.is_initialized():
+        if device is None:
+            require_cuda()
+        check_batch_divides(int(namespace.batch_size or config["training"]["batch_size"]),
+                            run_plan.mesh["data"], _grad_accum(config))
+        ranks = launch.launch(_train_rank, (config_filename, output_dir, namespace), run_plan,
+                              device=device or "cuda")
+        if not isinstance(ranks[0], dict) or "work_dir" not in ranks[0]:
+            return ranks[0]
+        return {"work_dir": ranks[0]["work_dir"], "world_size": run_plan.mesh["data"],
+                "predictions": {k: launch.interleave([r["predictions"][k] for r in ranks])
+                                for k in ranks[0]["predictions"]}}
+    mesh = make_mesh(run_plan.mesh) if run_plan is not None else None
     device = torch.device(device) if device is not None else require_cuda()
 
     if namespace.debug:
@@ -232,34 +304,47 @@ def run(config_filename, output_dir, namespace, device=None):
     if namespace.n_examples:
         config["training"]["test_input"] = namespace.n_examples
 
+    if mesh is not None:
+        check_batch_divides(int(config["training"]["batch_size"]), mesh.size,
+                            _grad_accum(config))
     training_loader, validation_loader, metric_to_monitor = \
-        build_data_loaders_from_config(config, system_config, work_dir, dataset_class)
+        build_data_loaders_from_config(config, system_config, work_dir, dataset_class,
+                                       mesh=mesh)
 
     pretrained = namespace.pretrained_model_filename
     pretrained = os.path.abspath(pretrained) if pretrained else model_filename
     training = config["training"]
     model = build_or_load_model_from_config(config, pretrained, device, strict=False,
                                             remat=bool(in_config("remat", training, False)))
+    if mesh is not None:
+        replicate_state(model, mesh)
     criterion = load_criterion_from_config(config)
     optimizer = build_optimizer_from_config(config, model.parameters())
     scheduler = build_scheduler_from_config(config, get_learning_rate(optimizer))
     inferer = build_inferer_from_config(config) if "inference" in config else None
     amp = bool(in_config("amp", training, False))
-    grad_accum = int(in_config("gradient_accumulation_steps", training, 1))
+    grad_accum = _grad_accum(config)
     check_gradient_accumulation(criterion, grad_accum)
 
     if namespace.dry_run:
         return dry_run_step(work_dir, training_loader, model, criterion, amp, device,
-                            grad_accum)
+                            grad_accum, mesh)
 
     # batch i + 1 is prepared and copied to the device while step i runs
     training_loader = DevicePrefetcher(training_loader, device)
     if validation_loader is not None:
         validation_loader = DevicePrefetcher(validation_loader, device)
 
+    if mesh is None:
+        train_step = make_train_step(model, criterion, optimizer, amp=amp,
+                                     grad_accum=grad_accum)
+        eval_step = make_eval_step(model, criterion, inferer=inferer, amp=amp)
+    else:
+        train_step = make_sharded_train_step(model, criterion, optimizer, mesh, amp=amp,
+                                             grad_accum=grad_accum)
+        eval_step = make_sharded_eval_step(model, criterion, mesh, inferer=inferer, amp=amp)
     run_training(
-        make_train_step(model, criterion, optimizer, amp=amp, grad_accum=grad_accum),
-        make_eval_step(model, criterion, inferer=inferer, amp=amp), model, optimizer,
+        train_step, eval_step, model, optimizer,
         n_epochs=in_config("n_epochs", training, 1000),
         training_loader=training_loader, validation_loader=validation_loader,
         training_log_filename=training_log_filename, model_filename=model_filename,
@@ -282,7 +367,7 @@ def run(config_filename, output_dir, namespace, device=None):
             activation=get_activation_from_config(config),
             resample=in_config("resample", config["dataset"], False), inferer=inferer,
             amp=bool(in_config("amp", config.get("inference", {}), amp)),
-            interpolation="trilinear")
+            interpolation="trilinear", mesh=mesh)
     return {"work_dir": work_dir, "model": model, "training_loader": training_loader,
             "validation_loader": validation_loader, "predictions": predictions}
 

@@ -10,6 +10,14 @@ JAX package does. The semantics are the JAX package's where they differ from
 torch's: CrossEntropyLoss and NLLLoss take one-hot (or probability) targets
 on the last axis, a weighted mean divides by the sum of the weights, and
 FocalLoss handles ``alpha`` as MONAI does.
+
+In a data-parallel step (``parallel/mesh.py``) each rank sees its share of
+the global batch, and a loss that couples items takes the global batch's
+sums: ``batch=True`` on the Dice family and Tversky, and a class-weighted
+mean, sum their batch sums over the data axis before the ratio; a
+``reduction="sum"`` over items scales the share's sum by the axis's size,
+so that the mean over ranks is the global loss. Outside such a step both
+are the identity.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from unet3d_tpu_torch.ops.conv3d import cudnn_conv
+from unet3d_tpu_torch.parallel.distributed import data_size, sum_over_data
 
 
 def _sum32(x: torch.Tensor, dims) -> torch.Tensor:
@@ -47,12 +56,23 @@ def _drop_background(pred, target, include_background: bool):
     return pred, target
 
 
-def _reduce(loss: torch.Tensor, reduction: str) -> torch.Tensor:
+def _reduce(loss: torch.Tensor, reduction: str, over_items: bool = True) -> torch.Tensor:
+    """``loss`` reduced; a sum over items (``over_items``: the loss keeps
+    the batch axis) scaled by the data axis's size in a data-parallel step."""
     if reduction == "none":
         return loss
     if reduction == "sum":
-        return loss.sum()
+        total = loss.sum()
+        return total * data_size() if over_items and data_size() > 1 else total
     return loss.mean()
+
+
+def _global_sums(*sums: torch.Tensor):
+    """Batch sums of this rank's share summed over the data axis (one
+    all-reduce) in a data-parallel step; as they are otherwise."""
+    if data_size() == 1:
+        return sums
+    return tuple(sum_over_data(torch.stack(sums)).unbind(0))
 
 
 def _reduce_dims(pred: torch.Tensor, batch: bool):
@@ -93,11 +113,13 @@ class DiceLoss:
             ground, prediction = _sum32(target * target, dims), _sum32(pred * pred, dims)
         else:
             ground, prediction = _sum32(target, dims), _sum32(pred, dims)
+        if self.batch:
+            intersection, ground, prediction = _global_sums(intersection, ground, prediction)
         denominator = ground + prediction
         if self.jaccard:
             denominator = 2.0 * (denominator - intersection)
         loss = 1.0 - (2.0 * intersection + self.smooth_nr) / (denominator + self.smooth_dr)
-        return _reduce(loss, self.reduction)
+        return _reduce(loss, self.reduction, over_items=not self.batch)
 
 
 class GeneralizedDiceLoss:
@@ -126,6 +148,8 @@ class GeneralizedDiceLoss:
         intersection = _sum32(target * pred, dims)
         ground = _sum32(target, dims)
         prediction = _sum32(pred, dims)
+        if self.batch:  # the weights too come from the global sums
+            intersection, ground, prediction = _global_sums(intersection, ground, prediction)
         if self.w_type == "simple":
             w = torch.reciprocal(ground)
         elif self.w_type == "uniform":
@@ -137,7 +161,7 @@ class GeneralizedDiceLoss:
         w = torch.where(infinite, finite.amax(dim=-1, keepdim=True), w)
         numer = 2.0 * torch.sum(intersection * w, dim=-1) + self.smooth_nr
         denom = torch.sum((ground + prediction) * w, dim=-1) + self.smooth_dr
-        return _reduce(1.0 - numer / denom, self.reduction)
+        return _reduce(1.0 - numer / denom, self.reduction, over_items=not self.batch)
 
 
 class FocalLoss:
@@ -326,7 +350,8 @@ def _class_weighted(loss, target, weight, reduction):
     w = torch.sum(target * torch.as_tensor(weight, dtype=target.dtype,
                                            device=target.device), dim=-1)
     if reduction == "mean":
-        return torch.sum(loss * w) / torch.sum(w)
+        numer, denom = _global_sums(torch.sum(loss * w), torch.sum(w))
+        return numer / denom
     return _reduce(loss * w, reduction)
 
 
@@ -421,8 +446,10 @@ class TverskyLoss:
         tp = _sum32(pred * target, dims)
         fp = self.alpha * _sum32(pred * (1.0 - target), dims)
         fn = self.beta * _sum32((1.0 - pred) * target, dims)
+        if self.batch:
+            tp, fp, fn = _global_sums(tp, fp, fn)
         score = (tp + self.smooth_nr) / (tp + fp + fn + self.smooth_dr)
-        return _reduce(1.0 - score, self.reduction)
+        return _reduce(1.0 - score, self.reduction, over_items=not self.batch)
 
 
 class MaskedDiceLoss(DiceLoss):

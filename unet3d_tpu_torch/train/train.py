@@ -10,6 +10,14 @@ i + 1 while the device still runs step i. ``save_optimizer`` writes the
 optimizer state each epoch in the JAX package's format
 (``model_optimizer.npz``) and restores it on resume, before the scheduler's
 replay.
+
+In a data-parallel run (``parallel/``) each rank runs the engine on its
+share of each batch: the steps return the global batch's loss, a batch is
+weighted by its global size (``global_batch_size``; ``whole_batch`` goes to
+the step as ``whole``), the epoch's losses come from rank 0 so every rank
+takes the same decisions (early stop, best checkpoint, scheduler), and only
+rank 0 writes the log, checkpoints and optimizer file; the others wait for
+it at the end of each epoch.
 """
 from __future__ import annotations
 
@@ -22,6 +30,8 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from unet3d_tpu_torch.parallel.distributed import (barrier, broadcast_floats,
+                                                  is_primary_host)
 from unet3d_tpu_torch.train.checkpoint import (load_opt_state, save_checkpoint,
                                                save_opt_state)
 from unet3d_tpu_torch.train.meters import AverageMeter, ProgressMeter
@@ -73,6 +83,16 @@ FIRST_STEP_HINT = (
     "backward pass, or split each batch with \"gradient_accumulation_steps\".")
 
 
+def run_step(step: Callable, batch) -> tuple:
+    """``step`` on a batch: (its loss, the batch's global item count); a
+    data-parallel rank's batch passes ``whole``."""
+    images = batch["image"]
+    n = batch.get("global_batch_size", images.shape[0])
+    if "whole_batch" in batch:
+        return step(images, batch["label"], whole=batch["whole_batch"]), n
+    return step(images, batch["label"]), n
+
+
 def epoch_training(train_loader, train_step: Callable, epoch: int,
                    samples_per_epoch: Optional[int] = None,
                    print_freq: int = 1) -> float:
@@ -88,18 +108,17 @@ def epoch_training(train_loader, train_step: Callable, epoch: int,
     pending = None  # (device loss, batch size), read one step late
     for i, batch in enumerate(train_loader):
         data_time.update(time.time() - end)
-        images = batch["image"]
         try:
-            loss = train_step(images, batch["label"])
+            loss, n = run_step(train_step, batch)
         except Exception as error:
             if i == 0 and epoch <= 1:
                 raise RuntimeError(FIRST_STEP_HINT.format(
-                    shape=tuple(images.shape))) from error
+                    shape=tuple(batch["image"].shape))) from error
             raise
         if pending is not None:
             losses.update(float(pending[0]), pending[1])
-        pending = (loss, images.shape[0])
-        n_seen += images.shape[0]
+        pending = (loss, n)
+        n_seen += n
         batch_time.update(time.time() - end)
         end = time.time()
         if print_freq and i % print_freq == 0:
@@ -120,10 +139,10 @@ def epoch_validation(val_loader, eval_step: Callable, print_freq: int = 1) -> fl
     end = time.time()
     pending = None
     for i, batch in enumerate(val_loader):
-        loss = eval_step(batch["image"], batch["label"])
+        loss, n = run_step(eval_step, batch)
         if pending is not None:
             losses.update(float(pending[0]), pending[1])
-        pending = (loss, batch["image"].shape[0])
+        pending = (loss, n)
         batch_time.update(time.time() - end)
         end = time.time()
         if print_freq and i % print_freq == 0:
@@ -195,10 +214,13 @@ def run_training(train_step: Callable, eval_step: Optional[Callable],
         val_loss = None
         if validation_loader is not None and eval_step is not None:
             val_loss = epoch_validation(validation_loader, eval_step)
+        loss, val_loss = broadcast_floats([loss, val_loss])
 
         lr = scheduler.lr if scheduler is not None else get_learning_rate(optimizer)
         training_log.append([epoch, loss, lr, val_loss])
-        write_training_log(training_log, training_log_filename)
+        primary = is_primary_host()
+        if primary:
+            write_training_log(training_log, training_log_filename)
         metric_history = np.asarray(training_log, dtype=np.float64)[:, metric_col]
         min_epoch = (-1 if np.all(np.isnan(metric_history))
                      else int(np.nanargmin(metric_history)))
@@ -210,16 +232,19 @@ def run_training(train_step: Callable, eval_step: Optional[Callable],
                 scheduler.step()
             set_learning_rate(optimizer, scheduler.lr)
 
-        save_checkpoint(model, model_filename)
-        if save_optimizer:
-            save_opt_state(optimizer, names, optimizer_filename)
-        if save_best and min_epoch == len(training_log) - 1:
-            forced_copy(model_filename, append_to_filename(model_filename, "best"))
-        if save_every_n_epochs and (epoch % save_every_n_epochs) == 0:
-            forced_copy(model_filename, append_to_filename(model_filename, epoch))
-        if save_last_n_models is not None and save_last_n_models > 1:
-            if not save_every_n_epochs or ((epoch - save_last_n_models)
-                                           % save_every_n_epochs) != 0:
-                remove_file(append_to_filename(model_filename, epoch - save_last_n_models))
-            forced_copy(model_filename, append_to_filename(model_filename, epoch))
+        if primary:
+            save_checkpoint(model, model_filename)
+            if save_optimizer:
+                save_opt_state(optimizer, names, optimizer_filename)
+            if save_best and min_epoch == len(training_log) - 1:
+                forced_copy(model_filename, append_to_filename(model_filename, "best"))
+            if save_every_n_epochs and (epoch % save_every_n_epochs) == 0:
+                forced_copy(model_filename, append_to_filename(model_filename, epoch))
+            if save_last_n_models is not None and save_last_n_models > 1:
+                if not save_every_n_epochs or ((epoch - save_last_n_models)
+                                               % save_every_n_epochs) != 0:
+                    remove_file(append_to_filename(model_filename,
+                                                   epoch - save_last_n_models))
+                forced_copy(model_filename, append_to_filename(model_filename, epoch))
+        barrier()
     return model

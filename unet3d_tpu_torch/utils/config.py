@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 from typing import Any, Iterable, Mapping
 
 
@@ -18,8 +19,13 @@ def load_json(filename: str) -> Any:
 
 
 def dump_json(obj: Any, filename: str) -> None:
-    with open(filename, "w") as f:
+    """Written whole or not at all (a temporary file renamed), so processes
+    that write the same file at once, as ranks do, never leave or read half
+    of one."""
+    tmp = f"{filename}.tmp{os.getpid()}"
+    with open(tmp, "w") as f:
         json.dump(obj, f, indent=4)
+    os.replace(tmp, filename)
 
 
 def get_class_name(section: Mapping[str, Any]) -> str:

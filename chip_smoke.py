@@ -207,6 +207,9 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    ViTAutoEnc at MONAI's defaults: one forward (f32, bf16) and one training
    backward (f32) on the card against f64 on the CPU (they launch no hand
    kernel).
+   (Phases 13-15 time each window and step one round each way,
+   ``LATE_ROUNDS``, and profile the steps of the nets that run a hand
+   kernel.)
 13. the MONAI conv stacks without BatchNorm (``CONV_STACKS``): the conv
    kernel at their UpCats' sites; BasicUNet, BasicUNetPlusPlus, QuickNAT
    and DiNTS at MONAI's widths, one 128^3 bf16 window and one bf16 step
@@ -233,7 +236,7 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    LocalNet's and HighResNet's (at 64^3) f32 step under torch's
    default TF32 flags against TF32 off, with cuDNN deterministic (the plain
    path within 1e-5; the kernels within a fifth of what TF32 does with the
-   port's policy taken out), step ms, peak memory and a profile; (d) Regressor,
+   port's policy taken out), step ms, peak memory and LocalNet's profile; (d) Regressor,
    Classifier, Discriminator, Critic and Generator at their defaults: one
    forward (f32, bf16) and one f32 backward on the card against f64 on the
    CPU, with their launches; (e) the train CLI with LocalNet on phase 8's
@@ -304,11 +307,27 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    (d) the train CLI with ``--ngpus 2`` on phase 8's cases: clamped to the
    one card (world size 1), one epoch, the log written once, the kernels
    launched.
+18. the space axis (each volume's D planes split over ranks): each
+   kernel's D-halo mode (``conv``, ``conv_stats``, ``block_stats``: a slab
+   with its neighbours' planes and pads; ``s2_wgrad`` with ``pad_lo`` 0) at
+   the BraTS DynUNet's slab shapes against its plain version (phase 2's
+   bounds, bf16 and f32), the bf16 calls timed beside the plain
+   composition, cuDNN's conv on the padded input and the bound; then the
+   BraTS DynUNet at full width on two ranks sharing the card over gloo,
+   ``{"space": 2}``: (a) one 128^3 bf16 window, each rank its 64 planes,
+   the gathered output within relative L2 3e-2 (phase 4's bound) of the
+   single-device forward, launches by kernel and by halo mode and pads;
+   (b) one bf16 train step at batch 1, the updates within 2e-2 (phase 5's
+   bf16 gradient bound) of the single-device step's, every kernel launched
+   in its halo mode; (c) the predict CLI with ``--ngpus 2``: JAX's default
+   plan, the space axis, clamped to the one card; (d) the SPPIN config's
+   bf16 step (192^3, batch 2) at world size 1: its peak allocated memory.
 
 Exits non-zero if any phase fails or there is no CUDA device. The last lines
 are the card, a JSON object of the kernels (the bf16 forms' rows, then the
 f32 form's: ``conv_tf32x3``, ``conv_stats_tf32x3``, ``block_stats_tf32x3``,
-with both bounds), and ``{"ok": true, ...}``.
+with both bounds, then the D-halo modes': ``conv_halo``, ``conv_stats_halo``,
+``block_stats_halo``, ``s2_wgrad_halo``), and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -734,6 +753,35 @@ DP_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_dp_cli")
 DP_TIMED_STEPS = 3
 DP_BOUNDS = {"f32": 1e-4, "bf16": GRAD_BOUND_BF16}
 DP_WORLD1_FLOOR = 1e-5
+# phases 13-15 time each net's window and step one round each way (their
+# four-round A/B and the cuDNN-only nets' step profiles are on record in
+# PERF.md section 5), which keeps the smoke's time with phase 18
+LATE_ROUNDS = ("kernels", "plain")
+# phase 18: the space axis, two ranks sharing the card; the halo modes at
+# the BraTS DynUNet's sites on a slab of a 128^3 window cut in two (label,
+# local D, H = W, Cin, Cout, variant, pads: rank 0's (1, 0), rank 1's (0,
+# 1), a middle rank's (0, 0); the input gradient's (1, 2) and (2, 1))
+SPACE_RANKS = 2
+SPACE_DIR = os.path.join(ROOT, "build", "chip_smoke_space")
+SPACE_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_space_cli")
+SPPIN_CONFIG = os.path.join(ROOT, "examples", "sppin", "sppin_config.json")
+SPACE_BF16_BOUND = GRAD_BOUND_BF16
+SPACE_SHAPE = (128, 128, 128)
+HALO_SHAPES = [
+    ("input conv 4->64 rank 0", 64, 128, 4, 64, "conv_stats", (1, 0)),
+    ("level-0 conv2 64->64 rank 1", 64, 128, 64, 64, "block_stats", (0, 1)),
+    ("level-0 up conv1 128->64 rank 0", 64, 128, 128, 64, "conv_stats", (1, 0)),
+    ("level-1 conv2 96->96 middle", 32, 64, 96, 96, "block_stats", (0, 0)),
+    ("dx of level-0 conv2 64->64 rank 0", 64, 128, 64, 64, "conv", (1, 2)),
+    ("dx of level-4 conv2 256->256 rank 1", 4, 8, 256, 256, "conv", (2, 1)),
+]
+HALO_TIMED_AT = {"conv_stats": "level-0 up conv1 128->64 rank 0",
+                 "block_stats": "level-0 conv2 64->64 rank 1",
+                 "conv": "dx of level-0 conv2 64->64 rank 0"}
+# s2_wgrad's halo mode: x a slab of local D planes (plus the one below),
+# H = W, Cin, Cout, pad_lo
+S2_HALO_SHAPES = [("level-0 -> 1 64->96 rank 1", 64, 128, 64, 96, 0),
+                  ("level-4 -> 5 256->384 rank 1", 4, 8, 256, 384, 0)]
 DP_STATS_BOUND = 1e-4
 
 
@@ -3471,7 +3519,7 @@ def conv_stack_window(name, model, shape, seed, card, profile=True) -> dict:
     kernels against the plain path (``plain_convs``: QuickNAT's and DiNTS's
     convs are cuDNN's on both), launches by form (a FastConv net: ``conv``
     once per 3^3 conv, all wgmma; the others: no hand kernel), CUDA-event
-    times (plain, kernels, kernels, plain) and a profile."""
+    times (``LATE_ROUNDS``) and, with ``profile``, a profile."""
     stride1, stride2 = conv_sites(model)
     device = next(model.parameters()).device
     rng = np.random.RandomState(seed)
@@ -3489,7 +3537,7 @@ def conv_stack_window(name, model, shape, seed, card, profile=True) -> dict:
     check(launches == want and stride2 == 0, f"{msg}: expected {want}")
     check_allowed_forms(f"{name} window", {("conv", "wgmma")})
     times = {"plain": [], "kernels": []}
-    for which in ("plain", "kernels", "kernels", "plain"):
+    for which in LATE_ROUNDS:
         with plain_convs() if which == "plain" else contextlib.nullcontext():
             times[which].append(cuda_ms(lambda: forward(window), reps=3))
     print(f"{name} window forward {shape} bf16: kernels {times['kernels']} ms, plain "
@@ -3534,8 +3582,8 @@ def phase13_net(index, name, model_cfg, device, seed, card):
     step at batch 1 (DiceLoss, Adam; ``conv_stack_step``), gradients against
     the plain path (f32, bf16: ``path_grads``, phase 11's rules), for
     F32_POLICY_STACKS the f32 step under torch's default TF32 flags
-    (``default_tf32_flags``), step ms and peak memory (plain, kernels,
-    kernels, plain) and a profile."""
+    (``default_tf32_flags``), step ms and peak memory (``LATE_ROUNDS``)
+    and, for the nets with a hand kernel (KERNEL_STACKS), a profile."""
     from unet3d_tpu_torch.config.factory import (build_optimizer_from_config,
                                                  build_or_load_model_from_config,
                                                  load_criterion_from_config)
@@ -3568,15 +3616,16 @@ def phase13_net(index, name, model_cfg, device, seed, card):
         out["f32_policy"] = default_tf32_flags(model, criterion, images, labels, device, seed)
     torch.cuda.empty_cache()
     step_times, peaks = {"plain": [], "kernels": []}, {}
-    for which in ("plain", "kernels", "kernels", "plain"):
+    for which in LATE_ROUNDS:
         one = make_train_step(model, criterion, torch.optim.Adam(model.parameters(), lr=1e-6),
                               amp=True, seed=seed)
         with plain_convs() if which == "plain" else contextlib.nullcontext():
             torch.cuda.reset_peak_memory_stats()
             step_times[which].append(step_ms(one, images, labels, reps=3))
             peaks[which] = torch.cuda.max_memory_allocated() / 2**30
-    step_profile = profile_device(lambda: step(images, labels),
-                                  f"{name} one bf16 train step", card)
+    step_profile = (profile_device(lambda: step(images, labels),
+                                   f"{name} one bf16 train step", card)
+                    if name in KERNEL_STACKS else {})
     print(f"{name} train step (bf16 AMP, batch 1, {shape}): kernels {step_times['kernels']} ms, "
           f"plain {step_times['plain']} ms; peak memory kernels {peaks['kernels']:.2f} GiB, "
           f"plain {peaks['plain']:.2f} GiB; {time.perf_counter() - t0:.1f} s [{card}]",
@@ -3731,12 +3780,12 @@ def globalnet_warp(model, window, card) -> dict:
     return dict(ddf_max_voxels=moved)
 
 
-def phase14_net(index, name, model_cfg, device, seed, card, profile_window=False):
+def phase14_net(index, name, model_cfg, device, seed, card, profile=False):
     """One of the last MONAI conv nets at full width in the BraTS config:
     (b) one 128^3 bf16 window through ``make_forward`` against the plain path
     (``plain_convs``) within L2_BOUND, its launches by kernel and form as the
     3^3 FastConvs predict (``static_window_forms``: none for HighResNet and
-    AHNet, whose convs are cuDNN's), times (plain, kernels, kernels, plain);
+    AHNet, whose convs are cuDNN's), times (``LATE_ROUNDS``);
     GlobalNet's DDF warps the window (``globalnet_warp``); (c) one bf16 AMP
     train step at batch 1 (the config's DiceLoss and Adam) after a warm-up:
     launches by form as its calls predict (``expected_forms``), the
@@ -3744,8 +3793,8 @@ def phase14_net(index, name, model_cfg, device, seed, card, profile_window=False
     (``path_grads_over_draws``), for F32_POLICY_LAST the f32 step under torch's
     default TF32 flags (``transformer_f32_policy`` through ``plain_convs``:
     the plain path within TF32_FLAGS_BOUND, the kernels within TF32_SHARE of
-    TF32's effect), step ms and peak memory
-    (plain, kernels, kernels, plain) and a profile."""
+    TF32's effect), step ms and peak memory (``LATE_ROUNDS``) and, with
+    ``profile`` (LocalNet), profiles of the window and the step."""
     import copy
 
     from unet3d_tpu_torch.config.factory import (build_optimizer_from_config,
@@ -3777,14 +3826,14 @@ def phase14_net(index, name, model_cfg, device, seed, card, profile_window=False
     check(rel < L2_BOUND, f"{msg} > {L2_BOUND}")
     check(forms == want_forms and not launches["s2_wgrad"], f"{msg}: forms")
     times = {"plain": [], "kernels": []}
-    for which in ("plain", "kernels", "kernels", "plain"):
+    for which in LATE_ROUNDS:
         with plain_convs() if which == "plain" else contextlib.nullcontext():
             times[which].append(cuda_ms(lambda: forward(window), reps=3))
     print(f"{name} window forward {shape} bf16: kernels {times['kernels']} ms, plain "
           f"{times['plain']} ms [{card}]", flush=True)
     out.update(window_rel_l2=rel, window_launches=launches, window_forms=forms,
                window_ms=times)
-    if profile_window:
+    if profile:
         out["window_profile"] = profile_device(lambda: forward(window),
                                                f"{name} one {shape} bf16 window forward", card)
     del forward, got
@@ -3825,15 +3874,16 @@ def phase14_net(index, name, model_cfg, device, seed, card, profile_window=False
             plain=plain_convs)
     torch.cuda.empty_cache()
     step_times, peaks = {"plain": [], "kernels": []}, {}
-    for which in ("plain", "kernels", "kernels", "plain"):
+    for which in LATE_ROUNDS:
         one = make_train_step(model, criterion, torch.optim.Adam(model.parameters(), lr=1e-6),
                               amp=True, seed=seed)
         with plain_convs() if which == "plain" else contextlib.nullcontext():
             torch.cuda.reset_peak_memory_stats()
             step_times[which].append(step_ms(one, images, labels, reps=3))
             peaks[which] = torch.cuda.max_memory_allocated() / 2**30
-    step_profile = profile_device(lambda: step(images, labels),
-                                  f"{name} one bf16 train step", card)
+    step_profile = (profile_device(lambda: step(images, labels),
+                                   f"{name} one bf16 train step", card)
+                    if profile else {})
     print(f"{name} train step (bf16 AMP, batch 1, {shape}): kernels {step_times['kernels']} ms, "
           f"plain {step_times['plain']} ms; peak memory kernels {peaks['kernels']:.2f} GiB, "
           f"plain {peaks['plain']:.2f} GiB; {time.perf_counter() - t0:.1f} s [{card}]",
@@ -4133,7 +4183,7 @@ def phase15_net(index, name, model_cfg, device, seed, card):
                   else (n, 2))
     check(first == want_first, f"{name}: output {first}, expected {want_first}")
     window = make_forward(model, amp=True)
-    paths = ("plain", "kernels", "kernels", "plain") if kernels else ("kernels",)
+    paths = LATE_ROUNDS if kernels else ("kernels",)
     times = {p: [] for p in set(paths)}
     for which in paths:
         with plain_convs() if which == "plain" else contextlib.nullcontext():
@@ -4202,8 +4252,8 @@ def phase15_net(index, name, model_cfg, device, seed, card):
             step_times[which].append(step_ms(one, images, labels, reps=3))
             peaks[which] = torch.cuda.max_memory_allocated() / 2**30
     model.load_state_dict(start)
-    step_profile = profile_device(lambda: step(images, labels),
-                                  f"{name} one bf16 train step", card)
+    step_profile = (profile_device(lambda: step(images, labels),
+                                   f"{name} one bf16 train step", card) if kernels else {})
     model.load_state_dict(start)
     print(f"{name} train step (bf16 AMP, batch {n}, {tuple(x.shape[1:])}): {step_times} ms; "
           f"peak memory {peaks} GiB; {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
@@ -4965,6 +5015,322 @@ def phase17_train_cli(card, cases) -> tuple:
     return launches, dict(seconds=seconds, log=rows)
 
 
+
+def halo_counts() -> dict:
+    """Launches of each kernel's D-halo mode by pads (``"conv_stats(1, 0)"``)."""
+    from unet3d_tpu_torch.ops import conv3d_kernel, s2_wgrad_kernel
+    return {f"{v}{pads}": n for (v, pads), n in sorted(
+        {**conv3d_kernel.HALO_LAUNCHES, **s2_wgrad_kernel.HALO_LAUNCHES}.items())}
+
+
+def halo_by_kernel(counts: dict) -> dict:
+    """``halo_counts`` summed by kernel."""
+    return {v: sum(n for k, n in counts.items() if k.startswith(v + "("))
+            for v in TRAIN_KERNELS}
+
+
+def halo_bound(variant, d_in, d_out, hw, cin, cout, dtype=torch.bfloat16):
+    """bound_ms of a 3x3x3 conv variant in the D-halo mode: ``d_in`` planes of
+    x read, ``d_out`` planes of y written, hw x hw each."""
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * (hw * hw * (d_in * cin + d_out * cout) + 27 * cin * cout)
+    nbytes += (8 * cout if variant != "conv" else 0) + (8 * cin if variant == "block_stats"
+                                                         else 0)
+    return bound_ms(2.0 * d_out * hw * hw * 27 * cin * cout, nbytes, dtype)
+
+
+def phase18_kernels(device, gen) -> dict:
+    """Each kernel's D-halo mode against its plain version at the BraTS
+    DynUNet's slab shapes of two ranks (HALO_SHAPES, S2_HALO_SHAPES; bf16
+    and f32, phase 2's bounds), the bf16 calls timed beside the plain
+    composition (the activation, F.pad on D, cuDNN, the statistics), one
+    PyTorch call (cuDNN's conv on the padded input: the conv alone) and
+    the bound."""
+    from unet3d_tpu_torch.ops import conv3d_kernel as K
+    from unet3d_tpu_torch.ops import s2_wgrad_kernel as W
+    from unet3d_tpu_torch.ops.conv3d import conv3d_torch, pad_d
+    from unet3d_tpu_torch.utils.device import full_f32
+
+    kernel = {"conv": K.conv3x3x3, "conv_stats": K.conv3x3x3_with_stats,
+              "block_stats": K.conv3x3x3_block_with_stats}
+    plain = {"conv": K.conv3d_reference, "conv_stats": K.conv3d_with_stats_reference,
+             "block_stats": K.conv3d_block_with_stats_reference}
+    report = {}
+    for label, depth, hw, cin, cout, variant, pads in HALO_SHAPES:
+        d_in = depth + 2 - sum(pads)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(1, d_in, hw, hw, cin, device=device, generator=gen).to(dtype)
+            w = (torch.randn(3, 3, 3, cin, cout, device=device, generator=gen)
+                 / (27 * cin) ** 0.5).to(dtype)
+            inv = torch.rand(1, cin, device=device, generator=gen) + 0.5
+            shift = torch.randn(1, cin, device=device, generator=gen) * 0.3
+            args = (x, w, inv, shift) if variant == "block_stats" else (x, w)
+            got = kernel[variant](*args, pads=pads)
+            want = plain[variant](*args, pads=pads)
+            got_y = got if variant == "conv" else got[0]
+            want_y = want if variant == "conv" else want[0]
+            torch.cuda.synchronize()
+            check(got_y.shape[1] == depth, f"{label}: {got_y.shape[1]} planes, not {depth}")
+            rel = rel_max(got_y, want_y)
+            msg = (f"halo {variant:11s} {label:34s} pads {pads} {str(dtype)[6:]:8s} "
+                   f"{K.kernel_form(x, w):6s} y rel {rel:.3e}")
+            check(rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
+            if variant != "conv":
+                s_err = stats_err(*got)
+                msg += f" stats rel {s_err:.3e}"
+                check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
+            if dtype == torch.bfloat16:
+                xp = pad_d(x, pads)
+
+                def composition():
+                    z = x
+                    if variant == "block_stats":
+                        z = F.leaky_relu(x * inv[:, None, None, None, :].to(x.dtype)
+                                         + shift[:, None, None, None, :].to(x.dtype), 0.01)
+                    y = conv3d_torch(pad_d(z, pads), w, (1, 1, 1), ((0, 0), (1, 1), (1, 1)))
+                    return y if variant == "conv" else (y, *K.instance_stats(y))
+
+                wn, xn = w.permute(4, 3, 0, 1, 2).contiguous(), xp.permute(0, 4, 1, 2, 3)
+                ms = device_ms(lambda: kernel[variant](*args, pads=pads))
+                plain_ms = device_ms(composition)
+                library_ms = device_ms(lambda: F.conv3d(xn, wn, padding=(0, 1, 1)))
+                bms, bound_by = halo_bound(variant, d_in, depth, hw, cin, cout)
+                msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d "
+                        f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, "
+                        f"{bms / ms:.1%})")
+                if label == HALO_TIMED_AT[variant]:
+                    report[variant] = dict(
+                        ms=ms, plain_ms=plain_ms, shape=f"{label} pads {pads}",
+                        bound_ms=bms, bound_by=bound_by, library_ms=library_ms,
+                        max_abs_err=(got_y.float() - want_y.float()).abs().max().item())
+            print(msg, flush=True)
+            del x, w, got, want
+    for label, depth, hw, cin, cout, pad_lo in S2_HALO_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(1, depth + 1 - pad_lo, hw, hw, cin, device=device,
+                            generator=gen).to(dtype)
+            g = torch.randn(1, depth // 2, hw // 2, hw // 2, cout, device=device,
+                            generator=gen).to(dtype)
+            got, want = W.s2_wgrad(x, g, pad_lo), W.s2_wgrad_reference(x, g, pad_lo)
+            torch.cuda.synchronize()
+            rel = rel_max(got, want)
+            msg = (f"halo s2_wgrad {label:34s} pad_lo {pad_lo} {str(dtype)[6:]:8s} "
+                   f"{W.kernel_form(x, g):5s} rel {rel:.3e}")
+            check(rel < S2_BOUND, f"{msg} > {S2_BOUND}")
+            if dtype == torch.bfloat16:
+                xn = pad_d(x, (pad_lo, 1)).permute(0, 4, 1, 2, 3)
+                gn = g.permute(0, 4, 1, 2, 3)
+
+                def cudnn_dw():
+                    with full_f32(gn):
+                        return torch.nn.grad.conv3d_weight(xn, (cout, cin, 3, 3, 3), gn,
+                                                           stride=2, padding=(0, 1, 1))
+                ms = device_ms(lambda: W.s2_wgrad(x, g, pad_lo))
+                plain_ms = device_ms(cudnn_dw)
+                half = (depth // 2) * (hw // 2) ** 2
+                bms, bound_by = bound_ms(2.0 * half * 27 * cin * cout,
+                                         2 * (x[0, ..., 0].numel() * cin + half * cout)
+                                         + 4 * 27 * cin * cout)
+                msg += (f" | kernel {ms:.3f} ms, cuDNN (on x padded) {plain_ms:.3f} ms, bound "
+                        f"{bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
+                report.setdefault("s2_wgrad", dict(
+                    ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
+                    shape=f"{label} pad_lo {pad_lo}", bound_ms=bms, bound_by=bound_by,
+                    max_abs_err=(got - want).abs().max().item()))
+            print(msg, flush=True)
+            del x, g, got, want
+    torch.cuda.empty_cache()
+    return report
+
+
+def space_batch(seed):
+    """Phase 18's inputs: one 4 x 128^3 window, and a batch of one item
+    with 3 binary labels."""
+    rng = np.random.RandomState(seed + 80)
+    shape = SPACE_SHAPE
+    return (torch.from_numpy(rng.randn(1, *shape, 4).astype(np.float32)),
+            torch.from_numpy(rng.randn(1, 4, *shape).astype(np.float32)),
+            torch.from_numpy((rng.rand(1, 3, *shape) > 0.5).astype(np.float32)))
+
+
+def phase18_rank(path, seed):
+    """One of (a)'s and (b)'s two ranks (a spawned process sharing the card
+    over gloo, ``{"space": 2}``): the window's forward on its D slab,
+    gathered, and one bf16 train step, against the single-device references
+    in ``path``; launches by kernel and by halo mode and pads."""
+    from unet3d_tpu_torch.parallel import distributed
+    from unet3d_tpu_torch.parallel.mesh import make_mesh, make_sharded_forward
+
+    device = distributed.rank_device()
+    ref = torch.load(path)
+    mesh = make_mesh({"space": SPACE_RANKS})
+    model, criterion = dp_model(None, device, seed)
+    forward = make_sharded_forward(model, mesh, amp=True)
+    window = ref["window"].to(device)
+    forward(window)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    got = forward(window).float().cpu()
+    torch.cuda.synchronize()
+    out = {"rank": mesh.space_rank, "window_launches": dict(launch_counts()),
+           "window_halo": halo_counts(), "window_ms": cuda_ms(lambda: forward(window), reps=3)}
+    want = ref["forward"]
+    out["window"] = float((got - want).norm() / want.norm())
+    out["window_shape"] = list(got.shape)
+    del forward
+    run = dp_update(model, criterion, ref["images"], ref["labels"], True, mesh)
+    out["bf16"] = dict_gap(run["updates"], {k[5:]: v for k, v in ref.items()
+                                            if k.startswith("bf16/")})
+    out["launches_bf16"], out["halo_bf16"] = run["launches"], halo_counts()
+    out["loss"] = run["loss"]
+    out["step_ms"], out["all_reduce_ms"] = dp_step_ms(model, criterion, ref["images"],
+                                                      ref["labels"], True, mesh)
+    return out
+
+
+def phase18_space(device, seed, card) -> tuple:
+    """(a) and (b): the single-device references here (the bf16 window
+    forward; the bf16 step's updates, twice for its own spread), then two
+    ranks sharing the card over gloo on ``{"space": 2}``
+    (``phase18_rank``)."""
+    from unet3d_tpu_torch.parallel import launch
+    from unet3d_tpu_torch.predict.volumetric import make_forward
+
+    window, images, labels = space_batch(seed)
+    model, criterion = dp_model(None, device, seed)
+    forward = make_forward(model, amp=True)
+    ref = {"window": window, "images": images, "labels": labels,
+           "forward": forward(window.to(device)).float().cpu()}
+    del forward
+    plain = dp_update(model, criterion, images, labels, True)
+    ref.update({f"bf16/{k}": v for k, v in plain["updates"].items()})
+    spread = dict_gap(dp_update(model, criterion, images, labels, True)["updates"],
+                      plain["updates"])
+    del model
+    torch.cuda.empty_cache()
+    shutil.rmtree(SPACE_DIR, ignore_errors=True)
+    os.makedirs(SPACE_DIR)
+    path = os.path.join(SPACE_DIR, "references.pt")
+    torch.save(ref, path)
+    t0 = time.perf_counter()
+    ranks = launch.launch(phase18_rank, (path, seed),
+                          launch.Plan(SPACE_RANKS, {"space": SPACE_RANKS}, {}),
+                          device=torch.device("cuda", device.index or 0), backend="gloo")
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(SPACE_DIR, ignore_errors=True)
+    for r in ranks:
+        print(f"space axis (a) rank {r['rank']} of {SPACE_RANKS} over gloo on one card: the "
+              f"128^3 bf16 window on 64 planes, gathered, vs the single-device forward rel L2 "
+              f"{r['window']:.3e} (bound {L2_BOUND}); launches {r['window_launches']}, halo "
+              f"modes {r['window_halo']}; {r['window_ms']:.1f} ms a window (two processes "
+              f"on one card) [{card}]", flush=True)
+        print(f"space axis (b) rank {r['rank']}: one bf16 step (batch 1), updates vs the "
+              f"single-device step rel L2 {r['bf16']:.3e} (bound {SPACE_BF16_BOUND}; the "
+              f"single-device bf16 step's own run-to-run spread {spread:.3e}); loss "
+              f"{r['loss']:.6f} vs {plain['loss']:.6f}; launches {r['launches_bf16']} (single "
+              f"device {plain['launches']}), halo modes {r['halo_bf16']}; step "
+              f"{r['step_ms']:.1f} ms, all-reduce {r['all_reduce_ms']:.1f} ms [{card}]",
+              flush=True)
+        check(r["window_shape"] == [1, *SPACE_SHAPE, 3], f"window shape {r['window_shape']}")
+        check(r["window"] <= L2_BOUND, f"rank {r['rank']} window rel L2 {r['window']:.3e}")
+        check(r["bf16"] <= SPACE_BF16_BOUND,
+              f"rank {r['rank']} bf16 updates rel L2 {r['bf16']:.3e} > {SPACE_BF16_BOUND}")
+        check(np.isfinite(r["loss"]) and abs(r["loss"] - plain["loss"]) < 1e-2,
+              f"rank {r['rank']} loss {r['loss']} vs {plain['loss']}")
+    # rank 0 holds the volume's first planes: its stride-2 convs have no
+    # plane below and run s2_wgrad with pad_lo 1, the SAME mode
+    halo = {k: sum(halo_by_kernel(r["halo_bf16"])[k] for r in ranks) for k in TRAIN_KERNELS}
+    window_halo = {k: sum(halo_by_kernel(r["window_halo"])[k] for r in ranks)
+                   for k in PREDICT_KERNELS}
+    print(f"space axis (a, b): the two ranks' run {seconds:.1f} s (spawn, library load, "
+          f"forwards, steps); halo-mode launches of the two ranks' steps {halo}, windows "
+          f"{window_halo} [{card}]", flush=True)
+    check(all(halo[k] > 0 for k in TRAIN_KERNELS),
+          f"a kernel's halo mode was not launched in the ranks' steps: {halo}")
+    check(all(window_halo[k] > 0 for k in PREDICT_KERNELS),
+          f"a halo mode was not launched in the ranks' windows: {window_halo}")
+    return halo, dict(ranks=ranks, plain_bf16_run_to_run=spread, seconds=seconds,
+                      plain_loss=plain["loss"])
+
+
+def phase18_predict_cli(card, cases) -> dict:
+    """(c) The predict CLI at ``--ngpus 2`` on the one card: JAX's default
+    plan, the space axis, clamped to one rank; one of phase 8's cases, the
+    seeded model (no checkpoint), sigmoid."""
+    from unet3d_tpu_torch.data import nifti
+    from unet3d_tpu_torch.scripts import predict
+    from unet3d_tpu_torch.utils.config import dump_json, load_json
+
+    shutil.rmtree(SPACE_CLI_DIR, ignore_errors=True)
+    os.makedirs(SPACE_CLI_DIR)
+    config = load_json(CONFIG)
+    config["test_filenames"] = [{"image": cases[0]["image"]}]
+    config_file = os.path.join(SPACE_CLI_DIR, "space.json")
+    dump_json(config, config_file)
+    plan = predict.predict_plan(config, {"n_gpus": 2}, "cuda")
+    out = os.path.join(SPACE_CLI_DIR, "out")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    predict.main(["--config_filename", config_file, "--model_filename",
+                  os.path.join(SPACE_CLI_DIR, "none.npz"), "--output_directory", out,
+                  "--group", "test", "--activation", "sigmoid", "--ngpus", "2"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: launch_counts()[k] for k in PREDICT_KERNELS}
+    written = sorted(os.listdir(os.path.join(out, "predictions")))
+    print(f"space axis (c) predict CLI --ngpus 2 on {torch.cuda.device_count()} card: plan "
+          f"{plan.mesh} ({plan.nprocs} rank), wrote {written}, launches {launches}, "
+          f"{seconds:.1f} s [{card}]", flush=True)
+    check(plan.mesh == {"space": 1} and plan.nprocs == 1, f"predict plan {plan}")
+    check(len(written) == 1, f"predict CLI wrote {written}")
+    data = nifti.load(os.path.join(out, "predictions", written[0]))[0]
+    check(bool(np.isfinite(data).all()) and 0.0 <= data.min() and data.max() <= 1.0,
+          "predict CLI output not finite or outside [0, 1]")
+    check(all(launches[k] > 0 for k in PREDICT_KERNELS), f"predict CLI launches {launches}")
+    shutil.rmtree(SPACE_CLI_DIR, ignore_errors=True)
+    return dict(plan=plan.mesh, seconds=seconds, launches=launches)
+
+
+def phase18_sppin(device, seed, card) -> dict:
+    """(d) The SPPIN config's bf16 train step (its DynUNet, 4 -> 1 channels,
+    192^3, batch 2, AMP, DiceLoss, Adam) at world size 1: the peak of
+    allocated device memory in the step (after a warm-up step), its ms."""
+    from unet3d_tpu_torch.config.factory import (build_optimizer_from_config,
+                                                 build_or_load_model_from_config,
+                                                 load_criterion_from_config)
+    from unet3d_tpu_torch.train.step import make_train_step
+    from unet3d_tpu_torch.utils.config import load_json
+
+    config = load_json(SPPIN_CONFIG)
+    shape = tuple(config["dataset"]["desired_shape"])
+    batch = int(config["training"]["batch_size"])
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    step = make_train_step(model, load_criterion_from_config(config),
+                           build_optimizer_from_config(config, model.parameters()),
+                           amp=bool(config["training"]["amp"]), seed=seed)
+    rng = np.random.RandomState(seed + 90)
+    images = torch.from_numpy(rng.randn(batch, 4, *shape).astype(np.float32))
+    labels = torch.from_numpy((rng.rand(batch, 1, *shape) > 0.5).astype(np.float32))
+    step(images, labels)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = float(step(images, labels))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = torch.cuda.get_device_properties(device).total_memory / 2 ** 30
+    print(f"space axis (d) SPPIN config bf16 train step at world size 1: batch {batch} of "
+          f"{shape}, loss {loss:.6f}, {ms:.1f} ms, peak allocated {peak:.2f} GiB of the "
+          f"card's {total:.1f} GiB [{card}]", flush=True)
+    check(np.isfinite(loss), f"SPPIN step loss {loss}")
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(shape=list(shape), batch=batch, loss=loss, step_ms=ms, peak_gib=peak,
+                card_gib=total)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5068,7 +5434,7 @@ def main() -> int:
     last_launches, last_nets = {}, {}
     for i, (name, model_cfg) in enumerate(LAST_CONV_NETS):
         last_launches[name], last_nets[name] = phase14_net(
-            i, name, model_cfg, device, args.seed, card, profile_window=name == "LocalNet")
+            i, name, model_cfg, device, args.seed, card, profile=name == "LocalNet")
     last_nets["AHNet trilinear"] = phase14_ahnet_trilinear(device, args.seed, card)
     heads = phase14_heads(device, args.seed, card)
     localnet_cli_launches, localnet_cli = phase14_train_cli(device, args.seed, card, cases)
@@ -5091,8 +5457,14 @@ def main() -> int:
     dp_launches, dp_world1 = phase17_world1(device, args.seed, card)
     dp_rank_launches, dp_ranks = phase17_two_ranks(device, args.seed, card)
     dp_cli_launches, dp_cli = phase17_train_cli(card, cases)
-    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
     phase_done(17)
+    # phase 18
+    halo_report = phase18_kernels(device, gen)
+    space_halo, space = phase18_space(device, args.seed, card)
+    space["predict_cli"] = phase18_predict_cli(card, cases)
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    space["sppin"] = phase18_sppin(device, args.seed, card)
+    phase_done(18)
     check(not any(m in sys.modules for m in ("jax", "unet3d_tpu")),
           "the port imported jax")
     # launches: the training path's (phase 5; phase 7 for the Winograd
@@ -5125,7 +5497,11 @@ def main() -> int:
     # the bf16 sharded step at world size 1 over NCCL (phase 17a),
     # launches_data_parallel_rank one of two ranks' share of it (phase 17b)
     # and launches_train_cli_data_parallel the train CLI's epoch at --ngpus 2
-    # (phase 17d)
+    # (phase 17d); launches_space_rank: one of two ranks' bf16 step on the
+    # space axis (phase 18b), all four kernels in the SAME form and, in the
+    # entries named "_halo", the two ranks' launches in their D-halo modes
+    # (launches_by_pads, each rank's; the windows' in
+    # launches_window_by_pads, phase 18a)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": v, "route": "cuda", "source": SOURCES[v],
                 "replaces": REPLACES[v], "launches": train_launches[v],
@@ -5152,6 +5528,7 @@ def main() -> int:
                 "launches_data_parallel": dp_launches[v],
                 "launches_data_parallel_rank": dp_rank_launches[v],
                 "launches_train_cli_data_parallel": dp_cli_launches[v],
+                "launches_space_rank": space["ranks"][0]["launches_bf16"][v],
                 **{k: report[v][k] for k in keys}}
                for v in TRAIN_KERNELS]
     for entry in kernels:
@@ -5202,6 +5579,15 @@ def main() -> int:
                  "launches": training["f32_step_forms"].get(f"{v}/tf32x3", 0),
                  **{k: report[f"{v}_tf32x3"][k] for k in keys + ("f32_bound_ms",)}}
                 for v in ("conv_stats", "block_stats")]
+    kernels += [{"name": f"{v}_halo", "route": "cuda", "source": SOURCES[v],
+                 "replaces": REPLACES[v], "launches": space_halo[v],
+                 "launches_by_pads": [{k: n for k, n in r["halo_bf16"].items()
+                                       if k.startswith(v + "(")} for r in space["ranks"]],
+                 "launches_window_by_pads": [{k: n for k, n in r["window_halo"].items()
+                                              if k.startswith(v + "(")}
+                                             for r in space["ranks"]],
+                 **{k: halo_report[v][k] for k in keys}}
+                for v in TRAIN_KERNELS]
     idle = [k["name"] for k in kernels if not k["launches"]]
     check(not idle, f"kernels not launched on their paths: {idle}")
     print(f"seconds per case: {json.dumps(seconds)} [{card}]")
@@ -5238,6 +5624,7 @@ def main() -> int:
     print(f"whole-model remat: {json.dumps(remat)} [{card}]")
     print(f"data parallel: {json.dumps(dict(world1=dp_world1, two_ranks=dp_ranks, cli=dp_cli))} "
           f"[{card}]")
+    print(f"space axis: {json.dumps(dict(space, kernel_shapes=halo_report))} [{card}]")
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))

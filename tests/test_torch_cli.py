@@ -136,7 +136,13 @@ def test_parsers_take_the_jax_flags():
     ("model.npz", {"n_gpus": 1, "mesh": "data1,space2"}),
     ("model.npz", {"n_gpus": 1, "mesh": "model2"})])
 def test_unported_options_raise(setup, tmp_path, model_file, machine):
+    """An exported artifact, a ``model`` axis and a ``space`` axis for a net
+    without a space form raise (DynUNet and UNet3D predict on the space
+    axis: ``tests/test_torch_space_cli.py``)."""
     config = json.load(open(setup[0]))
+    if "space" in str(machine.get("mesh")):
+        config["model"] = {"name": "SegResNet", "init_filters": 4, "in_channels": 2,
+                           "out_channels": 3}
     with pytest.raises(NotImplementedError, match="not ported"):
         predict.run_inference(config, str(tmp_path), model_file, "test", None, machine,
                               device="cpu")

@@ -175,6 +175,11 @@ def rank_of_group():
     return distributed.process_index(), distributed.world_size(), make_mesh().shape
 
 
+def mesh_of(spec):
+    mesh = make_mesh(spec)
+    return mesh.shape, mesh.rank, mesh.space_rank, mesh.space_group is not None
+
+
 # -- the tests' side ------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -505,11 +510,22 @@ def test_parse_mesh_spec_is_jaxs():
 
 
 @pytest.mark.parametrize("spec", ["space2", "data1,space2", "model2"])
-def test_unported_axes_raise(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_unported_axes_raise(ranks, spec):
+    """Only a ``model`` axis raises; a ``space`` axis plans its ranks and
+    builds the (data, space) grid on them (one rank short of it, the mesh
+    asks for the devices)."""
+    if spec == "model2":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            make_mesh(spec)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            launch.plan({"n_gpus": 1, "mesh": spec}, "cpu")
+        return
+    shape = parse_mesh_spec(spec)
+    assert launch.plan({"n_gpus": 1, "mesh": spec}, "cpu") == launch.Plan(
+        2, shape, {"n_gpus": 1, "mesh": spec})
+    with pytest.raises(ValueError, match="Mesh needs 2 devices, have 1"):
         make_mesh(spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        launch.plan({"n_gpus": 1, "mesh": spec}, "cpu")
+    assert ranks.run(mesh_of, spec) == [(shape, 0, r, True) for r in range(RANKS)]
 
 
 def test_mesh_needs_the_world_size():

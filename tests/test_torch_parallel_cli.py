@@ -8,7 +8,8 @@ epoch's second batch of one case runs whole on both ranks), trained for 2
 epochs both ways: the training log within 1e-5, the checkpoint's every
 tensor within 1e-5 of its largest value (sum orders differ), each group's
 predictions the single-device run's files, each written once (rank r writes
-the cases r, r + 2, ...). The predict CLI at ``n_gpus: 2`` writes the
+the cases r, r + 2, ...). The predict CLI at ``n_gpus: 2`` (JAX's default
+plan for this DynUNet: ``{"space": 2}``, each rank half of D) writes the
 single-device files; ``--dry_run`` reports the ``{"data": 2}`` mesh and the
 global batch; the JAX CLI's batch-divisibility error, and the port's for
 microbatches that the data axis does not divide, come before any rank

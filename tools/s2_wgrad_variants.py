@@ -70,7 +70,7 @@ def build_variants():
             raise RuntimeError(f"nvcc failed for {name}:\n{' '.join(cmd)}\n{output}")
         lib = ctypes.CDLL(os.path.join(OUT, f"lib{name}.so"))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.unet3d_s2_wgrad_wgmma.argtypes = [i, i, p, p, p, p] + [i] * 15 + [p]
+        lib.unet3d_s2_wgrad_wgmma.argtypes = [i, i, p, p, p, p] + [i] * 16 + [p]
         lib.unet3d_s2_wgrad_wgmma.restype = i
         libs[name] = lib
     return libs
@@ -110,7 +110,7 @@ def main() -> int:
                     pl.bn, pl.stages, x.data_ptr(), g.data_ptr(), part.data_ptr(),
                     dw.data_ptr(), 1, s, s, s, cin, s // 2, s // 2, s // 2, cout,
                     pl.n_tiles, pl.chunks, pl.sw, pl.segments, pl.splits, pl.per_split,
-                    torch.cuda.current_stream().cuda_stream)
+                    1, torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"launch failed: {err}")
             return run

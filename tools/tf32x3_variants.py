@@ -78,7 +78,7 @@ def build_variants():
                                for l in lines if "Loss: " in l}))
         lib = ctypes.CDLL(os.path.join(OUT, f"lib{name}.so"))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.unet3d_conv3x3x3_tf32x3.argtypes = [i, i, p, p, p, p, p, p] + [i] * 11 + [
+        lib.unet3d_conv3x3x3_tf32x3.argtypes = [i, i, p, p, p, p, p, p] + [i] * 13 + [
             ctypes.c_float, p]
         lib.unet3d_conv3x3x3_tf32x3.restype = i
         libs[name] = lib
@@ -112,7 +112,7 @@ def main() -> int:
         def run():
             err = lib.unet3d_conv3x3x3_tf32x3(
                 0, plan.config, x.data_ptr(), wp.data_ptr(), y.data_ptr(), None, None, None,
-                n, d, h, wd, cin, cout, *plan.bricks, plan.n_tiles, plan.chunks, 0.01,
+                n, d, h, wd, cin, cout, d, 1, *plan.bricks, plan.n_tiles, plan.chunks, 0.01,
                 torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"launch failed: {err}")

@@ -35,7 +35,7 @@ from unet3d_tpu_torch.utils.config import dump_json, get_kwargs, in_config, load
 def add_machine_config_to_parser(parser):
     """The JAX CLI's machine flags. ``--ngpus`` N starts N ranks (one
     process per GPU, ``parallel/launch.py``); ``--mesh`` takes the ``data``
-    axis only (a ``space`` or ``model`` axis above 1 raises)."""
+    and ``space`` axes (a ``model`` axis above 1 raises)."""
     parser.add_argument("--machine_config_filename", required=False,
                         help="JSON configuration file containing the number of "
                              "devices and threads available for model training.")
@@ -47,8 +47,9 @@ def add_machine_config_to_parser(parser):
     parser.add_argument("--pin_memory", action="store_true", default=False)
     parser.add_argument("--mesh", required=False,
                         help="Device-mesh layout for multi-device runs, e.g. "
-                             "'data2'. The port shards the batch over the data "
-                             "axis only; a space or model axis raises.")
+                             "'data2' or 'data2,space2' (the space axis splits "
+                             "each volume's depth: DynUNet and UNet3D); a model "
+                             "axis raises.")
 
 
 def get_machine_config(namespace):

@@ -150,10 +150,10 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(out))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.unet3d_conv3x3x3_ndhwc.argtypes = [
-                i, i, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+                i, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
             lib.unet3d_conv3x3x3_ndhwc.restype = i
             lib.unet3d_conv3x3x3_wgmma.argtypes = [
-                i, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
+                i, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i,
                 ctypes.c_float, p]
             lib.unet3d_conv3x3x3_wgmma.restype = i
             lib.unet3d_conv3x3x3_wgmma_config.argtypes = [i, ctypes.POINTER(i)]
@@ -163,10 +163,10 @@ def load_library() -> ctypes.CDLL:
             lib.unet3d_conv3x3x3_tf32x3_config.argtypes = [i, ctypes.POINTER(i)]
             lib.unet3d_conv3x3x3_tf32x3_config.restype = i
             lib.unet3d_s2_wgrad_ndhwc.argtypes = [
-                i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, p]
+                i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, i, p]
             lib.unet3d_s2_wgrad_ndhwc.restype = i
             lib.unet3d_s2_wgrad_wgmma.argtypes = [
-                i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
+                i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
             lib.unet3d_s2_wgrad_wgmma.restype = i
             lib.unet3d_winograd3x3x3_ndhwc.argtypes = [
                 i, i, p, p, p, p, i, i, i, i, i, i, i, i, p]

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from unet3d_tpu_torch.models.layers import MyronenkoLayer, conv1, transposed_conv
 from unet3d_tpu_torch.ops.interpolate import upsample_ndhwc
+from unet3d_tpu_torch.parallel import distributed
 
 
 def _center_pad_to(x: torch.Tensor, target_spatial: Sequence[int]) -> torch.Tensor:
@@ -110,22 +111,49 @@ class MirroredDecoder(nn.Module):
         return in_width, out_width
 
     def forward(self, x, train: bool = False,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[torch.Generator] = None,
+                levels: Optional[Sequence[bool]] = None) -> torch.Tensor:
+        """``levels``: whether the level of each of the layers, deepest
+        first, is D-sharded on the space axis (``distributed.level_layout``):
+        an upsample between two sharded levels runs on the slabs (the
+        trilinear one with its halo), any other whole, its result centred
+        on the skip's whole shape and cut to the slab where the next level
+        is sharded."""
         inputs = None
         if self.skip_connections:
             inputs = list(x)
             x = inputs[0]
         n = len(self.layer_blocks)
+        size = distributed.space_size()
         for i in range(n):
-            x = getattr(self, f"layer{i}")(x, train=train, rng=rng)
+            here = levels[i] if levels else None
+            x = distributed.at_level(here, getattr(self, f"layer{i}"), x, train=train, rng=rng)
             if n - (i + 1) == 0:
                 break
             module = getattr(self, f"up{i}" if self.transposed else f"pre{i}")
-            x = _upsample(module, x, self.transposed, self.upsampling_scale,
-                          self.upsampling_mode, self.align_corners)
+            there = levels[i + 1] if levels else None
+            skip = inputs[i + 1] if inputs is not None else None
+            if here is None or (here and there):
+                if here and self.transposed:
+                    raise NotImplementedError(
+                        "transposed-conv upsampling has no form for the 'space' mesh axis "
+                        "yet (see ROADMAP.md)")
+                x = _upsample(module, x, self.transposed, self.upsampling_scale,
+                              self.upsampling_mode, self.align_corners)
+                if skip is not None:
+                    x = _center_pad_to(x, skip.shape[1:4])
+            else:
+                if here:
+                    x = distributed.gather_d(x)
+                with distributed.replicated():
+                    x = _upsample(module, x, self.transposed, self.upsampling_scale,
+                                  self.upsampling_mode, self.align_corners)
+                if skip is not None:
+                    whole = (skip.shape[1] * (size if there else 1), *skip.shape[2:4])
+                    x = _center_pad_to(x, whole)
+                if there:
+                    x = distributed.slice_d(x)
             if inputs is not None:
-                skip = inputs[i + 1]
-                x = _center_pad_to(x, skip.shape[1:4])
                 dtype = torch.promote_types(x.dtype, skip.dtype)
                 x = torch.cat([x.to(dtype), skip.to(dtype)], dim=-1)
         return x

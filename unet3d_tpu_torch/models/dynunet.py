@@ -25,6 +25,17 @@ backward pass from its input (the JAX model's per-block ``nn.remat``) through
 ``models/remat.whole_model_remat``, the remat of every other net, whose
 blocks are these: the output and deep-supervision heads, lone convs, run
 plainly.
+
+On the space axis (``parallel/``; x a slab of the volume's D planes) each
+level is D-sharded where its global depth divides by the axis, else run
+whole on every rank (JAX's ``activation_spec``): a block whose input or
+output level is replicated gathers its input on D and cuts its output back
+to the slab (``distributed.between_levels``); an up block over a replicated
+level cuts its transposed conv's output (kernel = stride: per plane, no
+halo). The convs exchange their halos, the instance norms count the whole
+volume's voxels from the statistics summed over the axis
+(``ops/conv3d``, ``ops/norm.voxel_count``), and a deep-supervision head of
+a replicated level is upsampled whole and cut to the output's slab.
 """
 from __future__ import annotations
 
@@ -34,13 +45,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from unet3d_tpu_torch.models.layers import (FastConv, PointwiseConv, _triple,
-                                            transposed_conv)
+from unet3d_tpu_torch.models.layers import (FastConv, PointwiseConv, SubpixelConvTranspose,
+                                            _triple, transposed_conv)
 from unet3d_tpu_torch.models.remat import checkpointed_blocks, whole_model_remat
-from unet3d_tpu_torch.ops.conv3d import conv3d_block_with_stats
-from unet3d_tpu_torch.ops.conv3d_kernel import instance_stats
+from unet3d_tpu_torch.ops.conv3d import conv3d_block_with_stats, global_instance_stats
 from unet3d_tpu_torch.ops.interpolate import resize_ndhwc
-from unet3d_tpu_torch.ops.norm import fold_in_affine, instance_norm_from_stats
+from unet3d_tpu_torch.ops.norm import fold_in_affine, instance_norm_from_stats, voxel_count
+from unet3d_tpu_torch.parallel import distributed
 
 IntsOrSeq = Union[int, Sequence[int]]
 
@@ -80,7 +91,7 @@ class UnetBasicBlock(nn.Module):
         """conv1 -> IN1 -> lrelu -> conv2 -> IN2, the first activation applied
         in conv2's prologue."""
         y1, s1, s2 = self.conv1(x)
-        inv, shift = self.norm1.fold(s1, s2, y1.shape[1] * y1.shape[2] * y1.shape[3])
+        inv, shift = self.norm1.fold(s1, s2, voxel_count(y1))
         y2, t1, t2 = conv3d_block_with_stats(
             y1, self.conv2.kernel.to(y1.dtype), inv, shift, _ALPHA)
         return self.norm2(y2, t1, t2)
@@ -113,7 +124,7 @@ class UnetResBlock(UnetBasicBlock):
         identity = x
         if self.project:
             identity = self.conv3(x)
-            identity = self.norm3(identity, *instance_stats(identity))
+            identity = self.norm3(identity, *global_instance_stats(identity))
         return F.leaky_relu(self._conv_pair(x) + identity, _ALPHA)
 
 
@@ -131,12 +142,25 @@ class UnetUpBlock(nn.Module):
         self.conv_block = UnetBasicBlock(2 * out_channels, out_channels,
                                          kernel_size, 1)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        return self.conv_block(torch.cat([self.transp_conv(x), skip], dim=-1))
+    def forward(self, x: torch.Tensor, skip: torch.Tensor,
+                slice_up: bool = False) -> torch.Tensor:
+        """``slice_up``: x is the whole of a replicated level and skip a D
+        slab; the upsampled x is cut to the slab."""
+        if distributed.space_size() > 1 and not isinstance(self.transp_conv,
+                                                           SubpixelConvTranspose):
+            raise NotImplementedError(
+                "an up block whose kernel differs from its stride has no form for the "
+                "'space' mesh axis yet (see ROADMAP.md)")
+        up = self.transp_conv(x)
+        if slice_up:
+            up = distributed.slice_d(up)
+        return self.conv_block(torch.cat([up, skip], dim=-1))
 
 
 class DynUNet(nn.Module):
     """Configurable U-Net with the reference config's model-section schema."""
+
+    SPACE_AXIS = True  # runs on D slabs of the space mesh axis
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  spatial_dims: int = 3,
@@ -154,6 +178,7 @@ class DynUNet(nn.Module):
             filters = [min(2 ** (5 + i), 320) for i in range(n)]
         filters = [int(f) for f in filters]
         self.n_levels = n
+        self.depth_strides = [_triple(s)[0] for s in strides]
         block = UnetResBlock if res_block else UnetBasicBlock
         self.input_block = block(in_channels, filters[0], kernel_size[0], strides[0])
         for i in range(1, n - 1):
@@ -187,18 +212,37 @@ class DynUNet(nn.Module):
         """NDHWC logits; with deep supervision and ``train``, the output and
         the heads (nearest-upsampled to full size) stacked on axis 1."""
         n = self.n_levels
-        skips = [self.input_block(x)]
-        for i in range(1, n - 1):
-            skips.append(getattr(self, f"downsample{i - 1}")(skips[-1]))
-        x = self.bottleneck(skips[-1])
+        depth = x.shape[1] * distributed.space_size()
+        depths = []
+        for s in self.depth_strides:
+            depth = -(-depth // s)
+            depths.append(depth)
+        levels = distributed.level_layout(depths) or [None] * n
+        x_layout = None if levels[0] is None else True  # on the axis x is a slab
+        blocks = ([self.input_block]
+                  + [getattr(self, f"downsample{i - 1}") for i in range(1, n - 1)]
+                  + [self.bottleneck])
+        skips = []
+        for i, block in enumerate(blocks):
+            skips.append(distributed.between_levels(
+                block, skips[-1] if skips else x, levels[i - 1] if i else x_layout,
+                levels[i]))
+        x = skips.pop()
         heads = []
         for i in range(n - 2, -1, -1):
-            x = getattr(self, f"upsample{n - 2 - i}")(x, skips[i])
+            up = getattr(self, f"upsample{n - 2 - i}")
+            x = distributed.at_level(levels[i], up, x, skips[i],
+                                     slice_up=bool(levels[i] and not levels[i + 1]))
             if self.deep_supervision and train and 0 < i <= self.deep_supr_num:
-                heads.append(getattr(self, f"deep_supervision_head{i}")(x))
+                heads.append((getattr(self, f"deep_supervision_head{i}")(x), levels[i]))
         out = self.output_block(x)
         if not heads:
             return out
         full = out.shape[1:4]
-        ups = [resize_ndhwc(h, full, mode="nearest") for h in reversed(heads)]
+        ups = []
+        for h, sharded in reversed(heads):
+            if sharded is False and levels[0]:  # a replicated level's head, a slab out
+                h = distributed.slice_d(resize_ndhwc(
+                    h, (depths[0], *full[1:]), mode="nearest"))
+            ups.append(resize_ndhwc(h, full, mode="nearest"))
         return torch.stack([out] + ups, dim=1)

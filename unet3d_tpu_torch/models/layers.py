@@ -32,9 +32,10 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn as nn
 
-from unet3d_tpu_torch.ops.conv3d import channel_matmul, conv3d, conv3d_with_stats, cudnn_conv
-from unet3d_tpu_torch.ops.conv3d_kernel import instance_stats
-from unet3d_tpu_torch.parallel.distributed import data_size, mean_over_data
+from unet3d_tpu_torch.ops.conv3d import (channel_matmul, conv3d, conv3d_with_stats, cudnn_conv,
+                                         global_instance_stats)
+from unet3d_tpu_torch.parallel.distributed import (data_size, mean_over_data, space_size,
+                                                   sum_over_space)
 
 Ints3 = Union[int, Sequence[int]]
 
@@ -147,7 +148,7 @@ class FastConv(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         if self.with_stats:
-            return (y, *instance_stats(y))
+            return (y, *global_instance_stats(y))
         return y
 
 
@@ -430,13 +431,20 @@ def group_norm(x: torch.Tensor, num_groups: int, scale: Optional[torch.Tensor],
     (rsqrt(var + eps) * scale) + bias`` in that type (without the scale or
     bias that is None); the result in the result type of x, scale and bias.
     (``F.group_norm`` takes the variance another way and refuses parameters
-    of another dtype than its input.)"""
+    of another dtype than its input.) On the space axis (x an NDHWC D slab)
+    the moments are the whole volume's: the slabs' sums summed over the
+    axis, over the global voxel count."""
     n, c = x.shape[0], x.shape[-1]
     compute = torch.promote_types(x.dtype, torch.float32)
     xf = x.to(compute)
     xg = xf.reshape(n, -1, num_groups, c // num_groups)
-    mean = xg.mean(dim=(1, 3))
-    var = torch.clamp((xg * xg).mean(dim=(1, 3)) - mean * mean, min=0.0)
+    if x.dim() == 5 and space_size() > 1:
+        count = xg.shape[1] * xg.shape[3] * space_size()
+        sums = sum_over_space(torch.stack([xg.sum(dim=(1, 3)), (xg * xg).sum(dim=(1, 3))]))
+        mean, mean_sq = sums[0] / count, sums[1] / count
+    else:
+        mean, mean_sq = xg.mean(dim=(1, 3)), (xg * xg).mean(dim=(1, 3))
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
     size = c // num_groups
     stat_shape = (n,) + (1,) * (x.dim() - 2) + (c,)
     mean = mean.repeat_interleave(size, dim=-1).reshape(stat_shape)

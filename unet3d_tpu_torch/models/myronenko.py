@@ -13,6 +13,7 @@ import torch
 import torch.nn as nn
 
 from unet3d_tpu_torch.models.layers import MyronenkoLayer, conv3
+from unet3d_tpu_torch.parallel.distributed import at_level, between_levels
 
 
 class MyronenkoEncoder(nn.Module):
@@ -46,18 +47,31 @@ class MyronenkoEncoder(nn.Module):
             return int(self.layer_widths[i])
         return int(self.base_width * (self.feature_dilation ** i))
 
+    def level_depths(self, depth: int) -> List[int]:
+        """Each level's depth for an input of ``depth`` planes (a stride-s
+        SAME conv gives ceil(depth / s))."""
+        depths = [depth]
+        for i in range(len(self.layer_blocks) - 1):
+            depths.append(-(-depths[-1] // getattr(self, f"down{i}").strides[0]))
+        return depths
+
     def forward(self, x: torch.Tensor, train: bool = False,
-                rng: Optional[torch.Generator] = None):
+                rng: Optional[torch.Generator] = None,
+                levels: Optional[Sequence[bool]] = None):
         """The last level's output; with ``collect_skips`` every level's
-        output, deepest first."""
+        output, deepest first. ``levels``: whether each level is D-sharded on
+        the space axis (``distributed.level_layout``; x a slab when the
+        first is)."""
         skips: List[torch.Tensor] = []
         n_levels = len(self.layer_blocks)
         for i in range(n_levels):
-            x = getattr(self, f"layer{i}")(x, train=train, rng=rng)
+            here = levels[i] if levels else None
+            x = at_level(here, getattr(self, f"layer{i}"), x, train=train, rng=rng)
             if i != n_levels - 1:
                 if self.collect_skips:
                     skips.insert(0, x)
-                x = getattr(self, f"down{i}")(x)
+                x = between_levels(getattr(self, f"down{i}"), x, here,
+                                   levels[i + 1] if levels else None)
         if self.collect_skips:
             skips.insert(0, x)
             return skips

@@ -37,6 +37,11 @@ function keeps that here:
   generators are not saved (``preserve_rng_state=False``): the port draws
   no noise from them.
 
+- the space axis's state (``parallel/distributed.space_state``: whether
+  the block ran on D slabs, or whole in a replicated level) is the
+  forward's in every recompute, which runs its halo exchanges and
+  statistics' sums again, in the same order on every rank.
+
 A recompute may stop early, once it has rebuilt what the backward needs
 (the checkpoint's ``early_stop``); the generators and the forward flag are
 put back in ``finally``.
@@ -49,6 +54,8 @@ from typing import Dict, List, Type
 import torch
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
+
+from unet3d_tpu_torch.parallel.distributed import restored_space, space_state
 
 _CLASSES: Dict[type, type] = {}
 
@@ -112,6 +119,7 @@ def _checkpointed(model: torch.nn.Module, args: tuple, kwargs: dict):
     at = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
     updated: Dict[str, torch.Tensor] = {}
     runs = [0]
+    space = space_state()
 
     def run(*inputs):
         call_args = list(args)
@@ -125,7 +133,8 @@ def _checkpointed(model: torch.nn.Module, args: tuple, kwargs: dict):
             g.set_state(s)
         model._remat_running = True
         try:
-            out = functional_call(model, variables, tuple(call_args), kwargs)
+            with restored_space(space):
+                out = functional_call(model, variables, tuple(call_args), kwargs)
         finally:
             model._remat_running = False
             for g, s in zip(generators, now):

@@ -2,6 +2,12 @@
 of ``unet3d_tpu/models/unet.py``): UNet3D, AutocastUNet (an alias: the
 train step's AMP sets the precision) and AutoImplantUNet (returns y - x, or
 the raw y under ``test``).
+
+On the space axis (``parallel/``; x a slab of the volume's D planes) each
+level is D-sharded where its depth divides by the axis, else run whole on
+every rank (``distributed.level_layout``), through the encoder and decoder;
+their convs, GroupNorms and trilinear upsamples read across the slabs
+(``ops/conv3d``, ``models/layers.group_norm``, ``ops/interpolate``).
 """
 from __future__ import annotations
 
@@ -14,9 +20,12 @@ from unet3d_tpu_torch.models.decoder import UNetDecoder
 from unet3d_tpu_torch.models.layers import conv1
 from unet3d_tpu_torch.models.myronenko import MyronenkoEncoder
 from unet3d_tpu_torch.models.variational import activation_fn
+from unet3d_tpu_torch.parallel.distributed import level_layout, space_size
 
 
 class UNet3D(nn.Module):
+    SPACE_AXIS = True  # runs on D slabs of the space mesh axis
+
     def __init__(self, n_features: int = 1, base_width: int = 32,
                  encoder_blocks: Sequence[int] = (1, 2, 2, 4),
                  decoder_blocks: Optional[Sequence[int]] = None, feature_dilation: int = 2,
@@ -42,8 +51,10 @@ class UNet3D(nn.Module):
 
     def _forward(self, x: torch.Tensor, train: bool,
                  rng: Optional[torch.Generator]) -> torch.Tensor:
-        skips = self.encoder(x, train=train, rng=rng)
-        y = self.final_convolution(self.decoder(skips, train=train, rng=rng))
+        levels = level_layout(self.encoder.level_depths(x.shape[1] * space_size()))
+        skips = self.encoder(x, train=train, rng=rng, levels=levels)
+        y = self.final_convolution(self.decoder(
+            skips, train=train, rng=rng, levels=levels[::-1] if levels else None))
         return self.activation(y) if self.activation else y
 
     def forward(self, x: torch.Tensor, train: bool = False,

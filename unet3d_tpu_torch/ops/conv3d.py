@@ -20,6 +20,22 @@ activation is then materialised first. Unset keeps the routing above; any
 other value raises (the JAX package's other strategies are TPU bisect
 handles the port does not carry).
 
+On the space axis (``parallel/``: inside ``space_parallel``, x a slab of
+the volume's D planes) a 3x3x3 stride-1 conv exchanges one plane with each
+neighbour (``parallel/halo.exchange_halo``) and runs the kernels' D-halo
+mode, forward and input gradient (``ops/conv3d_kernel``: the pads of a
+rank at the volume's edge stand for its missing neighbour); its weight
+gradient runs on the halo'd input padded on D, VALID on D, each rank's
+partial sum left to the gradients' mean over the mesh. A 3x3x3 stride-2
+conv takes the plane below (a slab of an even number of planes starts at
+an even plane, so no plane above is in reach): cuDNN's forward and input
+gradient on the input padded on D by (pad_lo, 1), VALID on D, and
+``s2_wgrad``'s halo mode for the weight gradient. A 1x1x1 conv is local to
+each plane. The statistics of ``conv3d_with_stats`` and
+``conv3d_block_with_stats`` are summed over the axis
+(``distributed.sum_over_space``). Other kernel sizes, and a Winograd site,
+raise on the axis (see ROADMAP.md).
+
 f32 on the card is full f32: every cuDNN conv here (forward and gradients)
 and the channel matmuls (the attention products too) run under
 ``utils/device.full_f32``, TF32 off
@@ -32,12 +48,15 @@ import os
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from unet3d_tpu_torch.ops.conv3d_kernel import (affine_lrelu, conv3x3x3,
+from unet3d_tpu_torch.ops.conv3d_kernel import (SAME, affine_lrelu, conv3x3x3,
                                                 conv3x3x3_block_with_stats,
                                                 conv3x3x3_with_stats,
                                                 instance_stats)
+from unet3d_tpu_torch.parallel import distributed
+from unet3d_tpu_torch.parallel.halo import exchange_halo
 from unet3d_tpu_torch.ops.s2_wgrad_kernel import s2_wgrad
 from unet3d_tpu_torch.ops.winograd_kernel import (winograd3x3x3,
                                                   winograd3x3x3_with_stats,
@@ -71,6 +90,16 @@ def conv_strategy() -> Optional[str]:
 def _winograd_site(x: torch.Tensor, w: torch.Tensor, stride, pads) -> bool:
     return (conv_strategy() == "winograd"
             and winograd_applies(tuple(x.shape), tuple(w.shape), stride, pads))
+
+
+def _refuse_space_winograd(x: torch.Tensor, w: torch.Tensor) -> None:
+    """A Winograd site (judged on the whole volume) on the space axis raises."""
+    shape = (x.shape[0], x.shape[1] * distributed.space_size(), *x.shape[2:])
+    if (conv_strategy() == "winograd"
+            and winograd_applies(shape, tuple(w.shape), (1, 1, 1), ((1, 1),) * 3)):
+        raise NotImplementedError(
+            "the Winograd-DH kernels (UNET3D_TPU_CONV=winograd) have no form for the "
+            "'space' mesh axis yet (see ROADMAP.md)")
 
 
 def _is_3x3x3(w: torch.Tensor, stride: Tuple[int, ...], pads: Pads, s: int) -> bool:
@@ -169,11 +198,17 @@ def flip_io(w: torch.Tensor) -> torch.Tensor:
     return torch.flip(w, dims=(0, 1, 2)).transpose(3, 4).contiguous()
 
 
+def pad_d(x: torch.Tensor, pads) -> torch.Tensor:
+    """NDHWC ``x`` with (lo, hi) zero planes on D."""
+    return F.pad(x, (0, 0, 0, 0, 0, 0, *pads))
+
+
 def weight_grad(x: torch.Tensor, g: torch.Tensor, w_shape, stride: int,
-                pad: int) -> torch.Tensor:
+                pad) -> torch.Tensor:
     """cuDNN's weight gradient (f32 accumulation, full f32 for f32 operands)
-    of ``conv3d(x, w)`` for the cotangent ``g``, DHWIO, in g's dtype. A CPU
-    tensor computes in f32."""
+    of ``conv3d(x, w)`` for the cotangent ``g``, DHWIO, in g's dtype, with
+    ``pad`` (an int, or one per axis) symmetric pads. A CPU tensor computes
+    in f32."""
     dtype = g.dtype
     if x.device.type == "cpu":
         x, g = x.float(), g.float()
@@ -200,14 +235,14 @@ class _Conv3x3x3(torch.autograd.Function):
     ``_dgrad``)."""
 
     @staticmethod
-    def forward(ctx, x, w, with_stats: bool, winograd: bool = False):
-        ctx.with_stats, ctx.winograd = with_stats, winograd
+    def forward(ctx, x, w, with_stats: bool, winograd: bool = False, pads=SAME):
+        ctx.with_stats, ctx.winograd, ctx.pads = with_stats, winograd, tuple(pads)
         if with_stats:
-            op = winograd3x3x3_with_stats if winograd else conv3x3x3_with_stats
-            y, s1, s2 = op(x, w)
+            y, s1, s2 = (winograd3x3x3_with_stats(x, w) if winograd
+                         else conv3x3x3_with_stats(x, w, pads))
             ctx.save_for_backward(x, w, y)
             return y, s1, s2
-        y = (winograd3x3x3 if winograd else conv3x3x3)(x, w)
+        y = winograd3x3x3(x, w) if winograd else conv3x3x3(x, w, pads)
         ctx.save_for_backward(x, w)
         return y
 
@@ -222,24 +257,40 @@ class _Conv3x3x3(torch.autograd.Function):
             g = gy.to(x.dtype).contiguous()
         dx = None
         if ctx.needs_input_grad[0]:
-            dgrad = (winograd3x3x3 if ctx.winograd and winograd_profitable(g.shape)
-                     else conv3x3x3)
-            dx = dgrad(g, flip_io(w))
+            if ctx.winograd and winograd_profitable(g.shape):
+                dx = winograd3x3x3(g, flip_io(w))
+            else:
+                dx = conv3x3x3(g, flip_io(w), input_grad_pads(ctx.pads))
         dw = None
         if ctx.needs_input_grad[1]:
-            dw = weight_grad(x, g, w.shape, 1, 1).to(w.dtype)
-        return dx, dw, None, None
+            dw = halo_weight_grad(x, g, w.shape, ctx.pads).to(w.dtype)
+        return dx, dw, None, None, None
+
+
+def input_grad_pads(pads) -> Tuple[int, int]:
+    """The D pads of the input gradient's conv of a conv with D ``pads``:
+    it gives every plane of the conv's input (SAME's own for SAME)."""
+    return 2 - pads[0], 2 - pads[1]
+
+
+def halo_weight_grad(x: torch.Tensor, g: torch.Tensor, w_shape, pads) -> torch.Tensor:
+    """The stride-1 3x3x3 weight gradient for x with D ``pads``: SAME's, or
+    on x padded on D, VALID on D."""
+    if tuple(pads) == SAME:
+        return weight_grad(x, g, w_shape, 1, 1)
+    return weight_grad(pad_d(x, pads), g, w_shape, 1, (0, 1, 1))
 
 
 class _BlockConv3x3x3(torch.autograd.Function):
     """``conv(lrelu(y * inv + shift), w)`` plus the output statistics, the
-    activation zero-padded. Backward recomputes the activation: the kernel's
-    forward never writes it."""
+    activation zero-padded (a neighbour plane of the D-halo mode is
+    activated). Backward recomputes the activation: the kernel's forward
+    never writes it."""
 
     @staticmethod
-    def forward(ctx, y, w, inv, shift, alpha: float):
-        out, t1, t2 = conv3x3x3_block_with_stats(y, w, inv, shift, alpha)
-        ctx.alpha = alpha
+    def forward(ctx, y, w, inv, shift, alpha: float, pads=SAME):
+        out, t1, t2 = conv3x3x3_block_with_stats(y, w, inv, shift, alpha, pads)
+        ctx.alpha, ctx.pads = alpha, tuple(pads)
         ctx.save_for_backward(y, inv, shift, w, out)
         return out, t1, t2
 
@@ -251,28 +302,33 @@ class _BlockConv3x3x3(torch.autograd.Function):
         dw = None
         if ctx.needs_input_grad[1]:
             z = affine_lrelu(y, inv, shift, ctx.alpha)
-            dw = weight_grad(z, g, w.shape, 1, 1).to(w.dtype)
+            dw = halo_weight_grad(z, g, w.shape, ctx.pads).to(w.dtype)
             del z
         dy = dinv = dshift = None
         if any(ctx.needs_input_grad[i] for i in (0, 2, 3)):
-            dz = conv3x3x3(g, flip_io(w)).float()
+            dz = conv3x3x3(g, flip_io(w), input_grad_pads(ctx.pads)).float()
             inv5, shift5 = inv[:, None, None, None, :], shift[:, None, None, None, :]
             yf = y.float()
             dz = torch.where(yf * inv5 + shift5 >= 0, dz, dz * ctx.alpha)
             dy = (dz * inv5).to(y.dtype)
             dinv = (dz * yf).sum(dim=(1, 2, 3))
             dshift = dz.sum(dim=(1, 2, 3))
-        return dy, dw, dinv, dshift, None
+        return dy, dw, dinv, dshift, None, None
 
 
 class _Conv3x3x3Stride2(torch.autograd.Function):
     """3x3x3 stride-2 conv with pads of 1: forward and input gradient in
-    cuDNN (full f32 for f32), weight gradient in the s2_wgrad kernel."""
+    cuDNN (full f32 for f32), weight gradient in the s2_wgrad kernel. With
+    ``pad_lo`` 0 (the D-halo mode: x's first plane is the slab's neighbour
+    below) x is padded on D by (0, 1) and the conv is VALID on D."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, pad_lo: int = 1):
+        ctx.pad_lo = pad_lo
         ctx.save_for_backward(x, w)
-        return conv3d_torch(x, w, (2, 2, 2), ((1, 1),) * 3)
+        if pad_lo == 1:
+            return conv3d_torch(x, w, (2, 2, 2), ((1, 1),) * 3)
+        return conv3d_torch(pad_d(x, (0, 1)), w, (2, 2, 2), ((0, 0), (1, 1), (1, 1)))
 
     @staticmethod
     @once_differentiable
@@ -281,15 +337,48 @@ class _Conv3x3x3Stride2(torch.autograd.Function):
         g = gy.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
+            depth, padding = (x.shape[1], 1) if ctx.pad_lo == 1 else (x.shape[1] + 1, (0, 1, 1))
             with full_f32(g):
                 dx = torch.nn.grad.conv3d_input(
-                    (x.shape[0], x.shape[4], *x.shape[1:4]),
+                    (x.shape[0], x.shape[4], depth, *x.shape[2:4]),
                     w.to(x.dtype).permute(4, 3, 0, 1, 2),
-                    g.permute(0, 4, 1, 2, 3), stride=2, padding=1)
-            dx = dx.permute(0, 2, 3, 4, 1).contiguous()
+                    g.permute(0, 4, 1, 2, 3), stride=2, padding=padding)
+            dx = dx.permute(0, 2, 3, 4, 1)[:, :x.shape[1]].contiguous()
         if ctx.needs_input_grad[1]:
-            dw = s2_wgrad(x, g).to(w.dtype)
-        return dx, dw
+            dw = s2_wgrad(x, g, ctx.pad_lo).to(w.dtype)
+        return dx, dw, None
+
+
+def _space_conv3d(x: torch.Tensor, w: torch.Tensor, stride, pads, with_stats: bool):
+    """``conv3d`` (``conv3d_with_stats``: the slab's statistics) of a D slab
+    on the space axis."""
+    if _is_3x3x3(w, stride, pads, 1):
+        _refuse_space_winograd(x, w)
+        xh, halo_pads = exchange_halo(x, 1, 1)
+        return _Conv3x3x3.apply(xh, w.contiguous(), with_stats, False, halo_pads)
+    if _is_3x3x3(w, stride, pads, 2) and x.shape[1] % 2 == 0:
+        xh, halo_pads = exchange_halo(x, 1, 0)
+        y = _Conv3x3x3Stride2.apply(xh, w.contiguous(), halo_pads[0])
+    elif w.shape[0] == 1 and pads[0] == (0, 0) and x.shape[1] % stride[0] == 0:
+        y = conv3d_torch(x, w, stride, pads)  # each output plane reads one plane
+    else:
+        raise NotImplementedError(
+            f"a {tuple(w.shape[:3])} conv with strides {stride} has no form for the "
+            f"'space' mesh axis on a slab of {x.shape[1]} planes (see ROADMAP.md)")
+    return (y, *instance_stats(y)) if with_stats else y
+
+
+def space_stats(s1: torch.Tensor, s2: torch.Tensor):
+    """Per-(item, channel) statistics of a D slab summed over the space axis
+    (the slab's own off the axis)."""
+    if distributed.space_size() == 1:
+        return s1, s2
+    return tuple(distributed.sum_over_space(torch.stack([s1, s2])).unbind(0))
+
+
+def global_instance_stats(y: torch.Tensor):
+    """``instance_stats`` of the whole volume of which ``y`` is a D slab."""
+    return space_stats(*instance_stats(y))
 
 
 def conv3d(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int] = (1, 1, 1),
@@ -297,6 +386,8 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int] = (1, 1, 1),
     conv_strategy()  # an unknown strategy raises at every conv, as a typo should
     stride = tuple(int(s) for s in stride)
     pads = _pads(padding, w.shape[:3])
+    if distributed.space_size() > 1:
+        return _space_conv3d(x, w, stride, pads, False)
     if _is_3x3x3(w, stride, pads, 1):
         return _Conv3x3x3.apply(x, w.contiguous(), False,
                                 _winograd_site(x, w, stride, pads))
@@ -308,9 +399,14 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int] = (1, 1, 1),
 def conv3d_with_stats(x: torch.Tensor, w: torch.Tensor,
                       stride: Sequence[int] = (1, 1, 1), padding="SAME"):
     """Conv plus per-(item, channel) f32 (sum, sum_sq) of the output as rounded
-    to its dtype: the instance-norm statistics."""
+    to its dtype: the instance-norm statistics (the whole volume's on the
+    space axis)."""
     stride = tuple(int(s) for s in stride)
     pads = _pads(padding, w.shape[:3])
+    if distributed.space_size() > 1:
+        conv_strategy()
+        y, s1, s2 = _space_conv3d(x, w, stride, pads, True)
+        return (y, *space_stats(s1, s2))
     if _is_3x3x3(w, stride, pads, 1):
         return _Conv3x3x3.apply(x, w.contiguous(), True,
                                 _winograd_site(x, w, stride, pads))
@@ -325,7 +421,14 @@ def conv3d_block_with_stats(y: torch.Tensor, w: torch.Tensor,
     output statistics. ``scale`` / ``shift`` are f32 (N, C): the previous
     instance norm folded with its statistics (``ops/norm.fold_in_affine``).
     The activation is zero-padded, as if it had been materialised; at a
-    Winograd site it is materialised, as the JAX model does."""
+    Winograd site it is materialised, as the JAX model does. On the space
+    axis the neighbours' planes of y are exchanged first and activated with
+    the slab's own."""
+    if distributed.space_size() > 1 and tuple(w.shape[:3]) == (3, 3, 3):
+        _refuse_space_winograd(y, w)
+        yh, halo_pads = exchange_halo(y, 1, 1)
+        out, t1, t2 = _BlockConv3x3x3.apply(yh, w.contiguous(), scale, shift, alpha, halo_pads)
+        return (out, *space_stats(t1, t2))
     if (tuple(w.shape[:3]) == (3, 3, 3)
             and not _winograd_site(y, w, (1, 1, 1), ((1, 1),) * 3)):
         return _BlockConv3x3x3.apply(y, w.contiguous(), scale, shift, alpha)

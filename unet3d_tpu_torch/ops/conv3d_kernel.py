@@ -24,6 +24,19 @@ Each takes a CUDA tensor to its kernel, and a CPU tensor to its plain version
 (TF32 off on the card, ``utils/device.full_f32``) and round once, as the
 kernels do, and take the statistics of the rounded y. ``LAUNCHES`` counts
 kernel launches per variant, ``FORM_LAUNCHES`` per (variant, form).
+
+The D-halo mode (``pads``, each form and variant): x holds a slab of a
+volume's D planes with up to one neighbour plane on each side (the space
+axis of ``parallel/``, after ``parallel/halo.exchange_halo``), and ``pads``
+= (pad_lo, pad_hi) says how many zero planes stand in for a missing
+neighbour at each end (the volume's edges). The output has ``x.D - 2 +
+pad_lo + pad_hi`` planes, output plane z reading x planes z - pad_lo ... z
++ 2 - pad_lo; H and W stay SAME. The SAME conv is pads (1, 1). The input
+gradient of a halo conv is the conv of the cotangent with pads (2 - pad_lo,
+2 - pad_hi), which gives every plane of x. The statistics cover the output's
+planes only; ``block_stats`` activates a neighbour plane like any other
+(it holds the neighbour's pre-norm values) and keeps a pad plane zero.
+``HALO_LAUNCHES`` counts the launches per (variant, pads) other than (1, 1).
 """
 from __future__ import annotations
 
@@ -37,6 +50,8 @@ from unet3d_tpu_torch.utils.device import full_f32
 
 LAUNCHES: Dict[str, int] = {"conv": 0, "conv_stats": 0, "block_stats": 0}
 FORM_LAUNCHES: Dict[Tuple[str, str], int] = collections.Counter()
+HALO_LAUNCHES: Dict[Tuple[str, Tuple[int, int]], int] = collections.Counter()
+SAME = (1, 1)  # the D pads of the SAME conv
 
 _VARIANTS = {"conv": 0, "conv_stats": 1, "block_stats": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -78,6 +93,7 @@ def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
     FORM_LAUNCHES.clear()
+    HALO_LAUNCHES.clear()
 
 
 def wgmma_plan(spatial: Tuple[int, int, int], cin: int, cout: int) -> WgmmaPlan:
@@ -180,26 +196,41 @@ def affine_lrelu(x, inv, shift, alpha):
     return torch.where(z >= 0, z, z * alpha).to(x.dtype)
 
 
-def conv3d_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv3d_reference(x: torch.Tensor, w: torch.Tensor, pads=SAME) -> torch.Tensor:
+    """The conv in f32, rounded to x's dtype; with D ``pads`` other than
+    SAME's, x zero-padded on D by them and the conv VALID on D."""
+    xf = x.float().permute(0, 4, 1, 2, 3)
+    padding = 1
+    if tuple(pads) != SAME:
+        xf, padding = F.pad(xf, (0, 0, 0, 0, *pads)), (0, 1, 1)
     with full_f32(x):
-        y = F.conv3d(x.float().permute(0, 4, 1, 2, 3),
-                     w.float().permute(4, 3, 0, 1, 2), padding=1)
+        y = F.conv3d(xf, w.float().permute(4, 3, 0, 1, 2), padding=padding)
     return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
 
 
-def conv3d_with_stats_reference(x, w):
-    y = conv3d_reference(x, w)
+def conv3d_with_stats_reference(x, w, pads=SAME):
+    y = conv3d_reference(x, w, pads)
     return (y, *instance_stats(y))
 
 
-def conv3d_block_with_stats_reference(x, w, inv, shift, alpha=0.01):
-    return conv3d_with_stats_reference(affine_lrelu(x, inv, shift, alpha), w)
+def conv3d_block_with_stats_reference(x, w, inv, shift, alpha=0.01, pads=SAME):
+    """The activation of every plane of x (neighbour planes included), then
+    the conv with zero pad planes: SAME padding pads the activation."""
+    return conv3d_with_stats_reference(affine_lrelu(x, inv, shift, alpha), w, pads)
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, inv=None, shift=None) -> None:
+def out_depth(x: torch.Tensor, pads) -> int:
+    """The output's D for x and D ``pads``."""
+    return x.shape[1] - 2 + pads[0] + pads[1]
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, inv=None, shift=None, pads=SAME) -> None:
     if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3):
         raise ValueError(f"expected x (N,D,H,W,C) and w (3,3,3,C,Cout), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if len(pads) != 2 or not all(p in (0, 1, 2) for p in pads) or out_depth(x, pads) < 1:
+        raise ValueError(f"D pads {tuple(pads)} for x of depth {x.shape[1]}: each of "
+                         "0, 1, 2, and at least one output plane")
     if w.shape[3] != x.shape[4]:
         raise ValueError(f"w has {w.shape[3]} input channels, x has {x.shape[4]}")
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
@@ -223,13 +254,14 @@ def _check(x: torch.Tensor, w: torch.Tensor, inv=None, shift=None) -> None:
 
 def _launch(variant: str, x: torch.Tensor, w: torch.Tensor,
             inv: Optional[torch.Tensor] = None,
-            shift: Optional[torch.Tensor] = None, alpha: float = 0.01):
+            shift: Optional[torch.Tensor] = None, alpha: float = 0.01, pads=SAME):
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
     from unet3d_tpu_torch.kernels.build import load_library
 
     lib = load_library()
-    n, d, h, wd, cin = x.shape
+    n, d_in, h, wd, cin = x.shape
+    d = out_depth(x, pads)
     cout = w.shape[-1]
     form = kernel_form(x, w)
     y = torch.empty((n, d, h, wd, cout), dtype=x.dtype, device=x.device)
@@ -248,40 +280,43 @@ def _launch(variant: str, x: torch.Tensor, w: torch.Tensor,
             entry = lib.unet3d_conv3x3x3_tf32x3 if tf32 else lib.unet3d_conv3x3x3_wgmma
             err = entry(
                 _VARIANTS[variant], plan.config, x.data_ptr(), wp.data_ptr(),
-                y.data_ptr(), *ptrs, n, d, h, wd, cin, cout, *plan.bricks,
-                plan.n_tiles, plan.chunks, float(alpha), stream)
+                y.data_ptr(), *ptrs, n, d, h, wd, cin, cout, d_in, pads[0],
+                *plan.bricks, plan.n_tiles, plan.chunks, float(alpha), stream)
         else:
             err = lib.unet3d_conv3x3x3_ndhwc(
                 _DTYPES[x.dtype], _VARIANTS[variant], x.data_ptr(), w.data_ptr(),
-                y.data_ptr(), *ptrs, n, d, h, wd, cin, cout, float(alpha), stream)
+                y.data_ptr(), *ptrs, n, d, h, wd, cin, cout, d_in, pads[0], float(alpha),
+                stream)
     if err != 0:
         raise RuntimeError(f"conv3x3x3 {variant} ({form}) launch failed: "
                            f"{lib.unet3d_cuda_error_string(err).decode()}")
     LAUNCHES[variant] += 1
     FORM_LAUNCHES[variant, form] += 1
+    if tuple(pads) != SAME:
+        HALO_LAUNCHES[variant, tuple(pads)] += 1
     return y, stats
 
 
-def conv3x3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    _check(x, w)
+def conv3x3x3(x: torch.Tensor, w: torch.Tensor, pads=SAME) -> torch.Tensor:
+    _check(x, w, pads=pads)
     if x.device.type == "cpu":
-        return conv3d_reference(x, w)
-    return _launch("conv", x, w)[0]
+        return conv3d_reference(x, w, pads)
+    return _launch("conv", x, w, pads=pads)[0]
 
 
-def conv3x3x3_with_stats(x: torch.Tensor, w: torch.Tensor):
-    _check(x, w)
+def conv3x3x3_with_stats(x: torch.Tensor, w: torch.Tensor, pads=SAME):
+    _check(x, w, pads=pads)
     if x.device.type == "cpu":
-        return conv3d_with_stats_reference(x, w)
-    y, stats = _launch("conv_stats", x, w)
+        return conv3d_with_stats_reference(x, w, pads)
+    y, stats = _launch("conv_stats", x, w, pads=pads)
     return y, stats[:, 0], stats[:, 1]
 
 
 def conv3x3x3_block_with_stats(x: torch.Tensor, w: torch.Tensor,
                                inv: torch.Tensor, shift: torch.Tensor,
-                               alpha: float = 0.01):
-    _check(x, w, inv, shift)
+                               alpha: float = 0.01, pads=SAME):
+    _check(x, w, inv, shift, pads)
     if x.device.type == "cpu":
-        return conv3d_block_with_stats_reference(x, w, inv, shift, alpha)
-    y, stats = _launch("block_stats", x, w, inv, shift, alpha)
+        return conv3d_block_with_stats_reference(x, w, inv, shift, alpha, pads)
+    y, stats = _launch("block_stats", x, w, inv, shift, alpha, pads)
     return y, stats[:, 0], stats[:, 1]

@@ -9,6 +9,12 @@ Dtypes follow the JAX version: the nearest modes keep the input's dtype; the
 linear modes multiply by an f32 weight, so a bf16 input comes out f32 once
 any axis is resampled (an axis of unchanged size is skipped and casts
 nothing).
+
+On the space axis (``parallel/``: x an NDHWC slab of the volume's D planes)
+``upsample_ndhwc`` takes one plane from each neighbour
+(``parallel/halo.exchange_halo``) and places every output plane of its slab
+by the whole volume's coordinates, clamped at the volume's edges, so each
+slab is the slab of the single-device result.
 """
 from __future__ import annotations
 
@@ -16,6 +22,9 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from unet3d_tpu_torch.parallel.distributed import space_rank, space_size
+from unet3d_tpu_torch.parallel.halo import exchange_halo
 
 
 def axis_coords(s_in: int, s_out: int, mode: str, align_corners: bool) -> np.ndarray:
@@ -35,30 +44,44 @@ def resize_ndhwc(x: torch.Tensor, out_spatial: Sequence[int], mode: str = "trili
                  align_corners: bool = False) -> torch.Tensor:
     """Resize ``(N, D, H, W, C)`` to spatial ``out_spatial``: ``nearest``,
     ``nearest-exact``, or any other mode name as linear (``trilinear``)."""
-    nearest = mode in ("nearest", "nearest-exact")
     for axis, (s_in, s_out) in enumerate(zip(x.shape[1:4], out_spatial), start=1):
         s_out = int(s_out)
         if s_in == s_out:
             continue
-        coords = axis_coords(s_in, s_out, mode, align_corners)
-        if nearest:
-            index = torch.from_numpy(coords.astype(np.int64)).to(x.device)
-            x = torch.index_select(x, axis, index)
-            continue
-        lo = np.floor(coords).astype(np.int64)
-        hi = np.minimum(lo + 1, s_in - 1)
-        shape = [1] * x.dim()
-        shape[axis] = s_out
-        w = torch.from_numpy((coords - lo).astype(np.float32)).to(x.device).reshape(shape)
-        x = (torch.index_select(x, axis, torch.from_numpy(lo).to(x.device)) * (1.0 - w)
-             + torch.index_select(x, axis, torch.from_numpy(hi).to(x.device)) * w)
+        x = _resample_axis(x, axis, axis_coords(s_in, s_out, mode, align_corners), s_in, mode)
     return x
+
+
+def _resample_axis(x: torch.Tensor, axis: int, coords: np.ndarray, s_in: int, mode: str,
+                   first: int = 0) -> torch.Tensor:
+    """x resampled along ``axis`` at source ``coords`` of an axis of ``s_in``
+    samples, of which x holds those from ``first`` on."""
+    if mode in ("nearest", "nearest-exact"):
+        index = torch.from_numpy(coords.astype(np.int64) - first).to(x.device)
+        return torch.index_select(x, axis, index)
+    lo = np.floor(coords).astype(np.int64)
+    hi = np.minimum(lo + 1, s_in - 1)
+    shape = [1] * x.dim()
+    shape[axis] = len(coords)
+    w = torch.from_numpy((coords - lo).astype(np.float32)).to(x.device).reshape(shape)
+    return (torch.index_select(x, axis, torch.from_numpy(lo - first).to(x.device)) * (1.0 - w)
+            + torch.index_select(x, axis, torch.from_numpy(hi - first).to(x.device)) * w)
 
 
 def upsample_ndhwc(x: torch.Tensor, scale: int = 2, mode: str = "trilinear",
                    align_corners: bool = False) -> torch.Tensor:
-    """scale_factor-style upsample (torch semantics: out = floor(in * scale))."""
+    """scale_factor-style upsample (torch semantics: out = floor(in * scale));
+    on the space axis, of a D slab (an integer ``scale``)."""
     out_spatial = tuple(int(s * scale) for s in x.shape[1:4])
+    size = space_size()
+    if size > 1 and out_spatial[0] != x.shape[1]:
+        depth = x.shape[1]
+        rank = space_rank()
+        xh, _ = exchange_halo(x, 1, 1)
+        coords = axis_coords(depth * size, out_spatial[0] * size, mode, align_corners)
+        mine = coords[rank * out_spatial[0]:(rank + 1) * out_spatial[0]]
+        x = _resample_axis(xh, 1, mine, depth * size, mode,
+                           first=rank * depth - (1 if rank > 0 else 0))
     return resize_ndhwc(x, out_spatial, mode=mode, align_corners=align_corners)
 
 

@@ -33,6 +33,12 @@
 // then zeroes it where the source voxel lies outside the volume (SAME padding
 // pads z, not x: lrelu(shift) != 0), then rounds it to T before the multiply.
 //
+// D-halo mode (the space axis of unet3d_tpu_torch/parallel/): x holds d_in
+// planes (a slab with up to one neighbour plane on each side), the output d;
+// output plane z's tap kd reads x plane z + kd - pad_lo, zero outside
+// [0, d_in): the SAME conv is d_in = d, pad_lo = 1. A neighbour plane goes
+// through the prologue like any other; a missing one is padding.
+//
 // STATS reduces the stored (rounded) outputs of the tile per (item, channel)
 // through shared memory and adds them into an (N, 2, Cout) f32 buffer that the
 // caller zeroes, with atomicAdd. The order of those adds changes from run to
@@ -76,7 +82,8 @@ struct ConvArgs {
   const float* inv;     // (N, Cin), PROLOGUE only
   const float* shift;   // (N, Cin), PROLOGUE only
   float* stats;         // (N, 2, Cout), STATS only; zeroed by the caller
-  int n, d, h, w_, cin, cout;
+  int n, d, h, w_, cin, cout;  // d: the output's depth
+  int d_in, pad_lo;  // x's depth; output plane z, tap kd reads x plane z + kd - pad_lo
   float alpha;
   int vec_x, vec_w;     // 16-byte loads allowed for A / B groups
 };
@@ -109,13 +116,14 @@ __device__ __forceinline__ void load_group(const T* p, T (&v)[GROUP]) {
   for (int i = 0; i < kVecs; ++i) dst[i] = __ldg(src + i);
 }
 
+// (z, y, x) a voxel of x
 __device__ __forceinline__ bool inside(const ConvArgs& a, int z, int y, int x) {
-  return z >= 0 && z < a.d && y >= 0 && y < a.h && x >= 0 && x < a.w_;
+  return z >= 0 && z < a.d_in && y >= 0 && y < a.h && x >= 0 && x < a.w_;
 }
 
 __device__ __forceinline__ long long voxel(const ConvArgs& a, int n, int z,
                                            int y, int x) {
-  return ((static_cast<long long>(n) * a.d + z) * a.h + y) * a.w_ + x;
+  return ((static_cast<long long>(n) * a.d_in + z) * a.h + y) * a.w_ + x;
 }
 
 __device__ __forceinline__ float prologue(const ConvArgs& a, float v, int n,
@@ -135,7 +143,7 @@ __device__ __forceinline__ void load_a(const ConvArgs& a, int k, int n, int z,
   if (a.vec_x && row_ok && k < K) {
     // Cin % GROUP == 0: the group lies in one tap, on contiguous channels
     const int tap = k / a.cin, c = k - tap * a.cin;
-    const int iz = z + tap / 9 - 1, iy = y + (tap / 3) % 3 - 1,
+    const int iz = z + tap / 9 - a.pad_lo, iy = y + (tap / 3) % 3 - 1,
               ix = x + tap % 3 - 1;
     if (inside(a, iz, iy, ix)) {
       load_group(xp + voxel(a, n, iz, iy, ix) * a.cin + c, v);
@@ -156,7 +164,7 @@ __device__ __forceinline__ void load_a(const ConvArgs& a, int k, int n, int z,
     float val = 0.f;
     if (row_ok && ke < K) {
       const int tap = ke / a.cin, c = ke - tap * a.cin;
-      const int iz = z + tap / 9 - 1, iy = y + (tap / 3) % 3 - 1,
+      const int iz = z + tap / 9 - a.pad_lo, iy = y + (tap / 3) % 3 - 1,
                 ix = x + tap % 3 - 1;
       if (inside(a, iz, iy, ix)) {
         val = to_float(xp[voxel(a, n, iz, iy, ix) * a.cin + c]);
@@ -398,13 +406,17 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. variant: 0 = conv, 1 = conv_stats,
-// 2 = block_stats. Returns the cudaError_t of the launch (0 on success).
+// 2 = block_stats. d is the output's depth and d_in x's (D-halo mode: output
+// plane z, tap kd reads x plane z + kd - pad_lo, zero outside [0, d_in); the SAME
+// conv is d_in = d, pad_lo = 1). Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int unet3d_conv3x3x3_ndhwc(int dtype, int variant, const void* x,
                                       const void* w, void* y, const float* inv,
                                       const float* shift, float* stats, int n,
                                       int d, int h, int w_, int cin, int cout,
-                                      float alpha, void* stream) {
-  ConvArgs a{x, w, y, inv, shift, stats, n, d, h, w_, cin, cout, alpha,
+                                      int d_in, int pad_lo, float alpha, void* stream) {
+  if (d_in < 1 || pad_lo < 0 || pad_lo > 2) return cudaErrorInvalidValue;
+  ConvArgs a{x, w, y, inv, shift, stats, n, d, h, w_, cin, cout, d_in, pad_lo, alpha,
              cin % GROUP == 0 && aligned16(x), cout % GROUP == 0 && aligned16(w)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -54,6 +54,13 @@
 //   memory by lrelu(x * inv[n, c] + shift[n, c]) in f32; voxels outside the
 //   volume stay zero (SAME padding pads the activation: lrelu(shift) != 0).
 //   Once per element, not per tap.
+// * D-halo mode (the space axis of unet3d_tpu_torch/parallel/): x holds
+//   d_in planes, a slab of the volume with up to one neighbour plane on each
+//   side, and the output d planes; output plane z's tap kd reads x plane
+//   z + kd - pad_lo, staged as zero outside [0, d_in): the SAME conv's
+//   bound check (d_in = d, pad_lo = 1) with an offset. A neighbour plane is
+//   staged, and activated by the prologue, like any other; a missing one
+//   (the volume's edge) is padding. The statistics sum the d output planes.
 // * Epilogue: f32 accumulators, no rounding (y is f32); STATS sums y per
 //   channel in registers and warp shuffles, then one atomicAdd per (item,
 //   channel) per block into the caller-zeroed (N, 2, Cout) f32 buffer (the
@@ -87,7 +94,8 @@ struct Args {
   const float* inv;     // (N, Cin), PROLOGUE only
   const float* shift;   // (N, Cin), PROLOGUE only
   float* stats;         // (N, 2, Cout), STATS only; zeroed by the caller
-  int n, d, h, w_, cin, cout;
+  int n, d, h, w_, cin, cout;  // d: the output's depth
+  int d_in, pad_lo;  // x's depth; output plane z, tap kd reads x plane z + kd - pad_lo
   int bricks_z, bricks_y, bricks_x, n_tiles, chunks;
   float alpha;
 };
@@ -163,13 +171,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) conv3x3x3_tf32x3(const Ar
   // halo row
   const int sj = tid & 7;
   // the halo lies inside the volume (no padding rows)
-  const bool interior = z0 >= 1 && y0 >= 1 && x0 >= 1 && z0 + BZ < a.d &&
+  const bool interior = z0 >= a.pad_lo && y0 >= 1 && x0 >= 1 &&
+                        z0 + BZ + 1 - a.pad_lo < a.d_in &&
                         y0 + BY < a.h && x0 + BX < a.w_;
   auto halo_voxel = [&](int hr, int& zz, int& yy, int& xx) {
     xx = x0 + hr % HX - 1;
     yy = y0 + (hr / HX) % HY - 1;
-    zz = z0 + hr / (HX * HY) - 1;
-    return zz >= 0 && zz < a.d && yy >= 0 && yy < a.h && xx >= 0 && xx < a.w_;
+    zz = z0 + hr / (HX * HY) - a.pad_lo;  // a plane of x
+    return zz >= 0 && zz < a.d_in && yy >= 0 && yy < a.h && xx >= 0 && xx < a.w_;
   };
   auto load_halo = [&](int c, uint8_t* buf) {
     const int ch = c * CK + sj * 4;
@@ -178,7 +187,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) conv3x3x3_tf32x3(const Ar
       int zz, yy, xx;
       const bool ok = halo_voxel(hr, zz, yy, xx) && ch < a.cin;
       const float* src =
-          ok ? a.x + (((static_cast<long long>(item) * a.d + zz) * a.h + yy) * a.w_ + xx) *
+          ok ? a.x + (((static_cast<long long>(item) * a.d_in + zz) * a.h + yy) * a.w_ + xx) *
                              a.cin + ch
              : a.x;
       cp_async16(base + swz(hr, sj), src, ok);
@@ -482,18 +491,21 @@ constexpr int N_CONFIGS = sizeof(CONFIGS) / sizeof(CONFIGS[0]);
 // variant: 0 = conv, 1 = conv_stats, 2 = block_stats; config: an index of
 // CONFIGS. w is the packed weight (n_tiles, chunks, 27, 2, BN, 32); x, w and y
 // 16-byte aligned, Cin a multiple of 4. Returns the cudaError_t of the launch
-// (0 on success).
+// (0 on success). d is the output's depth and d_in x's (D-halo mode: output
+// plane z, tap kd reads x plane z + kd - pad_lo, zero outside [0, d_in); the
+// SAME conv is d_in = d, pad_lo = 1).
 extern "C" int unet3d_conv3x3x3_tf32x3(int variant, int config, const void* x,
                                        const void* w, void* y, const float* inv,
                                        const float* shift, float* stats, int n,
                                        int d, int h, int w_, int cin, int cout,
-                                       int bricks_z, int bricks_y, int bricks_x,
-                                       int n_tiles, int chunks, float alpha,
+                                       int d_in, int pad_lo, int bricks_z, int bricks_y,
+                                       int bricks_x, int n_tiles, int chunks, float alpha,
                                        void* stream) {
-  if (cin % 4 != 0) return cudaErrorInvalidValue;
+  if (cin % 4 != 0 || d_in < 1 || pad_lo < 0 || pad_lo > 2)
+    return cudaErrorInvalidValue;
   Args a{static_cast<const float*>(x), static_cast<const float*>(w),
          static_cast<float*>(y), inv, shift, stats, n, d, h, w_, cin, cout,
-         bricks_z, bricks_y, bricks_x, n_tiles, chunks, alpha};
+         d_in, pad_lo, bricks_z, bricks_y, bricks_x, n_tiles, chunks, alpha};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (config) {
     case 0: return dispatch<4, 4, 16, 8, 2, 4, 2, 1>(variant, a, s);

@@ -4,7 +4,9 @@
 //   dw[kd, kh, kw, ci, co] = sum_{n, od, oh, ow}
 //       xp[n, 2od + kd, 2oh + kh, 2ow + kw, ci] * g[n, od, oh, ow, co]
 //
-// with xp the input padded by one voxel of zeros on every side. Replaces
+// with xp the input padded by one voxel of zeros on every side (on D, by
+// pad_lo below: 0 in the D-halo mode, where x's first plane is the slab's
+// neighbour below). Replaces
 // unet3d_tpu/ops/pallas/s2_wgrad_kernel.py (_wgrad_kernel / s2_wgrad_pallas).
 //
 // Form: a GEMM with M = 27 * Cin rows ordered (tap, ci), which is the row
@@ -73,6 +75,7 @@ struct WgradArgs {
   float* out;           // (splits, 27 * Cin, Cout) f32
   int n, d, h, w_, cin;
   int do_, ho, wo, cout;
+  int pad_lo;  // output plane od, tap kd reads x plane 2 od + kd - pad_lo
   long long k_per_split;  // voxels per split, a multiple of BK
   int vec_x, vec_g;       // 16-byte loads allowed for A / B groups
 };
@@ -115,7 +118,7 @@ __device__ __forceinline__ Voxel decode(const WgradArgs& a, long long k) {
 // false in the padding.
 __device__ __forceinline__ bool source(const WgradArgs& a, const Voxel& v,
                                        int tap, long long* offset) {
-  const int iz = 2 * v.od + tap / 9 - 1, iy = 2 * v.oh + (tap / 3) % 3 - 1,
+  const int iz = 2 * v.od + tap / 9 - a.pad_lo, iy = 2 * v.oh + (tap / 3) % 3 - 1,
             ix = 2 * v.ow + tap % 3 - 1;
   if (iz < 0 || iz >= a.d || iy < 0 || iy >= a.h || ix < 0 || ix >= a.w_)
     return false;
@@ -361,16 +364,21 @@ cudaError_t unet3d_s2_wgrad_sum_splits(const float* part, float* dw, long long m
 // dtype: 0 = float32, 1 = bfloat16. x (N, D, H, W, Cin), g (N, Do, Ho, Wo,
 // Cout), dw (3, 3, 3, Cin, Cout) f32. With splits > 1, `part` is an f32
 // (splits, 27 * Cin, Cout) scratch that the partial sums go to before they
-// are summed into dw; with splits == 1 it is unused and may be null. Returns
-// the cudaError_t of the launches (0 on success).
+// are summed into dw; with splits == 1 it is unused and may be null. pad_lo
+// is the zero planes below x on D: 1 for the SAME conv, 0 for a D slab whose
+// first plane is the one below it (the D-halo mode). Returns the cudaError_t
+// of the launches (0 on success).
 extern "C" int unet3d_s2_wgrad_ndhwc(int dtype, const void* x, const void* g,
                                      float* part, float* dw, int n, int d,
                                      int h, int w_, int cin, int do_, int ho,
                                      int wo, int cout, int splits,
-                                     long long k_per_split, void* stream) {
-  if (k_per_split < 1 || k_per_split % BK != 0) return cudaErrorInvalidValue;
+                                     long long k_per_split, int pad_lo,
+                                     void* stream) {
+  if (k_per_split < 1 || k_per_split % BK != 0 || pad_lo < 0 || pad_lo > 1 ||
+      do_ != (d + pad_lo) / 2)
+    return cudaErrorInvalidValue;
   WgradArgs a{x, g, splits == 1 ? dw : part, n, d, h, w_, cin, do_, ho, wo,
-              cout, k_per_split, cin % GROUP == 0 && aligned16(x),
+              cout, pad_lo, k_per_split, cin % GROUP == 0 && aligned16(x),
               cout % GROUP == 0 && aligned16(g)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -4,7 +4,9 @@
 //   dw[kd, kh, kw, ci, co] = sum_{n, od, oh, ow}
 //       xp[n, 2od + kd, 2oh + kh, 2ow + kw, ci] * g[n, od, oh, ow, co]
 //
-// with xp the input padded by one voxel of zeros on every side. Replaces
+// with xp the input padded by one voxel of zeros on every side (on D, by
+// pad_lo below: 0 in the D-halo mode, where x's first plane is the slab's
+// neighbour below). Replaces
 // unet3d_tpu/ops/pallas/s2_wgrad_kernel.py:158 (s2_wgrad_pallas, whose
 // pallas_call is at :177) for every bf16 call with Cin and Cout multiples of
 // 8, which is every stride-2 site of the DynUNet; s2_wgrad.cu keeps the f32
@@ -96,6 +98,7 @@ struct Args {
   float* out;     // (splits, 27 * Cin, Cout) f32, or dw with one split
   int n, d, h, w_, cin;
   int do_, ho, wo, cout;
+  int pad_lo;  // output plane od, tap kd reads x plane 2 od + kd - pad_lo
   int n_tiles, chunks, sw_log2, ow_blocks, segments, per_split;
 };
 
@@ -180,7 +183,7 @@ __global__ void __launch_bounds__(THREADS, 1) s2_wgrad_wgmma(const Args a) {
         oh -= a.ho;
         if (++od == a.do_) { od = 0; ++nn; }
       }
-      const int iz = 2 * od + kd - 1, iy = 2 * oh + kh - 1, ix = 2 * ow0 - 1 + xq[p];
+      const int iz = 2 * od + kd - a.pad_lo, iy = 2 * oh + kh - 1, ix = 2 * ow0 - 1 + xq[p];
       const bool ok = xch < a.cin && nn < a.n && iz >= 0 && iz < a.d && iy >= 0 &&
                       iy < a.h && ix >= 0 && ix < a.w_;
       const bf16* src =
@@ -320,18 +323,21 @@ bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 
 // multiples of 8; dw (3, 3, 3, Cin, Cout) f32; part an f32 (splits, 27 * Cin,
 // Cout) scratch when splits > 1. Returns cudaErrorInvalidValue for a plan
 // that does not match the shape or is not instantiated, else the
-// cudaError_t of the launches (0 on success).
+// cudaError_t of the launches (0 on success). pad_lo is the zero planes
+// below x on D: 1 for the SAME conv, 0 for a D slab whose first plane is
+// the one below it (the D-halo mode; no high pad is in reach there).
 extern "C" int unet3d_s2_wgrad_wgmma(int bn, int stages, const void* x, const void* g,
                                      float* part, float* dw, int n, int d, int h, int w_,
                                      int cin, int do_, int ho, int wo, int cout, int n_tiles,
                                      int chunks, int sw, int segments, int splits,
-                                     int per_split, void* stream) {
+                                     int per_split, int pad_lo, void* stream) {
   int sw_log2 = 0;
   while ((1 << sw_log2) < sw) ++sw_log2;
   const long long lines = static_cast<long long>(n) * do_ * ho;
   const long long ow_blocks = (wo + sw - 1) / sw;
   if (cin % 8 != 0 || cout % 8 != 0 || !aligned16(x) || !aligned16(g) ||
-      do_ != (d + 1) / 2 || ho != (h + 1) / 2 || wo != (w_ + 1) / 2 ||
+      pad_lo < 0 || pad_lo > 1 || do_ != (d + pad_lo) / 2 || ho != (h + 1) / 2 ||
+      wo != (w_ + 1) / 2 ||
       (1 << sw_log2) != sw || sw < MIN_SW || sw > SEG || chunks != (cin + CK - 1) / CK ||
       segments != (lines + (SEG / sw) - 1) / (SEG / sw) * ow_blocks || splits < 1 ||
       splits > 65535 || per_split < 1 ||
@@ -339,8 +345,8 @@ extern "C" int unet3d_s2_wgrad_wgmma(int bn, int stages, const void* x, const vo
       static_cast<long long>(splits) * per_split < segments || (splits > 1 && !part))
     return cudaErrorInvalidValue;
   Args a{static_cast<const bf16*>(x), static_cast<const bf16*>(g), nullptr, n, d, h, w_,
-         cin, do_, ho, wo, cout, n_tiles, chunks, sw_log2, static_cast<int>(ow_blocks),
-         segments, per_split};
+         cin, do_, ho, wo, cout, pad_lo, n_tiles, chunks, sw_log2,
+         static_cast<int>(ow_blocks), segments, per_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bn == 64 && stages == 6) return launch<64, 6>(a, splits, part, dw, s);
   if (bn == 96 && stages == 6) return launch<96, 6>(a, splits, part, dw, s);

@@ -10,6 +10,13 @@ site of the DynUNet), tiled by ``wgmma_plan``; ``wmma`` (``s2_wgrad.cu``) for
 the other bf16 calls, and ``fma`` (the same source) for f32, split by
 ``split_k``. ``LAUNCHES["s2_wgrad"]`` counts every launch, ``FORM_LAUNCHES``
 per ("s2_wgrad", form).
+
+``pad_lo`` is the zero planes below x on D: 1 for the SAME conv, 0 in the
+D-halo mode of the space axis (``parallel/``), where x is a slab of an even
+number of D planes that starts at an even plane of the volume, with the
+plane below it prepended (``parallel/halo.exchange_halo``); output plane j
+then reads x planes 2j ... 2j + 2 and no high pad is in reach. Do =
+(D + pad_lo) // 2. ``HALO_LAUNCHES`` counts the launches with ``pad_lo`` 0.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from unet3d_tpu_torch.utils.device import full_f32
 
 LAUNCHES: Dict[str, int] = {"s2_wgrad": 0}
 FORM_LAUNCHES: Dict[Tuple[str, str], int] = collections.Counter()
+HALO_LAUNCHES: Dict[Tuple[str, Tuple[int, int]], int] = collections.Counter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BK = 32            # voxels per stage of the wmma / fma kernel (s2_wgrad.cu)
@@ -57,24 +65,32 @@ class WgmmaPlan(NamedTuple):
 def reset_launches() -> None:
     LAUNCHES["s2_wgrad"] = 0
     FORM_LAUNCHES.clear()
+    HALO_LAUNCHES.clear()
 
 
-def s2_wgrad_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def s2_wgrad_reference(x: torch.Tensor, g: torch.Tensor, pad_lo: int = 1) -> torch.Tensor:
     """f32 dw of ``conv3d(x, w, stride 2, pads 1)`` for cotangent ``g``, in
-    full f32 on the card."""
+    full f32 on the card; with ``pad_lo`` 0, x padded on D by (0, 1) and the
+    conv VALID on D."""
     cin, cout = x.shape[-1], g.shape[-1]
-    with full_f32(x.float()):
+    xf, padding = x.float().permute(0, 4, 1, 2, 3), 1
+    if pad_lo != 1:
+        xf, padding = torch.nn.functional.pad(xf, (0, 0, 0, 0, pad_lo, 1)), (0, 1, 1)
+    with full_f32(xf):
         dw = torch.nn.grad.conv3d_weight(
-            x.float().permute(0, 4, 1, 2, 3), (cout, cin, 3, 3, 3),
-            g.float().permute(0, 4, 1, 2, 3), stride=2, padding=1)
+            xf, (cout, cin, 3, 3, 3), g.float().permute(0, 4, 1, 2, 3), stride=2,
+            padding=padding)
     return dw.permute(2, 3, 4, 1, 0).contiguous()
 
 
-def _check(x: torch.Tensor, g: torch.Tensor) -> None:
+def _check(x: torch.Tensor, g: torch.Tensor, pad_lo: int = 1) -> None:
     if x.dim() != 5 or g.dim() != 5:
         raise ValueError(f"expected x (N,D,H,W,C) and g (N,Do,Ho,Wo,Cout), got "
                          f"{tuple(x.shape)} and {tuple(g.shape)}")
-    want = (x.shape[0],) + tuple((s + 1) // 2 for s in x.shape[1:4])
+    if pad_lo not in (0, 1):
+        raise ValueError(f"pad_lo must be 0 or 1, got {pad_lo}")
+    want = ((x.shape[0], (x.shape[1] + pad_lo) // 2)
+            + tuple((s + 1) // 2 for s in x.shape[2:4]))
     if tuple(g.shape[:4]) != want:
         raise ValueError(f"g must be {want + (g.shape[-1],)} for x "
                          f"{tuple(x.shape)}, got {tuple(g.shape)}")
@@ -102,7 +118,7 @@ def split_k(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=256)
-def wgmma_plan(x_shape: Tuple[int, ...], cout: int, sms: int) -> WgmmaPlan:
+def wgmma_plan(x_shape: Tuple[int, ...], cout: int, sms: int, pad_lo: int = 1) -> WgmmaPlan:
     """The wgmma form's tiling for x (N, D, H, W, Cin) and Cout output
     channels on a card of ``sms`` SMs. Segments: 64 output voxels as 64 / sw
     output lines of sw voxels, sw the power of two >= Wo (4 to 64), so short
@@ -114,9 +130,9 @@ def wgmma_plan(x_shape: Tuple[int, ...], cout: int, sms: int) -> WgmmaPlan:
     long that is Cout in one tile (each staged segment serves every output
     channel); at the deep sites, whose few segments cannot fill the card,
     narrower tiles. Cached: a training step asks for the same few shapes
-    every step."""
+    every step. ``pad_lo`` as ``s2_wgrad``'s."""
     n, d, h, w, cin = x_shape
-    do, ho, wo = (d + 1) // 2, (h + 1) // 2, (w + 1) // 2
+    do, ho, wo = (d + pad_lo) // 2, (h + 1) // 2, (w + 1) // 2
     chunks = -(-cin // CHUNK)
     sw = min(SEGMENT, max(_MIN_SW, 1 << max(0, wo - 1).bit_length()))
     lines = SEGMENT // sw
@@ -145,7 +161,7 @@ def kernel_form(x: torch.Tensor, g: torch.Tensor) -> str:
     return "wgmma" if x.shape[4] % 8 == 0 and g.shape[4] % 8 == 0 and aligned else "wmma"
 
 
-def _launch(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _launch(x: torch.Tensor, g: torch.Tensor, pad_lo: int = 1) -> torch.Tensor:
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
     from unet3d_tpu_torch.kernels.build import load_library
@@ -157,7 +173,7 @@ def _launch(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     form = kernel_form(x, g)
     if form == "wgmma":
-        plan = wgmma_plan(tuple(x.shape), cout, sms)
+        plan = wgmma_plan(tuple(x.shape), cout, sms, pad_lo)
         splits = plan.splits
     else:
         splits, per_split = split_k(m, cout, n * do * ho * wo, sms)
@@ -172,21 +188,24 @@ def _launch(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             err = lib.unet3d_s2_wgrad_wgmma(
                 plan.bn, plan.stages, x.data_ptr(), g.data_ptr(), part_ptr,
                 dw.data_ptr(), n, d, h, w, cin, do, ho, wo, cout, plan.n_tiles,
-                plan.chunks, plan.sw, plan.segments, plan.splits, plan.per_split, stream)
+                plan.chunks, plan.sw, plan.segments, plan.splits, plan.per_split, pad_lo,
+                stream)
         else:
             err = lib.unet3d_s2_wgrad_ndhwc(
                 _DTYPES[x.dtype], x.data_ptr(), g.data_ptr(), part_ptr, dw.data_ptr(),
-                n, d, h, w, cin, do, ho, wo, cout, splits, per_split, stream)
+                n, d, h, w, cin, do, ho, wo, cout, splits, per_split, pad_lo, stream)
     if err != 0:
         raise RuntimeError(f"s2_wgrad ({form}) launch failed: "
                            f"{lib.unet3d_cuda_error_string(err).decode()}")
     LAUNCHES["s2_wgrad"] += 1
     FORM_LAUNCHES["s2_wgrad", form] += 1
+    if pad_lo != 1:
+        HALO_LAUNCHES["s2_wgrad", (pad_lo, 0)] += 1
     return dw
 
 
-def s2_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    _check(x, g)
+def s2_wgrad(x: torch.Tensor, g: torch.Tensor, pad_lo: int = 1) -> torch.Tensor:
+    _check(x, g, pad_lo)
     if x.device.type == "cpu":
-        return s2_wgrad_reference(x, g)
-    return _launch(x, g)
+        return s2_wgrad_reference(x, g, pad_lo)
+    return _launch(x, g, pad_lo)

@@ -1,5 +1,5 @@
 """Process-group set-up from the machine config, and the collectives of the
-data axis (counterpart of ``unet3d_tpu/parallel/distributed.py``).
+data and space axes (counterpart of ``unet3d_tpu/parallel/distributed.py``).
 
 One process per GPU: the JAX CLI is one process over N devices, the port
 starts N processes (``parallel/launch.py``), each bound to its own device.
@@ -23,6 +23,24 @@ statistics, the criteria that couple items, VQVAE's codebook sums) sum over
 the data axis with ``sum_over_data``; outside it, and without a process
 group, every helper here is the identity, so the single-device path runs as
 it did.
+
+The space axis splits one volume's D planes over its ranks: inside
+``space_parallel(mesh)`` the model's NDHWC activations are slabs of
+contiguous D planes (rank s of S holds planes [s D/S, (s + 1) D/S)), and the
+ops that reach across D (``ops/conv3d``'s halo exchanges, the instance and
+group norms' statistics, the trilinear upsample) read ``space_size()``; a
+level the model runs whole on every rank of the axis (its D does not divide
+by S) runs inside ``replicated()``, where ``space_size()`` is 1 again.
+Every cross-rank operation keeps the data axis's convention: each rank's
+gradient is its share of the global one times the axis's size, so one mean
+of the gradients over every rank of the mesh gives the single-device
+gradient. ``sum_over_space`` sums its cotangents back (``_SumOverAxis``),
+``gather_d`` reduce-scatters them, ``slice_d``'s adjoint pads with zeros,
+and the halo's (``parallel/halo.py``) adds each neighbour plane's cotangent
+to the plane it was copied from. The space axis's collectives are
+``all_reduce`` only too; a gather or a halo exchange all-reduces the bytes
+of a zero buffer that each rank fills in its own place, which is exact in
+any dtype.
 """
 from __future__ import annotations
 
@@ -38,6 +56,9 @@ from torch import distributed as tdist
 _INITIALIZED = False
 _DEVICE: Optional[torch.device] = None  # this rank's device, set by the launcher
 _ACTIVE = None  # the mesh of the sharded step that is running, else None
+_SPACE = None  # the mesh whose space axis D-shards the running forward, else None
+_REPLICATED = False  # inside a level every rank of the space axis holds whole
+_GROUPS: dict = {}  # process groups by their ranks, made once per process group
 
 
 def torchrun_env() -> Optional[tuple]:
@@ -102,6 +123,7 @@ def leave_process_group() -> None:
     if is_initialized():
         tdist.destroy_process_group()
     _INITIALIZED = False
+    _GROUPS.clear()
     set_rank_device(None)
 
 
@@ -160,6 +182,18 @@ def broadcast_floats(values: Sequence[Optional[float]]) -> List[Optional[float]]
     return [None if missing else v for v, missing in t.tolist()]
 
 
+def group_of(ranks: Sequence[int]):
+    """The process group of ``ranks`` (the world's own group when they are
+    all of them). Every rank must ask for every group, in the same order,
+    as ``torch.distributed.new_group`` needs; a group is made once."""
+    ranks = tuple(int(r) for r in ranks)
+    if len(ranks) == world_size():
+        return tdist.group.WORLD
+    if ranks not in _GROUPS:
+        _GROUPS[ranks] = tdist.new_group(list(ranks))
+    return _GROUPS[ranks]
+
+
 @contextlib.contextmanager
 def data_parallel(mesh) -> Iterator[None]:
     """Inside the block the batch-axis reductions sum over ``mesh``'s data
@@ -179,10 +213,11 @@ def data_size() -> int:
     return _ACTIVE.size if _ACTIVE is not None else 1
 
 
-class _SumOverData(torch.autograd.Function):
-    """All-reduce (sum) whose backward all-reduces (sums) the cotangents:
-    each rank's gradient is then the data axis's size times its share of
-    the global one, and the mean over ranks is the global gradient."""
+class _SumOverAxis(torch.autograd.Function):
+    """All-reduce (sum) over an axis's group whose backward all-reduces
+    (sums) the cotangents: each rank's gradient is then the axis's size
+    times its share of the global one, and the mean over ranks is the
+    global gradient."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -203,7 +238,7 @@ def sum_over_data(x: torch.Tensor) -> torch.Tensor:
     sums the cotangents back), else ``x`` itself."""
     if _ACTIVE is None:
         return x
-    return _SumOverData.apply(x, _ACTIVE.group)
+    return _SumOverAxis.apply(x, _ACTIVE.group)
 
 
 def mean_over_data(x: torch.Tensor) -> torch.Tensor:
@@ -212,3 +247,172 @@ def mean_over_data(x: torch.Tensor) -> torch.Tensor:
     if _ACTIVE is None:
         return x
     return sum_over_data(x) / _ACTIVE.size
+
+
+@contextlib.contextmanager
+def space_parallel(mesh) -> Iterator[None]:
+    """Inside the block the model's activations are D slabs over ``mesh``'s
+    space axis (None, a space axis of 1, or a mesh without a process group:
+    the block changes nothing)."""
+    global _SPACE, _REPLICATED
+    before = _SPACE, _REPLICATED
+    active = mesh is not None and mesh.space > 1 and mesh.space_group is not None
+    _SPACE, _REPLICATED = (mesh if active else None), False
+    try:
+        yield
+    finally:
+        _SPACE, _REPLICATED = before
+
+
+@contextlib.contextmanager
+def replicated(on: bool = True) -> Iterator[None]:
+    """With ``on``, inside the block every rank of the space axis holds its
+    tensors whole: ``space_size()`` is 1 and the ops run as on one device."""
+    global _REPLICATED
+    before = _REPLICATED
+    _REPLICATED = before or on
+    try:
+        yield
+    finally:
+        _REPLICATED = before
+
+
+def space_state() -> tuple:
+    """The space axis's state, for ``restored_space`` (remat's recompute
+    runs a block in the state its forward ran in)."""
+    return _SPACE, _REPLICATED
+
+
+@contextlib.contextmanager
+def restored_space(state: tuple) -> Iterator[None]:
+    global _SPACE, _REPLICATED
+    before = _SPACE, _REPLICATED
+    _SPACE, _REPLICATED = state
+    try:
+        yield
+    finally:
+        _SPACE, _REPLICATED = before
+
+
+def space_mesh():
+    """The mesh whose space axis D-shards the tensors of the running op,
+    else None."""
+    return None if _REPLICATED else _SPACE
+
+
+def space_size() -> int:
+    """The number of D slabs the running op's tensors are cut into (1 off
+    the space axis or in a replicated level)."""
+    mesh = space_mesh()
+    return mesh.space if mesh is not None else 1
+
+
+def space_rank() -> int:
+    mesh = space_mesh()
+    return mesh.space_rank if mesh is not None else 0
+
+
+def sum_over_space(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the space axis while the tensors are D slabs
+    (autograd sums the cotangents back), else ``x`` itself."""
+    mesh = space_mesh()
+    if mesh is None:
+        return x
+    return _SumOverAxis.apply(x, mesh.space_group)
+
+
+def exact_all_reduce(buf: torch.Tensor, group) -> torch.Tensor:
+    """``buf`` summed over ``group`` where each element is non-zero on one
+    rank at most: its bytes are summed, which is exact in any dtype (an
+    all-gather through the one collective every backend takes on CUDA
+    tensors)."""
+    tdist.all_reduce(buf.view(torch.uint8), group=group)
+    return buf
+
+
+class _GatherD(torch.autograd.Function):
+    """The slabs of the space axis joined along ``axis``; the backward sums
+    the cotangents over the axis (in f32) and keeps this rank's slab: a
+    reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        depth = x.shape[axis]
+        shape = list(x.shape)
+        shape[axis] = depth * mesh.space
+        buf = x.new_zeros(shape)
+        buf.narrow(axis, mesh.space_rank * depth, depth).copy_(x)
+        return exact_all_reduce(buf, mesh.space_group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh = ctx.mesh
+        total = grad.float().contiguous()
+        tdist.all_reduce(total, group=mesh.space_group)
+        depth = total.shape[ctx.axis] // mesh.space
+        return (total.narrow(ctx.axis, mesh.space_rank * depth, depth)
+                .to(grad.dtype).contiguous(), None, None)
+
+
+def gather_d(x: torch.Tensor, axis: int = 1, mesh=None) -> torch.Tensor:
+    """The whole volume from this rank's D slab ``x`` (D at ``axis``) on
+    every rank of ``mesh``'s space axis (default: the running op's); ``x``
+    itself off the axis."""
+    mesh = mesh if mesh is not None else space_mesh()
+    if mesh is None or mesh.space == 1 or mesh.space_group is None:
+        return x
+    return _GatherD.apply(x.contiguous(), axis, mesh)
+
+
+def level_sharded(mesh, depth: int) -> bool:
+    """JAX's ``activation_spec`` rule on D: an activation of global depth
+    ``depth`` is sharded over ``mesh``'s space axis where the axis divides
+    it, else replicated."""
+    return mesh is not None and mesh.space > 1 and depth % mesh.space == 0
+
+
+def level_layout(depths: Sequence[int]) -> Optional[List[bool]]:
+    """Whether each of a net's levels, of global depths ``depths``, is
+    D-sharded on the running space axis (``level_sharded``); None off the
+    axis."""
+    mesh = space_mesh()
+    if mesh is None:
+        return None
+    return [level_sharded(mesh, d) for d in depths]
+
+
+def at_level(sharded: Optional[bool], fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` in a level's layout: whole on every rank
+    (``replicated``) where the space axis does not shard the level (None:
+    off the axis, as it is)."""
+    if sharded is None or sharded:
+        return fn(*args, **kwargs)
+    with replicated():
+        return fn(*args, **kwargs)
+
+
+def between_levels(fn, x: torch.Tensor, sharded_in: Optional[bool],
+                   sharded_out: Optional[bool], *args, **kwargs):
+    """``fn(x, ...)`` from a level of one layout to a level of another: on
+    the slabs where both are sharded, else whole (x gathered on D first
+    where its level is sharded, the result cut to this rank's slab where
+    the next one is)."""
+    if sharded_in is None or (sharded_in and sharded_out):
+        return fn(x, *args, **kwargs)
+    mesh = space_mesh()
+    if sharded_in:
+        x = gather_d(x, 1, mesh)
+    with replicated():
+        y = fn(x, *args, **kwargs)
+    return slice_d(y, 1, mesh) if sharded_out else y
+
+
+def slice_d(x: torch.Tensor, axis: int = 1, mesh=None) -> torch.Tensor:
+    """This rank's D slab of the whole volume ``x`` (D at ``axis``, which
+    the space axis divides); its adjoint pads the cotangent with zeros."""
+    mesh = mesh if mesh is not None else space_mesh()
+    if mesh is None or mesh.space == 1:
+        return x
+    depth = x.shape[axis] // mesh.space
+    return x.narrow(axis, mesh.space_rank * depth, depth).contiguous()

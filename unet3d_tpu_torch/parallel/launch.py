@@ -1,4 +1,4 @@
-"""Start the ranks of a data-parallel run: one process per GPU.
+"""Start the ranks of a data- or space-parallel run: one process per GPU.
 
 The JAX CLIs are one process over N devices; ``--ngpus N`` here starts N
 processes of the same command (``launch``), each bound to its own device
@@ -29,21 +29,21 @@ from unet3d_tpu_torch.parallel.mesh import parse_mesh_spec, refuse_unported_axes
 
 @dataclass(frozen=True)
 class Plan:
-    """A data-parallel run: processes on this node, the mesh spec (JAX's
-    axis names; ``{"data": world size}`` by default) and the machine
-    config."""
+    """A parallel run: processes on this node, the mesh spec (JAX's axis
+    names; ``{"data": world size}`` by default) and the machine config."""
 
     nprocs: int
     mesh: Dict[str, int]
     system_config: Dict[str, Any]
 
 
-def plan(system_config: Optional[dict], device) -> Optional[Plan]:
+def plan(system_config: Optional[dict], device, default_axis: str = "data") -> Optional[Plan]:
     """The JAX CLIs' rule: ``n_gpus`` devices, raised to a ``mesh`` spec's
-    device count; None for one device without a process group to join
-    (the single-device path). On CUDA the count is clamped to the visible
-    GPUs, as JAX clamps to ``jax.devices()``, with a log line. A ``space``
-    or ``model`` axis above 1 raises."""
+    device count (the product of its axes: data x space); None for one
+    device without a process group to join (the single-device path). On
+    CUDA the count is clamped to the visible GPUs, as JAX clamps to
+    ``jax.devices()``, with a log line. Without a spec every rank lies on
+    ``default_axis``. A ``model`` axis above 1 raises."""
     config = dict(system_config or {})
     n = int(config.get("n_gpus") or 1)
     spec = config.get("mesh")
@@ -54,7 +54,7 @@ def plan(system_config: Optional[dict], device) -> Optional[Plan]:
     env = distributed.torchrun_env()
     n_nodes = int(config.get("n_nodes") or 1)
     if env is not None:
-        return Plan(1, spec or {"data": env[1]}, config)
+        return Plan(1, spec or {default_axis: env[1]}, config)
     if n <= 1 and n_nodes <= 1:
         return None
     if torch.device(device).type == "cuda":
@@ -64,7 +64,7 @@ def plan(system_config: Optional[dict], device) -> Optional[Plan]:
                 logging.warning("%d GPUs asked for, %d visible: running on %d", n, visible,
                                 visible)
             n = visible
-    return Plan(n, spec or {"data": n * n_nodes}, config)
+    return Plan(n, spec or {default_axis: n * n_nodes}, config)
 
 
 def _threads(nprocs: int) -> int:

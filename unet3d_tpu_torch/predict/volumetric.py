@@ -38,14 +38,18 @@ def to_ndhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_forward(model: torch.nn.Module, amp: bool = False,
-                 use_test: bool = False) -> Callable:
+                 use_test: bool = False, mesh=None) -> Callable:
     """Inference forward over NDHWC inputs.
 
     ``amp`` runs it in bfloat16 and returns f32: the parameters are cast to
     bf16 once, here, on a copy of the model (the f32 master stays as it is),
     and each input is cast per call. ``use_test`` passes ``test=True`` to a
     forward that takes it (AutoImplantUNet's raw output). A tuple output (the
-    VAE family's ``(out, mu, logvar)``) gives its first element."""
+    VAE family's ``(out, mu, logvar)``) gives its first element. With a
+    ``mesh`` that has a space axis, each call runs on this rank's D slab and
+    returns the gathered output, or runs whole where the axis does not
+    divide the input's D (the JAX version's ``mesh=`` dispatch;
+    ``parallel/mesh.space_forward``)."""
     net = copy.deepcopy(model).to(torch.bfloat16) if amp else model
     net.eval()
     kwargs = ({"test": True} if use_test
@@ -58,6 +62,10 @@ def make_forward(model: torch.nn.Module, amp: bool = False,
                 out = out[0]
             return out.float() if amp else out
 
+    if mesh is not None and mesh.space > 1:
+        from unet3d_tpu_torch.parallel.mesh import check_space_form, space_forward
+        check_space_form(model, mesh.space)
+        return space_forward(forward, mesh)
     return forward
 
 
@@ -139,7 +147,11 @@ def volumetric_predictions(model: torch.nn.Module, dataloader,
 
     With a data-parallel ``mesh`` of R ranks, rank r predicts and writes
     the cases r, r + R, ... of the loader (``DataLoader.rank_cases``); the
-    ranks' files together are the single-device run's.
+    ranks' files together are the single-device run's. On a space axis the
+    ranks of a space line take the same cases and each forward (each of the
+    inferer's windows) runs on their D slabs of it, the output gathered
+    (``make_forward``'s ``mesh``); the line's rank 0 writes, and the others
+    return no file names.
 
     Batches are dicts with ``image`` (B, C, D, H, W), ``affine`` (B, 4, 4) and
     ``source_filename``; ``amp`` runs the forward in bf16. ``resample`` maps
@@ -148,7 +160,8 @@ def volumetric_predictions(model: torch.nn.Module, dataloader,
     os.makedirs(prediction_dir, exist_ok=True)
     if mesh is not None and mesh.size > 1:
         dataloader = dataloader.rank_cases(mesh.rank, mesh.size)
-    forward = make_forward(model, amp=amp)
+    writer = mesh is None or mesh.space_rank == 0
+    forward = make_forward(model, amp=amp, mesh=mesh)
     device = next(model.parameters()).device
     written: List[str] = []
     batches = iter(dataloader)
@@ -166,7 +179,7 @@ def volumetric_predictions(model: torch.nn.Module, dataloader,
         _sync(device)
         t2 = time.perf_counter()
         n_items = pred.shape[0]
-        for i in range(n_items):
+        for i in range(n_items if writer else 0):
             t3 = time.perf_counter()
             item_pred = pred[i].permute(3, 0, 1, 2)  # (C, D, H, W)
             affine = np.asarray(batch["affine"][i])

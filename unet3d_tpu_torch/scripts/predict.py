@@ -14,19 +14,25 @@ never falls back to the CPU); ``run_inference`` / ``main`` take
 ``UNET3D_TPU_CONV=winograd`` routes the large stride-1 convs through the
 Winograd-DH kernels (``ops/conv3d.py``).
 
-``--ngpus N`` (``n_gpus``) or ``--mesh dataN`` predicts on N ranks, one
-process per GPU (``parallel/launch.py``; gloo processes on the CPU under
-``device="cpu"``): rank r predicts and writes the cases r, r + N, ..., and
-the files are the single-device run's. (JAX's CLI lays N devices on a
-``space`` axis by default, sharding each case's depth; the port's default
-is this data layout until the space axis is ported, and an explicit
-``space`` or ``model`` axis raises.)
+``--ngpus N`` (``n_gpus``) predicts on N ranks, one process per GPU
+(``parallel/launch.py``; gloo processes on the CPU under ``device="cpu"``),
+laid out as JAX's CLI lays its devices (``predict_plan``): without a mesh
+spec, or with one that has a ``space`` axis, on ``{"space": N}``, each
+case's depth sharded over the ranks (the same case on every rank, rank 0
+writing); with a pure data spec (``--mesh dataN``) in the data layout, rank
+r predicting and writing the cases r, r + N, .... Either way the files are
+the single-device run's. A net without a space form (any but DynUNet and
+UNet3D) takes the data layout by default, with a log line (a divergence
+from JAX's CLI, see ROADMAP.md), and raises on an explicit ``space`` axis;
+a ``model`` axis raises.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
+from typing import Optional
 
 import torch
 
@@ -37,8 +43,10 @@ from unet3d_tpu_torch.config.factory import (add_machine_config_to_parser,
                                              get_machine_config)
 from unet3d_tpu_torch.data.dataset import load_dataset_class
 from unet3d_tpu_torch.data.loader import build_loader
+from unet3d_tpu_torch.models.registry import MODEL_REGISTRY
 from unet3d_tpu_torch.parallel import distributed, launch
-from unet3d_tpu_torch.parallel.mesh import make_mesh
+from unet3d_tpu_torch.parallel.mesh import (check_space_form, has_space_form, make_mesh,
+                                            parse_mesh_spec)
 from unet3d_tpu_torch.predict.volumetric import volumetric_predictions
 from unet3d_tpu_torch.scripts.segment import format_parser as format_segmentation_parser
 from unet3d_tpu_torch.utils.config import in_config, load_json
@@ -74,6 +82,34 @@ def _predict_rank(config, output_directory, model_filename, group, activation,
                          system_config, device=distributed.rank_device())
 
 
+def predict_plan(config, system_config, device) -> Optional[launch.Plan]:
+    """JAX's predict CLI's layout of ``n_gpus`` devices (raised to a mesh
+    spec's count): a pure data spec keeps the data layout; otherwise every
+    rank goes on the ``space`` axis (an explicit spec's data axis too, as
+    JAX builds ``make_mesh({"space": n})``). A net without a space form
+    takes the data layout unless a ``space`` axis above 1 is asked for,
+    which raises."""
+    name = config["model"]["name"]
+    model_class = MODEL_REGISTRY.get(name)
+    spec = (system_config or {}).get("mesh")
+    spec = parse_mesh_spec(spec) if spec is not None else None
+    space = spec is None or "space" in spec
+    if model_class is not None and spec is not None:
+        check_space_form(model_class, spec.get("space", 1))
+    on_space = space and model_class is not None and has_space_form(model_class)
+    run_plan = launch.plan(system_config, device, "space" if on_space else "data")
+    if run_plan is None:
+        return None
+    if on_space and spec is not None:
+        world = run_plan.nprocs * int((system_config or {}).get("n_nodes") or 1)
+        run_plan = dataclasses.replace(run_plan, mesh={"space": world})
+    if space and not on_space and not distributed.is_initialized():
+        logging.warning("%s has no form for the 'space' mesh axis: predicting on %s, each "
+                        "rank its own cases (JAX's CLI shards each case's depth)", name,
+                        run_plan.mesh)
+    return run_plan
+
+
 def run_inference(config, output_directory, model_filename, group, activation,
                   system_config, device=None):
     """The JAX ``run_inference`` on ``device`` when given, else the first
@@ -84,7 +120,7 @@ def run_inference(config, output_directory, model_filename, group, activation,
         raise NotImplementedError(
             f"{model_filename}: exported model artifacts are not ported yet "
             "(see ROADMAP.md)")
-    run_plan = launch.plan(system_config, device or "cuda")
+    run_plan = predict_plan(config, system_config, device or "cuda")
     if run_plan is not None and not distributed.is_initialized():
         if device is None:
             require_cuda()

@@ -29,18 +29,23 @@ N processes, one per GPU over NCCL (gloo processes on the CPU under
 ``device="cpu"``; N is clamped to the visible GPUs), each taking its share
 of every batch, with the JAX sharded step's global-batch semantics
 (``parallel/mesh.py``); rank 0 writes the log and checkpoints, and each
-rank predicts its share of the cases. Under ``torchrun`` each process is a
-rank and nothing is spawned; the machine config's ``coordinator_address``,
-``n_nodes`` and ``node_rank`` join the nodes. A ``space`` or ``model`` mesh
-axis is not ported yet and raises; the batch size must divide by the data
-axis, as in JAX, and by the data axis times
-``training.gradient_accumulation_steps``.
+rank predicts its share of the cases. ``--mesh data2,space2`` (any data x
+space grid) also splits each volume's D planes over the space axis: the
+ranks of a space line take the same items and each its D slab
+(DynUNet and UNet3D only; another net raises). Under ``torchrun`` each
+process is a rank and nothing is spawned; the machine config's
+``coordinator_address``, ``n_nodes`` and ``node_rank`` join the nodes. A
+``model`` mesh axis is not ported yet and raises; the batch size must
+divide by the data axis, as in JAX, and by the data axis times
+``training.gradient_accumulation_steps``, and the patch's depth
+(``dataset.desired_shape``) by the space axis.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import logging
+import math
 import os
 import warnings
 from typing import Optional
@@ -61,10 +66,11 @@ from unet3d_tpu_torch.config.factory import (add_machine_config_to_parser,
                                              setup_cross_validation)
 from unet3d_tpu_torch.data.dataset import load_dataset_class, validate_filenames
 from unet3d_tpu_torch.data.prefetch import DevicePrefetcher
+from unet3d_tpu_torch.models.registry import MODEL_REGISTRY
 from unet3d_tpu_torch.parallel import distributed, launch
-from unet3d_tpu_torch.parallel.mesh import (make_mesh, make_sharded_eval_step,
-                                            make_sharded_train_step, replicate_state,
-                                            sharded_gradients)
+from unet3d_tpu_torch.parallel.mesh import (check_space_form, make_mesh,
+                                            make_sharded_eval_step, make_sharded_train_step,
+                                            replicate_state, sharded_gradients)
 from unet3d_tpu_torch.predict.volumetric import volumetric_predictions
 from unet3d_tpu_torch.train.optim import get_learning_rate
 from unet3d_tpu_torch.train.step import (accumulate_gradients, make_eval_step,
@@ -164,14 +170,31 @@ def dry_run_step(work_dir, training_loader, model, criterion, amp: bool,
 
 
 def _refuse_unported(config, system_config, device) -> Optional[launch.Plan]:
-    """The data-parallel plan of the machine config (None: one device);
-    a ``space`` or ``model`` mesh axis and orbax checkpoints raise."""
+    """The parallel plan of the machine config (None: one device); a
+    ``model`` mesh axis, a ``space`` axis under a net without a space form
+    and orbax checkpoints raise."""
     run_plan = launch.plan(system_config, device)
     training = config.get("training", {})
     if in_config("checkpoint_backend", training, "npz") == "orbax":
         raise NotImplementedError("checkpoint_backend 'orbax' is not ported yet "
                                   "(see ROADMAP.md)")
+    if run_plan is not None:
+        model_class = MODEL_REGISTRY.get(config["model"]["name"])
+        if model_class is not None:
+            check_space_form(model_class, run_plan.mesh.get("space", 1))
+        check_depth_divides(config, run_plan.mesh.get("space", 1))
     return run_plan
+
+
+def check_depth_divides(config, space_axis: int) -> None:
+    """The JAX CLI's check: the space axis divides the patch's depth
+    (``dataset.desired_shape``)."""
+    desired_shape = (config.get("dataset") or {}).get("desired_shape")
+    if space_axis > 1 and desired_shape and int(desired_shape[0]) % space_axis:
+        raise ValueError(
+            f"desired_shape depth {desired_shape[0]} is not divisible by the mesh's "
+            f"space axis ({space_axis}); pick a space size that divides the volume "
+            "depth, or pad desired_shape")
 
 
 def check_batch_divides(batch_size: int, data_axis: int, grad_accum: int = 1) -> None:
@@ -268,12 +291,13 @@ def run(config_filename, output_dir, namespace, device=None):
         if device is None:
             require_cuda()
         check_batch_divides(int(namespace.batch_size or config["training"]["batch_size"]),
-                            run_plan.mesh["data"], _grad_accum(config))
+                            run_plan.mesh.get("data", 1), _grad_accum(config))
         ranks = launch.launch(_train_rank, (config_filename, output_dir, namespace), run_plan,
                               device=device or "cuda")
         if not isinstance(ranks[0], dict) or "work_dir" not in ranks[0]:
             return ranks[0]
-        return {"work_dir": ranks[0]["work_dir"], "world_size": run_plan.mesh["data"],
+        return {"work_dir": ranks[0]["work_dir"],
+                "world_size": math.prod(run_plan.mesh.values()),
                 "predictions": {k: launch.interleave([r["predictions"][k] for r in ranks])
                                 for k in ranks[0]["predictions"]}}
     mesh = make_mesh(run_plan.mesh) if run_plan is not None else None

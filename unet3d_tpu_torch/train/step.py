@@ -106,31 +106,41 @@ def prepare_batch(images, labels, device: torch.device, amp: bool):
 
 def forward_loss(model: torch.nn.Module, criterion: Callable, x: torch.Tensor,
                  y: torch.Tensor, amp: bool,
-                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                 rng: Optional[torch.Generator] = None,
+                 forward_wrapper: Optional[Callable] = None) -> torch.Tensor:
     """The training forward and its loss; under ``amp`` on bf16 copies of the
     f32 parameters (the buffers stay the model's own, f32). ``rng`` goes to a
-    forward that draws noise."""
+    forward that draws noise; ``forward_wrapper`` maps the forward (a
+    function of x) to the one that runs (the space axis's,
+    ``parallel/mesh.space_forward``)."""
     kwargs = {"train": True}
     if rng is not None:
         kwargs["rng"] = rng
     if amp:
         params = amp_cast(dict(model.named_parameters()))
-        out = functional_call(model, params, (x,), kwargs)
+
+        def forward(z):
+            return functional_call(model, params, (z,), kwargs)
     else:
-        out = model(x, **kwargs)
-    return compute_criterion(criterion, out, y)
+        def forward(z):
+            return model(z, **kwargs)
+    if forward_wrapper is not None:
+        forward = forward_wrapper(forward)
+    return compute_criterion(criterion, forward(x), y)
 
 
 def accumulate_gradients(model: torch.nn.Module, criterion: Callable,
                          x: torch.Tensor, y: torch.Tensor, amp: bool,
                          grad_accum: int = 1,
-                         rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                         rng: Optional[torch.Generator] = None,
+                         forward_wrapper: Optional[Callable] = None) -> torch.Tensor:
     """Forward and backward of the batch into the parameters' ``.grad``, in
     ``grad_accum`` equal microbatches (contiguous slices of the batch axis,
     as the kernels take them), the gradients summed in f32 and divided once
-    by the count; returns the mean loss, detached."""
+    by the count; returns the mean loss, detached. ``forward_wrapper`` as
+    ``forward_loss``'s."""
     if grad_accum <= 1:
-        loss = forward_loss(model, criterion, x, y, amp, rng)
+        loss = forward_loss(model, criterion, x, y, amp, rng, forward_wrapper)
         loss.backward()
         return loss.detach()
     n = x.shape[0]
@@ -141,7 +151,7 @@ def accumulate_gradients(model: torch.nn.Module, criterion: Callable,
     total = None
     for i in range(grad_accum):
         loss = forward_loss(model, criterion, x[i * m:(i + 1) * m],
-                            y[i * m:(i + 1) * m], amp, rng)
+                            y[i * m:(i + 1) * m], amp, rng, forward_wrapper)
         loss.backward()
         loss = loss.detach().float()
         total = loss if total is None else total + loss
@@ -172,10 +182,13 @@ def make_train_step(model: torch.nn.Module, criterion: Callable,
 
 
 def make_eval_step(model: torch.nn.Module, criterion: Callable,
-                   inferer: Optional[Callable] = None, amp: bool = False) -> Callable:
+                   inferer: Optional[Callable] = None, amp: bool = False,
+                   forward_wrapper: Optional[Callable] = None) -> Callable:
     """``step(images, labels) -> loss`` without gradients, the forward
     optionally through an inferer (e.g. sliding window); ``amp`` runs it on
-    bf16 copies of the parameters and buffers (the running statistics)."""
+    bf16 copies of the parameters and buffers (the running statistics);
+    ``forward_wrapper`` as ``forward_loss``'s, around each forward the
+    inferer makes."""
     device = _device(model)
 
     def step(images, labels) -> torch.Tensor:
@@ -188,6 +201,8 @@ def make_eval_step(model: torch.nn.Module, criterion: Callable,
             def forward(z: torch.Tensor) -> torch.Tensor:
                 return functional_call(model, variables, (z,))
 
+            if forward_wrapper is not None:
+                forward = forward_wrapper(forward)
             out = inferer(x, forward) if inferer is not None else forward(x)
             return compute_criterion(criterion, out, y)
 

@@ -40,6 +40,13 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    the CUDA cores) and the 3xTF32 one (three TF32 products per product at
    495 TFLOP/s), the share read against the second. The f32 ``s2_wgrad`` and
    Winograd calls are timed too, beside cuDNN with TF32 off and the f32 bound;
+   then the narrow form of the direct conv (``conv3d_narrow.cu``: bf16 calls
+   with Cin no multiple of 4, Cout none of 8, or x not 16-byte aligned), its
+   three variants at batch 2 of a ragged volume for Cin 1, 3, 6, 16, 32 x
+   Cout 1, 3, 4, 12, 70, with x at an odd element offset, and in the D-halo
+   modes (0, 1), (1, 0), (2, 1), (1, 2), each call's form checked, within
+   the bf16 and statistics bounds above (its timed sites are phases 10, 11
+   and 14's);
 3. the slice: the BraTS DynUNet of ``examples/brats2020/brats2020_config.json``
    (seeded random weights, no trained checkpoint in the repo), its sliding-
    window inferer and sigmoid, answering two requests through
@@ -132,7 +139,8 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
 10. the Myronenko family (the BraTS config with its model section replaced
    by SegResNetVAE at Myronenko's widths, ``SEGRESNET_MODEL``): the conv
    kernel at the family's new shapes (bf16 at 32 channels; the U-Nets'
-   first-conv input gradient, 32 -> 4, in the wmma form; f32 at the three
+   first-conv input gradient, 32 -> 4, and AutoImplantUNet's input conv,
+   1 -> 32, in the narrow form; f32 at the three
    decoder sites, 32 -> 32 @128^3, 64 -> 64 @64^3 and 128 -> 128 @32^3, in
    the tf32x3 form) and ``s2_wgrad`` at its new widths, each against its
    plain version, its form checked, and timed as in phase 2; (a) one
@@ -142,7 +150,7 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    decoder, which AMP runs in f32 after the trilinear upsample), times and
    a profile; (b) one bf16 AMP train step at batch 1 (DiceLoss plus the VAE
    term): ``conv`` 61 (31 forward, 30 input gradients: 37 wgmma and 24
-   tf32x3), ``s2_wgrad`` 4, no wmma form, gradients against the plain path
+   tf32x3), ``s2_wgrad`` 4, no narrow form, gradients against the plain path
    within the phase-5 bounds (the noise drawn alike), step ms, peak memory
    and a profile; then, under torch's default TF32 flags, the f32 step's
    gradients through the kernels and through the plain path, and one f32
@@ -217,7 +225,7 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    step; the train and predict CLIs with BasicUNetPlusPlus.
 14. the last MONAI conv nets (``LAST_CONV_NETS``, ``LAST_HEADS``): (a) the
    conv kernel at the registration nets' new sites (an extraction head 16
-   -> 3 @128^3 and its input gradient 3 -> 16, both in the wmma form;
+   -> 3 @128^3 and its input gradient 3 -> 16, both in the narrow form;
    LocalNet's 16 -> 16 @128^3) and ``s2_wgrad`` at RegUNet's pool_conv_0
    (16 -> 16) and the AutoEncoder's first stride-2 conv (4 -> 4, wmma),
    against their plain versions, timed as in phase 2; (b) LocalNet,
@@ -225,7 +233,7 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    GlobalNet, AutoEncoder, VarAutoEncoder, HighResNet and AHNet at full
    width: one 128^3 bf16 window through ``make_forward`` against the plain
    path within relative L2 3e-2, launches by kernel and form as their 3^3
-   FastConvs predict (one ``conv`` each, wmma where a channel count is no
+   FastConvs predict (one ``conv`` each, narrow where a channel count is no
    multiple of 8 / 4; HighResNet's and AHNet's convs are cuDNN's: none),
    times; GlobalNet's DDF at init exactly 0 and ``warp_image`` of the
    window by it; AHNet's second window in "trilinear" mode; (c) one bf16
@@ -353,9 +361,10 @@ OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
 TRAIN_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
 RES_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_train_res")
-# the bf16 form of each kernel on the path (conv3d.cu, s2_wgrad.cu and
-# winograd.cu keep the f32 form and a bf16 WMMA form for channel counts no
-# DynUNet site has)
+# the bf16 form of each kernel on the DynUNet's path (conv3d.cu keeps the
+# f32 FMA form; conv3d_narrow.cu, the "conv_narrow" entry, takes the bf16
+# calls with channel counts no DynUNet site has; s2_wgrad.cu and winograd.cu
+# keep the f32 form and a bf16 WMMA form for such counts)
 SOURCES = {
     "conv": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
     "conv_stats": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
@@ -468,13 +477,14 @@ FAMILY_MODELS = (
 )
 # (label, spatial, cin, cout, dtype, form): the conv kernel at the family's
 # new shapes: bf16 (wgmma) at level 0's 32 channels, half of a 64-wide tile;
-# the U-Nets' first-conv input gradient (4 outputs, the wmma form of
-# conv3d.cu); and f32 (the tf32x3 form, conv3d_tf32x3.cu) at SegResNetVAE's
+# the U-Nets' first-conv input gradient (4 outputs) and AutoImplantUNet's
+# one-channel input conv (the narrow form, conv3d_narrow.cu); and f32 (the tf32x3 form, conv3d_tf32x3.cu) at SegResNetVAE's
 # three decoder sites, which AMP runs in f32 after the trilinear upsample
 FAMILY_CONV_SHAPES = [
     ("convInit 4->32 @128^3", 128, 4, 32, torch.bfloat16, "wgmma"),
     ("layer0 32->32 @128^3", 128, 32, 32, torch.bfloat16, "wgmma"),
-    ("U-Net first conv dx 32->4 @128^3", 128, 32, 4, torch.bfloat16, "wmma"),
+    ("U-Net first conv dx 32->4 @128^3", 128, 32, 4, torch.bfloat16, "narrow"),
+    ("AutoImplantUNet input conv 1->32 @128^3", 128, 1, 32, torch.bfloat16, "narrow"),
     ("up2 block 32->32 @128^3", 128, 32, 32, torch.float32, "tf32x3"),
     ("up1 block 64->64 @64^3", 64, 64, 64, torch.float32, "tf32x3"),
     ("up0 block 128->128 @32^3", 32, 128, 128, torch.float32, "tf32x3"),
@@ -483,6 +493,21 @@ FAMILY_CONV_SHAPES = [
 # decoder site the conv variant's time is reported at
 TF32X3_SOURCE = "unet3d_tpu_torch/ops/kernels/conv3d_tf32x3.cu"
 TF32X3_CONV_AT = "up2 block 32->32 @128^3"
+# the narrow form's rows of the kernels line: its source, and the site its
+# time is reported at (the U-Nets' first-conv input gradient, the largest)
+NARROW_SOURCE = "unet3d_tpu_torch/ops/kernels/conv3d_narrow.cu"
+# the f32 form for Cin no multiple of 4 (UNet's and the heads' f32 steps)
+FMA_SOURCE = "unet3d_tpu_torch/ops/kernels/conv3d.cu"
+NARROW_CONV_AT = "U-Net first conv dx 32->4 @128^3"
+# phase 2's narrow-form cases: every variant at batch 2 of a ragged volume
+# (no side a multiple of the 4 x 8 x 16 brick), Cin x Cout over the form's
+# kinds (taps folded into K below 16 input channels, one and two 16- or
+# 32-channel chunks, 1 to 8 N tiles, two N blocks at 70 outputs); then x at
+# an odd element offset (2-byte aligned), and the space axis's D-halo pads
+NARROW_SHAPE = (2, 13, 21, 30)
+NARROW_CHANNELS = [(cin, cout) for cin in (1, 3, 6, 16, 32) for cout in (1, 3, 4, 12, 70)]
+NARROW_MISALIGNED = [(3, 3), (16, 4), (32, 4), (16, 16)]
+NARROW_PADS = [((0, 1), 3, 3), ((1, 0), 16, 3), ((2, 1), 3, 16), ((1, 2), 32, 4)]
 # torch's default TF32 flags: each f32 path against itself with TF32 off
 TF32_FLAGS_BOUND = 1e-5
 # the kernels' f32 step gradients: their distance from the f64 plain path
@@ -511,13 +536,15 @@ BN_NETS = (
 )
 # (label, spatial, cin, cout, dtype, form): the conv kernel at the new nets'
 # shapes: SegResNetDS's deeper blocks, AttentionUnet's 16-channel level 0 and
-# its merge conv, and UNet's last up unit (3 -> 3 channels: the wmma form)
+# its merge conv, and UNet's last up unit (3 -> 3 channels: the narrow form;
+# in f32, which UNet's f32 step runs, conv3d.cu's fma form)
 BN_CONV_SHAPES = [
     ("SegResNetDS down1 block 64->64 @64^3", 64, 64, 64, torch.bfloat16, "wgmma"),
     ("SegResNetDS down3 block 256->256 @16^3", 16, 256, 256, torch.bfloat16, "wgmma"),
     ("AttentionUnet conv0.conv1 16->16 @128^3", 128, 16, 16, torch.bfloat16, "wgmma"),
     ("AttentionUnet merge0 32->16 @128^3", 128, 32, 16, torch.bfloat16, "wgmma"),
-    ("UNet up_0_ru 3->3 @128^3", 128, 3, 3, torch.bfloat16, "wmma"),
+    ("UNet up_0_ru 3->3 @128^3", 128, 3, 3, torch.bfloat16, "narrow"),
+    ("UNet up_0_ru 3->3 @128^3", 128, 3, 3, torch.float32, "fma"),
 ]
 # (label, spatial of x, cin, cout): s2_wgrad at the new nets' stride-2 convs
 # (UNet's first, 4 -> 16 channels, takes the wmma form of s2_wgrad.cu)
@@ -674,12 +701,14 @@ NOISE_DRAWS = 3
 LOCALNET_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_localnet")
 # (label, spatial, cin, cout, dtype, form): the conv kernel at the
 # registration nets' new sites: an extraction head to 3 channels at 128^3
-# and its input gradient (the wmma form), LocalNet's level-0 decoder conv;
+# and its input gradient (the narrow form; the gradient also in f32, the fma
+# form), LocalNet's level-0 decoder conv;
 # s2_wgrad at RegUNet's pool_conv_0 and the AutoEncoder's first stride-2
 # conv (4 channels: the wmma form)
 LAST_CONV_SHAPES = [
-    ("RegUNet extract_0 16->3 @128^3", 128, 16, 3, torch.bfloat16, "wmma"),
-    ("RegUNet dx of extract_0 3->16 @128^3", 128, 3, 16, torch.bfloat16, "wmma"),
+    ("RegUNet extract_0 16->3 @128^3", 128, 16, 3, torch.bfloat16, "narrow"),
+    ("RegUNet dx of extract_0 3->16 @128^3", 128, 3, 16, torch.bfloat16, "narrow"),
+    ("RegUNet dx of extract_0 3->16 @128^3", 128, 3, 16, torch.float32, "fma"),
     ("LocalNet decode_0 16->16 @128^3", 128, 16, 16, torch.bfloat16, "wgmma"),
 ]
 LAST_S2_SHAPES = [("RegUNet pool_conv_0 x 128^3 16->16", 128, 16, 16),
@@ -927,7 +956,8 @@ def check_forms(where: str) -> None:
 
 
 _WGMMA_VARIANT = re.compile(r"conv3x3x3_wgmma<.*(true|false), (true|false)>")
-_KERNEL_GROUPS = (("conv tf32x3", "conv3x3x3_tf32x3"), ("conv wmma/fma", "conv3x3x3_ndhwc"),
+_KERNEL_GROUPS = (("conv tf32x3", "conv3x3x3_tf32x3"), ("conv narrow", "conv3x3x3_narrow"),
+                  ("conv fma", "conv3x3x3_fma"),
                   ("s2_wgrad", "s2_wgrad"), ("s2_wgrad", "sum_splits"),
                   ("winograd", "winograd3x3x3"), ("winograd", "winograd_wgmma"),
                   ("memcpy/memset", "mem"), ("copies and casts", "copy"),
@@ -1193,6 +1223,53 @@ def phase2_backward(device, gen, report):
             print(msg, flush=True)
             del x, g, got, want
     torch.cuda.empty_cache()
+
+
+def phase2_narrow(device, gen) -> dict:
+    """The narrow form (``conv3d_narrow.cu``) against its plain versions:
+    each variant at NARROW_SHAPE for every NARROW_CHANNELS pair, x at an odd
+    element offset for NARROW_MISALIGNED, and each NARROW_PADS D-halo mode;
+    every call's form checked, y within the bf16 bound and the statistics
+    within STATS_BOUND. Returns the largest errors."""
+    from unet3d_tpu_torch.ops import conv3d_kernel as K
+    cases = [(cin, cout, K.SAME, 0) for cin, cout in NARROW_CHANNELS]
+    cases += [(cin, cout, K.SAME, 3) for cin, cout in NARROW_MISALIGNED]
+    cases += [(cin, cout, pads, 0) for pads, cin, cout in NARROW_PADS]
+    worst = dict(y_rel=0.0, stats_rel=0.0, max_abs_err=0.0, cases=len(cases))
+    n = NARROW_SHAPE[0]
+    for cin, cout, pads, offset in cases:
+        x = torch.randn(*NARROW_SHAPE, cin, device=device, generator=gen).to(torch.bfloat16)
+        if offset:
+            store = torch.empty(offset + x.numel(), dtype=x.dtype, device=device)
+            x = store[offset:].view(x.shape).copy_(x)
+        w = (torch.randn(3, 3, 3, cin, cout, device=device, generator=gen)
+             / (27 * cin) ** 0.5).to(torch.bfloat16)
+        inv = torch.rand(n, cin, device=device, generator=gen) + 0.5
+        shift = torch.randn(n, cin, device=device, generator=gen) * 0.3
+        runs = ((K.conv3x3x3(x, w, pads), K.conv3d_reference(x, w, pads)),
+                (K.conv3x3x3_with_stats(x, w, pads), K.conv3d_with_stats_reference(x, w, pads)),
+                (K.conv3x3x3_block_with_stats(x, w, inv, shift, pads=pads),
+                 K.conv3d_block_with_stats_reference(x, w, inv, shift, pads=pads)))
+        torch.cuda.synchronize()
+        form = K.kernel_form(x, w)
+        y_rel = s_rel = abs_err = 0.0
+        for got, want in runs:
+            got_y, want_y = (got, want) if isinstance(got, torch.Tensor) else (got[0], want[0])
+            check(got_y.shape == want_y.shape, f"narrow {cin}->{cout}: y {tuple(got_y.shape)}")
+            y_rel = max(y_rel, rel_max(got_y, want_y))
+            abs_err = max(abs_err, (got_y.float() - want_y.float()).abs().max().item())
+            if not isinstance(got, torch.Tensor):
+                s_rel = max(s_rel, stats_err(*got))
+        msg = (f"narrow {cin:2d}->{cout:2d} {str(NARROW_SHAPE):16s} pads {pads} offset "
+               f"{offset}: form {form}, y rel {y_rel:.3e}, stats rel {s_rel:.3e}")
+        print(msg, flush=True)
+        check(form == "narrow", f"{msg}: form")
+        check(y_rel < BOUNDS[torch.bfloat16], f"{msg} > {BOUNDS[torch.bfloat16]}")
+        check(s_rel < STATS_BOUND, f"{msg} > {STATS_BOUND}")
+        worst.update(y_rel=max(worst["y_rel"], y_rel), stats_rel=max(worst["stats_rel"], s_rel),
+                     max_abs_err=max(worst["max_abs_err"], abs_err))
+        del x, w, runs
+    return worst
 
 
 def phase2_winograd(device, gen, report):
@@ -2334,7 +2411,7 @@ def phase10_kernels(device, gen, conv_shapes=FAMILY_CONV_SHAPES, s2_shapes=FAMIL
         ms = device_ms(lambda: kernel[variant](*args))
         plain_ms = device_ms(lambda: plain_fast(variant, x, w, inv, shift))
         library_ms = device_ms(library_conv(x, w))
-        name = variant if dtype == torch.bfloat16 else f"{variant}_tf32x3"
+        name = variant if dtype == torch.bfloat16 else f"{variant}_{form}"
         row = dict(name=name, shape=shape_label, dtype=str(dtype)[6:], form=form, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    max_abs_err=(got_y.float() - want_y.float()).abs().max().item())
@@ -2342,7 +2419,11 @@ def phase10_kernels(device, gen, conv_shapes=FAMILY_CONV_SHAPES, s2_shapes=FAMIL
             # no one PyTorch call takes the statistics with the conv: F.conv3d
             # alone is kept beside it
             row.update(library_ms=None, conv3d_ms=library_ms)
-        if dtype == torch.float32:
+        if dtype == torch.float32 and form == "fma":  # on the CUDA cores: the f32 bound
+            bms, bound_by = conv_bound(variant, s, cin, cout, dtype=dtype)
+            msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d (TF32 off) "
+                    f"{library_ms:.3f} ms, f32 bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
+        elif dtype == torch.float32:
             row["f32_bound_ms"], _ = conv_bound(variant, s, cin, cout, dtype=dtype)
             bms, bound_by = tf32x3_bound(variant, s, cin, cout)
             msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d (TF32 off) "
@@ -2389,16 +2470,16 @@ def forms_of(kernels) -> dict:
     return {f"{v}/{f}": n for (v, f), n in sorted(form_launches().items()) if v in kernels}
 
 
-def check_family_forms(where: str, wmma_conv: bool = False) -> None:
+def check_family_forms(where: str, narrow_conv: bool = False) -> None:
     """Under AMP the family's conv launches take the wgmma form (bf16) or
     the tf32x3 form (the f32 decoder), s2_wgrad the wgmma form; the conv's
-    wmma form only where ``wmma_conv`` allows it: in the U-Nets and
+    narrow form only where ``narrow_conv`` allows it: in the U-Nets and
     autoencoders the first conv follows a GroupNorm, so training takes its
     input gradient, whose n_features outputs are no multiple of 8, and
     AutoImplantUNet's one-channel input conv is no multiple of 4."""
     allowed = {("conv", "wgmma"), ("conv", "tf32x3"), ("s2_wgrad", "wgmma")}
-    if wmma_conv:
-        allowed.add(("conv", "wmma"))
+    if narrow_conv:
+        allowed.add(("conv", "narrow"))
     check_allowed_forms(where, allowed)
 
 
@@ -2770,8 +2851,9 @@ def phase10_family(device, seed, card):
                f"{launches}; by form {forms_of(FAMILY_KERNELS)}")
         print(msg, flush=True)
         check(rel < L2_BOUND, f"{msg} > {L2_BOUND}")
-        check_family_forms(f"{name} window", wmma_conv=kwargs["n_features"] % 4 != 0)
+        check_family_forms(f"{name} window", narrow_conv=kwargs["n_features"] % 4 != 0)
         check(launches["conv"] > 0, f"{name}: conv not launched")
+        window_forms = forms_of(FAMILY_KERNELS)
         window_ms = cuda_ms(lambda: forward(window))
         del forward, got
         images = rng.randn(1, n_in, *shape).astype(np.float32)
@@ -2789,11 +2871,13 @@ def phase10_family(device, seed, card):
             check(grel < bound, f"{msg} > {bound}")
             check(step_launches["s2_wgrad"] > 0, f"{name}: s2_wgrad not launched")
             if amp:
-                check_family_forms(f"{name} train step", wmma_conv=True)
+                check_family_forms(f"{name} train step", narrow_conv=True)
+                step_forms = forms_of(FAMILY_KERNELS)
             del x, y
         print(f"{name} window forward {shape} bf16 {window_ms:.3f} ms [{card}]", flush=True)
         out[name] = dict(window_rel_l2=rel, window_launches=launches, window_ms=window_ms,
-                         grad_rel_l2=grads, step_launches=step_launches)
+                         window_forms=window_forms, grad_rel_l2=grads,
+                         step_launches=step_launches, step_forms=step_forms)
         del model
         torch.cuda.empty_cache()
     return out
@@ -2913,18 +2997,19 @@ def check_path_grads(name: str, result: dict) -> None:
                   f"{msg}: statistics > {BN_STATS_BOUNDS[dtype]}")
 
 
-def check_bn_forms(where: str, wmma: bool = False, f32: bool = False) -> None:
+def check_bn_forms(where: str, narrow: bool = False, f32: bool = False) -> None:
     """The BatchNorm nets' launches: every bf16 conv and s2_wgrad in the
-    wgmma form, and, where ``wmma`` allows it (UNet: its last up unit maps 3
-    channels to 3, its first conv takes 4 input channels), the wmma forms;
-    with ``f32`` also the f32 forms (tf32x3, and the fma forms of
-    s2_wgrad.cu and, for those channel counts, of conv3d.cu)."""
+    wgmma form, and, where ``narrow`` allows it (UNet: its last up unit maps
+    3 channels to 3, its first conv takes 4 input channels), the conv's
+    narrow form and s2_wgrad's wmma form; with ``f32`` also the f32 forms
+    (tf32x3, and the fma forms of s2_wgrad.cu and, for those channel counts,
+    of conv3d.cu)."""
     allowed = {("conv", "wgmma"), ("s2_wgrad", "wgmma")}
-    if wmma:
-        allowed |= {("conv", "wmma"), ("s2_wgrad", "wmma")}
+    if narrow:
+        allowed |= {("conv", "narrow"), ("s2_wgrad", "wmma")}
     if f32:
         allowed |= {("conv", "tf32x3"), ("s2_wgrad", "fma")}
-    if wmma and f32:
+    if narrow and f32:
         allowed.add(("conv", "fma"))
     check_allowed_forms(where, allowed)
 
@@ -3144,8 +3229,9 @@ def phase11_nets(device, seed, card):
                f"{launches}; by form {forms_of(FAMILY_KERNELS)}")
         print(msg, flush=True)
         check(rel < L2_BOUND, f"{msg} > {L2_BOUND}")
-        check_bn_forms(f"{name} window", wmma=name == "UNet")
+        check_bn_forms(f"{name} window", narrow=name == "UNet")
         check(launches["conv"] == stride1, f"{msg}: expected conv {stride1}")
+        window_forms = forms_of(FAMILY_KERNELS)
         window_ms = cuda_ms(lambda: forward(window))
         del forward, got
         images = rng.randn(1, 4, *shape).astype(np.float32)
@@ -3159,10 +3245,11 @@ def phase11_nets(device, seed, card):
         # the kernels' two runs (f32, bf16): s2_wgrad once per stride-2 site each
         check(step_launches["s2_wgrad"] == 2 * stride2,
               f"{name}: s2_wgrad {step_launches['s2_wgrad']}, expected {2 * stride2}")
-        check_bn_forms(f"{name} train step", wmma=name == "UNet", f32=True)
+        check_bn_forms(f"{name} train step", narrow=name == "UNet", f32=True)
         print(f"{name} window forward {shape} bf16 {window_ms:.3f} ms [{card}]", flush=True)
         out[name] = dict(window_rel_l2=rel, window_launches=launches, window_ms=window_ms,
-                         step_launches=step_launches, step_forms=step_forms, **result)
+                         window_forms=window_forms, step_launches=step_launches,
+                         step_forms=step_forms, **result)
         del model
         torch.cuda.empty_cache()
     return out
@@ -3696,9 +3783,9 @@ def phase13_train_cli(device, seed, card, cases):
 
 
 def bf16_conv_form(cin: int, cout: int) -> str:
-    """The form a bf16 3^3 conv takes: wgmma for Cin % 4 == 0 and Cout % 8
-    == 0, else wmma (``ops/conv3d_kernel.kernel_form``)."""
-    return "wgmma" if cin % 4 == 0 and cout % 8 == 0 else "wmma"
+    """The form a bf16 3^3 conv on an aligned x takes: wgmma for Cin % 4 ==
+    0 and Cout % 8 == 0, else narrow (``ops/conv3d_kernel.kernel_form``)."""
+    return "wgmma" if cin % 4 == 0 and cout % 8 == 0 else "narrow"
 
 
 def bf16_s2_form(cin: int, cout: int) -> str:
@@ -4021,11 +4108,12 @@ def phase14_train_cli(device, seed, card, cases):
     """(e) The train CLI on phase 8's cases and folds with LocalNet, then
     the predict CLI on its ``params`` + ``batch_stats`` checkpoint
     (``bn_train_and_predict_cli``); its bf16 convs in the wgmma form and,
-    at the 3-channel extraction heads and their input gradients, the wmma
+    at the 3-channel extraction heads and their input gradients, the narrow
     form."""
     return bn_train_and_predict_cli(
         "LocalNet", LOCALNET_MODEL, LOCALNET_CLI_DIR, "brats2020_localnet", ("conv",),
-        lambda: check_allowed_forms("LocalNet train CLI", {("conv", "wgmma"), ("conv", "wmma")}),
+        lambda: check_allowed_forms("LocalNet train CLI", {("conv", "wgmma"),
+                                                           ("conv", "narrow")}),
         device, seed, card, cases)
 
 class ProjectionLoss:
@@ -4112,7 +4200,7 @@ def phase15_net(index, name, model_cfg, device, seed, card):
     bf16 and one f32 forward of every output (``forward_all``), kernels
     against the plain path (``plain_convs``) within L2_BOUND, launches by form
     (DenseNet121: ``conv`` once per dense layer, all wgmma;
-    RegularizedResNet: ``conv``, its one-channel first conv in the wmma form
+    RegularizedResNet: ``conv``, its one-channel first conv in the narrow form
     and, under AMP, the f32 decoder's in tf32x3; the others: none), the
     bf16 ``make_forward`` window timed; (c) one bf16 AMP ``make_train_step``
     (CrossEntropyLoss on one-hot targets, ``ProjectionLoss`` for
@@ -4141,7 +4229,7 @@ def phase15_net(index, name, model_cfg, device, seed, card):
     kernels = name in CLASSIFIER_KERNEL_NETS
     n = CLASSIFIER_BATCH
     out = dict(params=n_params)
-    bf16_allowed = {("conv", "wgmma"), ("conv", "wmma"), ("conv", "tf32x3")}
+    bf16_allowed = {("conv", "wgmma"), ("conv", "narrow"), ("conv", "tf32x3")}
     outputs = {}
     for amp in (True, False):
         forward = forward_all(model, amp)
@@ -5371,6 +5459,7 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     report = phase2(device, gen)
     phase2_backward(device, gen, report)
+    narrow_report = phase2_narrow(device, gen)
     phase2_winograd(device, gen, report)
     phase_done(2)
     # phase 3
@@ -5579,6 +5668,45 @@ def main() -> int:
                  "launches": training["f32_step_forms"].get(f"{v}/tf32x3", 0),
                  **{k: report[f"{v}_tf32x3"][k] for k in keys + ("f32_bound_ms",)}}
                 for v in ("conv_stats", "block_stats")]
+    # the narrow form (conv3d_narrow.cu): launches in LocalNet's bf16 train
+    # step (phase 14c; its window's in launches_localnet_window) and in each
+    # other net that takes it (window / bf16 step of phases 10, 11, 14 and
+    # 15; the LocalNet train CLI's run, phase 14e); its time at the U-Nets'
+    # first-conv input gradient (32 -> 4 @128^3), every narrow row of phases
+    # 10, 11 and 14 in narrow_shapes, and phase 2's ragged, misaligned and
+    # D-halo cases in ragged_and_halo
+    narrow_rows = [r for r in family_rows + bn_rows + last_rows if r["form"] == "narrow"]
+    conv_narrow = next(r for r in narrow_rows if r["shape"] == NARROW_CONV_AT)
+
+    def narrow_of(forms) -> int:
+        return forms.get("conv/narrow", 0)
+    kernels += [{"name": "conv_narrow", "route": "cuda", "source": NARROW_SOURCE,
+                 "replaces": REPLACES["conv"],
+                 "launches": narrow_of(last_nets["LocalNet"]["step_forms"]),
+                 "launches_localnet_window": narrow_of(last_nets["LocalNet"]["window_forms"]),
+                 **{f"launches_{name.lower()}": [narrow_of(last_nets[name]["window_forms"]),
+                                                 narrow_of(last_nets[name]["step_forms"])]
+                    for name in ("RegUNet", "AutoEncoder")},
+                 **{f"launches_{name.lower()}": [narrow_of(family[name]["window_forms"]),
+                                                 narrow_of(family[name]["step_forms"])]
+                    for name in ("UNet3D", "AutoImplantUNet")},
+                 "launches_monai_unet": [narrow_of(bn_nets["UNet"]["window_forms"]),
+                                         narrow_of(bn_nets["UNet"]["step_forms"])],
+                 "launches_regularizedresnet": [
+                     narrow_of(classifiers["RegularizedResNet"]["bf16_forward"]["forms"]),
+                     narrow_of(classifiers["RegularizedResNet"]["step_forms"])],
+                 "launches_train_cli_localnet": narrow_of(localnet_cli["forms"]),
+                 **{k: conv_narrow[k] for k in keys},
+                 "narrow_shapes": narrow_rows, "ragged_and_halo": narrow_report}]
+    # the f32 fma form (conv3d.cu): launches in MONAI UNet's f32 and bf16
+    # training forwards and backwards (phase 11, its f32 run's 3-channel
+    # convs), its time at UNet's 3 -> 3 @128^3 in f32 and the RegUNet head's
+    # input gradient in fma_shapes; bound_ms the f32 CUDA-core bound
+    fma_rows = [r for r in bn_rows + last_rows if r["form"] == "fma"]
+    kernels += [{"name": "conv_fma", "route": "cuda", "source": FMA_SOURCE,
+                 "replaces": REPLACES["conv"],
+                 "launches": bn_nets["UNet"]["step_forms"].get("conv/fma", 0),
+                 **{k: fma_rows[0][k] for k in keys}, "fma_shapes": fma_rows}]
     kernels += [{"name": f"{v}_halo", "route": "cuda", "source": SOURCES[v],
                  "replaces": REPLACES[v], "launches": space_halo[v],
                  "launches_by_pads": [{k: n for k, n in r["halo_bf16"].items()

@@ -3,7 +3,7 @@ plain path, on the card.
 
 SegResNetDS, AttentionUnet and MONAI UNet (batch norm, 2 residual units) at
 32^3 with widths of 16 and up (the wgmma forms; UNet's last unit maps 3
-channels to 3 and takes the wmma form), the plain path sending every
+channels to 3 and takes the narrow form), the plain path sending every
 FastConv to ``F.conv3d`` (torch autograd): the eval forward (relative L2
 1e-5 in f32, 3e-2 in bf16 AMP), then one training forward and backward from
 the same running statistics: the gradients (relative L2 over all

@@ -4,8 +4,11 @@ The CUDA kernel (``ops/kernels/conv3d_wgmma.cu``) takes its tiling from
 ``wgmma_plan`` and its B operand from ``pack_weight``; these tests hold both
 on the CPU: every output voxel and channel is owned by exactly one block
 row, ragged volumes included, and the packed weight holds the DHWIO weight
-in the kernel's (n tile, chunk, tap, BN, 64) order. The ``cuda`` test runs
-the kernel at ragged shapes against the plain version and skips without a GPU.
+in the kernel's (n tile, chunk, tap, BN, 64) order. The ``cuda`` tests run
+the wgmma form, and the narrow form (``ops/kernels/conv3d_narrow.cu``, whose
+host-side logic ``test_torch_conv3d_narrow.py`` holds), at ragged shapes,
+misaligned inputs and D pads against the plain versions and skip without a
+GPU.
 """
 import numpy as np
 import pytest
@@ -127,9 +130,9 @@ def test_kernel_form_by_dtype_and_channels():
     assert K.kernel_form(torch.zeros(1, 4, 4, 4, 4, dtype=torch.bfloat16),
                          torch.zeros(3, 3, 3, 4, 64, dtype=torch.bfloat16)) == "wgmma"
     assert K.kernel_form(torch.zeros(1, 4, 4, 4, 6, dtype=torch.bfloat16),
-                         torch.zeros(3, 3, 3, 6, 64, dtype=torch.bfloat16)) == "wmma"
+                         torch.zeros(3, 3, 3, 6, 64, dtype=torch.bfloat16)) == "narrow"
     assert K.kernel_form(torch.zeros(1, 4, 4, 4, 64, dtype=torch.bfloat16),
-                         torch.zeros(3, 3, 3, 64, 12, dtype=torch.bfloat16)) == "wmma"
+                         torch.zeros(3, 3, 3, 64, 12, dtype=torch.bfloat16)) == "narrow"
 
 
 def test_cpu_calls_count_no_form():
@@ -173,3 +176,84 @@ def test_cuda_wgmma_form_matches_plain_versions_at_ragged_shapes(shape, cin, cou
                 (yd * yd).sum((1, 2, 3)).max())
     assert dict(K.FORM_LAUNCHES) == {("conv", "wgmma"): 1, ("conv_stats", "wgmma"): 1,
                                      ("block_stats", "wgmma"): 1}
+
+
+def _narrow_case(shape, cin, cout, seed, offset=0):
+    """bf16 x (at ``offset`` elements into its storage), w, inv, shift on the
+    card from a seeded numpy draw."""
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(*shape, cin).astype(np.float32)).to(dev, torch.bfloat16)
+    if offset:
+        store = torch.empty(offset + x.numel(), dtype=torch.bfloat16, device=dev)
+        x = store[offset:].view(x.shape).copy_(x)
+    w = torch.from_numpy((rng.randn(3, 3, 3, cin, cout) / np.sqrt(27 * cin))
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    inv = torch.from_numpy(rng.rand(shape[0], cin).astype(np.float32) + 0.5).to(dev)
+    shift = torch.from_numpy(rng.randn(shape[0], cin).astype(np.float32) * 0.3).to(dev)
+    return x, w, inv, shift
+
+
+def _check_narrow(x, w, inv, shift, pads=K.SAME):
+    """Every variant in the narrow form against its plain version: y within
+    1e-2 of the largest |y| (f32 accumulation on both sides, one bf16
+    rounding), the statistics within 1e-4 of an f64 sum of the kernel's own
+    y (f32 atomics)."""
+    K.reset_launches()
+    cases = ((K.conv3x3x3(x, w, pads), K.conv3d_reference(x, w, pads)),
+             (K.conv3x3x3_with_stats(x, w, pads), K.conv3d_with_stats_reference(x, w, pads)),
+             (K.conv3x3x3_block_with_stats(x, w, inv, shift, pads=pads),
+              K.conv3d_block_with_stats_reference(x, w, inv, shift, pads=pads)))
+    torch.cuda.synchronize()
+    for got, want in cases:
+        got_y, want_y = (got, want) if isinstance(got, torch.Tensor) else (got[0], want[0])
+        assert got_y.shape == want_y.shape
+        rel = float((got_y.float() - want_y.float()).abs().max() / want_y.float().abs().max())
+        assert rel < 1e-2
+        if not isinstance(got, torch.Tensor):
+            yd = got_y.double()
+            assert float((got[1] - yd.sum((1, 2, 3))).abs().max()) <= 1e-4 * float(
+                yd.abs().sum((1, 2, 3)).max())
+            assert float((got[2] - (yd * yd).sum((1, 2, 3))).abs().max()) <= 1e-4 * float(
+                (yd * yd).sum((1, 2, 3)).max())
+    assert dict(K.FORM_LAUNCHES) == {("conv", "narrow"): 1, ("conv_stats", "narrow"): 1,
+                                     ("block_stats", "narrow"): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [1, 3, 6, 8, 16, 32, 40])
+@pytest.mark.parametrize("cout", [1, 3, 4, 12, 70])
+def test_cuda_narrow_form_matches_plain_versions(cin, cout):
+    """Batch 2 of a ragged volume (no side a multiple of its brick's), each
+    variant: folded K (Cin < 16, 2-byte and, at 8, 16-byte staging), one and
+    two chunks, one to eight N tiles and two N blocks (70)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU or interpret mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    _check_narrow(*_narrow_case((2, 6, 9, 19), cin, cout, seed=cin * 100 + cout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(3, 3), (16, 4), (32, 4), (16, 16), (8, 32)])
+def test_cuda_narrow_form_takes_misaligned_x(cin, cout):
+    """x a slice at an odd element offset (2-byte aligned): the narrow form
+    stages it with 2-byte loads, whatever the channel counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU or interpret mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, inv, shift = _narrow_case((2, 5, 8, 17), cin, cout, seed=cin + cout, offset=3)
+    assert x.data_ptr() % 16 != 0 and K.kernel_form(x, w) == "narrow"
+    _check_narrow(x, w, inv, shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pads", [(0, 1), (1, 0), (2, 1), (1, 2)])
+@pytest.mark.parametrize("cin,cout", [(3, 3), (16, 3), (3, 16), (32, 4)])
+def test_cuda_narrow_form_d_halo_modes(pads, cin, cout):
+    """The D-halo mode: a slab with neighbour planes, the missing ones
+    padding; the activation of block_stats applied to neighbour planes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU or interpret mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, inv, shift = _narrow_case((2, 6, 9, 18), cin, cout, seed=sum(pads) + cin * cout)
+    _check_narrow(x, w, inv, shift, pads)

@@ -38,13 +38,13 @@ def _rel(got, want) -> float:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("spatial,cin,cout,dtype,form,dx_form", [
-    (128, 4, 32, "bfloat16", "wgmma", "wmma"), (128, 32, 32, "bfloat16", "wgmma", "wgmma"),
+    (128, 4, 32, "bfloat16", "wgmma", "narrow"), (128, 32, 32, "bfloat16", "wgmma", "wgmma"),
     (128, 32, 32, "float32", "tf32x3", "tf32x3"), (64, 64, 64, "float32", "tf32x3", "tf32x3")])
 def test_conv_at_the_family_shapes(cuda_device, spatial, cin, cout, dtype, form, dx_form):
     """Forward and input gradient (the conv on the flipped, io-swapped
     weight), in the form each takes: a dx with 4 outputs (the U-Nets' first
     conv follows a GroupNorm, so training takes it) is no multiple of 8 and
-    takes the wmma form."""
+    takes the narrow form."""
     rng = np.random.RandomState(cin + cout)
     x = torch.from_numpy(rng.randn(1, spatial, spatial, spatial, cin).astype(np.float32))
     w = torch.from_numpy((rng.randn(3, 3, 3, cin, cout) / np.sqrt(27 * cin))

@@ -9,15 +9,21 @@ Three variants, each in several CUDA forms:
                                   statistics; ``inv`` / ``shift`` are (N, Cin)
 
 Forms: ``wgmma`` (``ops/kernels/conv3d_wgmma.cu``), the Hopper form, takes
-every bf16 call whose Cin is a multiple of 4 and Cout of 8 (every site of
-the DynUNet), with the weight pre-packed per call (``pack_weight``) and a
-tile configuration picked from the shape (``wgmma_plan``); ``tf32x3``
+every bf16 call whose Cin is a multiple of 4 and Cout of 8 and whose x is
+16-byte aligned (every site of the DynUNet), with the weight pre-packed per
+call (``pack_weight``) and a tile configuration picked from the shape
+(``wgmma_plan``); ``narrow`` (``ops/kernels/conv3d_narrow.cu``) takes every
+other bf16 call (3- and 4-channel heads, one-channel inputs, their input
+gradients, ragged Cin, 2-byte-aligned microbatch slices): halo-staged bricks,
+8-wide N tiles, below 16 input channels the taps folded into K, with its own
+packing (``pack_narrow``, the B fragments in the kernel's K order,
+``narrow_weight``) and plan (``narrow_plan``); ``tf32x3``
 (``ops/kernels/conv3d_tf32x3.cu``), the Hopper form in f32, takes every f32
 call whose Cin is a multiple of 4, on the tensor cores in 3xTF32 (each f32
 operand split into a TF32 high and low part, ``tf32_split``; three products
 in an f32 accumulator keep f32 accuracy), with its own packing
-(``pack_tf32``) and plan (``tf32_plan``); ``wmma`` and ``fma``
-(``ops/kernels/conv3d.cu``) take the other bf16 and f32 calls.
+(``pack_tf32``) and plan (``tf32_plan``); ``fma`` (``ops/kernels/conv3d.cu``)
+takes the other f32 calls.
 
 Each takes a CUDA tensor to its kernel, and a CPU tensor to its plain version
 (``*_reference``); any other device raises. The plain versions compute in f32
@@ -78,6 +84,11 @@ TF32_CONFIGS = ((4, 4, 16, 8, 2, 4, 2, 1), (4, 4, 16, 16, 2, 4, 2, 1),
                 (2, 4, 16, 32, 1, 4, 1, 2), (4, 4, 16, 64, 2, 3, 1, 1))
 TF32_CHUNK = 32  # f32 input channels per staged chunk (one 128-byte row)
 TF32_MAX_BN = 128
+# the narrow form's output brick (z, y, x) per block (conv3d_narrow.cu BZ, BY,
+# BX), below which Cin the taps fold into K, and its widest N block
+NARROW_BRICK = (4, 8, 16)
+NARROW_FOLD_BELOW = 16
+NARROW_MAX_NT = 8  # 8-wide N tiles per block
 
 
 class WgmmaPlan(NamedTuple):
@@ -86,6 +97,17 @@ class WgmmaPlan(NamedTuple):
     bn: int                       # output channels per block
     n_tiles: int                  # blocks along Cout
     chunks: int                   # 64-channel (32-channel) chunks along Cin
+    bricks: Tuple[int, int, int]  # bricks along (D, H, W)
+
+
+class NarrowPlan(NamedTuple):
+    fold: bool                    # Cin < 16: K = (tap, channel), the taps folded in
+    cs: int                       # staged channels per voxel (the brick's row)
+    kh: int                       # from 16 channels: k16 steps per tap and chunk, else 0
+    chunks: int                   # staged chunks of kh * 16 channels (1 when folded)
+    ksteps: int                   # k16 steps in all
+    nt: int                       # 8-wide N tiles per block: 1, 2, 4 or 8
+    n_blocks: int                 # blocks along Cout
     bricks: Tuple[int, int, int]  # bricks along (D, H, W)
 
 
@@ -174,13 +196,63 @@ def pack_tf32(w: torch.Tensor, bn: int) -> torch.Tensor:
             .permute(4, 2, 1, 0, 5, 3).contiguous())
 
 
+def narrow_plan(spatial: Tuple[int, int, int], cin: int, cout: int) -> NarrowPlan:
+    """The narrow form's tiling of a (D, H, W) volume, Cin -> Cout.
+
+    Below 16 input channels the taps fold into K: a staged voxel holds CS =
+    Cin rounded up to even channels and K = 27 * CS rounded up to 16. From
+    16 up, K = (chunk, tap, k16) with chunks of 16 channels (Cin = 16) or
+    32, staged in rows of CS = 24 or 40 channels. N: Cout in 8-wide tiles,
+    1, 2, 4 or 8 of them per block (Cout up to 8, 16, 32, then blocks of
+    64)."""
+    fold = cin < NARROW_FOLD_BELOW
+    if fold:
+        cs, kh, chunks = cin + cin % 2, 0, 1
+        ksteps = -(-TAPS * cs // 16)
+    else:
+        kh = 1 if cin <= 16 else 2
+        cs, chunks = kh * 16 + 8, -(-cin // (kh * 16))
+        ksteps = chunks * TAPS * kh
+    tiles = -(-cout // 8)
+    nt = next((n for n in (1, 2, 4) if n >= tiles), NARROW_MAX_NT)
+    bricks = tuple(-(-n // b) for n, b in zip(spatial, NARROW_BRICK))
+    return NarrowPlan(fold, cs, kh, chunks, ksteps, nt, -(-tiles // nt), bricks)
+
+
+def narrow_weight(w: torch.Tensor, plan: NarrowPlan) -> torch.Tensor:
+    """DHWIO ``w`` as the narrow form's B matrix, (ksteps * 16, n_blocks * nt
+    * 8), rows in the kernel's K order, zero past Cin and Cout: folded, row
+    tap * CS + c; else row ((chunk * 27 + tap) * kh + half) * 16 + k of
+    channel (chunk * kh + half) * 16 + k."""
+    cin, cout = w.shape[3], w.shape[4]
+    n_pad = plan.n_blocks * plan.nt * 8 - cout
+    wp = w.reshape(TAPS, cin, cout)
+    if plan.fold:
+        wp = F.pad(wp, (0, n_pad, 0, plan.cs - cin)).reshape(TAPS * plan.cs, -1)
+        return F.pad(wp, (0, 0, 0, plan.ksteps * 16 - TAPS * plan.cs))
+    width = plan.kh * 16
+    wp = F.pad(wp, (0, n_pad, 0, plan.chunks * width - cin))
+    return (wp.view(TAPS, plan.chunks, width, -1).permute(1, 0, 2, 3)
+            .reshape(plan.ksteps * 16, -1))
+
+
+def pack_narrow(w: torch.Tensor, plan: NarrowPlan) -> torch.Tensor:
+    """``narrow_weight`` as the m16n8k16 B fragments the kernel reads:
+    (n_blocks, ksteps, nt, 32, 4), lane n * 4 + q of N tile j holding rows
+    2q, 2q + 1, 2q + 8, 2q + 9 of k16 step s in column j * 8 + n of its N
+    block."""
+    wk = narrow_weight(w, plan)
+    return (wk.view(plan.ksteps, 2, 4, 2, plan.n_blocks, plan.nt, 8)
+            .permute(4, 0, 5, 6, 2, 1, 3).reshape(plan.n_blocks, plan.ksteps, plan.nt, 32, 4))
+
+
 def kernel_form(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The CUDA form a call takes: ``wgmma`` or ``wmma`` (bf16), ``tf32x3``
-    or ``fma`` (f32)."""
+    """The CUDA form a call takes: ``wgmma`` or ``narrow`` (bf16),
+    ``tf32x3`` or ``fma`` (f32)."""
     aligned = x.data_ptr() % 16 == 0
     if x.dtype == torch.float32:
         return "tf32x3" if x.shape[4] % 4 == 0 and aligned else "fma"
-    return "wgmma" if x.shape[4] % 4 == 0 and w.shape[4] % 8 == 0 and aligned else "wmma"
+    return "wgmma" if x.shape[4] % 4 == 0 and w.shape[4] % 8 == 0 and aligned else "narrow"
 
 
 def instance_stats(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -273,7 +345,15 @@ def _launch(variant: str, x: torch.Tensor, w: torch.Tensor,
             stats.data_ptr() if stats is not None else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if form in ("wgmma", "tf32x3"):
+        if form == "narrow":
+            plan = narrow_plan((d, h, wd), cin, cout)
+            wp = pack_narrow(w, plan)
+            err = lib.unet3d_conv3x3x3_narrow(
+                _VARIANTS[variant], x.data_ptr(), wp.data_ptr(), y.data_ptr(), *ptrs, n, d,
+                h, wd, cin, cout, d_in, pads[0], int(plan.fold), plan.cs, plan.kh,
+                plan.chunks, plan.ksteps, plan.nt, plan.n_blocks, *plan.bricks, float(alpha),
+                stream)
+        elif form in ("wgmma", "tf32x3"):
             tf32 = form == "tf32x3"
             plan = (tf32_plan if tf32 else wgmma_plan)((d, h, wd), cin, cout)
             wp = (pack_tf32 if tf32 else pack_weight)(w, plan.bn)
@@ -283,10 +363,9 @@ def _launch(variant: str, x: torch.Tensor, w: torch.Tensor,
                 y.data_ptr(), *ptrs, n, d, h, wd, cin, cout, d_in, pads[0],
                 *plan.bricks, plan.n_tiles, plan.chunks, float(alpha), stream)
         else:
-            err = lib.unet3d_conv3x3x3_ndhwc(
-                _DTYPES[x.dtype], _VARIANTS[variant], x.data_ptr(), w.data_ptr(),
-                y.data_ptr(), *ptrs, n, d, h, wd, cin, cout, d_in, pads[0], float(alpha),
-                stream)
+            err = lib.unet3d_conv3x3x3_fma(
+                _VARIANTS[variant], x.data_ptr(), w.data_ptr(), y.data_ptr(), *ptrs, n, d, h,
+                wd, cin, cout, d_in, pads[0], float(alpha), stream)
     if err != 0:
         raise RuntimeError(f"conv3x3x3 {variant} ({form}) launch failed: "
                            f"{lib.unet3d_cuda_error_string(err).decode()}")

@@ -361,10 +361,12 @@ OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
 TRAIN_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
 RES_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_train_res")
-# the bf16 form of each kernel on the DynUNet's path (conv3d.cu keeps the
-# f32 FMA form; conv3d_narrow.cu, the "conv_narrow" entry, takes the bf16
-# calls with channel counts no DynUNet site has; s2_wgrad.cu and winograd.cu
-# keep the f32 form and a bf16 WMMA form for such counts)
+# the bf16 form of each kernel on the DynUNet's path (conv3d_narrow.cu, the
+# "conv_narrow" entry, takes the bf16 calls with channel counts no DynUNet
+# site has, and in f32, the "conv_tf32x3_narrow" entry, the f32 calls that
+# conv3d_tf32x3.cu does not take; s2_wgrad_tf32x3.cu, the "s2_wgrad_tf32x3"
+# entry, every f32 s2_wgrad call; s2_wgrad.cu and winograd.cu keep a bf16
+# WMMA form for other channel counts, winograd.cu the f32 form)
 SOURCES = {
     "conv": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
     "conv_stats": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
@@ -496,8 +498,9 @@ TF32X3_CONV_AT = "up2 block 32->32 @128^3"
 # the narrow form's rows of the kernels line: its source, and the site its
 # time is reported at (the U-Nets' first-conv input gradient, the largest)
 NARROW_SOURCE = "unet3d_tpu_torch/ops/kernels/conv3d_narrow.cu"
-# the f32 form for Cin no multiple of 4 (UNet's and the heads' f32 steps)
-FMA_SOURCE = "unet3d_tpu_torch/ops/kernels/conv3d.cu"
+# the f32 form of s2_wgrad, every f32 call (phase 5's f32 step, phase 2's
+# f32 rows)
+S2_TF32X3_SOURCE = "unet3d_tpu_torch/ops/kernels/s2_wgrad_tf32x3.cu"
 NARROW_CONV_AT = "U-Net first conv dx 32->4 @128^3"
 # phase 2's narrow-form cases: every variant at batch 2 of a ragged volume
 # (no side a multiple of the 4 x 8 x 16 brick), Cin x Cout over the form's
@@ -508,6 +511,19 @@ NARROW_SHAPE = (2, 13, 21, 30)
 NARROW_CHANNELS = [(cin, cout) for cin in (1, 3, 6, 16, 32) for cout in (1, 3, 4, 12, 70)]
 NARROW_MISALIGNED = [(3, 3), (16, 4), (32, 4), (16, 16)]
 NARROW_PADS = [((0, 1), 3, 3), ((1, 0), 16, 3), ((2, 1), 3, 16), ((1, 2), 32, 4)]
+# the f32 form's (tf32x3_narrow) channel pairs: ragged Cin below 16 (folded
+# taps) x ragged Cout, and one to three 16-channel chunks with Cout past a
+# 32-wide N block; its misaligned cases are the narrow form's (x one element,
+# 4 bytes, off 16-byte alignment), its D-halo cases have Cin no multiple of 4
+# (the others take the tf32x3 form)
+NARROW_TF32_CHANNELS = ([(cin, cout) for cin in (1, 3, 6) for cout in (1, 3, 4, 12)]
+                        + [(15, 70), (17, 12), (33, 40)])
+NARROW_TF32_PADS = [((0, 1), 3, 3), ((1, 0), 6, 3), ((2, 1), 3, 16), ((1, 2), 17, 4)]
+# phase 2's ragged cases of s2_wgrad's f32 form: x (N, D, H, W), Cin, Cout,
+# pad_lo, x's offset in elements
+S2_TF32_RAGGED = [((1, 9, 13, 17), 64, 96, 1, 0), ((2, 7, 5, 3), 24, 40, 1, 0),
+                  ((3, 11, 6, 9), 5, 7, 1, 0), ((1, 5, 4, 150), 72, 200, 1, 0),
+                  ((2, 10, 13, 17), 24, 40, 0, 0), ((1, 9, 13, 17), 12, 20, 1, 1)]
 # torch's default TF32 flags: each f32 path against itself with TF32 off
 TF32_FLAGS_BOUND = 1e-5
 # the kernels' f32 step gradients: their distance from the f64 plain path
@@ -537,14 +553,14 @@ BN_NETS = (
 # (label, spatial, cin, cout, dtype, form): the conv kernel at the new nets'
 # shapes: SegResNetDS's deeper blocks, AttentionUnet's 16-channel level 0 and
 # its merge conv, and UNet's last up unit (3 -> 3 channels: the narrow form;
-# in f32, which UNet's f32 step runs, conv3d.cu's fma form)
+# in f32, which UNet's f32 step runs, its f32 instantiation tf32x3_narrow)
 BN_CONV_SHAPES = [
     ("SegResNetDS down1 block 64->64 @64^3", 64, 64, 64, torch.bfloat16, "wgmma"),
     ("SegResNetDS down3 block 256->256 @16^3", 16, 256, 256, torch.bfloat16, "wgmma"),
     ("AttentionUnet conv0.conv1 16->16 @128^3", 128, 16, 16, torch.bfloat16, "wgmma"),
     ("AttentionUnet merge0 32->16 @128^3", 128, 32, 16, torch.bfloat16, "wgmma"),
     ("UNet up_0_ru 3->3 @128^3", 128, 3, 3, torch.bfloat16, "narrow"),
-    ("UNet up_0_ru 3->3 @128^3", 128, 3, 3, torch.float32, "fma"),
+    ("UNet up_0_ru 3->3 @128^3", 128, 3, 3, torch.float32, "tf32x3_narrow"),
 ]
 # (label, spatial of x, cin, cout): s2_wgrad at the new nets' stride-2 convs
 # (UNet's first, 4 -> 16 channels, takes the wmma form of s2_wgrad.cu)
@@ -701,14 +717,14 @@ NOISE_DRAWS = 3
 LOCALNET_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_localnet")
 # (label, spatial, cin, cout, dtype, form): the conv kernel at the
 # registration nets' new sites: an extraction head to 3 channels at 128^3
-# and its input gradient (the narrow form; the gradient also in f32, the fma
-# form), LocalNet's level-0 decoder conv;
+# and its input gradient (the narrow form; the gradient also in f32, the
+# tf32x3_narrow form), LocalNet's level-0 decoder conv;
 # s2_wgrad at RegUNet's pool_conv_0 and the AutoEncoder's first stride-2
 # conv (4 channels: the wmma form)
 LAST_CONV_SHAPES = [
     ("RegUNet extract_0 16->3 @128^3", 128, 16, 3, torch.bfloat16, "narrow"),
     ("RegUNet dx of extract_0 3->16 @128^3", 128, 3, 16, torch.bfloat16, "narrow"),
-    ("RegUNet dx of extract_0 3->16 @128^3", 128, 3, 16, torch.float32, "fma"),
+    ("RegUNet dx of extract_0 3->16 @128^3", 128, 3, 16, torch.float32, "tf32x3_narrow"),
     ("LocalNet decode_0 16->16 @128^3", 128, 16, 16, torch.bfloat16, "wgmma"),
 ]
 LAST_S2_SHAPES = [("RegUNet pool_conv_0 x 128^3 16->16", 128, 16, 16),
@@ -956,8 +972,9 @@ def check_forms(where: str) -> None:
 
 
 _WGMMA_VARIANT = re.compile(r"conv3x3x3_wgmma<.*(true|false), (true|false)>")
-_KERNEL_GROUPS = (("conv tf32x3", "conv3x3x3_tf32x3"), ("conv narrow", "conv3x3x3_narrow"),
-                  ("conv fma", "conv3x3x3_fma"),
+_KERNEL_GROUPS = (("conv tf32x3", "conv3x3x3_tf32x3"),
+                  ("conv tf32x3 narrow", "conv3x3x3_narrow<float"),
+                  ("conv narrow", "conv3x3x3_narrow"),
                   ("s2_wgrad", "s2_wgrad"), ("s2_wgrad", "sum_splits"),
                   ("winograd", "winograd3x3x3"), ("winograd", "winograd_wgmma"),
                   ("memcpy/memset", "mem"), ("copies and casts", "copy"),
@@ -1145,7 +1162,8 @@ def rel_max(got, want) -> float:
 def phase2_backward(device, gen, report):
     """The conv kernel as the input gradient, and s2_wgrad, against their
     plain versions; each case timed against the plain composition in its
-    dtype (cuDNN, TF32 off in f32), the first bf16 shape's time reported."""
+    dtype (cuDNN, TF32 off in f32), the first bf16 shape's time reported.
+    Returns s2_wgrad's f32 rows (``s2_tf32x3_row``)."""
     from unet3d_tpu_torch.ops import conv3d_kernel as K
     from unet3d_tpu_torch.ops import s2_wgrad_kernel as W
     from unet3d_tpu_torch.ops.conv3d import conv3d_torch, flip_io
@@ -1186,6 +1204,7 @@ def phase2_backward(device, gen, report):
                         max_abs_err=(got.float() - want.float()).abs().max().item())
             print(msg, flush=True)
             del g, w, wf, got, want
+    rows = []
     for si, (label, s, cin, cout) in enumerate(S2_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(1, s, s, s, cin, device=device, generator=gen).to(dtype)
@@ -1194,8 +1213,9 @@ def phase2_backward(device, gen, report):
             got, want = W.s2_wgrad(x, g), W.s2_wgrad_reference(x, g)
             torch.cuda.synchronize()
             rel = rel_max(got, want)
-            msg = (f"s2_wgrad    {label:36s} {str(dtype)[6:]:8s} "
-                   f"{W.kernel_form(x, g):5s} rel {rel:.3e}")
+            form = W.kernel_form(x, g)
+            msg = f"s2_wgrad    {label:36s} {str(dtype)[6:]:8s} {form:6s} rel {rel:.3e}"
+            check(form == ("wgmma" if dtype == torch.bfloat16 else "tf32x3"), f"{msg}: form")
             check(rel < S2_BOUND, f"{msg} > {S2_BOUND}")
             xn, gn = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
             ms = device_ms(lambda: W.s2_wgrad(x, g))
@@ -1212,8 +1232,18 @@ def phase2_backward(device, gen, report):
             bms, bound_by = bound_ms(2.0 * half * 27 * cin * cout,
                                      size * (s ** 3 * cin + half * cout) + 4 * 27 * cin * cout,
                                      dtype)
-            msg += (f" | kernel {ms:.3f} ms, cuDNN{' (TF32 off)' * (dtype == torch.float32)} "
-                    f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
+            if dtype == torch.float32:
+                row = s2_tf32x3_row(label, s, cin, cout, ms, plain_ms, got, want)
+                rows.append(row)
+                msg += (f" | kernel {ms:.3f} ms, cuDNN (TF32 off) {plain_ms:.3f} ms, f32 "
+                        f"bound {row['f32_bound_ms']:.3f} ms, 3xTF32 bound "
+                        f"{row['bound_ms']:.3f} ms ({row['bound_by']}, "
+                        f"{row['bound_ms'] / ms:.1%})")
+                if si == 0:
+                    report["s2_wgrad_tf32x3"] = row
+            else:
+                msg += (f" | kernel {ms:.3f} ms, cuDNN {plain_ms:.3f} ms, bound {bms:.3f} ms "
+                        f"({bound_by}, {bms / ms:.1%})")
             if dtype == torch.bfloat16 and si == 0:
                 # the plain composition is one PyTorch call (cuDNN's dw)
                 report["s2_wgrad"] = dict(ms=ms, plain_ms=plain_ms, shape=label,
@@ -1223,33 +1253,110 @@ def phase2_backward(device, gen, report):
             print(msg, flush=True)
             del x, g, got, want
     torch.cuda.empty_cache()
+    return rows
 
 
-def phase2_narrow(device, gen) -> dict:
-    """The narrow form (``conv3d_narrow.cu``) against its plain versions:
-    each variant at NARROW_SHAPE for every NARROW_CHANNELS pair, x at an odd
+def s2_tf32x3_row(label, s, cin, cout, ms, cudnn_ms, got, want) -> dict:
+    """A kernels-line row of s2_wgrad's f32 form on x (1, s, s, s, cin):
+    bound_ms the 3xTF32 bound (three TF32 products per product at the TF32
+    peak, or the f32 bytes: x and g read, dw written), f32_bound_ms the f32
+    CUDA-core one; the plain version and the library call are both cuDNN's
+    f32 dw with TF32 off."""
+    half = (s // 2) ** 3
+    nbytes = 4 * (s ** 3 * cin + half * cout + 27 * cin * cout)
+    bms, bound_by = bound_ms(3 * 2.0 * half * 27 * cin * cout, nbytes, "tf32")
+    f32_ms, _ = bound_ms(2.0 * half * 27 * cin * cout, nbytes, torch.float32)
+    return dict(name="s2_wgrad_tf32x3", shape=label, dtype="float32", form="tf32x3", ms=ms,
+                plain_ms=cudnn_ms, library_ms=cudnn_ms, bound_ms=bms, bound_by=bound_by,
+                f32_bound_ms=f32_ms, max_abs_err=(got - want).abs().max().item())
+
+
+def phase2_s2_tf32x3(device, gen) -> list:
+    """s2_wgrad's f32 form at the other nets' stride-2 channel counts
+    (BN_S2_SHAPES, LAST_S2_SHAPES, FAMILY_S2_SHAPES in f32), timed against
+    cuDNN's f32 dw with TF32 off; then ragged volumes, x at an odd element
+    offset (4-byte aligned) and the D-halo mode's pad_lo 0, within
+    S2_BOUND of the plain version, every call in the tf32x3 form. Returns
+    the timed rows."""
+    from unet3d_tpu_torch.ops import s2_wgrad_kernel as W
+    from unet3d_tpu_torch.utils.device import full_f32
+    rows = []
+    for label, s, cin, cout in BN_S2_SHAPES + LAST_S2_SHAPES + FAMILY_S2_SHAPES:
+        x = torch.randn(1, s, s, s, cin, device=device, generator=gen)
+        g = torch.randn(1, s // 2, s // 2, s // 2, cout, device=device, generator=gen)
+        got, want = W.s2_wgrad(x, g), W.s2_wgrad_reference(x, g)
+        torch.cuda.synchronize()
+        rel, form = rel_max(got, want), W.kernel_form(x, g)
+        xn, gn = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+
+        def cudnn_dw():
+            with full_f32(gn):
+                return torch.nn.grad.conv3d_weight(xn, (cout, cin, 3, 3, 3), gn, stride=2,
+                                                   padding=1)
+        ms, cudnn_ms = device_ms(lambda: W.s2_wgrad(x, g)), device_ms(cudnn_dw)
+        row = s2_tf32x3_row(label, s, cin, cout, ms, cudnn_ms, got, want)
+        msg = (f"s2_wgrad    {label:36s} float32  {form:6s} rel {rel:.3e} | kernel {ms:.3f} ms, "
+               f"cuDNN (TF32 off) {cudnn_ms:.3f} ms, f32 bound {row['f32_bound_ms']:.3f} ms, "
+               f"3xTF32 bound {row['bound_ms']:.3f} ms ({row['bound_by']}, "
+               f"{row['bound_ms'] / ms:.1%})")
+        print(msg, flush=True)
+        check(form == "tf32x3", f"{msg}: form")
+        check(rel < S2_BOUND, f"{msg} > {S2_BOUND}")
+        rows.append(row)
+        del x, g, got, want
+    for x_shape, cin, cout, pad_lo, offset in S2_TF32_RAGGED:
+        n, d, h, w = x_shape
+        x = torch.randn(*x_shape, cin, device=device, generator=gen)
+        if offset:
+            store = torch.empty(offset + x.numel(), device=device)
+            x = store[offset:].view(x.shape).copy_(x)
+        g = torch.randn(n, (d + pad_lo) // 2, (h + 1) // 2, (w + 1) // 2, cout, device=device,
+                        generator=gen)
+        # the plain version on an aligned copy (cuDNN faults on a misaligned f32 x)
+        got, want = W.s2_wgrad(x, g, pad_lo), W.s2_wgrad_reference(x.clone(), g, pad_lo)
+        torch.cuda.synchronize()
+        rel, form = rel_max(got, want), W.kernel_form(x, g)
+        msg = (f"s2_wgrad f32 {x_shape} {cin}->{cout} pad_lo {pad_lo} offset {offset}: form "
+               f"{form}, rel {rel:.3e}")
+        print(msg, flush=True)
+        check(form == "tf32x3", f"{msg}: form")
+        check(rel < S2_BOUND, f"{msg} > {S2_BOUND}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase2_narrow(device, gen, dtype=torch.bfloat16) -> dict:
+    """The narrow form (``conv3d_narrow.cu``; in f32 its tf32x3_narrow
+    instantiation) against its plain versions: each variant at NARROW_SHAPE
+    for every NARROW_CHANNELS (f32: NARROW_TF32_CHANNELS) pair, x at an odd
     element offset for NARROW_MISALIGNED, and each NARROW_PADS D-halo mode;
-    every call's form checked, y within the bf16 bound and the statistics
+    every call's form checked, y within the dtype's bound and the statistics
     within STATS_BOUND. Returns the largest errors."""
     from unet3d_tpu_torch.ops import conv3d_kernel as K
-    cases = [(cin, cout, K.SAME, 0) for cin, cout in NARROW_CHANNELS]
-    cases += [(cin, cout, K.SAME, 3) for cin, cout in NARROW_MISALIGNED]
-    cases += [(cin, cout, pads, 0) for pads, cin, cout in NARROW_PADS]
+    f32 = dtype == torch.float32
+    cases = [(cin, cout, K.SAME, 0) for cin, cout in
+             (NARROW_TF32_CHANNELS if f32 else NARROW_CHANNELS)]
+    cases += [(cin, cout, K.SAME, 1 if f32 else 3) for cin, cout in NARROW_MISALIGNED]
+    cases += [(cin, cout, pads, 0) for pads, cin, cout in
+              (NARROW_TF32_PADS if f32 else NARROW_PADS)]
     worst = dict(y_rel=0.0, stats_rel=0.0, max_abs_err=0.0, cases=len(cases))
     n = NARROW_SHAPE[0]
     for cin, cout, pads, offset in cases:
-        x = torch.randn(*NARROW_SHAPE, cin, device=device, generator=gen).to(torch.bfloat16)
+        x = torch.randn(*NARROW_SHAPE, cin, device=device, generator=gen).to(dtype)
         if offset:
             store = torch.empty(offset + x.numel(), dtype=x.dtype, device=device)
             x = store[offset:].view(x.shape).copy_(x)
         w = (torch.randn(3, 3, 3, cin, cout, device=device, generator=gen)
-             / (27 * cin) ** 0.5).to(torch.bfloat16)
+             / (27 * cin) ** 0.5).to(dtype)
         inv = torch.rand(n, cin, device=device, generator=gen) + 0.5
         shift = torch.randn(n, cin, device=device, generator=gen) * 0.3
-        runs = ((K.conv3x3x3(x, w, pads), K.conv3d_reference(x, w, pads)),
-                (K.conv3x3x3_with_stats(x, w, pads), K.conv3d_with_stats_reference(x, w, pads)),
+        # the plain versions on an aligned copy: cuDNN faults on an f32 x 4
+        # bytes off 16-byte alignment (bf16 x is copied by .float() anyway)
+        xr = x.clone()
+        runs = ((K.conv3x3x3(x, w, pads), K.conv3d_reference(xr, w, pads)),
+                (K.conv3x3x3_with_stats(x, w, pads), K.conv3d_with_stats_reference(xr, w, pads)),
                 (K.conv3x3x3_block_with_stats(x, w, inv, shift, pads=pads),
-                 K.conv3d_block_with_stats_reference(x, w, inv, shift, pads=pads)))
+                 K.conv3d_block_with_stats_reference(xr, w, inv, shift, pads=pads)))
         torch.cuda.synchronize()
         form = K.kernel_form(x, w)
         y_rel = s_rel = abs_err = 0.0
@@ -1260,11 +1367,12 @@ def phase2_narrow(device, gen) -> dict:
             abs_err = max(abs_err, (got_y.float() - want_y.float()).abs().max().item())
             if not isinstance(got, torch.Tensor):
                 s_rel = max(s_rel, stats_err(*got))
-        msg = (f"narrow {cin:2d}->{cout:2d} {str(NARROW_SHAPE):16s} pads {pads} offset "
-               f"{offset}: form {form}, y rel {y_rel:.3e}, stats rel {s_rel:.3e}")
+        msg = (f"narrow {str(dtype)[6:]} {cin:2d}->{cout:2d} {str(NARROW_SHAPE):16s} pads "
+               f"{pads} offset {offset}: form {form}, y rel {y_rel:.3e}, stats rel "
+               f"{s_rel:.3e}")
         print(msg, flush=True)
-        check(form == "narrow", f"{msg}: form")
-        check(y_rel < BOUNDS[torch.bfloat16], f"{msg} > {BOUNDS[torch.bfloat16]}")
+        check(form == ("tf32x3_narrow" if f32 else "narrow"), f"{msg}: form")
+        check(y_rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
         check(s_rel < STATS_BOUND, f"{msg} > {STATS_BOUND}")
         worst.update(y_rel=max(worst["y_rel"], y_rel), stats_rel=max(worst["stats_rel"], s_rel),
                      max_abs_err=max(worst["max_abs_err"], abs_err))
@@ -1614,9 +1722,9 @@ def phase5(device, seed, card):
         print(msg, flush=True)
         check(rel < bound, f"{msg} > {bound}")
         if not dt_amp:
-            f32_forms = forms_of(("conv", "conv_stats", "block_stats"))
-            check(set(f32_forms) == {f"{v}/tf32x3" for v in ("conv", "conv_stats", "block_stats")},
-                  f"f32 step: direct conv launches by form {f32_forms}")
+            f32_forms = forms_of(TRAIN_KERNELS)
+            check(set(f32_forms) == {f"{v}/tf32x3" for v in TRAIN_KERNELS},
+                  f"f32 step: direct conv and s2_wgrad launches by form {f32_forms}")
         del x, y
     torch.cuda.empty_cache()
 
@@ -1639,6 +1747,13 @@ def phase5(device, seed, card):
         profile[which] = profile_device(
             lambda: one_step(train_batch["image"], train_batch["label"]),
             f"one bf16 train step ({which})", card)
+    # one f32 step through the kernels: the tf32x3 forms' device time (the
+    # direct conv's conv3d_tf32x3.cu, s2_wgrad's s2_wgrad_tf32x3.cu)
+    f32_step = make_train_step(model, criterion, torch.optim.Adam(model.parameters(), lr=1e-6),
+                               amp=False)
+    profile["f32_kernels"] = profile_device(
+        lambda: f32_step(train_batch["image"], train_batch["label"]),
+        "one f32 train step (kernels)", card)
     print(f"train step (amp {amp}) batch {train_batch['image'].shape}: kernels "
           f"{times['kernels']} ms, plain "
           f"{times['plain']} ms; peak memory kernels {peaks['kernels']:.2f} GiB, plain "
@@ -2419,11 +2534,7 @@ def phase10_kernels(device, gen, conv_shapes=FAMILY_CONV_SHAPES, s2_shapes=FAMIL
             # no one PyTorch call takes the statistics with the conv: F.conv3d
             # alone is kept beside it
             row.update(library_ms=None, conv3d_ms=library_ms)
-        if dtype == torch.float32 and form == "fma":  # on the CUDA cores: the f32 bound
-            bms, bound_by = conv_bound(variant, s, cin, cout, dtype=dtype)
-            msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d (TF32 off) "
-                    f"{library_ms:.3f} ms, f32 bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
-        elif dtype == torch.float32:
+        if dtype == torch.float32:
             row["f32_bound_ms"], _ = conv_bound(variant, s, cin, cout, dtype=dtype)
             bms, bound_by = tf32x3_bound(variant, s, cin, cout)
             msg += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv3d (TF32 off) "
@@ -3002,15 +3113,15 @@ def check_bn_forms(where: str, narrow: bool = False, f32: bool = False) -> None:
     wgmma form, and, where ``narrow`` allows it (UNet: its last up unit maps
     3 channels to 3, its first conv takes 4 input channels), the conv's
     narrow form and s2_wgrad's wmma form; with ``f32`` also the f32 forms
-    (tf32x3, and the fma forms of s2_wgrad.cu and, for those channel counts,
-    of conv3d.cu)."""
+    (the conv's tf32x3 and s2_wgrad's tf32x3, and, for those channel counts,
+    the conv's tf32x3_narrow)."""
     allowed = {("conv", "wgmma"), ("s2_wgrad", "wgmma")}
     if narrow:
         allowed |= {("conv", "narrow"), ("s2_wgrad", "wmma")}
     if f32:
-        allowed |= {("conv", "tf32x3"), ("s2_wgrad", "fma")}
+        allowed |= {("conv", "tf32x3"), ("s2_wgrad", "tf32x3")}
     if narrow and f32:
-        allowed.add(("conv", "fma"))
+        allowed.add(("conv", "tf32x3_narrow"))
     check_allowed_forms(where, allowed)
 
 
@@ -4260,7 +4371,7 @@ def phase15_net(index, name, model_cfg, device, seed, card):
         elif kernels:
             check(launches["conv"] > 0, f"{msg}: the conv kernel was not launched")
             check_allowed_forms(f"{name} {dt} forward", bf16_allowed if amp else
-                                {("conv", "tf32x3"), ("conv", "fma")})
+                                {("conv", "tf32x3"), ("conv", "tf32x3_narrow")})
         else:
             check(not any(launches.values()), f"{msg}: a hand kernel was launched")
         out[f"{dt}_forward"] = dict(rel_l2=rel, launches=launches, forms=forms)
@@ -4784,7 +4895,7 @@ def phase16_remat(device, seed, card) -> tuple:
                         check_family_forms(f"SegResNetVAE {dt} remat step")
                     else:
                         check_allowed_forms(f"SegResNetVAE {dt} remat step",
-                                            {("conv", "tf32x3"), ("s2_wgrad", "fma")})
+                                            {("conv", "tf32x3"), ("s2_wgrad", "tf32x3")})
                 out[dt] = dict(
                     loss=[run["loss"], runs["plain"]["loss"]], grad_rel_l2=rel,
                     state_gap=state_gap, launches_remat=r, launches_plain=p,
@@ -5458,8 +5569,10 @@ def main() -> int:
     # phase 2
     gen = torch.Generator(device=device).manual_seed(args.seed)
     report = phase2(device, gen)
-    phase2_backward(device, gen, report)
+    s2_tf32_rows = phase2_backward(device, gen, report)
+    s2_tf32_rows += phase2_s2_tf32x3(device, gen)
     narrow_report = phase2_narrow(device, gen)
+    narrow_tf32_report = phase2_narrow(device, gen, torch.float32)
     phase2_winograd(device, gen, report)
     phase_done(2)
     # phase 3
@@ -5698,15 +5811,28 @@ def main() -> int:
                  "launches_train_cli_localnet": narrow_of(localnet_cli["forms"]),
                  **{k: conv_narrow[k] for k in keys},
                  "narrow_shapes": narrow_rows, "ragged_and_halo": narrow_report}]
-    # the f32 fma form (conv3d.cu): launches in MONAI UNet's f32 and bf16
-    # training forwards and backwards (phase 11, its f32 run's 3-channel
-    # convs), its time at UNet's 3 -> 3 @128^3 in f32 and the RegUNet head's
-    # input gradient in fma_shapes; bound_ms the f32 CUDA-core bound
-    fma_rows = [r for r in bn_rows + last_rows if r["form"] == "fma"]
-    kernels += [{"name": "conv_fma", "route": "cuda", "source": FMA_SOURCE,
+    # the narrow form's f32 instantiation (conv3d_narrow.cu, tf32x3_narrow):
+    # launches in MONAI UNet's f32 training forward and backward (phase 11,
+    # its f32 run's 3-channel convs), its time at UNet's 3 -> 3 @128^3 in f32
+    # and the RegUNet head's input gradient in tf32x3_narrow_shapes, phase
+    # 2's ragged, misaligned and D-halo cases in ragged_and_halo; bound_ms
+    # the 3xTF32 bound, f32_bound_ms the f32 CUDA-core one
+    tf32_narrow_rows = [r for r in bn_rows + last_rows if r["form"] == "tf32x3_narrow"]
+    kernels += [{"name": "conv_tf32x3_narrow", "route": "cuda", "source": NARROW_SOURCE,
                  "replaces": REPLACES["conv"],
-                 "launches": bn_nets["UNet"]["step_forms"].get("conv/fma", 0),
-                 **{k: fma_rows[0][k] for k in keys}, "fma_shapes": fma_rows}]
+                 "launches": bn_nets["UNet"]["step_forms"].get("conv/tf32x3_narrow", 0),
+                 **{k: tf32_narrow_rows[0][k] for k in keys + ("f32_bound_ms",)},
+                 "tf32x3_narrow_shapes": tf32_narrow_rows,
+                 "ragged_and_halo": narrow_tf32_report}]
+    # s2_wgrad's f32 form (s2_wgrad_tf32x3.cu): launches in the f32 DynUNet
+    # step (phase 5), its time at level 0 (64 -> 96 @128^3) and every f32 row
+    # of phase 2 in s2_shapes; bound_ms the 3xTF32 bound, f32_bound_ms the
+    # f32 CUDA-core one, library_ms cuDNN's f32 dw with TF32 off
+    kernels += [{"name": "s2_wgrad_tf32x3", "route": "cuda", "source": S2_TF32X3_SOURCE,
+                 "replaces": REPLACES["s2_wgrad"],
+                 "launches": training["f32_step_forms"].get("s2_wgrad/tf32x3", 0),
+                 **{k: report["s2_wgrad_tf32x3"][k] for k in keys + ("f32_bound_ms",)},
+                 "s2_shapes": s2_tf32_rows}]
     kernels += [{"name": f"{v}_halo", "route": "cuda", "source": SOURCES[v],
                  "replaces": REPLACES[v], "launches": space_halo[v],
                  "launches_by_pads": [{k: n for k, n in r["halo_bf16"].items()

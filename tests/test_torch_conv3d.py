@@ -34,7 +34,7 @@ CASES = [
     ((1, 4, 8, 16), 4, 16, "float32"),   # the DynUNet input conv's Cin = 4
     ((2, 4, 8, 8), 3, 3, "bfloat16"),    # the narrow form: taps folded into K
     ((1, 4, 8, 8), 16, 4, "bfloat16"),   # the narrow form: 16 channels a tap, 4 outputs
-    ((1, 4, 8, 8), 1, 8, "float32"),     # one input channel: the fma form
+    ((1, 4, 8, 8), 1, 8, "float32"),     # one input channel: the tf32x3_narrow form
 ]
 TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -164,7 +164,7 @@ def test_k_order_evaluation_matches_the_reference(shape, cin, cout, pads):
 def test_kernel_form_sends_misaligned_bf16_to_narrow():
     """A bf16 x at 2-byte alignment (a slice at an odd offset) takes the
     narrow form even where its channel counts suit the wgmma form; f32 the
-    fma form."""
+    tf32x3_narrow form."""
     base = torch.zeros(1 + 4 * 4 * 16 * 16, dtype=torch.bfloat16)
     x = base[1:].view(1, 4, 4, 16, 16)
     assert x.data_ptr() % 16 != 0 and x.is_contiguous()
@@ -172,4 +172,4 @@ def test_kernel_form_sends_misaligned_bf16_to_narrow():
     assert K.kernel_form(x, w) == "narrow"
     assert K.kernel_form(base[:-1].view(1, 4, 4, 16, 16), w) == "wgmma"
     xf = torch.zeros(1 + 4 * 4 * 16 * 16)[1:].view(1, 4, 4, 16, 16)
-    assert K.kernel_form(xf, w.float()) == "fma"
+    assert K.kernel_form(xf, w.float()) == "tf32x3_narrow"

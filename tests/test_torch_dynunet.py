@@ -139,6 +139,7 @@ def test_strict_load_rejects_missing_extra_and_mismatched(jax_dynunet):
     _, variables, _, path = jax_dynunet
     flat = load_checkpoint(path)
     model = create_model("DynUNet", **MODEL_KWARGS)
+    init_parameters(model, torch.Generator().manual_seed(0))
     missing = dict(flat)
     missing.pop("params/deep_supervision_head1/kernel")
     with pytest.raises(ValueError, match="missing"):

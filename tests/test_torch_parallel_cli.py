@@ -7,8 +7,9 @@ and validation batch 2 over 3 training, 3 validation and 3 test cases: each
 epoch's second batch of one case runs whole on both ranks), trained for 2
 epochs both ways: the training log within 1e-5, the checkpoint's every
 tensor within 1e-5 of its largest value (sum orders differ), each group's
-predictions the single-device run's files, each written once (rank r writes
-the cases r, r + 2, ...). The predict CLI at ``n_gpus: 2`` (JAX's default
+predictions the single-device run's files, each written once (predicted
+after training on ``{"space": 2}``, as JAX's train CLI re-lays its devices:
+the same case on both ranks, rank 0 writing). The predict CLI at ``n_gpus: 2`` (JAX's default
 plan for this DynUNet: ``{"space": 2}``, each rank half of D) writes the
 single-device files; ``--dry_run`` reports the ``{"data": 2}`` mesh and the
 global batch; the JAX CLI's batch-divisibility error, and the port's for
@@ -63,6 +64,8 @@ def runs(tmp_path_factory):
 def test_training_matches_the_single_device_run(runs):
     root, _, one, two = runs
     assert two["world_size"] == 2 and two["work_dir"] == os.path.join(root, "two", "small")
+    # the DynUNet predicts on the space axis after training, as JAX's CLI does
+    assert two["predict_mesh"] == {"space": 2}
     want = read_training_log(os.path.join(one["work_dir"], "training_log.csv"))
     got = read_training_log(os.path.join(two["work_dir"], "training_log.csv"))
     assert len(got) == len(want) == 2

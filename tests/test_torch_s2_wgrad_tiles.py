@@ -208,7 +208,7 @@ def test_emulated_decomposition_matches_pallas_kernel():
 
 def test_kernel_form_by_dtype_and_channels():
     x, g = torch.zeros(1, 4, 4, 4, 64), torch.zeros(1, 2, 2, 2, 96)
-    assert W.kernel_form(x, g) == "fma"
+    assert W.kernel_form(x, g) == "tf32x3"
     assert W.kernel_form(x.bfloat16(), g.bfloat16()) == "wgmma"
     assert W.kernel_form(torch.zeros(1, 4, 4, 4, 5, dtype=torch.bfloat16),
                          g.bfloat16()) == "wmma"

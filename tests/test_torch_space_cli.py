@@ -51,6 +51,7 @@ def runs(tmp_path_factory):
 def test_training_matches_the_single_device_run(runs):
     root, _, one, two = runs
     assert two["world_size"] == 2 and two["work_dir"] == os.path.join(root, "two", "small")
+    assert two["predict_mesh"] == {"space": 2}
     want = read_training_log(os.path.join(one["work_dir"], "training_log.csv"))
     got = read_training_log(os.path.join(two["work_dir"], "training_log.csv"))
     assert len(got) == len(want) == 1

@@ -202,10 +202,10 @@ def test_kernel_form_routes_f32_by_cin():
     assert K.kernel_form(torch.zeros(1, 4, 4, 4, 4), torch.zeros(3, 3, 3, 4, 4)) == "tf32x3"
     for cin in (1, 2, 6, 33):
         assert K.kernel_form(torch.zeros(1, 4, 4, 4, cin),
-                             torch.zeros(3, 3, 3, cin, 32)) == "fma"
+                             torch.zeros(3, 3, 3, cin, 32)) == "tf32x3_narrow"
     # a view 8 bytes into its storage has no 16-byte rows
     x = torch.zeros(1 * 4 * 4 * 4 * 64 + 2)[2:].view(1, 4, 4, 4, 64)
-    assert K.kernel_form(x, torch.zeros(3, 3, 3, 64, 32)) == "fma"
+    assert K.kernel_form(x, torch.zeros(3, 3, 3, 64, 32)) == "tf32x3_narrow"
 
 
 def test_full_f32_is_a_no_op_off_the_card():
@@ -254,7 +254,7 @@ def test_cuda_tf32x3_matches_the_plain_f32_versions(cuda_device, shape, cin, cou
     """All three variants, forward and input gradient (the conv on the
     flipped, io-swapped weight), within 1e-5 of the plain f32 version on y
     and 1e-4 on the statistics, every call in the tf32x3 form but a dx of
-    Cout 7 (the fma form)."""
+    Cout 7 (the tf32x3_narrow form)."""
     gen = torch.Generator(device=cuda_device).manual_seed(cin * 1000 + cout)
     x = torch.randn(*shape, cin, device=cuda_device, generator=gen)
     w = torch.randn(3, 3, 3, cin, cout, device=cuda_device, generator=gen) / (27 * cin) ** 0.5
@@ -267,8 +267,8 @@ def test_cuda_tf32x3_matches_the_plain_f32_versions(cuda_device, shape, cin, cou
     ys, s1, s2 = K.conv3x3x3_with_stats(x, w)
     yb, b1, b2 = K.conv3x3x3_block_with_stats(x, w, inv, shift)
     torch.cuda.synchronize()
-    # the dx takes Cout as its Cin: no multiple of 4 goes to the fma form
-    dx_form = "tf32x3" if cout % 4 == 0 else "fma"
+    # the dx takes Cout as its Cin: no multiple of 4 goes to the narrow form
+    dx_form = "tf32x3" if cout % 4 == 0 else "tf32x3_narrow"
     assert sorted(K.FORM_LAUNCHES.elements()) == sorted([
         ("conv", "tf32x3"), ("conv", dx_form), ("conv_stats", "tf32x3"),
         ("block_stats", "tf32x3")])

@@ -32,11 +32,12 @@ OUT = os.path.join(REPO, "build", "conv3d_narrow_variants")
 VARIANTS = {
     "base": [],
     "no_staging": [("    stage(0, a.cs);\n", ""),
-                   ("      stage(chunk * a.kh * 16, a.kh * 16);\n", "")],
+                   ("      stage(chunk * a.kh * Form<T>::KD, a.kh * Form<T>::KD);\n", "")],
     "no_products": [("for (int mt = 0; mt < MW; ++mt) mma16816(",
                      "for (int mt = 0; mt < MW; ++mt) if (a.n < 0) mma16816(")],
-    "no_stores": [("if (kStaged || ok) {", "if (kStaged || (ok && a.n < 0)) {"),
-                  ("if (kStaged) {\n    __syncwarp();", "if (kStaged && a.n < 0) {\n    __syncwarp();")],
+    "no_stores": [("const bool store = kStaged || ok;",
+                   "const bool store = kStaged || (ok && a.n < 0);"),
+                  ("if (kStaged) {\n    constexpr int VEC", "if (kStaged && a.n < 0) {\n    constexpr int VEC")],
 }
 
 

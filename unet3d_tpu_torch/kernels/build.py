@@ -36,8 +36,8 @@ from pathlib import Path
 _PACKAGE = Path(__file__).resolve().parents[1]
 _KERNELS = _PACKAGE / "ops" / "kernels"
 SOURCES = tuple(_KERNELS / name for name in (
-    "conv3d.cu", "conv3d_wgmma.cu", "conv3d_narrow.cu", "conv3d_tf32x3.cu", "s2_wgrad.cu",
-    "s2_wgrad_wgmma.cu", "winograd.cu", "winograd_wgmma.cu"))
+    "conv3d_wgmma.cu", "conv3d_narrow.cu", "conv3d_tf32x3.cu", "s2_wgrad.cu",
+    "s2_wgrad_wgmma.cu", "s2_wgrad_tf32x3.cu", "winograd.cu", "winograd_wgmma.cu"))
 HEADERS = (_KERNELS / "sm90_wgmma.cuh",)  # included by the sources, hashed with them
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -149,12 +149,11 @@ def load_library() -> ctypes.CDLL:
                         _compile(out)
             lib = ctypes.CDLL(str(out))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.unet3d_conv3x3x3_fma.argtypes = [
-                i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
-            lib.unet3d_conv3x3x3_fma.restype = i
             lib.unet3d_conv3x3x3_narrow.argtypes = [
                 i, p, p, p, p, p, p, *[i] * 18, ctypes.c_float, p]
             lib.unet3d_conv3x3x3_narrow.restype = i
+            lib.unet3d_conv3x3x3_narrow_tf32x3.argtypes = lib.unet3d_conv3x3x3_narrow.argtypes
+            lib.unet3d_conv3x3x3_narrow_tf32x3.restype = i
             lib.unet3d_conv3x3x3_wgmma.argtypes = [
                 i, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i,
                 ctypes.c_float, p]
@@ -166,8 +165,11 @@ def load_library() -> ctypes.CDLL:
             lib.unet3d_conv3x3x3_tf32x3_config.argtypes = [i, ctypes.POINTER(i)]
             lib.unet3d_conv3x3x3_tf32x3_config.restype = i
             lib.unet3d_s2_wgrad_ndhwc.argtypes = [
-                i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, i, p]
+                p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, i, p]
             lib.unet3d_s2_wgrad_ndhwc.restype = i
+            lib.unet3d_s2_wgrad_tf32x3.argtypes = [
+                i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
+            lib.unet3d_s2_wgrad_tf32x3.restype = i
             lib.unet3d_s2_wgrad_wgmma.argtypes = [
                 i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
             lib.unet3d_s2_wgrad_wgmma.restype = i

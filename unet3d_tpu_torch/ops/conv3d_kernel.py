@@ -19,11 +19,16 @@ gradients, ragged Cin, 2-byte-aligned microbatch slices): halo-staged bricks,
 packing (``pack_narrow``, the B fragments in the kernel's K order,
 ``narrow_weight``) and plan (``narrow_plan``); ``tf32x3``
 (``ops/kernels/conv3d_tf32x3.cu``), the Hopper form in f32, takes every f32
-call whose Cin is a multiple of 4, on the tensor cores in 3xTF32 (each f32
-operand split into a TF32 high and low part, ``tf32_split``; three products
-in an f32 accumulator keep f32 accuracy), with its own packing
-(``pack_tf32``) and plan (``tf32_plan``); ``fma`` (``ops/kernels/conv3d.cu``)
-takes the other f32 calls.
+call whose Cin is a multiple of 4 and whose x is 16-byte aligned, on the
+tensor cores in 3xTF32 (each f32 operand split into a TF32 high and low
+part, ``tf32_split``; three products in an f32 accumulator keep f32
+accuracy), with its own packing (``pack_tf32``) and plan (``tf32_plan``);
+``tf32x3_narrow`` (``conv3d_narrow.cu``'s f32 instantiation) takes the other
+f32 calls (3- and 1-channel heads and their input gradients, ragged Cin,
+4-byte-aligned slices): the narrow form's bricks, folded taps and 8-wide N
+tiles with m16n8k8 TF32 products, three per k8 step, its plan
+``narrow_plan(..., torch.float32)`` and its B fragments from
+``pack_narrow`` (split into TF32 hi and lo).
 
 Each takes a CUDA tensor to its kernel, and a CPU tensor to its plain version
 (``*_reference``); any other device raises. The plain versions compute in f32
@@ -88,7 +93,8 @@ TF32_MAX_BN = 128
 # BX), below which Cin the taps fold into K, and its widest N block
 NARROW_BRICK = (4, 8, 16)
 NARROW_FOLD_BELOW = 16
-NARROW_MAX_NT = 8  # 8-wide N tiles per block
+NARROW_MAX_NT = {torch.bfloat16: 8, torch.float32: 4}  # 8-wide N tiles per block
+NARROW_KD = {torch.bfloat16: 16, torch.float32: 8}  # K elements per mma step
 
 
 class WgmmaPlan(NamedTuple):
@@ -103,12 +109,13 @@ class WgmmaPlan(NamedTuple):
 class NarrowPlan(NamedTuple):
     fold: bool                    # Cin < 16: K = (tap, channel), the taps folded in
     cs: int                       # staged channels per voxel (the brick's row)
-    kh: int                       # from 16 channels: k16 steps per tap and chunk, else 0
-    chunks: int                   # staged chunks of kh * 16 channels (1 when folded)
-    ksteps: int                   # k16 steps in all
+    kh: int                       # from 16 channels: k steps per tap and chunk, else 0
+    chunks: int                   # staged chunks of kh * kd channels (1 when folded)
+    ksteps: int                   # k steps in all
     nt: int                       # 8-wide N tiles per block: 1, 2, 4 or 8
     n_blocks: int                 # blocks along Cout
     bricks: Tuple[int, int, int]  # bricks along (D, H, W)
+    kd: int = 16                  # K elements per mma step: 16 (bf16), 8 (f32, tf32)
 
 
 def reset_launches() -> None:
@@ -196,62 +203,75 @@ def pack_tf32(w: torch.Tensor, bn: int) -> torch.Tensor:
             .permute(4, 2, 1, 0, 5, 3).contiguous())
 
 
-def narrow_plan(spatial: Tuple[int, int, int], cin: int, cout: int) -> NarrowPlan:
-    """The narrow form's tiling of a (D, H, W) volume, Cin -> Cout.
+def narrow_plan(spatial: Tuple[int, int, int], cin: int, cout: int,
+                dtype: torch.dtype = torch.bfloat16) -> NarrowPlan:
+    """The narrow form's tiling of a (D, H, W) volume, Cin -> Cout, in bf16
+    (m16n8k16, K steps of kd = 16) or f32 (the tf32x3_narrow form: m16n8k8
+    tf32, kd = 8); each k step is 32 bytes of channels.
 
     Below 16 input channels the taps fold into K: a staged voxel holds CS =
-    Cin rounded up to even channels and K = 27 * CS rounded up to 16. From
-    16 up, K = (chunk, tap, k16) with chunks of 16 channels (Cin = 16) or
-    32, staged in rows of CS = 24 or 40 channels. N: Cout in 8-wide tiles,
-    1, 2, 4 or 8 of them per block (Cout up to 8, 16, 32, then blocks of
-    64)."""
+    Cin channels (bf16: rounded up to even, one 32-bit word a pair) and K =
+    27 * CS rounded up to kd. From 16 up, K = (chunk, tap, k step) with
+    chunks of 16 channels (bf16 Cin = 16: one k16 step a tap; f32: two k8
+    steps) or 32 (bf16, two k16 steps), staged in rows padded by 16 bytes
+    (CS = 24 or 40 bf16, 20 f32). N: Cout in 8-wide tiles, 1, 2, 4 or 8 of
+    them per block (Cout up to 8, 16, 32, then blocks of 64; f32 blocks of
+    32)."""
+    kd = NARROW_KD[dtype]
     fold = cin < NARROW_FOLD_BELOW
     if fold:
-        cs, kh, chunks = cin + cin % 2, 0, 1
-        ksteps = -(-TAPS * cs // 16)
+        cs, kh, chunks = (cin if dtype == torch.float32 else cin + cin % 2), 0, 1
+        ksteps = -(-TAPS * cs // kd)
     else:
-        kh = 1 if cin <= 16 else 2
-        cs, chunks = kh * 16 + 8, -(-cin // (kh * 16))
+        kh = 2 if dtype == torch.float32 or cin > 16 else 1
+        width, size = kh * kd, 32 // kd  # a k step is 32 bytes of channels
+        cs, chunks = width + 16 // size, -(-cin // width)
         ksteps = chunks * TAPS * kh
     tiles = -(-cout // 8)
-    nt = next((n for n in (1, 2, 4) if n >= tiles), NARROW_MAX_NT)
+    nt = next((n for n in (1, 2, 4) if n >= tiles), NARROW_MAX_NT[dtype])
     bricks = tuple(-(-n // b) for n, b in zip(spatial, NARROW_BRICK))
-    return NarrowPlan(fold, cs, kh, chunks, ksteps, nt, -(-tiles // nt), bricks)
+    return NarrowPlan(fold, cs, kh, chunks, ksteps, nt, -(-tiles // nt), bricks, kd)
 
 
 def narrow_weight(w: torch.Tensor, plan: NarrowPlan) -> torch.Tensor:
-    """DHWIO ``w`` as the narrow form's B matrix, (ksteps * 16, n_blocks * nt
+    """DHWIO ``w`` as the narrow form's B matrix, (ksteps * kd, n_blocks * nt
     * 8), rows in the kernel's K order, zero past Cin and Cout: folded, row
-    tap * CS + c; else row ((chunk * 27 + tap) * kh + half) * 16 + k of
-    channel (chunk * kh + half) * 16 + k."""
+    tap * CS + c; else row ((chunk * 27 + tap) * kh + half) * kd + k of
+    channel (chunk * kh + half) * kd + k."""
     cin, cout = w.shape[3], w.shape[4]
     n_pad = plan.n_blocks * plan.nt * 8 - cout
     wp = w.reshape(TAPS, cin, cout)
     if plan.fold:
         wp = F.pad(wp, (0, n_pad, 0, plan.cs - cin)).reshape(TAPS * plan.cs, -1)
-        return F.pad(wp, (0, 0, 0, plan.ksteps * 16 - TAPS * plan.cs))
-    width = plan.kh * 16
+        return F.pad(wp, (0, 0, 0, plan.ksteps * plan.kd - TAPS * plan.cs))
+    width = plan.kh * plan.kd
     wp = F.pad(wp, (0, n_pad, 0, plan.chunks * width - cin))
     return (wp.view(TAPS, plan.chunks, width, -1).permute(1, 0, 2, 3)
-            .reshape(plan.ksteps * 16, -1))
+            .reshape(plan.ksteps * plan.kd, -1))
 
 
 def pack_narrow(w: torch.Tensor, plan: NarrowPlan) -> torch.Tensor:
-    """``narrow_weight`` as the m16n8k16 B fragments the kernel reads:
-    (n_blocks, ksteps, nt, 32, 4), lane n * 4 + q of N tile j holding rows
-    2q, 2q + 1, 2q + 8, 2q + 9 of k16 step s in column j * 8 + n of its N
-    block."""
+    """``narrow_weight`` as the B fragments the kernel reads: (n_blocks,
+    ksteps, nt, 32, 4), lane n * 4 + q of N tile j in column j * 8 + n of
+    its N block holding, for a bf16 plan (m16n8k16), rows 2q, 2q + 1, 2q + 8,
+    2q + 9 of k16 step s; for an f32 plan (m16n8k8 tf32), the TF32 high parts
+    of rows q and q + 4 of k8 step s, then their low parts (``tf32_split``)."""
     wk = narrow_weight(w, plan)
+    if plan.kd == NARROW_KD[torch.float32]:
+        parts = torch.stack(tf32_split(wk.float()))
+        return (parts.view(2, plan.ksteps, 2, 4, plan.n_blocks, plan.nt, 8)
+                .permute(4, 1, 5, 6, 3, 0, 2)
+                .reshape(plan.n_blocks, plan.ksteps, plan.nt, 32, 4))
     return (wk.view(plan.ksteps, 2, 4, 2, plan.n_blocks, plan.nt, 8)
             .permute(4, 0, 5, 6, 2, 1, 3).reshape(plan.n_blocks, plan.ksteps, plan.nt, 32, 4))
 
 
 def kernel_form(x: torch.Tensor, w: torch.Tensor) -> str:
     """The CUDA form a call takes: ``wgmma`` or ``narrow`` (bf16),
-    ``tf32x3`` or ``fma`` (f32)."""
+    ``tf32x3`` or ``tf32x3_narrow`` (f32)."""
     aligned = x.data_ptr() % 16 == 0
     if x.dtype == torch.float32:
-        return "tf32x3" if x.shape[4] % 4 == 0 and aligned else "fma"
+        return "tf32x3" if x.shape[4] % 4 == 0 and aligned else "tf32x3_narrow"
     return "wgmma" if x.shape[4] % 4 == 0 and w.shape[4] % 8 == 0 and aligned else "narrow"
 
 
@@ -345,15 +365,17 @@ def _launch(variant: str, x: torch.Tensor, w: torch.Tensor,
             stats.data_ptr() if stats is not None else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if form == "narrow":
-            plan = narrow_plan((d, h, wd), cin, cout)
+        if form in ("narrow", "tf32x3_narrow"):
+            plan = narrow_plan((d, h, wd), cin, cout, x.dtype)
             wp = pack_narrow(w, plan)
-            err = lib.unet3d_conv3x3x3_narrow(
+            entry = (lib.unet3d_conv3x3x3_narrow if form == "narrow"
+                     else lib.unet3d_conv3x3x3_narrow_tf32x3)
+            err = entry(
                 _VARIANTS[variant], x.data_ptr(), wp.data_ptr(), y.data_ptr(), *ptrs, n, d,
                 h, wd, cin, cout, d_in, pads[0], int(plan.fold), plan.cs, plan.kh,
                 plan.chunks, plan.ksteps, plan.nt, plan.n_blocks, *plan.bricks, float(alpha),
                 stream)
-        elif form in ("wgmma", "tf32x3"):
+        else:
             tf32 = form == "tf32x3"
             plan = (tf32_plan if tf32 else wgmma_plan)((d, h, wd), cin, cout)
             wp = (pack_tf32 if tf32 else pack_weight)(w, plan.bn)
@@ -362,10 +384,6 @@ def _launch(variant: str, x: torch.Tensor, w: torch.Tensor,
                 _VARIANTS[variant], plan.config, x.data_ptr(), wp.data_ptr(),
                 y.data_ptr(), *ptrs, n, d, h, wd, cin, cout, d_in, pads[0],
                 *plan.bricks, plan.n_tiles, plan.chunks, float(alpha), stream)
-        else:
-            err = lib.unet3d_conv3x3x3_fma(
-                _VARIANTS[variant], x.data_ptr(), w.data_ptr(), y.data_ptr(), *ptrs, n, d, h,
-                wd, cin, cout, d_in, pads[0], float(alpha), stream)
     if err != 0:
         raise RuntimeError(f"conv3x3x3 {variant} ({form}) launch failed: "
                            f"{lib.unet3d_cuda_error_string(err).decode()}")

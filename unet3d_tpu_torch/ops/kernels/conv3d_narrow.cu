@@ -1,67 +1,91 @@
-// 3x3x3 stride-1 SAME convolution over NDHWC bf16 activations, the Hopper
-// (sm_90a) form for narrow and ragged channel counts: every bf16 call whose
-// Cin is not a multiple of 4, or Cout not of 8, or whose x is not 16-byte
-// aligned (ops/conv3d_kernel.kernel_form's "narrow"). It computes the three
-// variants of conv3d_wgmma.cu (conv, conv_stats, block_stats) and replaces
-// the same TPU kernels (conv3d.cu's note: unet3d_tpu/ops/pallas/
-// conv3d_kernel.py _conv_batched / pallas_conv3d, winograd_kernel.py
-// _winograd_batched_stats, block_kernel.py pallas_block_conv3d). The sites:
-// the U-Nets' first conv and its input gradient (1 -> 32, 32 -> 4), the
-// registration heads (16 -> 3, 3 -> 16), MONAI UNet's last unit (3 -> 3).
+// 3x3x3 stride-1 SAME convolution over NDHWC activations, the Hopper
+// (sm_90a) form for narrow and ragged channel counts, in two element types:
 //
-// What bounds it: bytes. At 3 or 4 outputs a voxel moves 2 * (Cin + Cout)
-// bytes for 54 * Cin * Cout flops, far below the card's ~295 flops a byte;
-// the 128^3 sites' bounds are 8-45 us of memory traffic. So the design moves
-// each input byte into the SM once and wastes as little tensor-core work on
-// padding as the mma shapes allow:
+// * bf16 (ops/conv3d_kernel.kernel_form's "narrow"): every bf16 call whose
+//   Cin is not a multiple of 4, or Cout not of 8, or whose x is not 16-byte
+//   aligned. The sites: the U-Nets' first conv and its input gradient (1 ->
+//   32, 32 -> 4), the registration heads (16 -> 3, 3 -> 16), MONAI UNet's
+//   last unit (3 -> 3).
+// * f32 in 3xTF32 ("tf32x3_narrow"): every f32 call whose Cin is not a
+//   multiple of 4, or whose x is not 16-byte aligned (conv3d_tf32x3.cu takes
+//   the others). The sites: MONAI UNet's last unit (3 -> 3) and RegUNet's
+//   extraction-head input gradient (3 -> 16) in their f32 steps, the
+//   Generator's head.
+//
+// Both compute the three variants of conv3d_wgmma.cu (conv, conv_stats,
+// block_stats) and replace the same TPU kernels:
+// unet3d_tpu/ops/pallas/conv3d_kernel.py _conv_batched / pallas_conv3d, the
+// statistics epilogue of winograd_kernel.py _winograd_batched_stats, and
+// block_kernel.py pallas_block_conv3d.
+//
+// What bounds it: bytes. At 3 or 4 outputs a voxel moves (Cin + Cout)
+// elements for 54 * Cin * Cout flops, far below the card's ~295 bf16 flops a
+// byte; the 128^3 sites' bounds are 8-45 us of memory traffic in bf16 and
+// 15-48 us in f32. The f32 form's three TF32 products per product count too:
+// at 3 -> 3 the padded 3xTF32 work is ~11 GFLOP, ~0.023 ms at 495 TFLOP/s.
+// So the design moves each input byte into the SM once and wastes as little
+// tensor-core work on padding as the mma shapes allow:
 //
 // * M tile = a 4 x 8 x 16 brick of output voxels inside one batch item
 //   (512 rows, one x-line of 16 voxels per m16 tile, four lines per warp).
 //   The brick plus its one-voxel halo (6 x 10 x 18 voxels) is staged once
 //   in shared memory and every tap reads it there. Voxels outside the
 //   volume, or outside [0, d_in) on D, and channels past Cin stay zero.
-//   Staging: with Cin a multiple of 8 and x 16-byte aligned, one cp.async of
-//   16 bytes per 8 channels of a voxel; otherwise coalesced 2-byte loads
-//   (any Cin, x at 2-byte alignment: microbatch slices, odd Cin).
-// * N tile = 8 output channels per mma (m16n8k16 on the tensor cores, A and
-//   B from registers, f32 accumulators); a block takes NT = 1, 2, 4 or 8
-//   such tiles (Cout up to 8, 16, 32, then 64-wide blocks along Cout), so
+//   Staging (bf16): with Cin a multiple of 8 and x 16-byte aligned, one
+//   cp.async of 16 bytes per 8 channels of a voxel; otherwise coalesced
+//   2-byte loads (any Cin, x at 2-byte alignment: microbatch slices, odd
+//   Cin). f32: 4-byte cp.async, consecutive threads on consecutive elements
+//   (any Cin, x at 4-byte alignment).
+// * N tile = 8 output channels per mma (A and B from registers, f32
+//   accumulators): bf16 m16n8k16; f32 m16n8k8 tf32, three products per k8
+//   step (lo*hi, hi*lo, then hi*hi of the TF32 high and low parts, the
+//   3xTF32 split of conv3d_tf32x3.cu, which keeps f32 accuracy). A block
+//   takes NT = 1, 2, 4 or 8 such tiles (Cout up to 8, 16, 32, then 64-wide
+//   blocks along Cout; f32 stops at 4, 32-wide blocks, for its registers), so
 //   3 or 4 outputs pad to 8, not to a 64-wide tile.
 // * K, below 16 input channels (FOLD): the taps are folded into K. The
-//   staged voxel holds CS = Cin rounded up to even channels, K = 27 * CS
-//   rounded up to 16: at 3 -> 3, 7 k16 steps in place of 27 taps at 3/16
-//   use. A fragments are gathered from the brick by 32-bit shared loads
-//   (two channels of one tap), through a per-block table of each k pair's
-//   offset. From 16 channels up (TAP): K = (chunk of 16 or 32 channels,
-//   tap, k16), as in conv3d_wgmma.cu; A comes by ldmatrix from voxel rows
-//   padded to CS = 24 or 40 channels (48 or 80 bytes: eight rows of one
-//   ldmatrix fall in eight distinct bank groups).
+//   staged voxel holds CS channels (bf16: Cin rounded up to even; f32: Cin),
+//   K = 27 * CS rounded up to the mma's depth (16; f32 8): at 3 -> 3, 7 k16
+//   or 11 k8 steps in place of 27 taps at 3/16 use. A fragments are
+//   gathered from the brick by 32-bit shared loads (bf16: two channels of one
+//   tap; f32: one element) through a per-block table of each k word's
+//   offset. From 16 channels up (TAP): K = (chunk, tap, k step) with chunks
+//   of 16 or 32 bf16 channels or 16 f32 channels (32 bytes per k step), as
+//   in conv3d_wgmma.cu; A comes by ldmatrix from voxel rows padded by 16
+//   bytes (48 or 80 bytes: eight rows of one ldmatrix fall in eight distinct
+//   bank groups). An 8x8 b16 ldmatrix matrix is an 8x4 f32 one, and lane t
+//   receives row t / 4, element t % 4: the m16n8k8 tf32 A fragment.
+// * f32: each A element is split into TF32 hi and lo in registers once per
+//   k8 step (cvt.rna.tf32.f32). In TAP mode the tensor cores' sum of one
+//   chunk is added into an f32 total with f32 adds (their own accumulation
+//   drifts from f32 with the length of K, conv3d_tf32x3.cu's note).
 // * B: the weight is packed per call by the wrapper
-//   (conv3d_kernel.pack_narrow) into the m16n8k16 B fragments in the
-//   kernel's K order, zero past Cin and Cout; each lane reads its 8 bytes
-//   per (k16 step, N tile) from L1. The next step's A and B fragments load
-//   while this step's products run.
-// * PROLOGUE (block_stats): lrelu(x * inv[n, c] + shift[n, c]) in f32,
-//   rounded to bf16, once per staged element; padding stays zero (SAME
-//   padding pads the activation).
+//   (conv3d_kernel.pack_narrow) into the B fragments in the kernel's K order,
+//   zero past Cin and Cout (f32: the TF32 hi and lo parts, split by the
+//   wrapper with the kernel's rounding); each lane reads its 8 (f32: 16)
+//   bytes per (k step, N tile) from L1. The next step's A and B fragments
+//   load while this step's products run.
+// * PROLOGUE (block_stats): lrelu(x * inv[n, c] + shift[n, c]) in f32
+//   (bf16: rounded to bf16), once per staged element; padding stays zero
+//   (SAME padding pads the activation).
 // * D-halo mode (the space axis of unet3d_tpu_torch/parallel/): x holds d_in
 //   planes, the output d; output plane z's tap kd reads x plane
 //   z + kd - pad_lo, zero outside [0, d_in) (the SAME conv: d_in = d,
 //   pad_lo = 1).
-// * Epilogue: accumulators rounded to bf16 and stored from registers, two
-//   channels a 4-byte store where Cout is even (at 17-32 outputs through
-//   shared memory, each x-line's 16 x Cout values in 16-byte stores); STATS
-//   sums the rounded values per channel in registers and warp shuffles,
-//   then one atomicAdd per (item, channel) per block into the
-//   caller-zeroed (N, 2, Cout) f32 buffer (the add order changes from run
-//   to run).
+// * Epilogue: accumulators (bf16: rounded to bf16) stored from registers,
+//   two channels a store where Cout is even (at 17-32 outputs through shared
+//   memory, each x-line's 16 x Cout values in 16-byte stores); STATS sums the
+//   stored values per channel in registers and warp shuffles, then one
+//   atomicAdd per (item, channel) per block into the caller-zeroed (N, 2,
+//   Cout) f32 buffer (the add order changes from run to run).
 //
 // What it costs beyond the bytes (tools/conv3d_narrow_variants.py, PERF.md):
 // a block stages its brick, then computes, so the staging is not hidden
 // behind the products (a fifth to a third of the time at the 128^3
-// sites); A fragments are read from shared memory once per (voxel, k16
-// step) and feed only 8 (or NT * 8) columns, so at 32 -> 4 those reads, 2
-// bytes per voxel and K element, take longer than the device-memory traffic.
+// sites); A fragments are read from shared memory once per (voxel, k step)
+// and feed only 8 (or NT * 8) columns, so at 32 -> 4 those reads take longer
+// than the device-memory traffic; the f32 form splits each A element in
+// registers at every k8 step it is read.
 //
 // 256 threads; 35-90 KB of shared memory. Built by nvcc with the other
 // sources (kernels/build.py) and called through ctypes.
@@ -92,27 +116,42 @@ constexpr int TAPS = 27;
 constexpr int LINE = HX * 16;
 static_assert(BX == 16, "one m16 tile is one x-line");
 static_assert(BY % MW == 0, "a warp's x-lines are consecutive along y");
-// the epilogue's output lines (up to 32 channels) fit the smallest brick
+
+// the element type's mma: KD elements of K per step (32 bytes of bf16 pairs
+// or of f32), WORD elements per 32-bit A register, the B fragment of one
+// lane per (k step, N tile), the widest N block in 8-wide tiles
+template <typename T> struct Form;
+template <> struct Form<bf16> {
+  static constexpr int KD = 16, WORD = 2, MAX_NT = 8;
+  using B = uint2;  // rows 2q, 2q + 1, 2q + 8, 2q + 9 of column n
+};
+template <> struct Form<float> {
+  static constexpr int KD = 8, WORD = 1, MAX_NT = 4;
+  using B = uint4;  // rows q, q + 4 of column n: TF32 hi, then lo
+};
+
+// the epilogue's bf16 output lines (up to 32 channels) fit the smallest brick
 static_assert(WARPS * MW * BX * 32 * 2 <= HZ * HY * LINE * 2 &&
                   WARPS * MW * BX * 32 * 2 <= HALO * 24 * 2,
               "output lines fit the brick");
 
+template <typename T>
 struct Args {
-  const bf16* x;        // (N, D_in, H, W, Cin)
-  const uint2* w;       // packed B fragments (n_blocks, ksteps, NT, 32 lanes)
-  bf16* y;              // (N, D, H, W, Cout)
+  const T* x;           // (N, D_in, H, W, Cin)
+  const typename Form<T>::B* w;  // packed B fragments (n_blocks, ksteps, NT, 32 lanes)
+  T* y;                 // (N, D, H, W, Cout)
   const float* inv;     // (N, Cin), PROLOGUE only
   const float* shift;   // (N, Cin), PROLOGUE only
   float* stats;         // (N, 2, Cout), STATS only; zeroed by the caller
   int n, d, h, w_, cin, cout;  // d: the output's depth
   int d_in, pad_lo;  // x's depth; output plane z, tap kd reads x plane z + kd - pad_lo
-  int cs;            // staged channels per voxel (elements, even)
-  int kh;            // TAP: k16 steps per tap and chunk (1 or 2)
-  int chunks;        // TAP: staged chunks of kh * 16 channels
-  int ksteps;        // k16 steps in all
+  int cs;            // staged channels per voxel (elements)
+  int kh;            // TAP: k steps per tap and chunk (1 or 2)
+  int chunks;        // TAP: staged chunks of kh * KD channels
+  int ksteps;        // k steps in all
   int n_blocks;      // blocks along Cout, NT * 8 channels each
   int bricks_z, bricks_y, bricks_x;
-  int vec;           // Cin % 8 == 0 and x 16-byte aligned: stage by cp.async
+  int vec;           // bf16, Cin % 8 == 0 and x 16-byte aligned: stage by cp.async
   float alpha;
 };
 
@@ -121,22 +160,26 @@ struct Plan {
   int fold, cs, kh, chunks, ksteps, nt, n_blocks;
 };
 
+template <typename T>
 Plan plan_of(int cin, int cout) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int KD = Form<T>::KD;
   Plan p{};
   p.fold = cin < 16;
   if (p.fold) {
-    p.cs = cin + (cin & 1);
+    p.cs = F32 ? cin : cin + (cin & 1);
     p.kh = 0;
     p.chunks = 1;
-    p.ksteps = (TAPS * p.cs + 15) / 16;
+    p.ksteps = (TAPS * p.cs + KD - 1) / KD;
   } else {
-    p.kh = cin <= 16 ? 1 : 2;
-    p.cs = p.kh * 16 + 8;
-    p.chunks = (cin + p.kh * 16 - 1) / (p.kh * 16);
+    p.kh = F32 || cin > 16 ? 2 : 1;
+    const int width = p.kh * KD;  // channels per chunk
+    p.cs = width + 16 / static_cast<int>(sizeof(T));  // rows padded by 16 bytes
+    p.chunks = (cin + width - 1) / width;
     p.ksteps = p.chunks * TAPS * p.kh;
   }
   const int tiles = (cout + 7) / 8;
-  p.nt = tiles <= 1 ? 1 : tiles <= 2 ? 2 : tiles <= 4 ? 4 : 8;
+  p.nt = tiles <= 1 ? 1 : tiles <= 2 ? 2 : tiles <= 4 ? 4 : Form<T>::MAX_NT;
   p.n_blocks = (tiles + p.nt - 1) / p.nt;
   return p;
 }
@@ -160,35 +203,44 @@ __host__ __device__ constexpr int align16(int bytes) { return (bytes + 15) / 16 
 
 // the staged brick: FOLD, HZ * HY lines of LINE elements (voxel hx of a
 // line at hx * CS); else HALO voxels of CS elements
-template <bool FOLD>
+template <typename T, bool FOLD>
 __host__ __device__ constexpr int halo_bytes(int cs) {
-  return align16((FOLD ? HZ * HY * LINE : HALO * cs) * 2);
+  return align16((FOLD ? HZ * HY * LINE : HALO * cs) * static_cast<int>(sizeof(T)));
 }
 
-// the brick, then each halo line's first voxel in x, then FOLD's k-pair
+// the brick, then each halo line's first voxel in x, then FOLD's k-word
 // offsets, then STATS's per-warp sums
-template <bool FOLD, int NT, bool STATS>
+template <typename T, bool FOLD, int NT, bool STATS>
 __host__ __device__ constexpr int smem_bytes(int cs, int ksteps) {
-  return halo_bytes<FOLD>(cs) + HZ * HY * 8 + (FOLD ? ksteps * 8 * 4 : 0) +
+  return halo_bytes<T, FOLD>(cs) + HZ * HY * 8 + (FOLD ? ksteps * 8 * 4 : 0) +
          (STATS ? 2 * WARPS * NT * 8 * 4 : 0);
 }
 
 // blocks an SM the registers are bounded for: the products wait on shared
-// loads, so more warps in flight pay (faster on an H100 than the compiler's
-// own choice at the folded sites, no slower at the others)
-template <bool FOLD, int NT>
+// loads, so more warps in flight pay (bf16: faster on an H100 than the
+// compiler's own choice at the folded sites, no slower at the others; f32
+// holds twice the B fragments, splits A, and in TAP mode keeps a second set
+// of accumulators, the chunks' f32 total)
+template <typename T, bool FOLD, int NT>
 constexpr int min_blocks() {
-  return FOLD && NT == 1 ? 4 : NT <= 2 ? 3 : NT == 4 ? 2 : 1;
+  return std::is_same<T, float>::value
+             ? (FOLD ? (NT == 1 ? 3 : NT == 2 ? 2 : 1) : (NT == 1 ? 2 : 1))
+             : (FOLD && NT == 1 ? 4 : NT <= 2 ? 3 : NT == 4 ? 2 : 1);
 }
 
-template <bool FOLD, int NT, bool PROLOGUE, bool STATS>
-__global__ void __launch_bounds__(THREADS, (min_blocks<FOLD, NT>())) conv3x3x3_narrow(const Args a) {
+template <typename T, bool FOLD, int NT, bool PROLOGUE, bool STATS>
+__global__ void __launch_bounds__(THREADS, (min_blocks<T, FOLD, NT>()))
+    conv3x3x3_narrow(const Args<T> a) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int WORD = Form<T>::WORD;
   constexpr int BN = NT * 8;
+  constexpr bool PROMOTE = F32 && !FOLD;  // an f32 total of the chunks' sums
+  using BFrag = typename Form<T>::B;
   extern __shared__ __align__(128) uint8_t smem[];
-  bf16* const halo = reinterpret_cast<bf16*>(smem);
-  const int hbytes = halo_bytes<FOLD>(a.cs);
+  T* const halo = reinterpret_cast<T*>(smem);
+  const int hbytes = halo_bytes<T, FOLD>(a.cs);
   long long* const lines = reinterpret_cast<long long*>(smem + hbytes);
-  int* const koff = reinterpret_cast<int*>(lines + HZ * HY);  // FOLD: word offset per k pair
+  int* const koff = reinterpret_cast<int*>(lines + HZ * HY);  // FOLD: word offset per k word
   float* const red = reinterpret_cast<float*>(koff + (FOLD ? a.ksteps * 8 : 0));
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -218,9 +270,31 @@ __global__ void __launch_bounds__(THREADS, (min_blocks<FOLD, NT>())) conv3x3x3_n
   };
   // halo voxel v's first element in the brick
   auto elem = [&](int v) { return FOLD ? (v / HX) * LINE + (v % HX) * a.cs : v * a.cs; };
-  // channels [c0, c0 + nch) of every halo voxel into the brick (nch even)
+  // channels [c0, c0 + nch) of every halo voxel into the brick (bf16: nch even)
   auto stage = [&](int c0, int nch) {
-    if (a.vec) {  // 8 channels a 16-byte copy; a thread keeps its group
+    if constexpr (F32) {
+      // 4-byte copies, consecutive threads on consecutive elements, zero
+      // past the volume and Cin; asynchronous, so a thread's copies are in
+      // flight together
+      for (int i = tid; i < HALO * nch; i += THREADS) {
+        const int v = i / nch, c = i - v * nch, ch = c0 + c;
+        long long vox;
+        const bool ok = source(v, vox) && ch < a.cin;
+        cp_async4(smem_u32(halo + elem(v) + c), ok ? a.x + vox * a.cin + ch : a.x, ok);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      if (PROLOGUE) {  // each thread activates what it copied; padding stays zero
+        for (int i = tid; i < HALO * nch; i += THREADS) {
+          const int v = i / nch, c = i - v * nch, ch = c0 + c;
+          long long vox;
+          if (!source(v, vox) || ch >= a.cin) continue;
+          float* const p = halo + elem(v) + c;
+          const float f = fmaf(*p, a.inv[item * a.cin + ch], a.shift[item * a.cin + ch]);
+          *p = f >= 0.f ? f : f * a.alpha;
+        }
+      }
+    } else if (a.vec) {  // 8 channels a 16-byte copy; a thread keeps its group
       const int groups = nch >> 3, glog = groups >> 1;  // 1, 2 or 4 groups
       const int g = tid & (groups - 1), ch = c0 + g * 8;
       for (int i = tid; i < HALO * groups; i += THREADS) {
@@ -296,31 +370,43 @@ __global__ void __launch_bounds__(THREADS, (min_blocks<FOLD, NT>())) conv3x3x3_n
     lz = L / BY;
     ly = L % BY;
   };
-  const uint2* const wfrag =
-      a.w + static_cast<long long>(nb) * a.ksteps * NT * 32 + lane;
-  auto load_b = [&](int s, uint2 (&b)[NT]) {
+  const BFrag* const wfrag = a.w + static_cast<long long>(nb) * a.ksteps * NT * 32 + lane;
+  auto load_b = [&](int s, BFrag (&b)[NT]) {
 #pragma unroll
     for (int j = 0; j < NT; ++j) b[j] = __ldg(wfrag + (static_cast<long long>(s) * NT + j) * 32);
   };
-  auto products = [&](const uint32_t (&fa)[MW][4], const uint2 (&fb)[NT]) {
+  auto products = [&](const uint32_t (&fa)[MW][4], const BFrag (&fb)[NT]) {
+    if constexpr (F32) {
+      uint32_t hi[MW][4], lo[MW][4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+      for (int mt = 0; mt < MW; ++mt)
 #pragma unroll
-      for (int mt = 0; mt < MW; ++mt) mma16816(acc[mt][j], fa[mt], fb[j]);
+        for (int e = 0; e < 4; ++e) tf32_split(__uint_as_float(fa[mt][e]), hi[mt][e], lo[mt][e]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int mt = 0; mt < MW; ++mt)
+          mma_tf32x3_m16n8k8(acc[mt][j], hi[mt], lo[mt], fb[j].x, fb[j].y, fb[j].z, fb[j].w);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int mt = 0; mt < MW; ++mt) mma16816(acc[mt][j], fa[mt], fb[j]);
+    }
   };
   uint32_t af[2][MW][4];
-  uint2 bf[2][NT];
+  BFrag bf[2][NT];
 
   if constexpr (FOLD) {
-    // k = tap * CS + c; the pair (k, k + 1) is one 32-bit word of the brick
-    // at word offset koff[k / 2] from the row's own voxel; pairs past 27 * CS
-    // point at the first pair (finite values that meet zero weights)
+    // k = tap * CS + c; the word of k (bf16: the pair k, k + 1) lies at word
+    // offset koff[k / WORD] from the row's own voxel; words past 27 * CS
+    // point at the first word (finite values that meet zero weights)
     for (int kp = tid; kp < a.ksteps * 8; kp += THREADS) {
-      const int k = 2 * kp;
+      const int k = WORD * kp;
       int off = 0;
       if (k < TAPS * a.cs) {
         const int tap = k / a.cs, c = k - tap * a.cs;
-        off = (((tap / 9) * HY + (tap / 3) % 3) * LINE + (tap % 3) * a.cs + c) >> 1;
+        off = (((tap / 9) * HY + (tap / 3) % 3) * LINE + (tap % 3) * a.cs + c) / WORD;
       }
       koff[kp] = off;
     }
@@ -333,16 +419,16 @@ __global__ void __launch_bounds__(THREADS, (min_blocks<FOLD, NT>())) conv3x3x3_n
     // elements on, row r0 + 8 another 8 * CS
     const uint32_t* const words =
         reinterpret_cast<const uint32_t*>(halo + (lz * HY + ly) * LINE + r0 * a.cs);
-    const int h8 = 4 * a.cs;  // words from row r0 to row r0 + 8
+    const int h8 = 8 * a.cs / WORD;  // words from row r0 to row r0 + 8
     auto load_a = [&](int s, uint32_t (&f)[MW][4]) {
       const uint32_t* const p0 = words + koff[s * 8 + q];
       const uint32_t* const p1 = words + koff[s * 8 + 4 + q];
 #pragma unroll
       for (int mt = 0; mt < MW; ++mt) {
-        f[mt][0] = p0[mt * LINE / 2];
-        f[mt][1] = p0[mt * LINE / 2 + h8];
-        f[mt][2] = p1[mt * LINE / 2];
-        f[mt][3] = p1[mt * LINE / 2 + h8];
+        f[mt][0] = p0[mt * LINE / WORD];
+        f[mt][1] = p0[mt * LINE / WORD + h8];
+        f[mt][2] = p1[mt * LINE / WORD];
+        f[mt][3] = p1[mt * LINE / WORD + h8];
       }
     };
     auto step = [&](int s, auto parity) {
@@ -362,26 +448,38 @@ __global__ void __launch_bounds__(THREADS, (min_blocks<FOLD, NT>())) conv3x3x3_n
     }
     if (s < a.ksteps) step(s, std::integral_constant<int, 0>{});
   } else {
-    // this lane's ldmatrix row of each line at tap 0, k16 half 0 (bytes)
+    // this lane's ldmatrix row of each line at tap 0, k step 0 (bytes): an
+    // 8x8 b16 matrix of 16-byte rows, rows (lane & 15), bytes (lane >> 4) * 16
     uint32_t ra[MW];
 #pragma unroll
     for (int mt = 0; mt < MW; ++mt) {
       int lz, ly;
       line_of(mt, lz, ly);
       ra[mt] = smem_u32(halo) +
-               (((lz * HY + ly) * HX + (lane & 15)) * a.cs + (lane >> 4) * 8) * 2;
+               ((lz * HY + ly) * HX + (lane & 15)) * a.cs * static_cast<int>(sizeof(T)) +
+               (lane >> 4) * 16;
     }
-    const int steps = TAPS * a.kh;  // per chunk: (tap, k16 half)
+    const int steps = TAPS * a.kh;  // per chunk: (tap, k step)
     auto load_a = [&](int t, uint32_t (&f)[MW][4]) {
       const int tap = a.kh == 1 ? t : t >> 1, half = t & (a.kh - 1);
       const uint32_t off =
-          ((((tap / 9) * HY + (tap / 3) % 3) * HX + tap % 3) * a.cs + half * 16) * 2;
+          (((tap / 9) * HY + (tap / 3) % 3) * HX + tap % 3) * a.cs * static_cast<int>(sizeof(T)) +
+          half * 32;
 #pragma unroll
       for (int mt = 0; mt < MW; ++mt) ldmatrix_x4(ra[mt] + off, f[mt]);
     };
+    float total[PROMOTE ? MW : 1][NT][4];
+    if constexpr (PROMOTE) {
+#pragma unroll
+      for (int mt = 0; mt < MW; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) total[mt][j][e] = 0.f;
+    }
     for (int chunk = 0; chunk < a.chunks; ++chunk) {
       if (chunk > 0) __syncthreads();  // every warp is done with the last chunk
-      stage(chunk * a.kh * 16, a.kh * 16);
+      stage(chunk * a.kh * Form<T>::KD, a.kh * Form<T>::KD);
       __syncthreads();
       const int s0 = chunk * steps;
       auto step = [&](int t, auto parity) {
@@ -400,22 +498,44 @@ __global__ void __launch_bounds__(THREADS, (min_blocks<FOLD, NT>())) conv3x3x3_n
         step(t + 1, std::integral_constant<int, 1>{});
       }
       if (t < steps) step(t, std::integral_constant<int, 0>{});
+      if constexpr (PROMOTE) {  // the chunk's sum into the f32 total
+#pragma unroll
+        for (int mt = 0; mt < MW; ++mt)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              total[mt][j][e] += acc[mt][j][e];
+              acc[mt][j][e] = 0.f;
+            }
+      }
+    }
+    if constexpr (PROMOTE) {
+#pragma unroll
+      for (int mt = 0; mt < MW; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][j][e] = total[mt][j][e];
     }
   }
 
   // epilogue. acc[mt][j][2 * hh + e] is row r0 + 8 * hh of line mt (x =
   // x0 + r0 + 8 * hh), column j * 8 + 2 * q + e of this block's N range.
-  // At 17-32 outputs (NT = 4, one N block) each warp's lines go out through
-  // shared memory as whole runs of 16 voxels x Cout (contiguous in y), 16
-  // bytes a store where aligned (faster on an H100 at 1 -> 32); otherwise
-  // each lane stores its channel pairs (no barrier: faster at NT = 1, 2).
-  constexpr bool kStaged = NT == 4;
+  // bf16 at 17-32 outputs (NT = 4, one N block) each warp's lines go out
+  // through shared memory as whole runs of 16 voxels x Cout (contiguous in
+  // y), 16 bytes a store where aligned (faster on an H100 at 1 -> 32);
+  // otherwise each lane stores its channel pairs (no barrier: faster at NT =
+  // 1, 2; f32's NT = 4 blocks also take Cout past 32 in several N blocks,
+  // whose rows the staged runs would not hold).
+  constexpr bool kStaged = NT == 4 && !F32;
   const int q = lane & 3, r0 = lane >> 2;
   float s1[NT][2], s2[NT][2];
 #pragma unroll
   for (int j = 0; j < NT; ++j) s1[j][0] = s1[j][1] = s2[j][0] = s2[j][1] = 0.f;
-  const bool even = (a.cout & 1) == 0;  // y is the wrapper's, 16-byte aligned
-  bf16* const tile = halo + warp * (MW * 16 * BN);  // this warp's lines, rows of Cout
+  // y is the wrapper's (16-byte aligned): with Cout even a pair is one store
+  const bool even = (a.cout & 1) == 0;
+  T* const tile = halo + warp * (MW * 16 * BN);  // this warp's lines, rows of Cout
   if (kStaged) __syncthreads();  // every warp is done with the brick
 #pragma unroll
   for (int mt = 0; mt < MW; ++mt) {
@@ -426,25 +546,39 @@ __global__ void __launch_bounds__(THREADS, (min_blocks<FOLD, NT>())) conv3x3x3_n
     for (int hh = 0; hh < 2; ++hh) {
       const int xx = x0 + r0 + 8 * hh;
       const bool ok = zz < a.d && yy < a.h && xx < a.w_;
-      bf16* const out =
+      const bool store = kStaged || ok;
+      T* const out =
           kStaged ? tile + (mt * 16 + r0 + 8 * hh) * a.cout
                   : a.y + (((static_cast<long long>(item) * a.d + zz) * a.h + yy) * a.w_ + xx) *
                               a.cout;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int co = nb * BN + j * 8 + 2 * q;
-        const __nv_bfloat162 v =
-            __floats2bfloat162_rn(acc[mt][j][2 * hh], acc[mt][j][2 * hh + 1]);
-        if (kStaged || ok) {
-          if (even && co < a.cout) {
-            *reinterpret_cast<__nv_bfloat162*>(out + co) = v;
-          } else {
-            if (co < a.cout) out[co] = v.x;
-            if (co + 1 < a.cout) out[co + 1] = v.y;
+        float2 f;  // the pair as stored
+        if constexpr (F32) {
+          f = make_float2(acc[mt][j][2 * hh], acc[mt][j][2 * hh + 1]);
+          if (store) {
+            if (even && co < a.cout) {
+              *reinterpret_cast<float2*>(out + co) = f;
+            } else {
+              if (co < a.cout) out[co] = f.x;
+              if (co + 1 < a.cout) out[co + 1] = f.y;
+            }
           }
+        } else {
+          const __nv_bfloat162 v =
+              __floats2bfloat162_rn(acc[mt][j][2 * hh], acc[mt][j][2 * hh + 1]);
+          if (store) {
+            if (even && co < a.cout) {
+              *reinterpret_cast<__nv_bfloat162*>(out + co) = v;
+            } else {
+              if (co < a.cout) out[co] = v.x;
+              if (co + 1 < a.cout) out[co + 1] = v.y;
+            }
+          }
+          f = __bfloat1622float2(v);
         }
         if (STATS && ok) {
-          const float2 f = __bfloat1622float2(v);
           s1[j][0] += f.x; s2[j][0] += f.x * f.x;
           s1[j][1] += f.y; s2[j][1] += f.y * f.y;
         }
@@ -452,6 +586,7 @@ __global__ void __launch_bounds__(THREADS, (min_blocks<FOLD, NT>())) conv3x3x3_n
     }
   }
   if (kStaged) {
+    constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte store
     __syncwarp();
 #pragma unroll
     for (int mt = 0; mt < MW; ++mt) {
@@ -459,17 +594,17 @@ __global__ void __launch_bounds__(THREADS, (min_blocks<FOLD, NT>())) conv3x3x3_n
       line_of(mt, lz, ly);
       const int zz = z0 + lz, yy = y0 + ly, nx = min(BX, a.w_ - x0);
       if (zz >= a.d || yy >= a.h) continue;
-      bf16* const dst =
+      T* const dst =
           a.y + (((static_cast<long long>(item) * a.d + zz) * a.h + yy) * a.w_ + x0) * a.cout;
-      const bf16* const src = tile + mt * 16 * a.cout;  // 16-byte aligned
+      const T* const src = tile + mt * 16 * a.cout;  // 16-byte aligned
       const int n = nx * a.cout;
       const uintptr_t at = reinterpret_cast<uintptr_t>(dst);
       int done = 0;
       if (at % 16 == 0) {
-        for (int i = lane; i < n / 8; i += 32)
+        for (int i = lane; i < n / VEC; i += 32)
           reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
-        done = n / 8 * 8;
-      } else if (at % 4 == 0) {
+        done = n / VEC * VEC;
+      } else if (!F32 && at % 4 == 0) {
         for (int i = lane; i < n / 2; i += 32)
           reinterpret_cast<uint32_t*>(dst)[i] = reinterpret_cast<const uint32_t*>(src)[i];
         done = n / 2 * 2;
@@ -509,13 +644,15 @@ __global__ void __launch_bounds__(THREADS, (min_blocks<FOLD, NT>())) conv3x3x3_n
   }
 }
 
-template <bool FOLD, int NT, bool PROLOGUE, bool STATS>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto kernel = conv3x3x3_narrow<FOLD, NT, PROLOGUE, STATS>;
+template <typename T, bool FOLD, int NT, bool PROLOGUE, bool STATS>
+cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
+  auto kernel = conv3x3x3_narrow<T, FOLD, NT, PROLOGUE, STATS>;
+  constexpr int KD = Form<T>::KD;
   static bool attribute_set = false;  // once per instantiation, at its largest
   if (!attribute_set) {
-    const int most =
-        FOLD ? smem_bytes<true, NT, STATS>(16, TAPS) : smem_bytes<false, NT, STATS>(40, 0);
+    const int most = FOLD ? smem_bytes<T, true, NT, STATS>(16, TAPS * 16 / KD)
+                          : smem_bytes<T, false, NT, STATS>(
+                                2 * KD + 16 / static_cast<int>(sizeof(T)), 0);
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err != cudaSuccess) return err;
@@ -524,30 +661,58 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const long long blocks = static_cast<long long>(a.n) * a.bricks_z * a.bricks_y *
                            a.bricks_x * a.n_blocks;
   if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  kernel<<<static_cast<unsigned>(blocks), THREADS, smem_bytes<FOLD, NT, STATS>(a.cs, a.ksteps),
+  kernel<<<static_cast<unsigned>(blocks), THREADS, smem_bytes<T, FOLD, NT, STATS>(a.cs, a.ksteps),
            stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool FOLD, int NT>
-cudaError_t dispatch(int variant, const Args& a, cudaStream_t stream) {
+template <typename T, bool FOLD, int NT>
+cudaError_t dispatch(int variant, const Args<T>& a, cudaStream_t stream) {
   switch (variant) {
-    case 0: return launch<FOLD, NT, false, false>(a, stream);
-    case 1: return launch<FOLD, NT, false, true>(a, stream);
-    case 2: return launch<FOLD, NT, true, true>(a, stream);
+    case 0: return launch<T, FOLD, NT, false, false>(a, stream);
+    case 1: return launch<T, FOLD, NT, false, true>(a, stream);
+    case 2: return launch<T, FOLD, NT, true, true>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool FOLD>
-cudaError_t dispatch_nt(int nt, int variant, const Args& a, cudaStream_t stream) {
+template <typename T, bool FOLD>
+cudaError_t dispatch_nt(int nt, int variant, const Args<T>& a, cudaStream_t stream) {
   switch (nt) {
-    case 1: return dispatch<FOLD, 1>(variant, a, stream);
-    case 2: return dispatch<FOLD, 2>(variant, a, stream);
-    case 4: return dispatch<FOLD, 4>(variant, a, stream);
-    case 8: return dispatch<FOLD, 8>(variant, a, stream);
+    case 1: return dispatch<T, FOLD, 1>(variant, a, stream);
+    case 2: return dispatch<T, FOLD, 2>(variant, a, stream);
+    case 4: return dispatch<T, FOLD, 4>(variant, a, stream);
+    case 8:
+      if constexpr (Form<T>::MAX_NT == 8) return dispatch<T, FOLD, 8>(variant, a, stream);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
+}
+
+// the C entries' shared body: checks the alignments and the plan, then
+// launches the instantiation of the plan
+template <typename T>
+int run(int variant, const void* x, const void* w, void* y, const float* inv,
+        const float* shift, float* stats, int n, int d, int h, int w_, int cin, int cout,
+        int d_in, int pad_lo, int fold, int cs, int kh, int chunks, int ksteps, int nt,
+        int n_blocks, int bricks_z, int bricks_y, int bricks_x, float alpha, void* stream) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  if (cin < 1 || cout < 1 || d_in < 1 || pad_lo < 0 || pad_lo > 2 ||
+      reinterpret_cast<std::uintptr_t>(x) % sizeof(T) != 0 ||
+      reinterpret_cast<std::uintptr_t>(w) % sizeof(typename Form<T>::B) != 0 ||
+      reinterpret_cast<std::uintptr_t>(y) % (2 * sizeof(T)) != 0)
+    return cudaErrorInvalidValue;
+  const Plan p = plan_of<T>(cin, cout);
+  if (fold != p.fold || cs != p.cs || kh != p.kh || chunks != p.chunks || ksteps != p.ksteps ||
+      nt != p.nt || n_blocks != p.n_blocks || bricks_z != (d + BZ - 1) / BZ ||
+      bricks_y != (h + BY - 1) / BY || bricks_x != (w_ + BX - 1) / BX)
+    return cudaErrorInvalidValue;
+  const int vec = !F32 && cin % 8 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+  Args<T> a{static_cast<const T*>(x), static_cast<const typename Form<T>::B*>(w),
+            static_cast<T*>(y), inv, shift, stats, n, d, h, w_, cin, cout, d_in, pad_lo, cs,
+            kh, chunks, ksteps, n_blocks, bricks_z, bricks_y, bricks_x, vec, alpha};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return fold ? dispatch_nt<T, true>(nt, variant, a, s) : dispatch_nt<T, false>(nt, variant, a, s);
 }
 
 }  // namespace
@@ -567,20 +732,28 @@ extern "C" int unet3d_conv3x3x3_narrow(int variant, const void* x, const void* w
                                        int chunks, int ksteps, int nt, int n_blocks,
                                        int bricks_z, int bricks_y, int bricks_x, float alpha,
                                        void* stream) {
-  if (cin < 1 || cout < 1 || d_in < 1 || pad_lo < 0 || pad_lo > 2 ||
-      reinterpret_cast<std::uintptr_t>(x) % 2 != 0 ||
-      reinterpret_cast<std::uintptr_t>(w) % 8 != 0 ||
-      reinterpret_cast<std::uintptr_t>(y) % 4 != 0)
-    return cudaErrorInvalidValue;
-  const Plan p = plan_of(cin, cout);
-  if (fold != p.fold || cs != p.cs || kh != p.kh || chunks != p.chunks || ksteps != p.ksteps ||
-      nt != p.nt || n_blocks != p.n_blocks || bricks_z != (d + BZ - 1) / BZ ||
-      bricks_y != (h + BY - 1) / BY || bricks_x != (w_ + BX - 1) / BX)
-    return cudaErrorInvalidValue;
-  const int vec = cin % 8 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
-  Args a{static_cast<const bf16*>(x), static_cast<const uint2*>(w), static_cast<bf16*>(y),
-         inv, shift, stats, n, d, h, w_, cin, cout, d_in, pad_lo, cs, kh, chunks, ksteps,
-         n_blocks, bricks_z, bricks_y, bricks_x, vec, alpha};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fold ? dispatch_nt<true>(nt, variant, a, s) : dispatch_nt<false>(nt, variant, a, s);
+  return run<bf16>(variant, x, w, y, inv, shift, stats, n, d, h, w_, cin, cout, d_in, pad_lo,
+                   fold, cs, kh, chunks, ksteps, nt, n_blocks, bricks_z, bricks_y, bricks_x,
+                   alpha, stream);
+}
+
+// The f32 form, 3xTF32 on the tensor cores, with the arguments of
+// unet3d_conv3x3x3_narrow: f32 x at 4-byte alignment, y 8-byte aligned; w the
+// packed weight of ops/conv3d_kernel.pack_narrow for an f32 plan
+// (narrow_plan(..., torch.float32)), (n_blocks, ksteps, nt, 32, 4) f32 (each
+// lane's TF32 hi and lo parts of rows q and q + 4), 16-byte aligned.
+extern "C" int unet3d_conv3x3x3_narrow_tf32x3(int variant, const void* x, const void* w,
+                                              void* y, const float* inv, const float* shift,
+                                              float* stats, int n, int d, int h, int w_,
+                                              int cin, int cout, int d_in, int pad_lo, int fold,
+                                              int cs, int kh, int chunks, int ksteps, int nt,
+                                              int n_blocks, int bricks_z, int bricks_y,
+                                              int bricks_x, float alpha, void* stream) {
+  return run<float>(variant, x, w, y, inv, shift, stats, n, d, h, w_, cin, cout, d_in, pad_lo,
+                    fold, cs, kh, chunks, ksteps, nt, n_blocks, bricks_z, bricks_y, bricks_x,
+                    alpha, stream);
+}
+
+extern "C" const char* unet3d_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,10 +1,11 @@
 // 3x3x3 stride-1 SAME convolution over NDHWC f32 activations, the Hopper
 // (sm_90a) form: brick-staged implicit GEMM on the tensor cores in 3xTF32.
-// It computes the three variants of conv3d.cu (conv, conv_stats, block_stats;
-// what each replaces is in that file's note) for every f32 call whose Cin is
-// a multiple of 4 (16-byte rows), any Cout: every f32 site of the DynUNet and
-// of the Myronenko family's decoder, which AMP runs in f32. conv3d.cu keeps
-// its FMA form for f32 calls with another Cin.
+// It computes the three variants of conv3d_narrow.cu (conv, conv_stats,
+// block_stats; what each replaces is in that file's note) for every f32 call
+// whose Cin is a multiple of 4 (16-byte rows) and whose x is 16-byte aligned,
+// any Cout: every f32 site of the DynUNet and of the Myronenko family's
+// decoder, which AMP runs in f32. conv3d_narrow.cu's f32 form takes the f32
+// calls with another Cin or alignment.
 //
 // What bounds it: 2 * 27 * Cin * Cout flops per voxel. On the CUDA cores
 // (67 TFLOP/s in f32) SegResNetVAE's three decoder sites take >= 6.06 ms a

@@ -1,10 +1,10 @@
 // 3x3x3 stride-1 SAME convolution over NDHWC bf16 activations, the Hopper
 // (sm_90a) form: brick-staged implicit GEMM on wgmma. It computes the three
-// variants of conv3d.cu (conv, conv_stats, block_stats; what each replaces is
-// in that file's note) for every bf16 call whose Cin is a multiple of 4 and
-// Cout of 8 and whose x is 16-byte aligned, which is every site of the
-// DynUNet; conv3d_narrow.cu takes the other bf16 calls (3- and 4-channel
-// heads, one-channel inputs, ragged Cin, misaligned slices), conv3d.cu the
+// variants of conv3d_narrow.cu (conv, conv_stats, block_stats; what each
+// replaces is in that file's note) for every bf16 call whose Cin is a
+// multiple of 4 and Cout of 8 and whose x is 16-byte aligned, which is every
+// site of the DynUNet; conv3d_narrow.cu takes the other bf16 calls (3- and
+// 4-channel heads, one-channel inputs, ragged Cin, misaligned slices) and the
 // f32 calls that conv3d_tf32x3.cu does not.
 //
 // What bounds it: K = 27 * Cin deep products. The BraTS DynUNet's forward is

@@ -1,5 +1,6 @@
 // Weight gradient of the 3x3x3 stride-2 convolution with symmetric pads of 1
-// (NDHWC activations, DHWIO weights), written for Hopper (sm_90a):
+// (NDHWC bf16 activations, DHWIO weights), written for Hopper (sm_90a), for
+// the channel counts the wgmma form does not take:
 //
 //   dw[kd, kh, kw, ci, co] = sum_{n, od, oh, ow}
 //       xp[n, 2od + kd, 2oh + kh, 2ow + kw, ci] * g[n, od, oh, ow, co]
@@ -14,11 +15,11 @@
 // columns, and K = N * Do * Ho * Wo output voxels. A block owns a BM x BN tile
 // of dw and walks its share of K in BK-voxel stages. Each stage gathers the
 // A tile (BK voxels x BM rows: every voxel's input shifted by the row's tap,
-// zero in the padding) and the B tile (BK rows of g) into shared memory. bf16
-// multiplies on the tensor cores through WMMA 16x16x16 with f32 accumulation;
-// f32 with FMA on the CUDA cores. Any Cin, Cout and any D, H, W are taken:
-// ragged edges are masked, and 16-byte loads are used where Cin (for A) or
-// Cout (for B) is a multiple of 8 and the pointer is aligned.
+// zero in the padding) and the B tile (BK rows of g) into shared memory, and
+// multiplies on the tensor cores through WMMA 16x16x16 with f32
+// accumulation. Any Cin, Cout and any D, H, W are taken: ragged edges are
+// masked, and 16-byte loads are used where Cin (for A) or Cout (for B) is a
+// multiple of 8 and the pointer is aligned.
 //
 // Split-K. K is large and M x N small at the top of the DynUNet (BraTS level
 // 0: M x N = 1728 x 96 over K = 262,144 voxels, 87 GFLOP), so the tiles alone
@@ -37,16 +38,19 @@
 // every output voxel (6.75x the bytes of x at level 0) and stages through
 // shared memory with no overlap of loads and math, on WMMA. Every bf16 call
 // with Cin and Cout multiples of 8 (every DynUNet site) takes the Hopper
-// form instead, s2_wgrad_wgmma.cu, which stages each input line once; this
-// one keeps f32 and the other bf16 channel counts.
+// form instead, s2_wgrad_wgmma.cu, which stages each input line once, and
+// every f32 call s2_wgrad_tf32x3.cu; this one keeps the other bf16 channel
+// counts (UNet's 4 -> 16, RegUNet's 16 -> 16 and the AutoEncoder's 4 -> 4
+// first stride-2 convs).
 //
 // Not carried over from the TPU kernel: the 128-lane (2 * C) gate, the W
 // parity lane merge, the host-side H-parity deinterleave and the scanline DMA
 // stack. They shaped x so that Mosaic could issue 2D dots; here the gather
 // computes each tap's source voxel directly.
 //
-// Built by nvcc into the same shared library as conv3d.cu
-// (unet3d_tpu_torch/kernels/build.py), called through ctypes.
+// Built by nvcc into the same shared library as the other sources
+// (unet3d_tpu_torch/kernels/build.py), called through ctypes. The split-K
+// sum below serves all three forms of the weight gradient.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,7 +61,7 @@
 #include <type_traits>
 
 // dw[i] = sum over s of part[s][i], s in order: the split-K sum of this form
-// and of s2_wgrad_wgmma.cu's (defined below)
+// and of s2_wgrad_wgmma.cu's and s2_wgrad_tf32x3.cu's (defined below)
 cudaError_t unet3d_s2_wgrad_sum_splits(const float* part, float* dw, long long mn,
                                        int splits, cudaStream_t stream);
 
@@ -81,15 +85,12 @@ struct WgradArgs {
 };
 
 template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
 template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16(0.f);
 }
 
-// Shared-memory row padding: bf16 rows stay 32-byte aligned for WMMA loads;
-// f32 rows stay float4-aligned for the FMA loop's vector reads.
+// Shared-memory row padding: rows stay 32-byte aligned for WMMA loads
 template <typename T> struct Pad { static constexpr int A = 8, B = 8; };
-template <> struct Pad<float> { static constexpr int A = 4, B = 4; };
 
 template <typename T>
 __device__ __forceinline__ void load_group(const T* p, T (&v)[GROUP]) {
@@ -181,7 +182,7 @@ __device__ __forceinline__ void load_b(const WgradArgs& a, long long k,
 template <typename T>
 __global__ void __launch_bounds__(THREADS) s2_wgrad_ndhwc(const WgradArgs a) {
   using namespace nvcuda;
-  constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "bf16 on WMMA");
   constexpr int LDA = BM + Pad<T>::A;  // A staged k-major: As[k][m]
   constexpr int LDB = BN + Pad<T>::B;  // B staged k-major: Bs[k][co]
   constexpr int LDC = BN + 4;
@@ -220,20 +221,11 @@ __global__ void __launch_bounds__(THREADS) s2_wgrad_ndhwc(const WgradArgs a) {
   const int b_co = (tid % (BN / GROUP)) * GROUP;
 
   const int warp = tid / 32, wm = warp % 4, wn = warp / 4;  // 4 x 2 warps
-  const int tx = tid % 16, ty = tid / 16;                   // 16 x 16 threads
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf[2][2];
-  float acc[8][4];
-  if constexpr (kTensorCores) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(cf[i][j], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(cf[i][j], 0.f);
 
   for (long long k0 = k_begin; k0 < k_end; k0 += BK) {
 #pragma unroll
@@ -253,62 +245,32 @@ __global__ void __launch_bounds__(THREADS) s2_wgrad_ndhwc(const WgradArgs a) {
       for (int e = 0; e < GROUP; ++e) dst[e] = v[e];
     }
     __syncthreads();
-    if constexpr (kTensorCores) {
 #pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        // A (m, k) sits at As[k * LDA + m]: column-major for WMMA
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fb[2];
+    for (int kk = 0; kk < BK; kk += 16) {
+      // A (m, k) sits at As[k * LDA + m]: column-major for WMMA
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], As + kk * LDA + wm * 32 + i * 16, LDA);
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], As + kk * LDA + wm * 32 + i * 16, LDA);
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], Bs + kk * LDB + wn * 32 + j * 16, LDB);
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], Bs + kk * LDB + wn * 32 + j * 16, LDB);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(cf[i][j], fa[i], fb[j], cf[i][j]);
-      }
-    } else {
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a0 =
-            *reinterpret_cast<const float4*>(As + kk * LDA + ty * 8);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(As + kk * LDA + ty * 8 + 4);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float4 bv =
-            *reinterpret_cast<const float4*>(Bs + kk * LDB + tx * 4);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          acc[i][0] += av[i] * bv.x;
-          acc[i][1] += av[i] * bv.y;
-          acc[i][2] += av[i] * bv.z;
-          acc[i][3] += av[i] * bv.w;
-        }
-      }
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(cf[i][j], fa[i], fb[j], cf[i][j]);
     }
     __syncthreads();
   }
 
   // accumulators -> C tile in shared memory (the loop ended on a barrier)
-  if constexpr (kTensorCores) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                                cf[i][j], LDC, wmma::mem_row_major);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Cs[(ty * 8 + i) * LDC + tx * 4 + j] = acc[i][j];
-  }
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, cf[i][j], LDC,
+                              wmma::mem_row_major);
   __syncthreads();
 
   // store this split's partial tile: consecutive threads, consecutive co
@@ -361,14 +323,14 @@ cudaError_t unet3d_s2_wgrad_sum_splits(const float* part, float* dw, long long m
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. x (N, D, H, W, Cin), g (N, Do, Ho, Wo,
-// Cout), dw (3, 3, 3, Cin, Cout) f32. With splits > 1, `part` is an f32
+// x (N, D, H, W, Cin), g (N, Do, Ho, Wo, Cout) bf16, dw (3, 3, 3, Cin, Cout)
+// f32. With splits > 1, `part` is an f32
 // (splits, 27 * Cin, Cout) scratch that the partial sums go to before they
 // are summed into dw; with splits == 1 it is unused and may be null. pad_lo
 // is the zero planes below x on D: 1 for the SAME conv, 0 for a D slab whose
 // first plane is the one below it (the D-halo mode). Returns the cudaError_t
 // of the launches (0 on success).
-extern "C" int unet3d_s2_wgrad_ndhwc(int dtype, const void* x, const void* g,
+extern "C" int unet3d_s2_wgrad_ndhwc(const void* x, const void* g,
                                      float* part, float* dw, int n, int d,
                                      int h, int w_, int cin, int do_, int ho,
                                      int wo, int cout, int splits,
@@ -380,10 +342,5 @@ extern "C" int unet3d_s2_wgrad_ndhwc(int dtype, const void* x, const void* g,
   WgradArgs a{x, g, splits == 1 ? dw : part, n, d, h, w_, cin, do_, ho, wo,
               cout, pad_lo, k_per_split, cin % GROUP == 0 && aligned16(x),
               cout % GROUP == 0 && aligned16(g)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch<float>(a, splits, dw, s);
-    case 1: return launch<__nv_bfloat16>(a, splits, dw, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch<__nv_bfloat16>(a, splits, dw, static_cast<cudaStream_t>(stream));
 }

@@ -1,11 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (conv3d_wgmma.cu, conv3d_tf32x3.cu, s2_wgrad_wgmma.cu, winograd_wgmma.cu):
+// (conv3d_wgmma.cu, conv3d_tf32x3.cu, s2_wgrad_wgmma.cu, s2_wgrad_tf32x3.cu,
+// winograd_wgmma.cu) and conv3d_narrow.cu:
 // cp.async with zero-fill, the async proxy fence, register fences for wgmma
 // operands, ldmatrix, wgmma's fence / commit / wait, shared-memory
 // descriptors in the 128-byte swizzle, m64nNk16 bf16 and m64nNk8 tf32
-// products with A from registers, and the f32 -> TF32 rounding. Included by
-// each source; kernels/build.py hashes it with the sources, so an edit here
-// rebuilds the library.
+// products with A from registers, the f32 -> TF32 rounding and split, and
+// the m16n8k8 tf32 mma.sync products of conv3d_narrow.cu's f32 form, which
+// takes both operands from registers. Included by each source;
+// kernels/build.py hashes it with the sources, so an edit here rebuilds the
+// library.
 
 #pragma once
 
@@ -28,6 +31,11 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
 __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                :: "r"(dst), "l"(src), "r"(valid ? 8 : 0) : "memory");
+}
+// 4 bytes global -> shared, or 4 zero bytes when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -269,6 +277,35 @@ __device__ __forceinline__ uint32_t tf32_rna(float v) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
   return r;
+}
+
+// f32 v as the sum of two TF32 values, hi = rna(v) and lo = rna(v - hi)
+// (|v - hi - lo| <= 2^-22 |v|), as f32 bits: the 3xTF32 split
+__device__ __forceinline__ void tf32_split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// c += a * b for one m16n8k8 tf32 product (mma.sync: A and B from
+// registers, the m16n8k8 fragments; f32 accumulators c)
+__device__ __forceinline__ void mma_tf32_m16n8k8(float (&c)[4], const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b in 3xTF32 for one m16n8k8 step: a (ahi + alo) and b (bhi + blo)
+// split by tf32_split, the products lo*hi and hi*lo first, then hi*hi (the
+// lo*lo term lies below 2^-22 of the product)
+__device__ __forceinline__ void mma_tf32x3_m16n8k8(float (&c)[4], const uint32_t (&ahi)[4],
+                                                   const uint32_t (&alo)[4], uint32_t bhi0,
+                                                   uint32_t bhi1, uint32_t blo0,
+                                                   uint32_t blo1) {
+  mma_tf32_m16n8k8(c, alo, bhi0, bhi1);
+  mma_tf32_m16n8k8(c, ahi, blo0, blo1);
+  mma_tf32_m16n8k8(c, ahi, bhi0, bhi1);
 }
 
 // D = A * B + (scale_d ? D : 0) for one m64nNk8 tf32 product, A from

@@ -7,9 +7,11 @@ in f32. A CPU tensor goes to ``s2_wgrad_reference``, the f32 autograd of
 three forms (``kernel_form``): ``wgmma`` (``ops/kernels/s2_wgrad_wgmma.cu``),
 the Hopper form, for bf16 with Cin and Cout multiples of 8 (every stride-2
 site of the DynUNet), tiled by ``wgmma_plan``; ``wmma`` (``s2_wgrad.cu``) for
-the other bf16 calls, and ``fma`` (the same source) for f32, split by
-``split_k``. ``LAUNCHES["s2_wgrad"]`` counts every launch, ``FORM_LAUNCHES``
-per ("s2_wgrad", form).
+the other bf16 calls, split by ``split_k``; ``tf32x3``
+(``s2_wgrad_tf32x3.cu``) for every f32 call, the same staging on the tensor
+cores in 3xTF32 (wgmma m64nNk8 tf32, three products per product), tiled by
+``tf32_plan``. ``LAUNCHES["s2_wgrad"]`` counts every launch,
+``FORM_LAUNCHES`` per ("s2_wgrad", form).
 
 ``pad_lo`` is the zero planes below x on D: 1 for the SAME conv, 0 in the
 D-halo mode of the space axis (``parallel/``), where x is a slab of an even
@@ -33,7 +35,7 @@ FORM_LAUNCHES: Dict[Tuple[str, str], int] = collections.Counter()
 HALO_LAUNCHES: Dict[Tuple[str, Tuple[int, int]], int] = collections.Counter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BK = 32            # voxels per stage of the wmma / fma kernel (s2_wgrad.cu)
+_BK = 32            # voxels per stage of the wmma kernel (s2_wgrad.cu)
 _BM, _BN = 128, 64  # its dw tile
 _MIN_STAGES = 4     # least K a split takes, in stages
 _BLOCKS_PER_SM = 4  # blocks to aim for per SM when splitting K
@@ -48,6 +50,16 @@ SEGMENT = 64         # output voxels per segment
 _MIN_SW = 4          # least output voxels per line in a segment
 _MAX_BN = 192        # widest N tile; wider Cout splits into equal tiles
 _MIN_SEGMENTS = 2    # least segments a split takes
+# the tf32x3 form (s2_wgrad_tf32x3.cu): (BN, ring stages) of each
+# instantiation (a warpgroup per kw tap, 64 input channels by BN outputs;
+# two accumulators of BN / 2 registers each bound BN), the input channels
+# per block, its widest N tile
+TF32_CONFIGS = ((32, 2), (64, 2), (96, 2))
+TF32_CHUNK = 64
+_TF32_MAX_BN = 96
+# a block that walks a single segment keeps no f32 total beside its
+# accumulator, which frees the registers for 128 output channels
+TF32_ONE_SEGMENT_CONFIG = (128, 2)
 
 
 class WgmmaPlan(NamedTuple):
@@ -106,7 +118,7 @@ def _check(x: torch.Tensor, g: torch.Tensor, pad_lo: int = 1) -> None:
 
 
 def split_k(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
-    """(splits, voxels per split) of the wmma / fma form for a dw of m x n
+    """(splits, voxels per split) of the wmma form for a dw of m x n
     over k voxels: enough blocks to fill ``sms`` SMs, each split at least
     _MIN_STAGES stages."""
     tiles = -(-m // _BM) * -(-n // _BN)
@@ -115,6 +127,32 @@ def split_k(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
     splits = max(1, min(want, stages // _MIN_STAGES))
     per_split = -(-stages // splits) * _BK
     return -(-k // per_split), per_split
+
+
+def _segment_plan(x_shape, cout, sms, pad_lo, configs, chunk, max_bn) -> WgmmaPlan:
+    """Segments of 64 output voxels, N tiles and splits over ``configs``'
+    (BN, stages) for blocks of three kw taps x ``chunk`` input channels:
+    ``wgmma_plan``'s rule, for the wgmma and the tf32x3 form."""
+    n, d, h, w, cin = x_shape
+    do, ho, wo = (d + pad_lo) // 2, (h + 1) // 2, (w + 1) // 2
+    chunks = -(-cin // chunk)
+    sw = min(SEGMENT, max(_MIN_SW, 1 << max(0, wo - 1).bit_length()))
+    lines = SEGMENT // sw
+    segments = -(-(n * do * ho) // lines) * -(-wo // sw)
+    best = None
+    for n_tiles in range(-(-cout // max_bn), -(-cout // configs[0][0]) + 1):
+        bn, stages = next(c for c in configs if c[0] >= -(-cout // n_tiles))
+        if (n_tiles - 1) * bn >= cout:  # an empty tile
+            continue
+        tiles = 9 * chunks * n_tiles
+        splits = max(1, min(sms // tiles, segments // _MIN_SEGMENTS))
+        filled = tiles * splits if tiles * splits <= sms else 0
+        if best is None or filled > best[0]:
+            best = (filled, bn, stages, n_tiles, splits)
+    _, bn, stages, n_tiles, splits = best
+    per_split = -(-segments // splits)
+    return WgmmaPlan(bn, stages, n_tiles, chunks, sw, lines, segments,
+                     -(-segments // per_split), per_split)
 
 
 @functools.lru_cache(maxsize=256)
@@ -131,32 +169,28 @@ def wgmma_plan(x_shape: Tuple[int, ...], cout: int, sms: int, pad_lo: int = 1) -
     channel); at the deep sites, whose few segments cannot fill the card,
     narrower tiles. Cached: a training step asks for the same few shapes
     every step. ``pad_lo`` as ``s2_wgrad``'s."""
-    n, d, h, w, cin = x_shape
-    do, ho, wo = (d + pad_lo) // 2, (h + 1) // 2, (w + 1) // 2
-    chunks = -(-cin // CHUNK)
-    sw = min(SEGMENT, max(_MIN_SW, 1 << max(0, wo - 1).bit_length()))
-    lines = SEGMENT // sw
-    segments = -(-(n * do * ho) // lines) * -(-wo // sw)
-    best = None
-    for n_tiles in range(-(-cout // _MAX_BN), -(-cout // WGMMA_CONFIGS[0][0]) + 1):
-        bn, stages = next(c for c in WGMMA_CONFIGS if c[0] >= -(-cout // n_tiles))
-        if (n_tiles - 1) * bn >= cout:  # an empty tile
-            continue
-        tiles = 9 * chunks * n_tiles
-        splits = max(1, min(sms // tiles, segments // _MIN_SEGMENTS))
-        filled = tiles * splits if tiles * splits <= sms else 0
-        if best is None or filled > best[0]:
-            best = (filled, bn, stages, n_tiles, splits)
-    _, bn, stages, n_tiles, splits = best
-    per_split = -(-segments // splits)
-    return WgmmaPlan(bn, stages, n_tiles, chunks, sw, lines, segments,
-                     -(-segments // per_split), per_split)
+    return _segment_plan(x_shape, cout, sms, pad_lo, WGMMA_CONFIGS, CHUNK, _MAX_BN)
+
+
+@functools.lru_cache(maxsize=256)
+def tf32_plan(x_shape: Tuple[int, ...], cout: int, sms: int, pad_lo: int = 1) -> WgmmaPlan:
+    """The tf32x3 form's tiling: ``wgmma_plan``'s segments, N tiles and
+    splits, with N tiles of 32, 64 or 96 output channels
+    (``TF32_CONFIGS``), and of 128 where all the output voxels fit one
+    segment (``TF32_ONE_SEGMENT_CONFIG``: the 8^3 site's 384 outputs in 3
+    tiles, one wave of blocks)."""
+    plan = _segment_plan(x_shape, cout, sms, pad_lo, TF32_CONFIGS, TF32_CHUNK, _TF32_MAX_BN)
+    if plan.segments > 1:
+        return plan
+    return _segment_plan(x_shape, cout, sms, pad_lo, TF32_CONFIGS + (TF32_ONE_SEGMENT_CONFIG,),
+                         TF32_CHUNK, TF32_ONE_SEGMENT_CONFIG[0])
 
 
 def kernel_form(x: torch.Tensor, g: torch.Tensor) -> str:
-    """The CUDA form a call takes: ``wgmma``, ``wmma`` or ``fma``."""
+    """The CUDA form a call takes: ``wgmma`` or ``wmma`` (bf16), ``tf32x3``
+    (f32)."""
     if x.dtype == torch.float32:
-        return "fma"
+        return "tf32x3"
     aligned = x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
     return "wgmma" if x.shape[4] % 8 == 0 and g.shape[4] % 8 == 0 and aligned else "wmma"
 
@@ -172,8 +206,8 @@ def _launch(x: torch.Tensor, g: torch.Tensor, pad_lo: int = 1) -> torch.Tensor:
     m = 27 * cin
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     form = kernel_form(x, g)
-    if form == "wgmma":
-        plan = wgmma_plan(tuple(x.shape), cout, sms, pad_lo)
+    if form != "wmma":
+        plan = (wgmma_plan if form == "wgmma" else tf32_plan)(tuple(x.shape), cout, sms, pad_lo)
         splits = plan.splits
     else:
         splits, per_split = split_k(m, cout, n * do * ho * wo, sms)
@@ -190,10 +224,15 @@ def _launch(x: torch.Tensor, g: torch.Tensor, pad_lo: int = 1) -> torch.Tensor:
                 dw.data_ptr(), n, d, h, w, cin, do, ho, wo, cout, plan.n_tiles,
                 plan.chunks, plan.sw, plan.segments, plan.splits, plan.per_split, pad_lo,
                 stream)
+        elif form == "tf32x3":
+            err = lib.unet3d_s2_wgrad_tf32x3(
+                plan.bn, x.data_ptr(), g.data_ptr(), part_ptr, dw.data_ptr(), n, d, h, w,
+                cin, do, ho, wo, cout, plan.n_tiles, plan.chunks, plan.sw, plan.segments,
+                plan.splits, plan.per_split, pad_lo, stream)
         else:
             err = lib.unet3d_s2_wgrad_ndhwc(
-                _DTYPES[x.dtype], x.data_ptr(), g.data_ptr(), part_ptr, dw.data_ptr(),
-                n, d, h, w, cin, do, ho, wo, cout, splits, per_split, pad_lo, stream)
+                x.data_ptr(), g.data_ptr(), part_ptr, dw.data_ptr(), n, d, h, w, cin, do, ho,
+                wo, cout, splits, per_split, pad_lo, stream)
     if err != 0:
         raise RuntimeError(f"s2_wgrad ({form}) launch failed: "
                            f"{lib.unet3d_cuda_error_string(err).decode()}")

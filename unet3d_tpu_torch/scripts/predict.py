@@ -32,7 +32,7 @@ import argparse
 import dataclasses
 import logging
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -108,6 +108,27 @@ def predict_plan(config, system_config, device) -> Optional[launch.Plan]:
                         "rank its own cases (JAX's CLI shards each case's depth)", name,
                         run_plan.mesh)
     return run_plan
+
+
+def train_predict_layout(name: str, spec, world: int) -> Dict[str, int]:
+    """The mesh the train CLI predicts on after training on ``world`` ranks
+    under the mesh ``spec`` (None: ``--ngpus`` alone), as JAX's train CLI
+    re-lays its devices: whole-case prediction runs batch 1 per case, so a
+    net with a space form predicts on ``{"space": world}``, each case's depth
+    sharded, unless the spec names no ``space`` axis (an explicit data-only
+    mesh), which keeps its layout. A net without a space form keeps the data
+    layout, with a log line where JAX's CLI would shard the depth."""
+    spec = parse_mesh_spec(spec) if spec is not None else None
+    train = spec or {"data": world}
+    if spec is not None and "space" not in spec:
+        return train
+    model_class = MODEL_REGISTRY.get(name)
+    if model_class is not None and has_space_form(model_class):
+        return {"space": world}
+    if distributed.process_index() == 0:
+        logging.warning("%s has no form for the 'space' mesh axis: predicting on %s, each "
+                        "rank its own cases (JAX's CLI shards each case's depth)", name, train)
+    return train
 
 
 def run_inference(config, output_directory, model_filename, group, activation,

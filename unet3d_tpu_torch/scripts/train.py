@@ -28,8 +28,12 @@ data-parallel, as the JAX CLI's ``data`` axis does: the same command starts
 N processes, one per GPU over NCCL (gloo processes on the CPU under
 ``device="cpu"``; N is clamped to the visible GPUs), each taking its share
 of every batch, with the JAX sharded step's global-batch semantics
-(``parallel/mesh.py``); rank 0 writes the log and checkpoints, and each
-rank predicts its share of the cases. ``--mesh data2,space2`` (any data x
+(``parallel/mesh.py``); rank 0 writes the log and checkpoints. Then, as the
+JAX CLI does, the ranks predict on ``{"space": N}``, each case's depth
+sharded (DynUNet and UNet3D), unless the mesh spec names no ``space`` axis
+(``--mesh dataN``), where each rank predicts its share of the cases; a net
+without a space form keeps that data layout, with a log line
+(``scripts/predict.train_predict_layout``). ``--mesh data2,space2`` (any data x
 space grid) also splits each volume's D planes over the space axis: the
 ranks of a space line take the same items and each its D slab
 (DynUNet and UNet3D only; another net raises). Under ``torchrun`` each
@@ -72,6 +76,7 @@ from unet3d_tpu_torch.parallel.mesh import (check_space_form, make_mesh,
                                             make_sharded_eval_step, make_sharded_train_step,
                                             replicate_state, sharded_gradients)
 from unet3d_tpu_torch.predict.volumetric import volumetric_predictions
+from unet3d_tpu_torch.scripts.predict import train_predict_layout
 from unet3d_tpu_torch.train.optim import get_learning_rate
 from unet3d_tpu_torch.train.step import (accumulate_gradients, make_eval_step,
                                          make_train_step, noise_generator,
@@ -225,7 +230,7 @@ def _train_rank(config_filename, output_dir, namespace):
     result = run(config_filename, output_dir, namespace, device=distributed.rank_device())
     if not isinstance(result, dict) or "work_dir" not in result:
         return result
-    return {"work_dir": result["work_dir"], "predictions": result["predictions"]}
+    return {k: result[k] for k in ("work_dir", "predictions", "predict_mesh")}
 
 
 def _grad_accum(config) -> int:
@@ -298,6 +303,7 @@ def run(config_filename, output_dir, namespace, device=None):
             return ranks[0]
         return {"work_dir": ranks[0]["work_dir"],
                 "world_size": math.prod(run_plan.mesh.values()),
+                "predict_mesh": ranks[0]["predict_mesh"],
                 "predictions": {k: launch.interleave([r["predictions"][k] for r in ranks])
                                 for k in ranks[0]["predictions"]}}
     mesh = make_mesh(run_plan.mesh) if run_plan is not None else None
@@ -383,6 +389,12 @@ def run(config_filename, output_dir, namespace, device=None):
                                                 training, 1),
         save_optimizer=bool(in_config("save_optimizer", training, False)))
 
+    predict_mesh = mesh
+    if mesh is not None:
+        layout = train_predict_layout(config["model"]["name"], system_config.get("mesh"),
+                                      mesh.world)
+        if (layout.get("data", 1), layout.get("space", 1)) != (mesh.size, mesh.space):
+            predict_mesh = make_mesh(layout)
     predictions = {}
     for _loader, _name in build_inference_loaders_from_config(
             config, dataset_class=dataset_class, system_config=system_config):
@@ -391,9 +403,10 @@ def run(config_filename, output_dir, namespace, device=None):
             activation=get_activation_from_config(config),
             resample=in_config("resample", config["dataset"], False), inferer=inferer,
             amp=bool(in_config("amp", config.get("inference", {}), amp)),
-            interpolation="trilinear", mesh=mesh)
+            interpolation="trilinear", mesh=predict_mesh)
     return {"work_dir": work_dir, "model": model, "training_loader": training_loader,
-            "validation_loader": validation_loader, "predictions": predictions}
+            "validation_loader": validation_loader, "predictions": predictions,
+            "predict_mesh": dict(predict_mesh.shape) if predict_mesh is not None else None}
 
 
 def main(args=None, device=None):

@@ -24,8 +24,10 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    version (the same bounds as the direct kernels) and the direct conv's
    (2e-2 in bf16: the input transform rounds twice; 1e-4 in f32), each call's
    form printed (every bf16 one takes the wgmma form, ``winograd_wgmma.cu``,
-   or the smoke fails), each bf16 case timed against the direct hand kernel
-   and cuDNN. Every bf16 time
+   every f32 one the tf32x3 form, ``winograd_tf32x3.cu``, or the smoke
+   fails), each case timed against the direct hand kernel and cuDNN, the f32
+   rows beside both bounds, and the f32 form at ragged channel counts and a
+   misaligned x. Every bf16 time
    is a device time (the calls queued behind a device-side sleep, so the
    host's time to issue them is not counted), printed beside the plain
    composition's, one PyTorch call's where one
@@ -46,7 +48,12 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    Cout 1, 3, 4, 12, 70, with x at an odd element offset, and in the D-halo
    modes (0, 1), (1, 0), (2, 1), (1, 2), each call's form checked, within
    the bf16 and statistics bounds above (its timed sites are phases 10, 11
-   and 14's);
+   and 14's); the narrow form of ``s2_wgrad`` (``s2_wgrad.cu``: bf16 calls
+   with Cin or Cout no multiple of 8 or an operand off 16-byte alignment) at
+   batch 2 of a ragged volume for Cin 1, 3, 4, 12 x Cout 1, 4, 16, 17, with x
+   one element off alignment and in the D-halo mode (pad_lo 0), each call's
+   form checked, two calls equal to the bit, within 1e-4, and timed at x
+   128^3 4 -> 16 and 4 -> 4 beside cuDNN's dw and its bytes bound;
 3. the slice: the BraTS DynUNet of ``examples/brats2020/brats2020_config.json``
    (seeded random weights, no trained checkpoint in the repo), its sliding-
    window inferer and sigmoid, answering two requests through
@@ -95,8 +102,10 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
 7. one bf16 train step under UNET3D_TPU_CONV=winograd: the launch counts of
    one step (``winograd`` as the input gradient of the three 64^3 sites) and
    its launches by form, checked as in phase 5,
-   its gradients against the plain path within the phase-5 bounds, and its
-   time beside the default routing's (default, winograd, winograd, default);
+   its gradients against the plain path within the phase-5 bounds (the f32
+   gradients launch ``winograd`` and ``winograd_stats`` in the tf32x3 form
+   alone, or the smoke fails), and its time beside the default routing's
+   (default, winograd, winograd, default), in bf16 AMP and in f32;
 8. the train CLI: four labelled synthetic BraTS-grid cases (phase 6's
    modalities plus a ``seg`` with labels 1, 2 and 4) under
    ``build/chip_smoke_train/`` and a copy of the BraTS config that differs
@@ -158,7 +167,9 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    against the same computation with TF32 off by the caller within
    relative L2 1e-5 (the port's f32 policy), and the kernels' f32
    gradients against the f64 plain path no more than 1e-5 farther than
-   the plain f32 path's own; (c) the
+   the plain f32 path's own, on a fresh model's seeded initial weights
+   (the steps before add by atomics: their weights differ run to run);
+   (c) the
    train CLI on phase 8's cases and folds (fold 1, 2 epochs) with that
    model: finite losses, the checkpoint reloads strictly and equal, the
    bratsvalidation prediction on the source grid in [0, 1], launches by
@@ -227,7 +238,7 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    conv kernel at the registration nets' new sites (an extraction head 16
    -> 3 @128^3 and its input gradient 3 -> 16, both in the narrow form;
    LocalNet's 16 -> 16 @128^3) and ``s2_wgrad`` at RegUNet's pool_conv_0
-   (16 -> 16) and the AutoEncoder's first stride-2 conv (4 -> 4, wmma),
+   (16 -> 16) and the AutoEncoder's first stride-2 conv (4 -> 4, narrow),
    against their plain versions, timed as in phase 2; (b) LocalNet,
    RegUNet (stride-2 encoder, concatenated skips, levels 0 and 3),
    GlobalNet, AutoEncoder, VarAutoEncoder, HighResNet and AHNet at full
@@ -309,7 +320,9 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    single-process batch-2 step: the updates within 1e-4 (f32; twice that
    step's own run-to-run spread where it is larger) and 2e-2 (bf16, phase
    5's gradient bound) on each rank, each rank's launches the
-   batch-2 step's, the ranks' bf16 step ms and all-reduce ms; (c)
+   batch-2 step's, the ranks' bf16 step ms and all-reduce ms, every step
+   from the seeded initial weights (each rank's weight digest checked
+   against the reference's); (c)
    SegResNetDS at MONAI's widths on the same two ranks: the running
    statistics after one f32 step within 1e-4 of the single-process step;
    (d) the train CLI with ``--ngpus 2`` on phase 8's cases: clamped to the
@@ -341,6 +354,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import logging
 import os
@@ -365,8 +379,10 @@ RES_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_train_res")
 # "conv_narrow" entry, takes the bf16 calls with channel counts no DynUNet
 # site has, and in f32, the "conv_tf32x3_narrow" entry, the f32 calls that
 # conv3d_tf32x3.cu does not take; s2_wgrad_tf32x3.cu, the "s2_wgrad_tf32x3"
-# entry, every f32 s2_wgrad call; s2_wgrad.cu and winograd.cu keep a bf16
-# WMMA form for other channel counts, winograd.cu the f32 form)
+# entry, every f32 s2_wgrad call; s2_wgrad.cu, the "s2_wgrad_narrow" entry,
+# the bf16 s2_wgrad calls of other channel counts; winograd_tf32x3.cu, the
+# "winograd_tf32x3" and "winograd_stats_tf32x3" entries, every f32 Winograd
+# call; winograd.cu keeps a bf16 WMMA form for other channel counts)
 SOURCES = {
     "conv": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
     "conv_stats": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
@@ -501,6 +517,19 @@ NARROW_SOURCE = "unet3d_tpu_torch/ops/kernels/conv3d_narrow.cu"
 # the f32 form of s2_wgrad, every f32 call (phase 5's f32 step, phase 2's
 # f32 rows)
 S2_TF32X3_SOURCE = "unet3d_tpu_torch/ops/kernels/s2_wgrad_tf32x3.cu"
+# the f32 form of Winograd-DH, every f32 call (phase 7's f32 gradients,
+# phase 2's f32 rows); its ragged cases: (x shape, cin, cout, element offset)
+WINO_TF32X3_SOURCE = "unet3d_tpu_torch/ops/kernels/winograd_tf32x3.cu"
+WINO_TF32_RAGGED = [((1, 6, 10, 40), 5, 7, 0), ((2, 8, 18, 33), 12, 20, 1),
+                    ((1, 4, 6, 70), 17, 50, 3)]
+# the narrow form of s2_wgrad (s2_wgrad.cu): phase 2's cases, every Cin of
+# S2_NARROW_CIN by every Cout of S2_NARROW_COUT at batch 2 of a ragged
+# volume, then x one element off alignment and the D-halo mode's pad_lo 0
+S2_NARROW_SOURCE = "unet3d_tpu_torch/ops/kernels/s2_wgrad.cu"
+S2_NARROW_SHAPE = (2, 13, 21, 30)
+S2_NARROW_CIN, S2_NARROW_COUT = (1, 3, 4, 12), (1, 4, 16, 17)
+S2_NARROW_MISALIGNED = [(4, 16), (3, 4), (12, 17), (16, 16)]
+S2_NARROW_HALO = [(4, 16), (1, 17), (12, 4)]
 NARROW_CONV_AT = "U-Net first conv dx 32->4 @128^3"
 # phase 2's narrow-form cases: every variant at batch 2 of a ragged volume
 # (no side a multiple of the 4 x 8 x 16 brick), Cin x Cout over the form's
@@ -563,7 +592,7 @@ BN_CONV_SHAPES = [
     ("UNet up_0_ru 3->3 @128^3", 128, 3, 3, torch.float32, "tf32x3_narrow"),
 ]
 # (label, spatial of x, cin, cout): s2_wgrad at the new nets' stride-2 convs
-# (UNet's first, 4 -> 16 channels, takes the wmma form of s2_wgrad.cu)
+# (UNet's first, 4 -> 16 channels, takes the narrow form of s2_wgrad.cu)
 BN_S2_SHAPES = [("SegResNetDS down1_downsample 64->128 @64^3", 64, 64, 128),
                 ("SegResNetDS down2_downsample 128->256 @32^3", 32, 128, 256),
                 ("AttentionUnet down1 16->32 @128^3", 128, 16, 32),
@@ -720,7 +749,7 @@ LOCALNET_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_localnet")
 # and its input gradient (the narrow form; the gradient also in f32, the
 # tf32x3_narrow form), LocalNet's level-0 decoder conv;
 # s2_wgrad at RegUNet's pool_conv_0 and the AutoEncoder's first stride-2
-# conv (4 channels: the wmma form)
+# conv (4 channels: the narrow form)
 LAST_CONV_SHAPES = [
     ("RegUNet extract_0 16->3 @128^3", 128, 16, 3, torch.bfloat16, "narrow"),
     ("RegUNet dx of extract_0 3->16 @128^3", 128, 3, 16, torch.bfloat16, "narrow"),
@@ -729,6 +758,10 @@ LAST_CONV_SHAPES = [
 ]
 LAST_S2_SHAPES = [("RegUNet pool_conv_0 x 128^3 16->16", 128, 16, 16),
                   ("AutoEncoder encode_0 x 128^3 4->4", 128, 4, 4)]
+# (label, spatial of x, cin, cout): the bf16 stride-2 weight gradients that
+# take s2_wgrad.cu's narrow form on the nets' paths (4 input channels)
+NARROW_S2_SHAPES = [("UNet down_0 4->16 @128^3", 128, 4, 16),
+                    ("AutoEncoder encode_0 4->4 @128^3", 128, 4, 4)]
 
 # phase 15: the classifiers at the JAX package's (MONAI's and torchvision's)
 # published widths, on the input of MONAI's 3-D classification tutorial
@@ -930,12 +963,13 @@ def conv_bound(variant, s, cin, cout, products=1.0, dtype=torch.bfloat16):
                     conv_bytes(variant, s, cin, cout, torch.finfo(dtype).bits // 8), dtype)
 
 
-def tf32x3_bound(variant, s, cin, cout):
+def tf32x3_bound(variant, s, cin, cout, products=1.0):
     """bound_ms of one f32 3x3x3 conv variant done f32-accurate on the tensor
-    cores, as the tf32x3 form does it: three TF32 products per product at the
-    TF32 peak, or the f32 bytes at the memory rate."""
-    return bound_ms(3 * 2.0 * s ** 3 * 27 * cin * cout, conv_bytes(variant, s, cin, cout, 4),
-                    "tf32")
+    cores, as the tf32x3 forms do it: three TF32 products per product at the
+    TF32 peak, or the f32 bytes at the memory rate (``products``: Winograd-DH's
+    share of the direct conv's)."""
+    return bound_ms(3 * 2.0 * s ** 3 * 27 * cin * cout * products,
+                    conv_bytes(variant, s, cin, cout, 4), "tf32")
 
 
 def library_conv(x, w):
@@ -1383,7 +1417,10 @@ def phase2_narrow(device, gen, dtype=torch.bfloat16) -> dict:
 def phase2_winograd(device, gen, report):
     """Both Winograd variants against their plain Winograd version and the
     direct conv's plain version; each case timed against the direct hand
-    kernel and the plain composition in its dtype (cuDNN, TF32 off in f32)."""
+    kernel and the plain composition in its dtype (cuDNN, TF32 off in f32).
+    Every bf16 call takes the wgmma form, every f32 call the tf32x3 form,
+    whose rows carry the 3xTF32 bound and the f32 CUDA-core one; then the
+    f32 form at ragged channel counts and misaligned x (WINO_TF32_RAGGED)."""
     from unet3d_tpu_torch.ops import conv3d_kernel as K
     from unet3d_tpu_torch.ops import winograd_kernel as W
     kernel = {"winograd": W.winograd3x3x3, "winograd_stats": W.winograd3x3x3_with_stats}
@@ -1403,8 +1440,8 @@ def phase2_winograd(device, gen, report):
                 form = W.kernel_form(x, w)
                 msg = (f"{variant:14s} {label:36s} {str(dtype)[6:]:8s} {form:5s} y rel "
                        f"{rel:.3e}, vs direct {rel_direct:.3e}")
-                check(dtype != torch.bfloat16 or form == "wgmma",
-                      f"{msg}: a bf16 call off the wgmma form")
+                check(form == ("wgmma" if dtype == torch.bfloat16 else "tf32x3"),
+                      f"{msg}: a call off its dtype's form")
                 check(rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
                 check(rel_direct < WINO_DIRECT_BOUNDS[dtype],
                       f"{msg} > {WINO_DIRECT_BOUNDS[dtype]}")
@@ -1416,20 +1453,113 @@ def phase2_winograd(device, gen, report):
                 ms = device_ms(lambda: kernel[variant](x, w))
                 direct_ms = device_ms(lambda: direct_fn(x, w))
                 plain_ms = device_ms(lambda: plain_fast(plain_variant, x, w, None, None))
-                # Winograd-DH issues 48 of the direct conv's 108 products
-                bms, bound_by = conv_bound(variant, s, cin, cout, WINOGRAD_PRODUCTS, dtype)
+                # Winograd-DH issues 48 of the direct conv's 108 products; in
+                # f32 the 3xTF32 bound, and the f32 CUDA-core one beside it
+                if dtype == torch.bfloat16:
+                    bms, bound_by = conv_bound(variant, s, cin, cout, WINOGRAD_PRODUCTS, dtype)
+                    f32_bms = None
+                else:
+                    bms, bound_by = tf32x3_bound(variant, s, cin, cout, WINOGRAD_PRODUCTS)
+                    f32_bms, _ = conv_bound(variant, s, cin, cout, WINOGRAD_PRODUCTS, dtype)
                 msg += (f" | kernel {ms:.3f} ms, direct kernel {direct_ms:.3f} ms, "
                         f"cuDNN{' (TF32 off)' * (dtype == torch.float32)} {plain_ms:.3f} ms, "
-                        f"bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
-                if dtype == torch.bfloat16 and si == TIMED_AT[variant]:
-                    report[variant] = dict(
+                        + (f"f32 bound {f32_bms:.3f} ms, 3xTF32 " if f32_bms else "")
+                        + f"bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
+                if si == TIMED_AT[variant]:
+                    name = variant if dtype == torch.bfloat16 else f"{variant}_tf32x3"
+                    report[name] = dict(
                         ms=ms, plain_ms=plain_ms, direct_ms=direct_ms, shape=label,
                         bound_ms=bms, bound_by=bound_by,
                         library_ms=plain_ms if variant == "winograd" else None,
                         max_abs_err=(got_y.float() - want.float()).abs().max().item())
+                    if f32_bms is not None:
+                        report[name]["f32_bound_ms"] = f32_bms
                 print(msg, flush=True)
             del x, w, want, want_direct
+    for x_shape, cin, cout, offset in WINO_TF32_RAGGED:
+        x = torch.randn(*x_shape, cin, device=device, generator=gen)
+        if offset:
+            store = torch.empty(offset + x.numel(), device=device)
+            x = store[offset:].view(x.shape).copy_(x)
+        w = torch.randn(3, 3, 3, cin, cout, device=device, generator=gen) / (27 * cin) ** 0.5
+        # the plain version on an aligned copy (cuDNN faults on a misaligned f32 x)
+        want = W.winograd_reference(x.clone(), w)
+        y = W.winograd3x3x3(x, w)
+        ys, s1, s2 = W.winograd3x3x3_with_stats(x, w)
+        torch.cuda.synchronize()
+        rel, form = max(rel_max(y, want), rel_max(ys, want)), W.kernel_form(x, w)
+        s_err = stats_err(ys, s1, s2)
+        msg = (f"winograd f32 {x_shape} {cin}->{cout} offset {offset}: form {form}, y rel "
+               f"{rel:.3e}, stats rel {s_err:.3e}")
+        print(msg, flush=True)
+        check(form == "tf32x3", f"{msg}: form")
+        check(rel < BOUNDS[torch.float32], f"{msg} > {BOUNDS[torch.float32]}")
+        check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
+        del x, w, want, y, ys
     torch.cuda.empty_cache()
+
+
+def phase2_s2_narrow(device, gen) -> dict:
+    """s2_wgrad's narrow form (s2_wgrad.cu) against its plain version, every
+    call's form checked: S2_NARROW_CIN x S2_NARROW_COUT at batch 2 of
+    S2_NARROW_SHAPE, x one element off alignment (S2_NARROW_MISALIGNED), the
+    D-halo mode's pad_lo 0 (S2_NARROW_HALO), each within S2_BOUND; two calls
+    agree to the bit (the fixed-order split-K sum). Then the
+    NARROW_S2_SHAPES sites timed against cuDNN's dw and the bound. Returns
+    the largest error, the case count and the timed rows."""
+    from unet3d_tpu_torch.ops import s2_wgrad_kernel as W
+    cases = [(cin, cout, 0, 1) for cin in S2_NARROW_CIN for cout in S2_NARROW_COUT]
+    cases += [(cin, cout, 1, 1) for cin, cout in S2_NARROW_MISALIGNED]
+    cases += [(cin, cout, 0, 0) for cin, cout in S2_NARROW_HALO]
+    n, d, h, wd = S2_NARROW_SHAPE
+    worst = 0.0
+    for cin, cout, offset, pad_lo in cases:
+        x = torch.randn(*S2_NARROW_SHAPE, cin, device=device, generator=gen).bfloat16()
+        if offset:
+            store = torch.empty(offset + x.numel(), dtype=x.dtype, device=device)
+            x = store[offset:].view(x.shape).copy_(x)
+        g = torch.randn(n, (d + pad_lo) // 2, (h + 1) // 2, (wd + 1) // 2, cout, device=device,
+                        generator=gen).bfloat16()
+        got, again = W.s2_wgrad(x, g, pad_lo), W.s2_wgrad(x, g, pad_lo)
+        want = W.s2_wgrad_reference(x, g, pad_lo)
+        torch.cuda.synchronize()
+        rel, form = rel_max(got, want), W.kernel_form(x, g)
+        msg = (f"s2_wgrad narrow {S2_NARROW_SHAPE} {cin:2d}->{cout:2d} offset {offset} pad_lo "
+               f"{pad_lo}: form {form}, rel {rel:.3e}")
+        print(msg, flush=True)
+        check(form == "narrow", f"{msg}: form")
+        check(rel < S2_BOUND, f"{msg} > {S2_BOUND}")
+        check(torch.equal(got, again), f"{msg}: two calls differ")
+        worst = max(worst, rel)
+        del x, g, got, again, want
+    rows = []
+    for label, s, cin, cout in NARROW_S2_SHAPES:
+        x = torch.randn(1, s, s, s, cin, device=device, generator=gen).bfloat16()
+        g = torch.randn(1, s // 2, s // 2, s // 2, cout, device=device,
+                        generator=gen).bfloat16()
+        got, want = W.s2_wgrad(x, g), W.s2_wgrad_reference(x, g)
+        torch.cuda.synchronize()
+        rel, form = rel_max(got, want), W.kernel_form(x, g)
+        xn, gn = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+        ms = device_ms(lambda: W.s2_wgrad(x, g))
+        cudnn_ms = device_ms(lambda: torch.nn.grad.conv3d_weight(
+            xn, (cout, cin, 3, 3, 3), gn, stride=2, padding=1))
+        plain_ms = device_ms(lambda: W.s2_wgrad_reference(x, g))
+        half = (s // 2) ** 3
+        bms, bound_by = bound_ms(2.0 * half * 27 * cin * cout,
+                                 2 * (s ** 3 * cin + half * cout) + 4 * 27 * cin * cout)
+        msg = (f"s2_wgrad    {label:36s} bfloat16 {form:6s} rel {rel:.3e} | kernel {ms:.3f} ms, "
+               f"cuDNN dw {cudnn_ms:.3f} ms, plain (f32 cuDNN) {plain_ms:.3f} ms, bound "
+               f"{bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
+        print(msg, flush=True)
+        check(form == "narrow", f"{msg}: form")
+        check(rel < S2_BOUND, f"{msg} > {S2_BOUND}")
+        rows.append(dict(name="s2_wgrad_narrow", shape=label, dtype="bfloat16", form=form,
+                         ms=ms, plain_ms=plain_ms, library_ms=cudnn_ms, bound_ms=bms,
+                         bound_by=bound_by, max_abs_err=(got - want).abs().max().item()))
+        del x, g, got, want
+    torch.cuda.empty_cache()
+    return dict(worst_rel=worst, cases=len(cases), rows=rows)
 
 
 def plain_block(block, x):
@@ -1925,12 +2055,22 @@ def phase7_strategy_step(device, seed, card):
         for name, dt_amp, bound in (("f32", False, GRAD_BOUND_F32),
                                     ("bf16", True, GRAD_BOUND_BF16)):
             x, y = prepare_batch(images, labels, device, dt_amp)
+            reset_launches()
             rel, worst, worst_name = grad_rel_l2(model, criterion, x, y, dt_amp)
+            torch.cuda.synchronize()
             grads[name] = rel
             msg = (f"gradients {name} under the strategy, kernels vs plain path: rel L2 "
                    f"{rel:.3e}; worst tensor {worst_name} {worst:.3e}")
             print(msg, flush=True)
             check(rel < bound, f"{msg} > {bound}")
+            if name == "f32":  # every f32 Winograd call in the tf32x3 form
+                f32_forms = {k: n for k, n in form_launches().items()
+                             if k[0] in STRATEGY_KERNELS}
+                print(f"f32 gradients under the strategy: Winograd launches by form "
+                      f"{f32_forms}", flush=True)
+                check(set(f32_forms) == {(k, "tf32x3") for k in STRATEGY_KERNELS},
+                      f"f32 gradients under the strategy: Winograd forms {f32_forms}, "
+                      "expected winograd and winograd_stats in the tf32x3 form")
             del x, y
     torch.cuda.empty_cache()
     times = {"default": [], "winograd": []}
@@ -1941,8 +2081,19 @@ def phase7_strategy_step(device, seed, card):
                                         images, labels))
     print(f"train step (amp {amp}) batch {images.shape}: winograd {times['winograd']} ms, "
           f"default {times['default']} ms [{card}]", flush=True)
+    f32_times = {"default": [], "winograd": []}
+    for which in ("default", "winograd", "winograd", "default"):
+        with conv_strategy(None if which == "default" else which):
+            opt = torch.optim.Adam(model.parameters(), lr=1e-6)
+            f32_times[which].append(step_ms(make_train_step(model, criterion, opt, amp=False),
+                                            images, labels))
+    print(f"f32 train step batch {images.shape}: winograd {f32_times['winograd']} ms, "
+          f"default {f32_times['default']} ms [{card}]", flush=True)
+    torch.cuda.empty_cache()
     return launches, dict(step_ms={k: sum(v) / len(v) for k, v in times.items()},
-                          grad_rel_l2=grads)
+                          f32_step_ms={k: sum(v) / len(v) for k, v in f32_times.items()},
+                          grad_rel_l2=grads,
+                          f32_forms={f"{k}/{f}": n for (k, f), n in f32_forms.items()})
 
 
 def _mean(values) -> float:
@@ -2556,7 +2707,7 @@ def phase10_kernels(device, gen, conv_shapes=FAMILY_CONV_SHAPES, s2_shapes=FAMIL
         torch.cuda.synchronize()
         rel = rel_max(got, want)
         msg = f"{label} s2_wgrad {shape_label:28s} bfloat16 {form:5s} rel {rel:.3e}"
-        expected = "wgmma" if cin % 8 == 0 and cout % 8 == 0 else "wmma"
+        expected = "wgmma" if cin % 8 == 0 and cout % 8 == 0 else "narrow"
         check(form == expected, f"{msg}: form, expected {expected}")
         check(rel < S2_BOUND, f"{msg} > {S2_BOUND}")
         xn, gn = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
@@ -2616,6 +2767,16 @@ def family_grads(model, criterion, x, y, amp, seed):
     return grad_gap(got, want, names)
 
 
+def state_digest(model) -> str:
+    """A digest of ``model``'s parameters and buffers, bit for bit: two runs
+    whose digests agree check one weight state."""
+    digest = hashlib.sha256()
+    for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+        digest.update(name.encode())
+        digest.update(t.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
+
+
 def rel_l2_of(got, want) -> float:
     """Relative L2 of tensors ``got`` against ``want``, over all of them."""
     diff = sum(float((a.double() - b.double()).square().sum()) for a, b in zip(got, want))
@@ -2636,7 +2797,9 @@ def default_tf32_flags(model, criterion, images, labels, device, seed):
     the kernels anywhere from 0.6x to 1.9x as far as the plain path
     (tools/f32_grad_spread.py). So the kernels' gradients are held to the
     f64 plain path: no more than F64_EXCESS_BOUND farther from it than the
-    plain f32 path's."""
+    plain f32 path's. The caller gives a model whose weights every run
+    reaches bit for bit (phase 10: the seeded initial weights);
+    ``state_digest`` of them is returned as ``state``."""
     import copy
 
     from unet3d_tpu_torch.ops.conv3d import conv3d
@@ -2677,8 +2840,9 @@ def default_tf32_flags(model, criterion, images, labels, device, seed):
     accuracy = {"kernels_vs_plain": rel_l2_of(got["kernels"], want["plain"]),
                 "kernels_vs_f64": rel_l2_of(got["kernels"], f64),
                 "plain_vs_f64": rel_l2_of(want["plain"], f64)}
+    state = state_digest(model)
     print(f"torch's default TF32 flags: f32 paths vs themselves with TF32 off, rel L2 {out}; "
-          f"f32 step gradients {accuracy}", flush=True)
+          f"f32 step gradients {accuracy}; weights {state}", flush=True)
     for name, rel in out.items():
         check(rel < TF32_FLAGS_BOUND, f"default TF32 flags: {name} rel L2 {rel:.3e} > "
               f"{TF32_FLAGS_BOUND}")
@@ -2687,7 +2851,7 @@ def default_tf32_flags(model, criterion, images, labels, device, seed):
           f"f32 step gradients: the kernels {accuracy['kernels_vs_f64']:.3e} from f64, the "
           f"plain path {accuracy['plain_vs_f64']:.3e}: {excess:.3e} farther > "
           f"{F64_EXCESS_BOUND}")
-    return dict(out, **accuracy)
+    return dict(out, **accuracy, state=state)
 
 
 def window_check(model, window, use_test=False):
@@ -2789,8 +2953,13 @@ def phase10_segresnet(device, seed, card):
         print(msg, flush=True)
         check(grel < bound, f"{msg} > {bound}")
         del x, y
-    # torch's default TF32 flags
-    tf32_flags = default_tf32_flags(model, criterion, images, labels, device, seed)
+    # torch's default TF32 flags, on the seeded initial weights of a fresh
+    # model: the steps above add by atomics (the kernels' f32 statistics, the
+    # trilinear upsample's backward), so the weights they leave differ from
+    # run to run, and with them both f32 paths' distance from f64
+    fresh = build_or_load_model_from_config(config, None, device, seed=seed)
+    tf32_flags = default_tf32_flags(fresh, criterion, images, labels, device, seed)
+    del fresh
     torch.cuda.empty_cache()
     step_times, peaks = {"plain": [], "kernels": []}, {}
     for which in ("plain", "kernels", "kernels", "plain"):
@@ -3112,12 +3281,12 @@ def check_bn_forms(where: str, narrow: bool = False, f32: bool = False) -> None:
     """The BatchNorm nets' launches: every bf16 conv and s2_wgrad in the
     wgmma form, and, where ``narrow`` allows it (UNet: its last up unit maps
     3 channels to 3, its first conv takes 4 input channels), the conv's
-    narrow form and s2_wgrad's wmma form; with ``f32`` also the f32 forms
+    narrow form and s2_wgrad's narrow form; with ``f32`` also the f32 forms
     (the conv's tf32x3 and s2_wgrad's tf32x3, and, for those channel counts,
     the conv's tf32x3_narrow)."""
     allowed = {("conv", "wgmma"), ("s2_wgrad", "wgmma")}
     if narrow:
-        allowed |= {("conv", "narrow"), ("s2_wgrad", "wmma")}
+        allowed |= {("conv", "narrow"), ("s2_wgrad", "narrow")}
     if f32:
         allowed |= {("conv", "tf32x3"), ("s2_wgrad", "tf32x3")}
     if narrow and f32:
@@ -3900,7 +4069,7 @@ def bf16_conv_form(cin: int, cout: int) -> str:
 
 
 def bf16_s2_form(cin: int, cout: int) -> str:
-    return "wgmma" if cin % 8 == 0 and cout % 8 == 0 else "wmma"
+    return "wgmma" if cin % 8 == 0 and cout % 8 == 0 else "narrow"
 
 
 def expected_forms(calls) -> dict:
@@ -4428,7 +4597,7 @@ def phase15_net(index, name, model_cfg, device, seed, card):
         # take no input gradient: no count to predict but that both run
         check(step_launches["conv"] > 0 and step_launches["s2_wgrad"] > 0, f"{msg}: kernels")
         check_allowed_forms(f"{name} train step", bf16_allowed | {("s2_wgrad", "wgmma"),
-                                                                  ("s2_wgrad", "wmma")})
+                                                                  ("s2_wgrad", "narrow")})
     else:
         check(not any(step_launches.values()), f"{msg}: a hand kernel was launched")
     objective = classifier_objective(criterion, gs)
@@ -5100,7 +5269,8 @@ def phase17_rank(path, seed):
     mesh = make_mesh()
     images, labels = ref["images"], ref["labels"]
     model, criterion = dp_model(None, device, seed)
-    out = {"rank": mesh.rank, "items": shard_batch(torch.arange(DP_BATCH), mesh).tolist()}
+    out = {"rank": mesh.rank, "items": shard_batch(torch.arange(DP_BATCH), mesh).tolist(),
+           "state": state_digest(model)}
     for name, amp in (("f32", False), ("bf16", True)):
         run = dp_update(model, criterion, images, labels, amp, mesh)
         out[name] = dict_gap(run["updates"], {k[len(name) + 1:]: v for k, v in ref.items()
@@ -5119,12 +5289,18 @@ def phase17_rank(path, seed):
 
 def phase17_two_ranks(device, seed, card) -> tuple:
     """(b) and (c): the single-process batch-2 references here, then two
-    ranks sharing the card over gloo (``phase17_rank``)."""
+    ranks sharing the card over gloo (``phase17_rank``). Every step starts
+    from the seeded initial weights (``dp_update`` puts them back), which
+    every run reaches bit for bit: the ranks' ``state_digest`` is checked
+    against the reference's. The f32 updates still vary from run to run with
+    the step's own atomics (the kernels' f32 statistics), which the bound's
+    spread term measures."""
     from unet3d_tpu_torch.parallel import launch
 
     images, labels = dp_batch(seed)
     ref = {"images": images, "labels": labels}
     model, criterion = dp_model(None, device, seed)
+    state = state_digest(model)  # the seeded initial weights, the same every run
     plain = {}
     for name, amp in (("f32", False), ("bf16", True)):
         plain[name] = dp_update(model, criterion, images, labels, amp)
@@ -5155,8 +5331,10 @@ def phase17_two_ranks(device, seed, card) -> tuple:
               f"{r['items']}: updates vs the batch-{DP_BATCH} step rel L2 f32 {r['f32']:.3e} "
               f"bf16 {r['bf16']:.3e}; SegResNetDS running statistics (f32) {r['stats']:.3e}; "
               f"launches {r['launches_bf16']}; bf16 step {r['step_ms']:.1f} ms (two processes "
-              f"on one card, not a scaling figure), all-reduce {r['all_reduce_ms']:.1f} ms "
-              f"[{card}]", flush=True)
+              f"on one card, not a scaling figure), all-reduce {r['all_reduce_ms']:.1f} ms; "
+              f"weights {r['state']} [{card}]", flush=True)
+        check(r["state"] == state, f"rank {r['rank']} weights {r['state']} != the "
+              f"reference's {state}")
         for name in ("f32", "bf16"):
             check(r[name] <= bounds[name],
                   f"rank {r['rank']} {name} updates rel L2 {r[name]:.3e} > {bounds[name]:.1e}")
@@ -5169,11 +5347,11 @@ def phase17_two_ranks(device, seed, card) -> tuple:
           f"the ranks' items {[r['items'] for r in ranks]}")
     print(f"data parallel (b, c): the two ranks' run {seconds:.1f} s (spawn, library load, "
           f"steps); the single-process batch-{DP_BATCH} f32 step's run-to-run spread "
-          f"{spread:.3e} (f32 bound {bounds['f32']:.1e}), its bf16 step {plain_ms:.1f} ms "
-          f"[{card}]", flush=True)
+          f"{spread:.3e} (f32 bound {bounds['f32']:.1e}), its bf16 step {plain_ms:.1f} ms; "
+          f"weights {state} [{card}]", flush=True)
     return ranks[0]["launches_bf16"], dict(
         ranks=[{k: v for k, v in r.items() if not k.startswith("launches_")} for r in ranks],
-        plain_f32_run_to_run=spread, plain_step_ms=plain_ms, seconds=seconds)
+        plain_f32_run_to_run=spread, plain_step_ms=plain_ms, seconds=seconds, state=state)
 
 
 def phase17_train_cli(card, cases) -> tuple:
@@ -5573,6 +5751,7 @@ def main() -> int:
     s2_tf32_rows += phase2_s2_tf32x3(device, gen)
     narrow_report = phase2_narrow(device, gen)
     narrow_tf32_report = phase2_narrow(device, gen, torch.float32)
+    s2_narrow_report = phase2_s2_narrow(device, gen)
     phase2_winograd(device, gen, report)
     phase_done(2)
     # phase 3
@@ -5833,6 +6012,32 @@ def main() -> int:
                  "launches": training["f32_step_forms"].get("s2_wgrad/tf32x3", 0),
                  **{k: report["s2_wgrad_tf32x3"][k] for k in keys + ("f32_bound_ms",)},
                  "s2_shapes": s2_tf32_rows}]
+    # Winograd-DH's f32 form (winograd_tf32x3.cu): launches in phase 7's f32
+    # gradients under the strategy, times at the bf16 rows' sites (phase 2);
+    # bound_ms the 3xTF32 bound, f32_bound_ms the f32 CUDA-core one,
+    # library_ms F.conv3d with TF32 off (the conv alone), direct_ms the direct
+    # tf32x3 kernel
+    kernels += [{"name": f"{v}_tf32x3", "route": "cuda", "source": WINO_TF32X3_SOURCE,
+                 "replaces": REPLACES[v],
+                 "launches": strategy["f32_forms"].get(f"{v}/tf32x3", 0),
+                 **{k: report[f"{v}_tf32x3"][k] for k in keys + ("f32_bound_ms",)},
+                 "direct_ms": report[f"{v}_tf32x3"]["direct_ms"]}
+                for v in STRATEGY_KERNELS]
+    # s2_wgrad's narrow form (s2_wgrad.cu): launches in MONAI UNet's bf16
+    # step (phase 11, its 4 -> 16 first stride-2 conv) and in the
+    # AutoEncoder's (phase 14, 4 -> 4); its time at UNet's 4 -> 16 @128^3,
+    # both sites in narrow_shapes, phase 2's ragged, misaligned and D-halo
+    # cases' largest error in ragged_and_halo; plain_ms the plain version
+    # (cuDNN's f32 dw), library_ms cuDNN's bf16 dw
+    s2_narrow = s2_narrow_report["rows"][0]
+    kernels += [{"name": "s2_wgrad_narrow", "route": "cuda", "source": S2_NARROW_SOURCE,
+                 "replaces": REPLACES["s2_wgrad"],
+                 "launches": bn_nets["UNet"]["step_forms"].get("s2_wgrad/narrow", 0),
+                 "launches_autoencoder":
+                     last_nets["AutoEncoder"]["step_forms"].get("s2_wgrad/narrow", 0),
+                 **{k: s2_narrow[k] for k in keys},
+                 "narrow_shapes": s2_narrow_report["rows"],
+                 "ragged_and_halo": {k: s2_narrow_report[k] for k in ("worst_rel", "cases")}}]
     kernels += [{"name": f"{v}_halo", "route": "cuda", "source": SOURCES[v],
                  "replaces": REPLACES[v], "launches": space_halo[v],
                  "launches_by_pads": [{k: n for k, n in r["halo_bf16"].items()

@@ -6,7 +6,7 @@ and AHNet, whose convs are cuDNN's, launching no hand kernel.
 The sites (chip_smoke.py phase 14, here at 32^3): an extraction head 16 ->
 3 and its input gradient 3 -> 16 (the narrow form: 3 channels are no multiple
 of 8 or 4), 16 -> 16 (wgmma), ``s2_wgrad`` at 16 -> 16 (wgmma) and at 4 ->
-4 (the autoencoder's first stride-2 conv: wmma), each in bf16 against the
+4 (the autoencoder's first stride-2 conv: narrow), each in bf16 against the
 plain version (relative max error 1e-2; 1e-4 for s2_wgrad's f32 sums).
 Then small nets at 32^3 (4 input channels), the plain path sending every
 ``FastConv`` through ``F.conv3d``: the eval forward (relative L2 1e-5 in
@@ -41,7 +41,7 @@ from unet3d_tpu_torch.train.step import forward_loss, noise_generator, prepare_b
 S = 32
 # (spatial, cin, cout, form)
 CONV_SITES = [(S, 16, 3, "narrow"), (S, 3, 16, "narrow"), (S, 16, 16, "wgmma")]
-S2_SITES = [(S, 16, 16, "wgmma"), (S, 4, 4, "wmma")]
+S2_SITES = [(S, 16, 16, "wgmma"), (S, 4, 4, "narrow")]
 NETS = {
     "LocalNet": dict(in_channels=4, out_channels=3, num_channel_initial=8, depth=2),
     "RegUNet": dict(in_channels=4, out_channels=3, num_channel_initial=8, depth=2,

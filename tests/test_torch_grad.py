@@ -202,14 +202,17 @@ def test_s2_wgrad_rejects_bad_operands_and_other_devices():
     assert wgrad.LAUNCHES == before
 
 
-@pytest.mark.parametrize("m,n,k,want", [
-    (1728, 96, 262144, 19),   # BraTS level 0: many splits fill the card
-    (6912, 384, 64, 1),       # the bottleneck: the tiles alone fill it
-    (135, 7, 100, 1)])        # tiny: fewer than four stages a split
-def test_split_k_follows_the_shape(m, n, k, want):
-    splits, per_split = wgrad.split_k(m, n, k, 132)
-    assert splits == want
-    assert per_split % 32 == 0 and (splits - 1) * per_split < k <= splits * per_split
+@pytest.mark.parametrize("x_shape,cout,want", [
+    ((1, 128, 128, 128, 4), 16, 373),  # UNet's first stride-2 conv: splits fill the card
+    ((1, 16, 16, 16, 17), 17, 8),      # 16 segments: two a split
+    ((1, 5, 7, 3, 3), 1, 1)])          # tiny: fewer than two segments a split
+def test_split_k_follows_the_shape(x_shape, cout, want):
+    """The split-K rule of the narrow bf16 form (``narrow_plan``): enough
+    splits to give three blocks to each of 132 SMs, each at least two
+    segments, every segment in exactly one split."""
+    plan = wgrad.narrow_plan(x_shape, cout, 132)
+    assert plan.splits == want
+    assert (plan.splits - 1) * plan.per_split < plan.segments <= plan.splits * plan.per_split
 
 
 # --- on the card ---------------------------------------------------------------

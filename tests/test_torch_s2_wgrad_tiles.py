@@ -211,9 +211,9 @@ def test_kernel_form_by_dtype_and_channels():
     assert W.kernel_form(x, g) == "tf32x3"
     assert W.kernel_form(x.bfloat16(), g.bfloat16()) == "wgmma"
     assert W.kernel_form(torch.zeros(1, 4, 4, 4, 5, dtype=torch.bfloat16),
-                         g.bfloat16()) == "wmma"
+                         g.bfloat16()) == "narrow"
     assert W.kernel_form(x.bfloat16(), torch.zeros(1, 2, 2, 2, 12,
-                                                   dtype=torch.bfloat16)) == "wmma"
+                                                   dtype=torch.bfloat16)) == "narrow"
 
 
 def test_cpu_calls_count_no_launch_and_no_form():
@@ -273,5 +273,5 @@ def test_cuda_channels_off_the_wgmma_form_take_wmma(cuda_device):
     W.reset_launches()
     got = W.s2_wgrad(x, g)
     torch.cuda.synchronize()
-    assert dict(W.FORM_LAUNCHES) == {("s2_wgrad", "wmma"): 1}
+    assert dict(W.FORM_LAUNCHES) == {("s2_wgrad", "narrow"): 1}
     assert _rel(got.cpu(), W.s2_wgrad_reference(x, g).cpu()) < F32

@@ -204,7 +204,7 @@ def test_emulated_decomposition_matches_pallas_kernel(dtype):
 
 def test_kernel_form_by_dtype_and_channels():
     x, w = torch.zeros(1, 4, 4, 4, 96), torch.zeros(3, 3, 3, 96, 96)
-    assert W.kernel_form(x, w) == "fma"
+    assert W.kernel_form(x, w) == "tf32x3"
     assert W.kernel_form(x.bfloat16(), w.bfloat16()) == "wgmma"
     assert W.kernel_form(torch.zeros(1, 4, 4, 4, 5, dtype=torch.bfloat16),
                          torch.zeros(3, 3, 3, 5, 96, dtype=torch.bfloat16)) == "wmma"

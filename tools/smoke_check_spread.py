@@ -9,15 +9,19 @@ Each run is one new Python process that measures one check and prints one
 JSON line:
 
 * ``vae``: phase 10's SegResNetVAE f32 step (``chip_smoke.default_tf32_flags``
-  after phase 10's window draw and two bf16 AMP steps from seed 0, as
-  ``tools/f32_grad_spread.py`` reproduces them): the kernels' gradients and
-  the plain path's against the f64 plain path, and the excess that
-  ``F64_EXCESS_BOUND`` holds; then the kernels' step once more in the same
-  process, against the first (the spread within one process).
+  after phase 10's window draw and two bf16 AMP steps from seed 0, on a fresh
+  model's seeded initial weights, as phase 10 checks them): the kernels'
+  gradients and the plain path's against the f64 plain path, and the excess
+  that ``F64_EXCESS_BOUND`` holds; then the kernels' step once more in the
+  same process, against the first (the spread within one process).
 * ``dp``: phase 17's two gloo ranks on the card
   (``chip_smoke.phase17_two_ranks``): each rank's f32 updates against the
   batch-2 step, and the batch-2 f32 step's own run-to-run spread, which set
   the bound ``max(DP_BOUNDS["f32"], 2 * spread)``.
+
+Each run also records ``chip_smoke.state_digest`` of the weights its check
+reads (``state``): where the digests of all the runs agree, every process
+checked one weight state.
 
 For ``vae`` each process also records the cuDNN and cuBLAS kernels (by
 name, from ``torch.profiler``) that one f32 gradient of each path ran, and
@@ -81,6 +85,7 @@ def one_vae(cs) -> dict:
         config, model.parameters()), amp=True, seed=seed)
     for _ in range(2):  # phase 10's warm-up and measured bf16 steps
         step(images, labels)
+    model = build_or_load_model_from_config(config, None, device, seed=seed)  # as phase 10
     out = cs.default_tf32_flags(model, criterion, images, labels, device, seed)
     out["excess"] = out["kernels_vs_f64"] - out["plain_vs_f64"]
     x, y = prepare_batch(images, labels, device, False)
@@ -123,6 +128,7 @@ def one_dp(cs) -> dict:
     cs.phase17_rank = dp_rank
     got = cs.phase17_two_ranks(torch.device("cuda", 0), 0, cs.card_line())[1]
     return {"ranks_f32": [r["f32"] for r in got["ranks"]],
+            "state": got["state"], "rank_states": [r["state"] for r in got["ranks"]],
             "plain_f32_run_to_run": got["plain_f32_run_to_run"],
             "bound": max(cs.DP_BOUNDS["f32"], 2 * got["plain_f32_run_to_run"])}
 
@@ -176,6 +182,9 @@ def main() -> int:
             results[f"{check}/{setting}"] = rows
             keys = (("excess", "kernels_vs_f64", "plain_vs_f64", "kernels_in_process")
                     if check == "vae" else ("ranks_f32", "plain_f32_run_to_run"))
+            states = {r["state"] for r in rows} | {s for r in rows for s in r.get("rank_states", [])}
+            print(f"{check} {setting}: {len(states)} distinct weight states over {len(rows)} "
+                  f"processes: {sorted(states)}", flush=True)
             if check == "vae":  # which library kernels each process chose
                 for path in ("plain", "kernels"):
                     sets = [tuple(r[f"{path}_library_kernels"]) for r in rows]

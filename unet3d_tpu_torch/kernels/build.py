@@ -37,7 +37,8 @@ _PACKAGE = Path(__file__).resolve().parents[1]
 _KERNELS = _PACKAGE / "ops" / "kernels"
 SOURCES = tuple(_KERNELS / name for name in (
     "conv3d_wgmma.cu", "conv3d_narrow.cu", "conv3d_tf32x3.cu", "s2_wgrad.cu",
-    "s2_wgrad_wgmma.cu", "s2_wgrad_tf32x3.cu", "winograd.cu", "winograd_wgmma.cu"))
+    "s2_wgrad_wgmma.cu", "s2_wgrad_tf32x3.cu", "winograd.cu", "winograd_wgmma.cu",
+    "winograd_tf32x3.cu"))
 HEADERS = (_KERNELS / "sm90_wgmma.cuh",)  # included by the sources, hashed with them
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -135,6 +136,8 @@ def _check_wgmma_configs(lib: ctypes.CDLL) -> None:
                    "conv3d_tf32x3.cu CONFIGS")
     _check_configs(lib.unet3d_winograd_wgmma_config, 5, winograd_kernel.WGMMA_CONFIGS,
                    "winograd_wgmma.cu CONFIGS")
+    _check_configs(lib.unet3d_winograd_tf32x3_config, 6, winograd_kernel.TF32_CONFIGS,
+                   "winograd_tf32x3.cu CONFIGS")
 
 
 def load_library() -> ctypes.CDLL:
@@ -164,9 +167,9 @@ def load_library() -> ctypes.CDLL:
             lib.unet3d_conv3x3x3_tf32x3.restype = i
             lib.unet3d_conv3x3x3_tf32x3_config.argtypes = [i, ctypes.POINTER(i)]
             lib.unet3d_conv3x3x3_tf32x3_config.restype = i
-            lib.unet3d_s2_wgrad_ndhwc.argtypes = [
-                p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_longlong, i, p]
-            lib.unet3d_s2_wgrad_ndhwc.restype = i
+            lib.unet3d_s2_wgrad_narrow.argtypes = [
+                i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
+            lib.unet3d_s2_wgrad_narrow.restype = i
             lib.unet3d_s2_wgrad_tf32x3.argtypes = [
                 i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
             lib.unet3d_s2_wgrad_tf32x3.restype = i
@@ -174,13 +177,17 @@ def load_library() -> ctypes.CDLL:
                 i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
             lib.unet3d_s2_wgrad_wgmma.restype = i
             lib.unet3d_winograd3x3x3_ndhwc.argtypes = [
-                i, i, p, p, p, p, i, i, i, i, i, i, i, i, p]
+                i, p, p, p, p, i, i, i, i, i, i, i, i, p]
             lib.unet3d_winograd3x3x3_ndhwc.restype = i
             lib.unet3d_winograd_wgmma.argtypes = [
                 i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
             lib.unet3d_winograd_wgmma.restype = i
             lib.unet3d_winograd_wgmma_config.argtypes = [i, ctypes.POINTER(i)]
             lib.unet3d_winograd_wgmma_config.restype = i
+            lib.unet3d_winograd_tf32x3.argtypes = lib.unet3d_winograd_wgmma.argtypes
+            lib.unet3d_winograd_tf32x3.restype = i
+            lib.unet3d_winograd_tf32x3_config.argtypes = [i, ctypes.POINTER(i)]
+            lib.unet3d_winograd_tf32x3_config.restype = i
             _check_wgmma_configs(lib)
             lib.unet3d_cuda_error_string.argtypes = [i]
             lib.unet3d_cuda_error_string.restype = ctypes.c_char_p

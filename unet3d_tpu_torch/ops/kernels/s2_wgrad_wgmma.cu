@@ -9,8 +9,8 @@
 // neighbour below). Replaces
 // unet3d_tpu/ops/pallas/s2_wgrad_kernel.py:158 (s2_wgrad_pallas, whose
 // pallas_call is at :177) for every bf16 call with Cin and Cout multiples of
-// 8, which is every stride-2 site of the DynUNet; s2_wgrad.cu keeps the f32
-// form and a bf16 WMMA form for other channel counts.
+// 8, which is every stride-2 site of the DynUNet; s2_wgrad.cu's narrow form
+// takes the other bf16 calls, s2_wgrad_tf32x3.cu the f32 ones.
 //
 // What bounds it (inputs read once, the f32 dw written once; 989 TFLOP/s
 // bf16, 3.35 TB/s): at the BraTS level 0 (x 128^3, 64 -> 96) the bytes, 319

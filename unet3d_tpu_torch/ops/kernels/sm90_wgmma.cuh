@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
 // (conv3d_wgmma.cu, conv3d_tf32x3.cu, s2_wgrad_wgmma.cu, s2_wgrad_tf32x3.cu,
-// winograd_wgmma.cu) and conv3d_narrow.cu:
+// winograd_wgmma.cu, winograd_tf32x3.cu), conv3d_narrow.cu and s2_wgrad.cu:
 // cp.async with zero-fill, the async proxy fence, register fences for wgmma
 // operands, ldmatrix, wgmma's fence / commit / wait, shared-memory
 // descriptors in the 128-byte swizzle, m64nNk16 bf16 and m64nNk8 tf32
@@ -353,6 +353,23 @@ template <> struct WgmmaTf32<32> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaTf32<48> {
+  static __device__ __forceinline__ void mma(const uint32_t (&a)[4], uint64_t desc,
+                                             float (&d)[24], int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };

@@ -1,21 +1,22 @@
-// Winograd-DH 3x3x3 stride-1 SAME convolution over NDHWC activations, written
-// for Hopper (sm_90a): Winograd F(2,3) x F(2,3) on the D and H axes and a
-// direct 3-tap W axis. One template, winograd3x3x3_ndhwc<T, STATS>, gives two
-// variants:
+// Winograd-DH 3x3x3 stride-1 SAME convolution over NDHWC bf16 activations,
+// for the bf16 calls the Hopper form (winograd_wgmma.cu) does not take: Cin
+// or Cout not a multiple of 8, or an unaligned x, which no DynUNet site has.
+// Winograd F(2,3) x F(2,3) on the D and H axes and a direct 3-tap W axis.
+// One template, winograd3x3x3_ndhwc<STATS>, gives two variants:
 //
 //   winograd        y = conv(x, w). Replaces
 //                   unet3d_tpu/ops/pallas/winograd_kernel.py
 //                   (_kernel / _winograd_batched, the pallas_call at :229).
 //   winograd_stats  y plus per-(n, cout) f32 sum(y) and sum(y^2) of y as
-//                   rounded to T. Replaces _kernel_with_stats /
+//                   rounded to bf16. Replaces _kernel_with_stats /
 //                   _winograd_batched_stats (the pallas_call at :274).
 //
 // Math. Output rows (2t, 2t+1) in D and (2s, 2s+1) in H of one column come
 // from the 4 x 4 padded input rows 2t..2t+3 x 2s..2s+3. The input is
 // transformed by B^T = [[1,0,-1,0],[0,1,1,0],[0,-1,1,0],[0,1,0,-1]] over D and
-// then over H, rounded to T after each (as the Pallas kernel does in bf16);
+// then over H, rounded to bf16 after each (as the Pallas kernel does);
 // each of the 4 x 4 x 3 (jd, jh, dx) points is one channel contraction with
-// the pre-transformed weight U2 = G w G^T over (dz, dy), (48, Cp, Cop) in T,
+// the pre-transformed weight U2 = G w G^T over (dz, dy), (48, Cp, Cop) in bf16,
 // zero-padded by the caller to BK | Cp and BN | Cop; the inverse transform
 // A^T = [[1,1,1,0],[0,1,-1,-1]] is linear, so each (jd, jh) product of a
 // channel chunk is folded at once, with its sign, into the four (od, oh)
@@ -32,13 +33,12 @@
 // passed four times as halo blocks, a stats block revisited across sequential
 // grid steps) carries over. Any W; D and H even (the caller checks).
 //
-// This file keeps the f32 form (FMA on the CUDA cores, no TF32) and a bf16
-// form for the calls the Hopper form (winograd_wgmma.cu) does not take: Cin
-// or Cout not a multiple of 8, or an unaligned x, which no DynUNet site has.
-// The bf16 form multiplies through WMMA 16x16x16 with f32 accumulation: it
-// stages each channel chunk's input window once and then, for each of the 16
-// (jd, jh) points, transforms it and stages U2's three dx slices through
-// shared memory between barriers, with no overlap of loads and math.
+// This is the one bf16 form not yet redesigned for Hopper (the f32 calls
+// take winograd_tf32x3.cu). It multiplies through WMMA 16x16x16 with f32
+// accumulation: it stages each channel chunk's input window once and then,
+// for each of the 16 (jd, jh) points, transforms it and stages U2's three dx
+// slices through shared memory between barriers, with no overlap of loads
+// and math.
 //
 // Built by nvcc into the port's shared library with a plain C interface
 // (unet3d_tpu_torch/kernels/build.py) and called through ctypes with PyTorch's
@@ -50,7 +50,6 @@
 
 #include <climits>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -63,15 +62,10 @@ constexpr int RAW_H = 2 * BHT + 2;  // input rows of the H window
 constexpr int RAW_W = BW + 2;       // input columns of the W window
 
 // BK: channels per chunk. LDV / LDU: row strides of the transformed input
-// and of the U2 slices in shared memory (bf16 WMMA needs 32-byte aligned
-// fragment rows; the f32 V rows are padded against bank conflicts).
-template <typename T> struct Cfg;
-template <> struct Cfg<__nv_bfloat16> {
-  static constexpr int BK = 16, LDV = 16, LDU = BN + 8;
-};
-template <> struct Cfg<float> {
-  static constexpr int BK = 8, LDV = 9, LDU = BN + 4;
-};
+// and of the U2 slices in shared memory (WMMA needs 32-byte aligned
+// fragment rows).
+constexpr int BK = 16, LDV = 16, LDU = BN + 8;
+using T = __nv_bfloat16;
 
 struct WinoArgs {
   const void* x;   // (N, D, H, W, C)
@@ -82,18 +76,8 @@ struct WinoArgs {
   int vec_x;       // 16-byte loads of x allowed
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+__device__ __forceinline__ float to_float(T v) { return __bfloat162float(v); }
+__device__ __forceinline__ T from_float(float v) { return __float2bfloat16(v); }
 
 // Transform point j of B^T: r[a] + s * r[b]
 __device__ __forceinline__ void bt_row(int j, int& a, int& b, float& s) {
@@ -111,11 +95,9 @@ __device__ __forceinline__ float at_coef(int o, int j) {
   return j == 0 ? 0.f : (j == 1 ? 1.f : -1.f);
 }
 
-template <typename T, bool STATS>
+template <bool STATS>
 __global__ void __launch_bounds__(THREADS) winograd3x3x3_ndhwc(const WinoArgs a) {
   using namespace nvcuda;
-  constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int BK = Cfg<T>::BK, LDV = Cfg<T>::LDV, LDU = Cfg<T>::LDU;
   constexpr int LDC = BN + 4;
   constexpr int G = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int kRawBytes = 4 * RAW_H * RAW_W * BK * sizeof(T);
@@ -150,26 +132,13 @@ __global__ void __launch_bounds__(THREADS) winograd3x3x3_ndhwc(const WinoArgs a)
   const int warp = tid / 32;
   const int wm = warp / 2;            // the warp's H tile: A rows = its BW columns
   const int wn = (warp % 2) * 32;     // the warp's two 16-channel fragments
-  const int tx = tid % 16, ty = tid / 16;  // f32: 4 x 4 outputs per thread
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2][2], part[2];
-  float accf[2][2][4][4];
-  if constexpr (kTensorCores) {
 #pragma unroll
-    for (int od = 0; od < 2; ++od)
+  for (int od = 0; od < 2; ++od)
 #pragma unroll
-      for (int oh = 0; oh < 2; ++oh)
+    for (int oh = 0; oh < 2; ++oh)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[od][oh][j], 0.f);
-  } else {
-#pragma unroll
-    for (int od = 0; od < 2; ++od)
-#pragma unroll
-      for (int oh = 0; oh < 2; ++oh)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) accf[od][oh][i][j] = 0.f;
-  }
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[od][oh][j], 0.f);
 
   const T* xp = static_cast<const T*>(a.x);
   const T* up = static_cast<const T*>(a.u2);
@@ -200,7 +169,7 @@ __global__ void __launch_bounds__(THREADS) winograd3x3x3_ndhwc(const WinoArgs a)
       } else {
 #pragma unroll
         for (int e = 0; e < G; ++e)
-          dst[e] = (in && c + e < a.c) ? xp[base + c + e] : from_float<T>(0.f);
+          dst[e] = (in && c + e < a.c) ? xp[base + c + e] : from_float(0.f);
       }
     }
     __syncthreads();
@@ -218,13 +187,13 @@ __global__ void __launch_bounds__(THREADS) winograd3x3x3_ndhwc(const WinoArgs a)
           const int k = e % BK, wr = (e / BK) % RAW_W, t = e / (BK * RAW_W);
           const int h1 = 2 * t + ha, h2 = 2 * t + hb;
           const T* col = raw + wr * BK + k;
-          const float v1 = to_float(from_float<T>(
+          const float v1 = to_float(from_float(
               to_float(col[(da * RAW_H + h1) * RAW_W * BK]) +
               ds * to_float(col[(db * RAW_H + h1) * RAW_W * BK])));
-          const float v2 = to_float(from_float<T>(
+          const float v2 = to_float(from_float(
               to_float(col[(da * RAW_H + h2) * RAW_W * BK]) +
               ds * to_float(col[(db * RAW_H + h2) * RAW_W * BK])));
-          Vs[(t * RAW_W + wr) * LDV + k] = from_float<T>(v1 + hs * v2);
+          Vs[(t * RAW_W + wr) * LDV + k] = from_float(v1 + hs * v2);
         }
         // U2 rows (jd, jh, dx = 0..2) of this channel chunk and channel tile
         const long long u_row = static_cast<long long>((jd * 4 + jh) * 3) * a.cp + c0;
@@ -238,75 +207,34 @@ __global__ void __launch_bounds__(THREADS) winograd3x3x3_ndhwc(const WinoArgs a)
         }
         __syncthreads();
 
-        if constexpr (kTensorCores) {
-          wmma::fill_fragment(part[0], 0.f);
-          wmma::fill_fragment(part[1], 0.f);
+        wmma::fill_fragment(part[0], 0.f);
+        wmma::fill_fragment(part[1], 0.f);
 #pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> fa;
-            wmma::load_matrix_sync(fa, Vs + (wm * RAW_W + dx) * LDV, LDV);
+        for (int dx = 0; dx < 3; ++dx) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                         wmma::row_major> fa;
+          wmma::load_matrix_sync(fa, Vs + (wm * RAW_W + dx) * LDV, LDV);
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major> fb;
-              wmma::load_matrix_sync(fb, Us + dx * BK * LDU + wn + j * 16, LDU);
-              wmma::mma_sync(part[j], fa, fb, part[j]);
-            }
+          for (int j = 0; j < 2; ++j) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                           wmma::row_major> fb;
+            wmma::load_matrix_sync(fb, Us + dx * BK * LDU + wn + j * 16, LDU);
+            wmma::mma_sync(part[j], fa, fb, part[j]);
           }
-#pragma unroll
-          for (int od = 0; od < 2; ++od)
-#pragma unroll
-            for (int oh = 0; oh < 2; ++oh) {
-              const float s = at_coef(od, jd) * at_coef(oh, jh);
-              if (s != 0.f) {
-#pragma unroll
-                for (int j = 0; j < 2; ++j)
-#pragma unroll
-                  for (int i = 0; i < part[j].num_elements; ++i)
-                    acc[od][oh][j].x[i] += s * part[j].x[i];
-              }
-            }
-        } else {
-          float pf[4][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) pf[i][j] = 0.f;
-          // rows ty*4 .. ty*4+3 lie in one H tile (BW is a multiple of 4)
-          const int t = (ty * 4) / BW, iw0 = (ty * 4) % BW;
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-#pragma unroll
-            for (int k = 0; k < BK; ++k) {
-              float av[4];
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                av[i] = to_float(Vs[(t * RAW_W + iw0 + i + dx) * LDV + k]);
-              const float4 bv = *reinterpret_cast<const float4*>(
-                  Us + (dx * BK + k) * LDU + tx * 4);
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                pf[i][0] += av[i] * bv.x;
-                pf[i][1] += av[i] * bv.y;
-                pf[i][2] += av[i] * bv.z;
-                pf[i][3] += av[i] * bv.w;
-              }
-            }
-          }
-#pragma unroll
-          for (int od = 0; od < 2; ++od)
-#pragma unroll
-            for (int oh = 0; oh < 2; ++oh) {
-              const float s = at_coef(od, jd) * at_coef(oh, jh);
-              if (s != 0.f) {
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                  for (int j = 0; j < 4; ++j) accf[od][oh][i][j] += s * pf[i][j];
-              }
-            }
         }
+#pragma unroll
+        for (int od = 0; od < 2; ++od)
+#pragma unroll
+          for (int oh = 0; oh < 2; ++oh) {
+            const float s = at_coef(od, jd) * at_coef(oh, jh);
+            if (s != 0.f) {
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int i = 0; i < part[j].num_elements; ++i)
+                  acc[od][oh][j].x[i] += s * part[j].x[i];
+            }
+          }
         __syncthreads();
       }
     }
@@ -321,24 +249,16 @@ __global__ void __launch_bounds__(THREADS) winograd3x3x3_ndhwc(const WinoArgs a)
   for (int od = 0; od < 2; ++od) {
 #pragma unroll
     for (int oh = 0; oh < 2; ++oh) {
-      if constexpr (kTensorCores) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(Cs + wm * 16 * LDC + wn + j * 16, acc[od][oh][j],
-                                  LDC, wmma::mem_row_major);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            Cs[(ty * 4 + i) * LDC + tx * 4 + j] = accf[od][oh][i][j];
-      }
+      for (int j = 0; j < 2; ++j)
+        wmma::store_matrix_sync(Cs + wm * 16 * LDC + wn + j * 16, acc[od][oh][j],
+                                LDC, wmma::mem_row_major);
       __syncthreads();
       const int oz = 2 * td + od;
       for (int r = r0; r < BM; r += kRows) {
         const int oy = 2 * (th0 + r / BW) + oh, ox = w0 + r % BW;
         if (oy < a.h && ox < a.w_ && co < a.cout) {
-          const T v = from_float<T>(Cs[r * LDC + col]);
+          const T v = from_float(Cs[r * LDC + col]);
           const long long vox =
               ((static_cast<long long>(nn) * a.d + oz) * a.h + oy) * a.w_ + ox;
           yp[vox * a.cout + co] = v;
@@ -371,42 +291,31 @@ __global__ void __launch_bounds__(THREADS) winograd3x3x3_ndhwc(const WinoArgs a)
   }
 }
 
-template <typename T, bool STATS>
+template <bool STATS>
 cudaError_t launch(const WinoArgs& a, cudaStream_t stream) {
-  if (a.d % 2 || a.h % 2 || a.cp % Cfg<T>::BK || a.cop % BN || a.cp < a.c ||
+  if (a.d % 2 || a.h % 2 || a.cp % BK || a.cop % BN || a.cp < a.c ||
       a.cop < a.cout)
     return cudaErrorInvalidValue;
   const long long blocks = static_cast<long long>(a.n) * (a.d / 2) *
                            ((a.h / 2 + BHT - 1) / BHT) * ((a.w_ + BW - 1) / BW) *
                            (a.cop / BN);
   if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  winograd3x3x3_ndhwc<T, STATS>
+  winograd3x3x3_ndhwc<STATS>
       <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int stats, const WinoArgs& a, cudaStream_t stream) {
-  return stats ? launch<T, true>(a, stream) : launch<T, false>(a, stream);
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. stats: 0 = winograd, 1 = winograd_stats.
-// u2 is the (48, cp, cop) transformed weight in the dtype of x, zero beyond
-// (cin, cout); cp a multiple of 16 and cop of 64. Returns the cudaError_t of
-// the launch (0 on success).
-extern "C" int unet3d_winograd3x3x3_ndhwc(int dtype, int stats, const void* x,
-                                          const void* u2, void* y, float* stats_buf,
-                                          int n, int d, int h, int w_, int cin,
-                                          int cout, int cp, int cop, void* stream) {
-  const int group = dtype == 1 ? 8 : 4;
+// stats: 0 = winograd, 1 = winograd_stats. x bf16; u2 is the (48, cp, cop)
+// bf16 transformed weight, zero beyond (cin, cout); cp a multiple of 16 and
+// cop of 64. Returns the cudaError_t of the launch (0 on success).
+extern "C" int unet3d_winograd3x3x3_ndhwc(int stats, const void* x, const void* u2,
+                                          void* y, float* stats_buf, int n, int d,
+                                          int h, int w_, int cin, int cout, int cp,
+                                          int cop, void* stream) {
   WinoArgs a{x, u2, y, stats_buf, n, d, h, w_, cin, cout, cp, cop,
-             cin % group == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0};
+             cin % 8 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch<float>(stats, a, s);
-    case 1: return dispatch<__nv_bfloat16>(stats, a, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return stats ? launch<true>(a, s) : launch<false>(a, s);
 }

@@ -9,8 +9,9 @@
 //                   rounded to bf16. Replaces _winograd_batched_stats (:274).
 //
 // It takes every bf16 call with Cin and Cout multiples of 8 (every Winograd
-// site of the BraTS DynUNet: Cin 96, 128, 192, Cout 64, 96, 192); winograd.cu
-// keeps the f32 form and a bf16 WMMA form for other channel counts.
+// site of the BraTS DynUNet: Cin 96, 128, 192, Cout 64, 96, 192);
+// winograd_tf32x3.cu takes the f32 calls, winograd.cu's WMMA form the bf16
+// calls of other channel counts.
 //
 // Math (the JAX kernel's, winograd_kernel.py:143-193): output rows (2t, 2t+1)
 // in D and (2s, 2s+1) in H of one column come from the padded input rows

@@ -6,8 +6,9 @@ in f32. A CPU tensor goes to ``s2_wgrad_reference``, the f32 autograd of
 ``F.conv3d``; any device other than CUDA raises. A CUDA tensor goes to one of
 three forms (``kernel_form``): ``wgmma`` (``ops/kernels/s2_wgrad_wgmma.cu``),
 the Hopper form, for bf16 with Cin and Cout multiples of 8 (every stride-2
-site of the DynUNet), tiled by ``wgmma_plan``; ``wmma`` (``s2_wgrad.cu``) for
-the other bf16 calls, split by ``split_k``; ``tf32x3``
+site of the DynUNet), tiled by ``wgmma_plan``; ``narrow`` (``s2_wgrad.cu``)
+for the other bf16 calls (Cin or Cout % 8 != 0, or an operand off 16-byte
+alignment), tiled by ``narrow_plan``; ``tf32x3``
 (``s2_wgrad_tf32x3.cu``) for every f32 call, the same staging on the tensor
 cores in 3xTF32 (wgmma m64nNk8 tf32, three products per product), tiled by
 ``tf32_plan``. ``LAUNCHES["s2_wgrad"]`` counts every launch,
@@ -35,10 +36,6 @@ FORM_LAUNCHES: Dict[Tuple[str, str], int] = collections.Counter()
 HALO_LAUNCHES: Dict[Tuple[str, Tuple[int, int]], int] = collections.Counter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BK = 32            # voxels per stage of the wmma kernel (s2_wgrad.cu)
-_BM, _BN = 128, 64  # its dw tile
-_MIN_STAGES = 4     # least K a split takes, in stages
-_BLOCKS_PER_SM = 4  # blocks to aim for per SM when splitting K
 
 # the wgmma form (s2_wgrad_wgmma.cu): (BN output channels per block, ring
 # stages) of each instantiation; a block owns the three kw taps of one
@@ -60,6 +57,15 @@ _TF32_MAX_BN = 96
 # a block that walks a single segment keeps no f32 total beside its
 # accumulator, which frees the registers for 128 output channels
 TF32_ONE_SEGMENT_CONFIG = (128, 2)
+# the narrow form (s2_wgrad.cu): a block owns 8 input channels (27 taps x 8:
+# 14 m16 tiles), 1-4 n8 tiles of output channels and a range of segments of
+# NARROW_K voxels or more: `lines` output lines of `sw` voxels (sw a multiple
+# of 16, at most 128)
+NARROW_CHUNK = 8
+NARROW_MAX_NT = 4
+NARROW_K = 64
+NARROW_MAX_SW = 128
+_NARROW_BLOCKS_PER_SM = 3   # blocks to aim for per SM when splitting K
 
 
 class WgmmaPlan(NamedTuple):
@@ -69,6 +75,18 @@ class WgmmaPlan(NamedTuple):
     chunks: int      # 64-channel chunks along Cin
     sw: int          # output voxels per line in a segment (a power of two)
     lines: int       # output lines per segment (SEGMENT // sw)
+    segments: int    # segments over all output voxels
+    splits: int      # contiguous ranges of segments, one per blockIdx.y
+    per_split: int   # segments per split (the last may take fewer)
+
+
+class NarrowPlan(NamedTuple):
+    nt: int          # n8 tiles of output channels per block
+    n_tiles: int     # blocks along Cout (8 nt channels each)
+    chunks: int      # 8-channel chunks along Cin
+    sw: int          # output voxels per line in a segment (a multiple of 16)
+    lines: int       # output lines per segment
+    ow_blocks: int   # segments along a line
     segments: int    # segments over all output voxels
     splits: int      # contiguous ranges of segments, one per blockIdx.y
     per_split: int   # segments per split (the last may take fewer)
@@ -117,16 +135,30 @@ def _check(x: torch.Tensor, g: torch.Tensor, pad_lo: int = 1) -> None:
         raise ValueError("the CUDA kernel needs contiguous operands")
 
 
-def split_k(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
-    """(splits, voxels per split) of the wmma form for a dw of m x n
-    over k voxels: enough blocks to fill ``sms`` SMs, each split at least
-    _MIN_STAGES stages."""
-    tiles = -(-m // _BM) * -(-n // _BN)
-    stages = -(-k // _BK)
-    want = -(-_BLOCKS_PER_SM * sms // tiles)
-    splits = max(1, min(want, stages // _MIN_STAGES))
-    per_split = -(-stages // splits) * _BK
-    return -(-k // per_split), per_split
+@functools.lru_cache(maxsize=256)
+def narrow_plan(x_shape: Tuple[int, ...], cout: int, sms: int, pad_lo: int = 1) -> NarrowPlan:
+    """The narrow form's tiling for x (N, D, H, W, Cin) and Cout output
+    channels on a card of ``sms`` SMs. N tiles: equal tiles of at most 32
+    channels, each rounded up to whole n8 tiles. Segments: ``lines`` output
+    lines of ``sw`` voxels, sw = Wo rounded up to 16 (at most 128, longer
+    lines in blocks of 128), lines = NARROW_K // sw (at least 1). Splits:
+    contiguous ranges of segments, enough that chunks x N tiles x splits
+    make _NARROW_BLOCKS_PER_SM blocks a SM, each at least two segments.
+    ``pad_lo`` as ``s2_wgrad``'s."""
+    n, d, h, w, cin = x_shape
+    do, ho, wo = (d + pad_lo) // 2, (h + 1) // 2, (w + 1) // 2
+    n_tiles = -(-cout // (8 * NARROW_MAX_NT))
+    share = -(-cout // n_tiles)
+    nt = -(-share // 8)
+    chunks = -(-cin // NARROW_CHUNK)
+    sw = min(NARROW_MAX_SW, -(-wo // 16) * 16)
+    lines = max(1, NARROW_K // sw)
+    ow_blocks = -(-wo // sw)
+    segments = -(-(n * do * ho) // lines) * ow_blocks
+    splits = max(1, min(_NARROW_BLOCKS_PER_SM * sms // (chunks * n_tiles), segments // 2))
+    per_split = -(-segments // splits)
+    return NarrowPlan(nt, n_tiles, chunks, sw, lines, ow_blocks, segments,
+                      -(-segments // per_split), per_split)
 
 
 def _segment_plan(x_shape, cout, sms, pad_lo, configs, chunk, max_bn) -> WgmmaPlan:
@@ -187,12 +219,12 @@ def tf32_plan(x_shape: Tuple[int, ...], cout: int, sms: int, pad_lo: int = 1) ->
 
 
 def kernel_form(x: torch.Tensor, g: torch.Tensor) -> str:
-    """The CUDA form a call takes: ``wgmma`` or ``wmma`` (bf16), ``tf32x3``
+    """The CUDA form a call takes: ``wgmma`` or ``narrow`` (bf16), ``tf32x3``
     (f32)."""
     if x.dtype == torch.float32:
         return "tf32x3"
     aligned = x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
-    return "wgmma" if x.shape[4] % 8 == 0 and g.shape[4] % 8 == 0 and aligned else "wmma"
+    return "wgmma" if x.shape[4] % 8 == 0 and g.shape[4] % 8 == 0 and aligned else "narrow"
 
 
 def _launch(x: torch.Tensor, g: torch.Tensor, pad_lo: int = 1) -> torch.Tensor:
@@ -206,11 +238,9 @@ def _launch(x: torch.Tensor, g: torch.Tensor, pad_lo: int = 1) -> torch.Tensor:
     m = 27 * cin
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     form = kernel_form(x, g)
-    if form != "wmma":
-        plan = (wgmma_plan if form == "wgmma" else tf32_plan)(tuple(x.shape), cout, sms, pad_lo)
-        splits = plan.splits
-    else:
-        splits, per_split = split_k(m, cout, n * do * ho * wo, sms)
+    planner = {"wgmma": wgmma_plan, "tf32x3": tf32_plan, "narrow": narrow_plan}[form]
+    plan = planner(tuple(x.shape), cout, sms, pad_lo)
+    splits = plan.splits
     dw = torch.empty((3, 3, 3, cin, cout), dtype=torch.float32, device=x.device)
     part = None
     if splits > 1:
@@ -230,9 +260,10 @@ def _launch(x: torch.Tensor, g: torch.Tensor, pad_lo: int = 1) -> torch.Tensor:
                 cin, do, ho, wo, cout, plan.n_tiles, plan.chunks, plan.sw, plan.segments,
                 plan.splits, plan.per_split, pad_lo, stream)
         else:
-            err = lib.unet3d_s2_wgrad_ndhwc(
-                x.data_ptr(), g.data_ptr(), part_ptr, dw.data_ptr(), n, d, h, w, cin, do, ho,
-                wo, cout, splits, per_split, pad_lo, stream)
+            err = lib.unet3d_s2_wgrad_narrow(
+                plan.nt, x.data_ptr(), g.data_ptr(), part_ptr, dw.data_ptr(), n, d, h, w, cin,
+                do, ho, wo, cout, plan.n_tiles, plan.chunks, plan.sw, plan.lines,
+                plan.segments, plan.splits, plan.per_split, pad_lo, stream)
     if err != 0:
         raise RuntimeError(f"s2_wgrad ({form}) launch failed: "
                            f"{lib.unet3d_cuda_error_string(err).decode()}")

@@ -14,8 +14,10 @@ each in three CUDA forms (``kernel_form``): ``wgmma``
 (``ops/kernels/winograd_wgmma.cu``), the Hopper form, for bf16 with Cin and
 Cout multiples of 8 (every Winograd site of the DynUNet), tiled by
 ``wgmma_plan`` with U2 packed per call by ``pack_u2``; ``wmma``
-(``ops/kernels/winograd.cu``) for the other bf16 calls, and ``fma`` (the same
-source) for f32.
+(``ops/kernels/winograd.cu``) for the other bf16 calls; ``tf32x3``
+(``ops/kernels/winograd_tf32x3.cu``) for every f32 call, the wgmma form's
+pipeline in 3xTF32 (three TF32 products per product, f32-accurate), tiled by
+``tf32_plan`` with U2's TF32 hi and lo parts packed by ``pack_u2_tf32``.
 
 Each takes a CUDA tensor to its kernel and a CPU tensor to its plain version
 (``*_reference``); any other device raises. The plain versions round where
@@ -40,7 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from unet3d_tpu_torch.ops.conv3d_kernel import _DTYPES, _check, instance_stats
+from unet3d_tpu_torch.ops.conv3d_kernel import _check, instance_stats, tf32_split
 from unet3d_tpu_torch.utils.device import full_f32
 
 LAUNCHES: Dict[str, int] = {"winograd": 0, "winograd_stats": 0}
@@ -57,7 +59,7 @@ _G = np.array([[1, 0, 0],
 _BT = ((0, 2, -1), (1, 2, 1), (2, 1, -1), (1, 3, -1))
 # A^T: output row o takes transform point j with this sign
 _AT = ((1, 1, 1, 0), (0, 1, -1, -1))
-# the wmma / fma form's channel chunk and output-channel tile: the wrapper
+# the wmma form's channel chunk and output-channel tile: the wrapper
 # zero-pads the transformed weight to these multiples
 _CIN_PAD, _COUT_PAD = 16, 64
 
@@ -69,6 +71,12 @@ _CIN_PAD, _COUT_PAD = 16, 64
 WGMMA_CONFIGS = ((4, 32, 64, 32, 7), (4, 32, 48, 32, 8))
 POINTS = 16           # (jd, jh) transform points
 SLAB_K = 64           # K values (bf16) per 128-byte B slab
+# the tf32x3 form's (winograd_tf32x3.cu CONFIGS, checked the same way): BHT,
+# BW, BN, CK (16 f32 channels: the bf16 form's 64-byte window rows), slab
+# pairs (a hi and a lo slab of 32 K values) in the ring, and the points
+# whose slabs load ahead; BN <= 48 leaves registers for the split A
+TF32_CONFIGS = ((4, 32, 48, 16, 4, 1), (4, 32, 32, 16, 7, 3))
+TF32_SLAB_K = 32      # K values (f32) per 128-byte B slab row
 
 
 class WgmmaPlan(NamedTuple):
@@ -84,19 +92,33 @@ class WgmmaPlan(NamedTuple):
     chunks: int    # chunks along Cin
 
 
+def _plan(x_shape, cout: int, configs) -> WgmmaPlan:
+    """N tiles of at most the widest configured BN, equal in width, each
+    rounded up to a configured BN; a block owns BHT H tiles x BW columns of
+    one depth tile."""
+    n, d, h, w, cin = x_shape
+    n_tiles = -(-cout // max(c[2] for c in configs))
+    bn = min(c[2] for c in configs if c[2] >= -(-cout // n_tiles))
+    config = next(i for i, c in enumerate(configs) if c[2] == bn)
+    bht, bw, _, ck, stages = configs[config][:5]
+    return WgmmaPlan(config, bht, bw, bn, ck, stages, -(-(h // 2) // bht), -(-w // bw),
+                     -(-cout // bn), -(-cin // ck))
+
+
 def wgmma_plan(x_shape, cout: int) -> WgmmaPlan:
     """The wgmma form's tiling of x (N, D, H, W, Cin) -> Cout: N tiles of at
     most 64 channels (a warpgroup holds 5 BN / 2 f32 accumulators a thread:
     one point's product and the four output tiles), equal in width, each
     rounded up to a configured BN (Cout 64: one of 64, 96: two of 48, 192:
     three of 64); a block owns BHT H tiles x BW columns of one depth tile."""
-    n, d, h, w, cin = x_shape
-    n_tiles = -(-cout // max(c[2] for c in WGMMA_CONFIGS))
-    bn = min(c[2] for c in WGMMA_CONFIGS if c[2] >= -(-cout // n_tiles))
-    config = next(i for i, c in enumerate(WGMMA_CONFIGS) if c[2] == bn)
-    bht, bw, _, ck, stages = WGMMA_CONFIGS[config]
-    return WgmmaPlan(config, bht, bw, bn, ck, stages, -(-(h // 2) // bht), -(-w // bw),
-                     -(-cout // bn), -(-cin // ck))
+    return _plan(x_shape, cout, WGMMA_CONFIGS)
+
+
+def tf32_plan(x_shape, cout: int) -> WgmmaPlan:
+    """The tf32x3 form's tiling: ``wgmma_plan``'s rule over TF32_CONFIGS,
+    N tiles of at most 48 channels (Cout 64: two of 32, 96: two of 48, 192:
+    four of 48), 16-channel chunks."""
+    return _plan(x_shape, cout, TF32_CONFIGS)
 
 
 def pack_u2(w: torch.Tensor, plan: WgmmaPlan) -> torch.Tensor:
@@ -116,10 +138,30 @@ def pack_u2(w: torch.Tensor, plan: WgmmaPlan) -> torch.Tensor:
             .view(plan.n_tiles, plan.chunks, pairs, plan.bn, SLAB_K))
 
 
+def pack_u2_tf32(w: torch.Tensor, plan: WgmmaPlan) -> torch.Tensor:
+    """f32 DHWIO ``w`` as the tf32x3 form's B slabs: ``transform_weights_dh``
+    in f32, zero-padded to whole chunks and N tiles, split into its TF32 hi
+    and lo parts (``tf32_split``), as (n_tiles, chunks, 24, 2, BN, 32): slab
+    s of a chunk holds, for each output channel, the hi (then the lo) parts
+    of K values 32 s .. 32 s + 31 of the chunk's K order (point p, tap dx,
+    channel k), K-major."""
+    cin, cout = w.shape[3], w.shape[4]
+    cp, cop = plan.chunks * plan.ck, plan.n_tiles * plan.bn
+    u = transform_weights_dh(w, torch.float32)
+    if cp != cin or cop != cout:
+        u = F.pad(u, (0, cop - cout, 0, cp - cin))
+    parts = torch.stack(tf32_split(u))                   # (2, 48, cp, cop)
+    parts = parts.view(2, POINTS * 3, plan.chunks, plan.ck, plan.n_tiles, plan.bn)
+    slabs = 3 * POINTS * plan.ck // TF32_SLAB_K
+    parts = parts.permute(4, 2, 1, 3, 0, 5).reshape(   # (nt, c, K, part, n)
+        plan.n_tiles, plan.chunks, slabs, TF32_SLAB_K, 2, plan.bn)
+    return parts.permute(0, 1, 2, 4, 5, 3).contiguous()
+
+
 def kernel_form(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The CUDA form a call takes: ``wgmma``, ``wmma`` or ``fma``."""
+    """The CUDA form a call takes: ``wgmma``, ``wmma`` or ``tf32x3``."""
     if x.dtype == torch.float32:
-        return "fma"
+        return "tf32x3"
     aligned = x.data_ptr() % 16 == 0
     return "wgmma" if x.shape[4] % 8 == 0 and w.shape[4] % 8 == 0 and aligned else "wmma"
 
@@ -235,14 +277,21 @@ def _launch(variant: str, x: torch.Tensor, w: torch.Tensor
                 int(stats is not None), plan.config, x.data_ptr(), u2.data_ptr(),
                 y.data_ptr(), stats_ptr, n, d, h, wd, cin, cout, plan.h_tiles,
                 plan.w_tiles, plan.n_tiles, plan.chunks, stream)
+        elif form == "tf32x3":
+            plan = tf32_plan(tuple(x.shape), cout)
+            u2 = pack_u2_tf32(w, plan)
+            err = lib.unet3d_winograd_tf32x3(
+                int(stats is not None), plan.config, x.data_ptr(), u2.data_ptr(),
+                y.data_ptr(), stats_ptr, n, d, h, wd, cin, cout, plan.h_tiles,
+                plan.w_tiles, plan.n_tiles, plan.chunks, stream)
         else:
             cp = -(-cin // _CIN_PAD) * _CIN_PAD
             cop = -(-cout // _COUT_PAD) * _COUT_PAD
             u2 = F.pad(transform_weights_dh(w, x.dtype), (0, cop - cout, 0, cp - cin))
             u2 = u2.contiguous()
             err = lib.unet3d_winograd3x3x3_ndhwc(
-                _DTYPES[x.dtype], int(stats is not None), x.data_ptr(), u2.data_ptr(),
-                y.data_ptr(), stats_ptr, n, d, h, wd, cin, cout, cp, cop, stream)
+                int(stats is not None), x.data_ptr(), u2.data_ptr(), y.data_ptr(),
+                stats_ptr, n, d, h, wd, cin, cout, cp, cop, stream)
     if err != 0:
         raise RuntimeError(f"winograd3x3x3 {variant} ({form}) launch failed: "
                            f"{lib.unet3d_cuda_error_string(err).decode()}")

@@ -26,8 +26,11 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    form printed (every bf16 one takes the wgmma form, ``winograd_wgmma.cu``,
    every f32 one the tf32x3 form, ``winograd_tf32x3.cu``, or the smoke
    fails), each case timed against the direct hand kernel and cuDNN, the f32
-   rows beside both bounds, and the f32 form at ragged channel counts and a
-   misaligned x. Every bf16 time
+   rows beside both bounds, the f32 form at ragged channel counts and a
+   misaligned x, and the bf16 form there too (Cin 5, 17, 36, 96, 100 x Cout
+   7, 12, 50, 96, 100 at batch 2, x at element offsets 0 and 1, both
+   variants, each in the wgmma form; 100 -> 100 @64^3 and a 96 -> 96 @64^3 x
+   one element off alignment timed beside F.conv3d). Every bf16 time
    is a device time (the calls queued behind a device-side sleep, so the
    host's time to issue them is not counted), printed beside the plain
    composition's, one PyTorch call's where one
@@ -333,22 +336,30 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    with its neighbours' planes and pads; ``s2_wgrad`` with ``pad_lo`` 0) at
    the BraTS DynUNet's slab shapes against its plain version (phase 2's
    bounds, bf16 and f32), the bf16 calls timed beside the plain
-   composition, cuDNN's conv on the padded input and the bound; then the
+   composition, cuDNN's conv on the padded input and the bound, and so
+   Winograd-DH's (``winograd``, ``winograd_stats``) at the strategy's sites
+   (the input gradients' output D odd), each beside the whole volume's SAME
+   call; then the
    BraTS DynUNet at full width on two ranks sharing the card over gloo,
    ``{"space": 2}``: (a) one 128^3 bf16 window, each rank its 64 planes,
    the gathered output within relative L2 3e-2 (phase 4's bound) of the
    single-device forward, launches by kernel and by halo mode and pads;
    (b) one bf16 train step at batch 1, the updates within 2e-2 (phase 5's
    bf16 gradient bound) of the single-device step's, every kernel launched
-   in its halo mode; (c) the predict CLI with ``--ngpus 2``: JAX's default
-   plan, the space axis, clamped to the one card; (d) the SPPIN config's
-   bf16 step (192^3, batch 2) at world size 1: its peak allocated memory.
+   in its halo mode; (e) both again under UNET3D_TPU_CONV=winograd, against
+   the single-device window and step under it (the same bounds), each rank
+   launching ``winograd_stats`` and ``winograd`` in their halo modes, its
+   odd-D input gradient among them; (c) the predict CLI with ``--ngpus 2``:
+   JAX's default plan, the space axis, clamped to the one card; (d) the
+   SPPIN config's bf16 step (192^3, batch 2) at world size 1: its peak
+   allocated memory.
 
 Exits non-zero if any phase fails or there is no CUDA device. The last lines
 are the card, a JSON object of the kernels (the bf16 forms' rows, then the
 f32 form's: ``conv_tf32x3``, ``conv_stats_tf32x3``, ``block_stats_tf32x3``,
 with both bounds, then the D-halo modes': ``conv_halo``, ``conv_stats_halo``,
-``block_stats_halo``, ``s2_wgrad_halo``), and ``{"ok": true, ...}``.
+``block_stats_halo``, ``s2_wgrad_halo``, ``winograd_halo``,
+``winograd_stats_halo``), and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -382,7 +393,8 @@ RES_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_train_res")
 # entry, every f32 s2_wgrad call; s2_wgrad.cu, the "s2_wgrad_narrow" entry,
 # the bf16 s2_wgrad calls of other channel counts; winograd_tf32x3.cu, the
 # "winograd_tf32x3" and "winograd_stats_tf32x3" entries, every f32 Winograd
-# call; winograd.cu keeps a bf16 WMMA form for other channel counts)
+# call; winograd_wgmma.cu takes every bf16 Winograd call, ragged channels
+# and misaligned x too)
 SOURCES = {
     "conv": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
     "conv_stats": "unet3d_tpu_torch/ops/kernels/conv3d_wgmma.cu",
@@ -522,6 +534,15 @@ S2_TF32X3_SOURCE = "unet3d_tpu_torch/ops/kernels/s2_wgrad_tf32x3.cu"
 WINO_TF32X3_SOURCE = "unet3d_tpu_torch/ops/kernels/winograd_tf32x3.cu"
 WINO_TF32_RAGGED = [((1, 6, 10, 40), 5, 7, 0), ((2, 8, 18, 33), 12, 20, 1),
                     ((1, 4, 6, 70), 17, 50, 3)]
+# the bf16 Winograd calls of other channel counts and alignments, which
+# winograd_wgmma.cu takes too (odd Cin or x 2-byte aligned: copied first by
+# the wrapper): phase 2's cases, each channel pair at batch 2 with x at
+# element offsets 0 and 1 (x shape, cin, cout); then the two sites timed
+# (label, spatial, cin, cout, element offset)
+WINO_BF16_RAGGED = [((2, 6, 10, 40), 5, 12), ((2, 4, 18, 33), 100, 100),
+                    ((2, 8, 6, 70), 17, 50), ((2, 4, 10, 40), 36, 7), ((2, 6, 8, 33), 96, 96)]
+WINO_BF16_TIMED = [("100->100 @64^3", 64, 100, 100, 0),
+                   ("96->96 @64^3, x one element off alignment", 64, 96, 96, 1)]
 # the narrow form of s2_wgrad (s2_wgrad.cu): phase 2's cases, every Cin of
 # S2_NARROW_CIN by every Cout of S2_NARROW_COUT at batch 2 of a ragged
 # volume, then x one element off alignment and the D-halo mode's pad_lo 0
@@ -860,6 +881,19 @@ HALO_TIMED_AT = {"conv_stats": "level-0 up conv1 128->64 rank 0",
 # H = W, Cin, Cout, pad_lo
 S2_HALO_SHAPES = [("level-0 -> 1 64->96 rank 1", 64, 128, 64, 96, 0),
                   ("level-4 -> 5 256->384 rank 1", 4, 8, 256, 384, 0)]
+# Winograd-DH's halo mode at the strategy's sites on two ranks' slabs (label,
+# output planes, H = W, Cin, Cout, variant, pads; the input gradients' output
+# D odd at the volume's edges), each beside the SAME call over the whole
+# volume (D twice the slab's)
+WINO_HALO_SHAPES = [
+    ("upsample4.conv1 128->64 rank 0", 64, 128, 128, 64, "winograd_stats", (1, 0)),
+    ("upsample3.conv1 192->96 rank 1", 32, 64, 192, 96, "winograd_stats", (0, 1)),
+    ("downsample0.conv2 96->96 middle", 32, 64, 96, 96, "winograd_stats", (0, 0)),
+    ("dx of a 96->96 conv rank 0", 33, 64, 96, 96, "winograd", (1, 2)),
+    ("dx of upsample3.conv1 96->192 rank 1", 33, 64, 96, 192, "winograd", (2, 1)),
+]
+WINO_HALO_TIMED_AT = {"winograd_stats": "upsample4.conv1 128->64 rank 0",
+                      "winograd": "dx of a 96->96 conv rank 0"}
 DP_STATS_BOUND = 1e-4
 
 
@@ -1496,7 +1530,73 @@ def phase2_winograd(device, gen, report):
         check(rel < BOUNDS[torch.float32], f"{msg} > {BOUNDS[torch.float32]}")
         check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
         del x, w, want, y, ys
+    report["winograd_ragged"] = phase2_winograd_ragged(device, gen)
     torch.cuda.empty_cache()
+
+
+def offset_copy(x, offset: int):
+    """``x``'s values in a view ``offset`` elements into a new storage (an
+    offset of 1 leaves a bf16 x 2-byte aligned)."""
+    if not offset:
+        return x
+    store = torch.empty(offset + x.numel(), dtype=x.dtype, device=x.device)
+    return store[offset:].view(x.shape).copy_(x)
+
+
+def phase2_winograd_ragged(device, gen) -> dict:
+    """The bf16 Winograd calls off the multiples of 8 and off alignment
+    (WINO_BF16_RAGGED at offsets 0 and 1), both variants, against the plain
+    version, each in the wgmma form; then WINO_BF16_TIMED timed (the
+    wrapper's copy of a misaligned x counted) beside F.conv3d, the plain
+    composition and the bound."""
+    from unet3d_tpu_torch.ops import winograd_kernel as W
+    cases = []
+    for x_shape, cin, cout in WINO_BF16_RAGGED:
+        for offset in (0, 1):
+            x = offset_copy(torch.randn(*x_shape, cin, device=device,
+                                        generator=gen).bfloat16(), offset)
+            w = (torch.randn(3, 3, 3, cin, cout, device=device, generator=gen)
+                 / (27 * cin) ** 0.5).bfloat16()
+            W.reset_launches()
+            want = W.winograd_reference(x.clone(), w)
+            y = W.winograd3x3x3(x, w)
+            ys, s1, s2 = W.winograd3x3x3_with_stats(x, w)
+            torch.cuda.synchronize()
+            rel, s_err = max(rel_max(y, want), rel_max(ys, want)), stats_err(ys, s1, s2)
+            forms = sorted(set(f for _, f in W.FORM_LAUNCHES))
+            msg = (f"winograd bf16 {x_shape} {cin}->{cout} offset {offset}: forms {forms}, "
+                   f"y rel {rel:.3e}, stats rel {s_err:.3e}")
+            print(msg, flush=True)
+            check(forms == ["wgmma"], f"{msg}: a bf16 call off the wgmma form")
+            check(rel < BOUNDS[torch.bfloat16], f"{msg} > {BOUNDS[torch.bfloat16]}")
+            check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
+            cases.append(dict(shape=list(x_shape), cin=cin, cout=cout, offset=offset, rel=rel,
+                              stats_rel=s_err))
+            del x, w, want, y, ys
+    rows = []
+    for label, s, cin, cout, offset in WINO_BF16_TIMED:
+        x = offset_copy(torch.randn(1, s, s, s, cin, device=device, generator=gen).bfloat16(),
+                        offset)
+        w = (torch.randn(3, 3, 3, cin, cout, device=device, generator=gen)
+             / (27 * cin) ** 0.5).bfloat16()
+        got = W.winograd3x3x3(x, w)
+        want = W.winograd_reference(x.clone(), w)
+        torch.cuda.synchronize()
+        rel = rel_max(got, want)
+        check(rel < BOUNDS[torch.bfloat16], f"winograd bf16 {label} y rel {rel:.3e}")
+        xa = x.clone()
+        ms = device_ms(lambda: W.winograd3x3x3(x, w))
+        library_ms = device_ms(library_conv(xa, w))
+        plain_ms = device_ms(lambda: plain_fast("conv", xa, w, None, None))
+        bms, bound_by = conv_bound("winograd", s, cin, cout, WINOGRAD_PRODUCTS)
+        print(f"winograd bf16 {label}: form {W.kernel_form(x, w)}, y rel {rel:.3e} | kernel "
+              f"{ms:.3f} ms, F.conv3d {library_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bms:.3f} ms ({bound_by}, {bms / ms:.1%})", flush=True)
+        rows.append(dict(shape=label, ms=ms, library_ms=library_ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=bound_by,
+                         max_abs_err=(got.float() - want.float()).abs().max().item()))
+        del x, xa, w, got, want
+    return dict(cases=cases, timed=rows, worst_rel=max(c["rel"] for c in cases))
 
 
 def phase2_s2_narrow(device, gen) -> dict:
@@ -5395,25 +5495,27 @@ def phase17_train_cli(card, cases) -> tuple:
 
 def halo_counts() -> dict:
     """Launches of each kernel's D-halo mode by pads (``"conv_stats(1, 0)"``)."""
-    from unet3d_tpu_torch.ops import conv3d_kernel, s2_wgrad_kernel
+    from unet3d_tpu_torch.ops import conv3d_kernel, s2_wgrad_kernel, winograd_kernel
     return {f"{v}{pads}": n for (v, pads), n in sorted(
-        {**conv3d_kernel.HALO_LAUNCHES, **s2_wgrad_kernel.HALO_LAUNCHES}.items())}
+        {**conv3d_kernel.HALO_LAUNCHES, **s2_wgrad_kernel.HALO_LAUNCHES,
+         **winograd_kernel.HALO_LAUNCHES}.items())}
 
 
-def halo_by_kernel(counts: dict) -> dict:
+def halo_by_kernel(counts: dict, kernels=TRAIN_KERNELS) -> dict:
     """``halo_counts`` summed by kernel."""
     return {v: sum(n for k, n in counts.items() if k.startswith(v + "("))
-            for v in TRAIN_KERNELS}
+            for v in kernels}
 
 
-def halo_bound(variant, d_in, d_out, hw, cin, cout, dtype=torch.bfloat16):
+def halo_bound(variant, d_in, d_out, hw, cin, cout, dtype=torch.bfloat16, products=1.0):
     """bound_ms of a 3x3x3 conv variant in the D-halo mode: ``d_in`` planes of
-    x read, ``d_out`` planes of y written, hw x hw each."""
+    x read, ``d_out`` planes of y written, hw x hw each (``products``:
+    Winograd-DH's share of the direct conv's)."""
     size = torch.finfo(dtype).bits // 8
     nbytes = size * (hw * hw * (d_in * cin + d_out * cout) + 27 * cin * cout)
-    nbytes += (8 * cout if variant != "conv" else 0) + (8 * cin if variant == "block_stats"
-                                                         else 0)
-    return bound_ms(2.0 * d_out * hw * hw * 27 * cin * cout, nbytes, dtype)
+    nbytes += (8 * cout if variant not in ("conv", "winograd") else 0) + (
+        8 * cin if variant == "block_stats" else 0)
+    return bound_ms(2.0 * d_out * hw * hw * 27 * cin * cout * products, nbytes, dtype)
 
 
 def phase18_kernels(device, gen) -> dict:
@@ -5516,7 +5618,74 @@ def phase18_kernels(device, gen) -> dict:
                     max_abs_err=(got - want).abs().max().item()))
             print(msg, flush=True)
             del x, g, got, want
+    report.update(phase18_winograd_kernels(device, gen))
     torch.cuda.empty_cache()
+    return report
+
+
+def phase18_winograd_kernels(device, gen) -> dict:
+    """Winograd-DH's D-halo mode against its plain version at the strategy's
+    sites on two ranks' slabs (WINO_HALO_SHAPES; bf16 and f32, phase 2's
+    bounds), the bf16 calls timed beside the plain composition (F.pad on D,
+    cuDNN, the statistics), F.conv3d on the padded slab, the bound, and the
+    SAME call over the whole volume (D twice the slab's)."""
+    from unet3d_tpu_torch.ops import winograd_kernel as W
+    from unet3d_tpu_torch.ops.conv3d import conv3d_torch, pad_d
+    from unet3d_tpu_torch.ops.conv3d_kernel import instance_stats
+
+    kernel = {"winograd": W.winograd3x3x3, "winograd_stats": W.winograd3x3x3_with_stats}
+    report = {}
+    for label, depth, hw, cin, cout, variant, pads in WINO_HALO_SHAPES:
+        d_in = depth + 2 - sum(pads)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(1, d_in, hw, hw, cin, device=device, generator=gen).to(dtype)
+            w = (torch.randn(3, 3, 3, cin, cout, device=device, generator=gen)
+                 / (27 * cin) ** 0.5).to(dtype)
+            W.reset_launches()
+            got = kernel[variant](x, w, pads)
+            launched = dict(W.HALO_LAUNCHES)
+            want = W.winograd_reference(x, w, pads)
+            got_y = got if variant == "winograd" else got[0]
+            torch.cuda.synchronize()
+            check(got_y.shape == want.shape and got_y.shape[1] == depth,
+                  f"{label}: {tuple(got_y.shape)}, not {tuple(want.shape)}")
+            check(launched == {(variant, pads): 1}, f"{label}: halo launches {launched}")
+            rel = rel_max(got_y, want)
+            err = (got_y.float() - want.float()).abs().max().item()
+            msg = (f"halo {variant:14s} {label:36s} pads {pads} {str(dtype)[6:]:8s} "
+                   f"{W.kernel_form(x, w):6s} y rel {rel:.3e}")
+            check(rel < BOUNDS[dtype], f"{msg} > {BOUNDS[dtype]}")
+            if variant == "winograd_stats":
+                s_err = stats_err(*got)
+                msg += f" stats rel {s_err:.3e}"
+                check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
+            del got, want
+            if dtype == torch.bfloat16:
+                def composition():
+                    y = conv3d_torch(pad_d(x, pads), w, (1, 1, 1), ((0, 0), (1, 1), (1, 1)))
+                    return y if variant == "winograd" else (y, *instance_stats(y))
+
+                xn = pad_d(x, pads).permute(0, 4, 1, 2, 3)
+                wn = w.permute(4, 3, 0, 1, 2).contiguous()
+                ms = device_ms(lambda: kernel[variant](x, w, pads))
+                plain_ms = device_ms(composition)
+                library_ms = device_ms(lambda: F.conv3d(xn, wn, padding=(0, 1, 1)))
+                whole = torch.randn(1, 2 * (depth // 2 * 2), hw, hw, cin, device=device,
+                                    generator=gen).to(dtype)
+                same_ms = device_ms(lambda: kernel[variant](whole, w))
+                del whole, xn
+                bms, bound_by = halo_bound(variant, d_in, depth, hw, cin, cout,
+                                           products=WINOGRAD_PRODUCTS)
+                msg += (f" | kernel {ms:.3f} ms ({ms / same_ms:.2f} of the whole volume's "
+                        f"SAME call, {same_ms:.3f} ms), plain {plain_ms:.3f} ms, F.conv3d "
+                        f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
+                if label == WINO_HALO_TIMED_AT[variant]:
+                    report[variant] = dict(
+                        ms=ms, plain_ms=plain_ms, shape=f"{label} pads {pads}",
+                        bound_ms=bms, bound_by=bound_by, library_ms=library_ms,
+                        same_ms=same_ms, max_abs_err=err)
+            print(msg, flush=True)
+            del x, w, got_y
     return report
 
 
@@ -5531,10 +5700,11 @@ def space_batch(seed):
 
 
 def phase18_rank(path, seed):
-    """One of (a)'s and (b)'s two ranks (a spawned process sharing the card
-    over gloo, ``{"space": 2}``): the window's forward on its D slab,
-    gathered, and one bf16 train step, against the single-device references
-    in ``path``; launches by kernel and by halo mode and pads."""
+    """One of (a)'s, (b)'s and (e)'s two ranks (a spawned process sharing
+    the card over gloo, ``{"space": 2}``): the window's forward on its D
+    slab, gathered, and one bf16 train step, then both again under
+    UNET3D_TPU_CONV=winograd (e), against the single-device references in
+    ``path``; launches by kernel and by halo mode and pads."""
     from unet3d_tpu_torch.parallel import distributed
     from unet3d_tpu_torch.parallel.mesh import make_mesh, make_sharded_forward
 
@@ -5560,16 +5730,32 @@ def phase18_rank(path, seed):
                                             if k.startswith("bf16/")})
     out["launches_bf16"], out["halo_bf16"] = run["launches"], halo_counts()
     out["loss"] = run["loss"]
+    with conv_strategy("winograd"):
+        forward = make_sharded_forward(model, mesh, amp=True)
+        reset_launches()
+        got = forward(window).float().cpu()
+        torch.cuda.synchronize()
+        out["strategy_window_launches"] = dict(launch_counts())
+        out["strategy_window_halo"] = halo_counts()
+        want = ref["strategy_forward"]
+        out["strategy_window"] = float((got - want).norm() / want.norm())
+        del forward
+        run = dp_update(model, criterion, ref["images"], ref["labels"], True, mesh)
+        out["strategy_launches"], out["strategy_halo"] = dict(launch_counts()), halo_counts()
+        out["strategy_bf16"] = dict_gap(run["updates"], {
+            k[len("strategy_bf16/"):]: v for k, v in ref.items()
+            if k.startswith("strategy_bf16/")})
+        out["strategy_loss"] = run["loss"]
     out["step_ms"], out["all_reduce_ms"] = dp_step_ms(model, criterion, ref["images"],
                                                       ref["labels"], True, mesh)
     return out
 
 
 def phase18_space(device, seed, card) -> tuple:
-    """(a) and (b): the single-device references here (the bf16 window
-    forward; the bf16 step's updates, twice for its own spread), then two
-    ranks sharing the card over gloo on ``{"space": 2}``
-    (``phase18_rank``)."""
+    """(a), (b) and (e): the single-device references here (the bf16 window
+    forward; the bf16 step's updates, twice for its own spread; both under
+    UNET3D_TPU_CONV=winograd), then two ranks sharing the card over gloo on
+    ``{"space": 2}`` (``phase18_rank``)."""
     from unet3d_tpu_torch.parallel import launch
     from unet3d_tpu_torch.predict.volumetric import make_forward
 
@@ -5583,6 +5769,12 @@ def phase18_space(device, seed, card) -> tuple:
     ref.update({f"bf16/{k}": v for k, v in plain["updates"].items()})
     spread = dict_gap(dp_update(model, criterion, images, labels, True)["updates"],
                       plain["updates"])
+    with conv_strategy("winograd"):
+        forward = make_forward(model, amp=True)
+        ref["strategy_forward"] = forward(window.to(device)).float().cpu()
+        del forward
+        strategy = dp_update(model, criterion, images, labels, True)
+    ref.update({f"strategy_bf16/{k}": v for k, v in strategy["updates"].items()})
     del model
     torch.cuda.empty_cache()
     shutil.rmtree(SPACE_DIR, ignore_errors=True)
@@ -5614,6 +5806,32 @@ def phase18_space(device, seed, card) -> tuple:
               f"rank {r['rank']} bf16 updates rel L2 {r['bf16']:.3e} > {SPACE_BF16_BOUND}")
         check(np.isfinite(r["loss"]) and abs(r["loss"] - plain["loss"]) < 1e-2,
               f"rank {r['rank']} loss {r['loss']} vs {plain['loss']}")
+        window_wino = halo_by_kernel(r["strategy_window_halo"], STRATEGY_KERNELS)
+        step_wino = halo_by_kernel(r["strategy_halo"], STRATEGY_KERNELS)
+        odd_dx = "winograd(1, 2)" if r["rank"] == 0 else "winograd(2, 1)"
+        print(f"space axis (e) rank {r['rank']} under UNET3D_TPU_CONV=winograd: the window, "
+              f"gathered, vs the single-device forward under it rel L2 "
+              f"{r['strategy_window']:.3e} (bound {L2_BOUND}), launches "
+              f"{r['strategy_window_launches']}, halo modes {r['strategy_window_halo']}; one "
+              f"bf16 step's updates vs the single-device step under it rel L2 "
+              f"{r['strategy_bf16']:.3e} (bound {SPACE_BF16_BOUND}), loss "
+              f"{r['strategy_loss']:.6f} vs {strategy['loss']:.6f}, launches "
+              f"{r['strategy_launches']}, halo modes {r['strategy_halo']} [{card}]", flush=True)
+        check(r["strategy_window"] <= L2_BOUND,
+              f"rank {r['rank']} window under the strategy rel L2 {r['strategy_window']:.3e}")
+        check(r["strategy_bf16"] <= SPACE_BF16_BOUND,
+              f"rank {r['rank']} bf16 updates under the strategy rel L2 "
+              f"{r['strategy_bf16']:.3e} > {SPACE_BF16_BOUND}")
+        check(np.isfinite(r["strategy_loss"])
+              and abs(r["strategy_loss"] - strategy["loss"]) < 1e-2,
+              f"rank {r['rank']} loss under the strategy {r['strategy_loss']} vs "
+              f"{strategy['loss']}")
+        check(window_wino["winograd_stats"] > 0,
+              f"rank {r['rank']}: no Winograd halo mode in the window: {window_wino}")
+        check(all(step_wino[k] > 0 for k in STRATEGY_KERNELS),
+              f"rank {r['rank']}: a Winograd halo mode missing from the step: {step_wino}")
+        check(r["strategy_halo"].get(odd_dx, 0) > 0,
+              f"rank {r['rank']}: no odd-D Winograd input gradient ({odd_dx}) in the step")
     # rank 0 holds the volume's first planes: its stride-2 convs have no
     # plane below and run s2_wgrad with pad_lo 1, the SAME mode
     halo = {k: sum(halo_by_kernel(r["halo_bf16"])[k] for r in ranks) for k in TRAIN_KERNELS}
@@ -5626,8 +5844,11 @@ def phase18_space(device, seed, card) -> tuple:
           f"a kernel's halo mode was not launched in the ranks' steps: {halo}")
     check(all(window_halo[k] > 0 for k in PREDICT_KERNELS),
           f"a halo mode was not launched in the ranks' windows: {window_halo}")
+    strategy_halo = {k: sum(halo_by_kernel(r["strategy_halo"], STRATEGY_KERNELS)[k]
+                            for r in ranks) for k in STRATEGY_KERNELS}
     return halo, dict(ranks=ranks, plain_bf16_run_to_run=spread, seconds=seconds,
-                      plain_loss=plain["loss"])
+                      plain_loss=plain["loss"], strategy_loss=strategy["loss"],
+                      strategy_halo=strategy_halo)
 
 
 def phase18_predict_cli(card, cases) -> dict:
@@ -5941,6 +6162,9 @@ def main() -> int:
                  "launches_segresnet": segresnet_launches[v],
                  **{k: report[v][k] for k in keys}, "direct_ms": report[v]["direct_ms"]}
                 for v in STRATEGY_KERNELS]
+    # winograd_wgmma.cu's bf16 calls off the multiples of 8 and off
+    # alignment (phase 2): the cases' largest error and the two timed sites
+    next(k for k in kernels if k["name"] == "winograd")["ragged"] = report["winograd_ragged"]
     # the f32 form (conv3d_tf32x3.cu): conv's launches in SegResNetVAE's bf16
     # AMP train step (its f32 decoder, phase 10b) and time at the decoder's
     # 32 -> 32 @128^3 site; conv_stats' and block_stats' launches in the f32
@@ -6047,6 +6271,18 @@ def main() -> int:
                                              for r in space["ranks"]],
                  **{k: halo_report[v][k] for k in keys}}
                 for v in TRAIN_KERNELS]
+    # Winograd-DH's halo mode: the two ranks' launches in their bf16 steps
+    # under the strategy (phase 18e; the windows' in launches_window_by_pads),
+    # times at phase 18's slab sites beside the whole volume's SAME call
+    kernels += [{"name": f"{v}_halo", "route": "cuda", "source": SOURCES[v],
+                 "replaces": REPLACES[v], "launches": space["strategy_halo"][v],
+                 "launches_by_pads": [{k: n for k, n in r["strategy_halo"].items()
+                                       if k.startswith(v + "(")} for r in space["ranks"]],
+                 "launches_window_by_pads": [{k: n for k, n in r["strategy_window_halo"].items()
+                                              if k.startswith(v + "(")}
+                                             for r in space["ranks"]],
+                 **{k: halo_report[v][k] for k in keys + ("same_ms",)}}
+                for v in STRATEGY_KERNELS]
     idle = [k["name"] for k in kernels if not k["launches"]]
     check(not idle, f"kernels not launched on their paths: {idle}")
     print(f"seconds per case: {json.dumps(seconds)} [{card}]")

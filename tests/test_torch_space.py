@@ -19,11 +19,16 @@ the forward within 1e-4, the loss within relative 1e-4, every parameter
 after the step within 1e-5.
 
 The halo exchange is held as an adjoint pair at 2 and 3 ranks, and each
-kernel's plain D-halo version (``ops/conv3d_kernel``, ``ops/s2_wgrad_kernel``)
-and each halo autograd Function of ``ops/conv3d`` against the SAME conv of
-the whole volume, sliced, at every ``(pad_lo, pad_hi)``. The ``cuda`` tests
-hold each halo mode's kernel against its plain version at the DynUNet's
-shapes in bf16 and f32 on the card.
+kernel's plain D-halo version (``ops/conv3d_kernel``, ``ops/s2_wgrad_kernel``,
+``ops/winograd_kernel``) and each halo autograd Function of ``ops/conv3d``
+against the SAME conv of the whole volume, sliced, at every ``(pad_lo,
+pad_hi)``. Under ``UNET3D_TPU_CONV=winograd``, with the gate lowered inside
+the ranks (``WINOGRAD_GATE``) so that the 32^3 DynUNet has Winograd sites at
+levels 0-2 and their input gradients, the ranks' D-sharded forward and step
+are held against the same JAX runs (JAX's direct conv: Winograd-DH in f32 is
+the same function), and the input gradient's gate is held to JAX's, judged
+on the whole volume. The ``cuda`` tests hold each halo mode's kernel against
+its plain version at the DynUNet's shapes in bf16 and f32 on the card.
 """
 import functools
 import os
@@ -44,6 +49,7 @@ from unet3d_tpu_torch.models.registry import create_model
 from unet3d_tpu_torch.ops import conv3d as C
 from unet3d_tpu_torch.ops import conv3d_kernel as K
 from unet3d_tpu_torch.ops import s2_wgrad_kernel as W
+from unet3d_tpu_torch.ops import winograd_kernel as WK
 from unet3d_tpu_torch.parallel import distributed, launch
 from unet3d_tpu_torch.parallel.halo import exchange_halo
 from unet3d_tpu_torch.parallel.mesh import (Mesh, grid_coordinates, make_mesh,
@@ -67,6 +73,11 @@ DYNUNET = dict(in_channels=2, out_channels=2, spatial_dims=3,
 UNET3D = dict(n_features=1, base_width=2, encoder_blocks=[1, 1], n_outputs=2)
 NETS = {"DynUNet": (DYNUNET, 32, 2), "UNet3D": (UNET3D, 16, 1)}  # kwargs, size, channels
 SPECS = ("space4", "data2,space2")
+# the Winograd gate inside the ranks: >= 4 input channels at >= 8^3 voxels
+# of the whole volume (the BraTS net's 96 at 64^3), so the 32^3 DynUNet's
+# 4-channel convs at levels 0-2 (32^3: the up-block's conv1 on the 2 + 2
+# concatenation; 16^3, 8^3: every conv) and their input gradients pass
+WINOGRAD_GATE = (4, 8 ** 3)
 
 
 # -- the ranks' side: no JAX here -------------------------------------------
@@ -156,6 +167,29 @@ def port_space(name, flat, spec, x, images, labels):
     loss = step(shard_batch(images, mesh), shard_batch(labels, mesh))
     return (forward, float(loss), model_variables(model), dict(mesh.shape),
             (mesh.rank, mesh.space_rank))
+
+
+def port_space_winograd(flat, spec, x, images, labels):
+    """``port_space`` of DynUNet under UNET3D_TPU_CONV=winograd with the
+    gate lowered to ``WINOGRAD_GATE``, and the Winograd calls it made:
+    (variant, D pads, output planes) of each."""
+    calls = []
+
+    def spy(fn, variant):
+        def call(x, w, pads=K.SAME):
+            out = fn(x, w, pads)
+            y = out if variant == "winograd" else out[0]
+            calls.append((variant, tuple(pads), y.shape[1]))
+            return out
+        return call
+
+    with mock.patch.dict(os.environ, {"UNET3D_TPU_CONV": "winograd"}), \
+            mock.patch.object(WK, "_MIN_WINOGRAD_CHANNELS", WINOGRAD_GATE[0]), \
+            mock.patch.object(WK, "_MIN_WINOGRAD_VOXELS", WINOGRAD_GATE[1]), \
+            mock.patch.object(C, "winograd3x3x3", spy(C.winograd3x3x3, "winograd")), \
+            mock.patch.object(C, "winograd3x3x3_with_stats",
+                              spy(C.winograd3x3x3_with_stats, "winograd_stats")):
+        return port_space("DynUNet", flat, spec, x, images, labels) + (calls,)
 
 
 def port_options_step(spec, images, labels):
@@ -325,6 +359,80 @@ def test_plain_halo_stride2_is_the_whole_volumes_slice(start):
                                rtol=0)
     dw = W.s2_wgrad(x, g, pad_lo)
     np.testing.assert_allclose(dw, ww.grad, atol=SLICE * float(ww.grad.abs().max()), rtol=0)
+
+
+# (pads, slab start, slab stop) in a volume of 8 planes: every slab starts
+# its output on an even plane of the volume, as a rank's does, so its D
+# tiles are the volume's; (1, 2) and (2, 1) are the input gradient's pads at
+# the volume's edges, their output D odd
+WINO_SLABS = [((1, 0), 0, 5), ((0, 1), 3, 8), ((0, 0), 3, 7), ((1, 2), 0, 4), ((2, 1), 3, 7)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant", ["winograd", "winograd_stats"])
+@pytest.mark.parametrize("pads,start,stop", WINO_SLABS)
+def test_plain_halo_winograd_is_the_whole_volumes_slice(pads, start, stop, variant, dtype):
+    """The plain D-halo Winograd-DH (both variants) on x planes [start,
+    stop) equals ``winograd_reference`` of the whole volume with the planes
+    outside the slab zeroed (the pads' zero planes), sliced to the halo
+    output's planes: f32 within 1e-5 of the largest value; bf16 within one
+    bf16 step of it (the same roundings; a tie of the store may flip). The
+    statistics are the slice's."""
+    rng = np.random.RandomState(5)
+    whole = torch.from_numpy(rng.randn(2, 8, 6, 5, 12).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.randn(3, 3, 3, 12, 7).astype(np.float32) / 10).to(dtype)
+    x = whole[:, start:stop]
+    zeroed = torch.zeros_like(whole)
+    zeroed[:, start:stop] = x
+    first = start + 1 - pads[0]  # the volume's plane of the halo output's first
+    depth = K.out_depth(x, pads)
+    assert first % 2 == 0 and depth % 2 == (pads in ((1, 2), (2, 1)))
+    want = WK.winograd_reference(zeroed, w)[:, first:first + depth]
+    if variant == "winograd":
+        y = WK.winograd3x3x3(x, w, pads)
+    else:
+        y, s1, s2 = WK.winograd3x3x3_with_stats(x, w, pads)
+    atol = float(want.float().abs().max()) * (SLICE if dtype == torch.float32 else 2 ** -8)
+    assert y.shape == want.shape and y.dtype == dtype
+    np.testing.assert_allclose(y.float(), want.float(), atol=atol, rtol=0)
+    if variant == "winograd_stats":
+        t1, t2 = K.instance_stats(y)
+        assert torch.equal(s1, t1) and torch.equal(s2, t2)
+
+
+@pytest.mark.parametrize("with_stats", [False, True], ids=["winograd", "winograd_stats"])
+@pytest.mark.parametrize("pads", PADS)
+def test_halo_winograd_function_is_the_whole_volumes_slice(monkeypatch, pads, with_stats):
+    """``_Conv3x3x3`` in the Winograd halo mode (the gate lowered to every
+    shape, so its input gradient is Winograd too, with pads 2 - pad): its
+    forward and both gradients against the whole volume's direct conv,
+    restricted to the slab's outputs."""
+    monkeypatch.setattr(WK, "_MIN_WINOGRAD_CHANNELS", 1)
+    monkeypatch.setattr(WK, "_MIN_WINOGRAD_VOXELS", 1)
+    calls = []
+    monkeypatch.setattr(C, "winograd3x3x3",
+                        lambda x, w, pads=K.SAME: calls.append(tuple(pads))
+                        or WK.winograd3x3x3(x, w, pads))
+    rng = np.random.RandomState(6)
+    whole = torch.from_numpy(rng.randn(2, 8, 6, 5, 4).astype(np.float32))
+    w = torch.from_numpy(rng.randn(3, 3, 3, 4, 8).astype(np.float32) / 10)
+    start, stop, first = _slab(pads)
+    x = whole[:, first:stop + 1 - pads[1]]
+    xw, ww = whole.clone().requires_grad_(), w.clone().requires_grad_()
+    xh, wh = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want = K.conv3d_reference(xw, ww)[:, start:stop]
+    part = C._Conv3x3x3.apply(xh, wh, with_stats, True, pads)
+    part = part[0] if with_stats else part
+    g = torch.from_numpy(rng.randn(*part.shape).astype(np.float32))
+    (want * g).sum().backward()
+    (part * g).sum().backward()
+    assert calls[-1] == C.input_grad_pads(pads)
+    np.testing.assert_allclose(part.detach(), want.detach(),
+                               atol=SLICE * float(want.detach().abs().max()), rtol=0)
+    dx = xw.grad[:, first:first + x.shape[1]]
+    np.testing.assert_allclose(xh.grad, dx, atol=SLICE * float(dx.abs().max()), rtol=0)
+    np.testing.assert_allclose(wh.grad, ww.grad, atol=SLICE * float(ww.grad.abs().max()),
+                               rtol=0)
 
 
 def test_input_gradient_pads_give_every_plane():
@@ -523,16 +631,70 @@ def test_train_cli_checks_the_patch_depth():
                                       "cpu").mesh == {"data": 2, "space": 2}
 
 
-def test_winograd_site_on_the_space_axis_raises():
-    """UNET3D_TPU_CONV=winograd at a site of its gate raises on the space
-    axis (JAX's gate judged on the whole volume)."""
-    mesh = Mesh({"space": 2}, 0, None, 0, object(), object())
-    x = torch.zeros(1, 32, 64, 64, 96)
-    w = torch.zeros(3, 3, 3, 96, 96)
-    with mock.patch.dict(os.environ, {"UNET3D_TPU_CONV": "winograd"}), \
-            distributed.space_parallel(mesh), pytest.raises(NotImplementedError,
-                                                            match="ROADMAP.md"):
-        C.conv3d(x, w)
+@functools.lru_cache(maxsize=None)
+def port_winograd_runs(ranks, spec):
+    """The ranks' ``port_space_winograd``; JAX's runs are made meanwhile."""
+    ranks.submit(port_space_winograd, _flat_variables("DynUNet"), spec, *_inputs("DynUNet"))
+    jax_runs("DynUNet")
+    return ranks.collect()
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_space_winograd_matches_jax(ranks, spec):
+    """Under UNET3D_TPU_CONV=winograd (the gate lowered, ``WINOGRAD_GATE``)
+    DynUNet's D-sharded forward and SGD step run: the forward within 1e-4 of
+    JAX's ``make_sharded_forward``, the loss within relative 1e-4 and every
+    parameter within 1e-5 of JAX's single-device and sharded steps; the
+    ranks ran Winograd-DH in its halo mode, forward (statistics too) and
+    input gradient, an odd-D input gradient among them (pads (1, 2) or
+    (2, 1) at the volume's edges)."""
+    got = port_winograd_runs(ranks, spec)
+    want, jax_losses_, jax_params = jax_runs("DynUNet")
+    for forward, *_ in got:
+        np.testing.assert_allclose(forward, want, atol=FORWARD_ATOL, rtol=0)
+    first = got[0]
+    for loss in jax_losses_:
+        np.testing.assert_allclose(first[1], loss, rtol=LOSS_RTOL)
+    for params in jax_params:
+        for key, value in params.items():
+            np.testing.assert_allclose(first[2][key], value, atol=PARAM_ATOL, rtol=0,
+                                       err_msg=key)
+    calls = [c for r in got for c in r[5]]
+    halo = {(v, pads) for v, pads, _ in calls if pads != K.SAME}
+    assert ("winograd_stats", (1, 0)) in halo and ("winograd_stats", (0, 1)) in halo
+    assert {("winograd", (1, 2)), ("winograd", (2, 1))} <= halo
+    assert any(v == "winograd" and depth % 2 for v, _, depth in calls)
+
+
+def test_dx_gate_is_judged_on_the_whole_volume(monkeypatch):
+    """The input gradient of a Winograd site on the space axis takes
+    Winograd-DH where JAX's ``_dgrad`` gate passes on the whole volume's
+    cotangent (the slab's D times the axis), though the slab alone fails
+    it: the 64^3 level's dx at 128^3 on two ranks, here scaled to 8^3."""
+    from unet3d_tpu.ops.pallas import winograd_kernel as jax_wino
+
+    for module in (WK, jax_wino):
+        monkeypatch.setattr(module, "_MIN_WINOGRAD_CHANNELS", 8)
+        monkeypatch.setattr(module, "_MIN_WINOGRAD_VOXELS", 8 ** 3)
+    routed = []
+    monkeypatch.setattr(C, "winograd3x3x3",
+                        lambda g, w, pads: routed.append(("winograd", g.shape[1] + sum(pads) - 2))
+                        or WK.winograd3x3x3(g, w, pads))
+    monkeypatch.setattr(C, "conv3x3x3",
+                        lambda g, w, pads: routed.append(("conv", g.shape[1] + sum(pads) - 2))
+                        or K.conv3x3x3(g, w, pads))
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.randn(1, 5, 8, 8, 8).astype(np.float32)).requires_grad_()
+    w = torch.from_numpy(rng.randn(3, 3, 3, 8, 8).astype(np.float32) / 10)
+    slab, whole = (1, 4, 8, 8, 8), (1, 8, 8, 8, 8)
+    assert jax_wino.winograd_profitable(whole) and not jax_wino.winograd_profitable(slab)
+    for space, want in ((2, ("winograd", 5)), (1, ("conv", 5))):
+        mesh = Mesh({"space": space}, 0, None, 0, object(), object())
+        with distributed.space_parallel(mesh):
+            y = C._Conv3x3x3.apply(x, w, False, True, (1, 0))
+        assert tuple(y.shape) == slab
+        y.sum().backward()
+        assert routed[-1] == want
 
 
 # -- on the card ----------------------------------------------------------
@@ -593,6 +755,45 @@ def test_cuda_halo_conv_kernels(variant, dtype):
             assert _rel_max(got[0], want[0]) < bound, (depth, cin, cout, pads)
             if variant != "conv":
                 assert _stats_err(*got) < 1e-4, (depth, cin, cout, pads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("variant", ["winograd", "winograd_stats"])
+def test_cuda_halo_winograd_kernels(variant, dtype):
+    """Winograd-DH's D-halo mode (every pads, the input gradient's (2, 1),
+    (1, 2), (2, 2) among them: odd output D) against its plain version at
+    the Winograd sites' channel counts on slabs of 1-34 planes, ragged
+    channels and x one element off alignment too (y within phase 2's
+    bounds, the statistics within 1e-4 of an f64 sum of the kernel's own
+    y)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    bound = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    fn = WK.winograd3x3x3 if variant == "winograd" else WK.winograd3x3x3_with_stats
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for depth, hw, cin, cout, offset in [(32, 32, 96, 96, 0), (16, 16, 192, 96, 0),
+                                          (8, 32, 128, 64, 0), (3, 16, 96, 192, 0),
+                                          (1, 8, 100, 12, 0), (5, 10, 5, 7, 1)]:
+        for pads in PADS + [(2, 1), (1, 2), (2, 2)]:
+            d_in = depth + 2 - sum(pads)
+            if d_in < 1:
+                continue
+            x = torch.randn(1, d_in, hw, hw + 3, cin, device="cuda", generator=gen).to(dtype)
+            if offset:
+                store = torch.empty(offset + x.numel(), dtype=dtype, device="cuda")
+                x = store[offset:].view(x.shape).copy_(x)
+            w = (torch.randn(3, 3, 3, cin, cout, device="cuda", generator=gen)
+                 / (27 * cin) ** 0.5).to(dtype)
+            WK.reset_launches()
+            got = fn(x, w, pads)
+            want = WK.winograd_reference(x.clone(), w, pads)
+            y = got if variant == "winograd" else got[0]
+            assert y.shape == want.shape and y.shape[1] == depth
+            assert _rel_max(y, want) < bound, (depth, cin, cout, pads)
+            if variant == "winograd_stats":
+                assert _stats_err(*got) < 1e-4, (depth, cin, cout, pads)
+            assert dict(WK.HALO_LAUNCHES) == ({} if pads == K.SAME else {(variant, pads): 1})
 
 
 @pytest.mark.cuda

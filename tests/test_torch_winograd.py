@@ -251,8 +251,13 @@ def test_wrappers_raise_without_a_kernel_and_check_shapes():
     with pytest.raises(RuntimeError, match="no kernel"):
         wino.winograd3x3x3_with_stats(x, w)
     assert wino.LAUNCHES == before
+    # H must be even; D need not (the D-halo mode's odd output D), and the
+    # D pads are the halo mode's 0..2
     with pytest.raises(ValueError, match="even"):
-        wino.winograd3x3x3(torch.zeros(1, 5, 4, 4, 3), torch.zeros(3, 3, 3, 3, 4))
+        wino.winograd3x3x3(torch.zeros(1, 4, 5, 4, 3), torch.zeros(3, 3, 3, 3, 4))
+    assert wino.winograd3x3x3(torch.zeros(1, 5, 4, 4, 3), torch.zeros(3, 3, 3, 3, 4)).shape[1] == 5
+    with pytest.raises(ValueError, match="pads"):
+        wino.winograd3x3x3(torch.zeros(1, 4, 4, 4, 3), torch.zeros(3, 3, 3, 3, 4), (0, 3))
 
 
 @pytest.fixture

@@ -217,7 +217,7 @@ def test_kernel_form_sends_every_f32_call_to_tf32x3():
     x = torch.zeros(1 + 4 * 4 * 4 * 8)[1:].view(1, 4, 4, 4, 8)
     assert W.kernel_form(x, torch.zeros(3, 3, 3, 8, 8)) == "tf32x3"
     xb = torch.zeros(1 + 4 * 4 * 4 * 8, dtype=torch.bfloat16)[1:].view(1, 4, 4, 4, 8)
-    assert W.kernel_form(xb, torch.zeros(3, 3, 3, 8, 8).bfloat16()) == "wmma"  # bf16 stays
+    assert W.kernel_form(xb, torch.zeros(3, 3, 3, 8, 8).bfloat16()) == "wgmma"  # bf16's form
 
 
 def test_cpu_f32_calls_take_the_plain_version_and_count_no_launch():

@@ -2,11 +2,13 @@
 (``ops/winograd_kernel.py``).
 
 The CUDA kernel (``ops/kernels/winograd_wgmma.cu``) takes its tiling from
-``wgmma_plan`` and its transformed weight from ``pack_u2``. These tests hold
+``wgmma_plan``, its transformed weight from ``pack_u2`` and, where its
+staging cannot read x in place, x from ``staged_input``. These tests hold
 them on the CPU: every output voxel and channel belongs to exactly one block
 (the five Winograd sites of the BraTS DynUNet and ragged shapes), a block
 fits the card's shared memory and a warpgroup's accumulators its registers,
-and the packed U2 unpacks to ``transform_weights_dh`` exactly. A plain-torch
+the packed U2 unpacks to ``transform_weights_dh`` exactly, and the staged x
+holds x's values. A plain-torch
 emulation of the kernel's decomposition (32-channel chunks in order, each
 chunk's window D-transformed and then H-transformed in the working dtype, the
 16 points' products over (tap, channel) read from the packed U2 in f32 and
@@ -179,8 +181,12 @@ def _case(shape, cin, cout, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,cin,cout", [((2, 4, 6, 17), 24, 40), ((1, 2, 10, 40), 96, 72),
-                                            ((1, 4, 4, 6), 40, 8)])
+                                            ((1, 4, 4, 6), 40, 8), ((2, 4, 6, 10), 5, 12),
+                                            ((1, 2, 4, 6), 100, 100), ((1, 4, 6, 9), 3, 7)])
 def test_emulated_decomposition_matches_reference(shape, cin, cout, dtype):
+    """Whole and ragged chunks (Cin 5, 3: zero past Cin in one chunk; 100:
+    four chunks, the last of 4 channels) and N tiles (Cout 12, 7: one tile
+    of 48, masked; 100: two of 64)."""
     x, k = _case(shape, cin, cout, seed=sum(shape) + cin)
     tx, tk = torch.from_numpy(x).to(dtype), torch.from_numpy(k).to(dtype)
     plan = W.wgmma_plan(tuple(tx.shape), cout)
@@ -207,9 +213,30 @@ def test_kernel_form_by_dtype_and_channels():
     assert W.kernel_form(x, w) == "tf32x3"
     assert W.kernel_form(x.bfloat16(), w.bfloat16()) == "wgmma"
     assert W.kernel_form(torch.zeros(1, 4, 4, 4, 5, dtype=torch.bfloat16),
-                         torch.zeros(3, 3, 3, 5, 96, dtype=torch.bfloat16)) == "wmma"
+                         torch.zeros(3, 3, 3, 5, 96, dtype=torch.bfloat16)) == "wgmma"
     assert W.kernel_form(x.bfloat16(), torch.zeros(3, 3, 3, 96, 12,
-                                                   dtype=torch.bfloat16)) == "wmma"
+                                                   dtype=torch.bfloat16)) == "wgmma"
+    off = torch.zeros(1 + 4 ** 3 * 96, dtype=torch.bfloat16)[1:].view(1, 4, 4, 4, 96)
+    assert W.kernel_form(off, w.bfloat16()) == "wgmma"
+
+
+@pytest.mark.parametrize("cin,offset,copied", [(96, 0, False), (100, 0, False), (6, 2, False),
+                                               (5, 0, True), (96, 1, True), (12, 3, True)])
+def test_staged_input_copies_what_the_staging_cannot_read(cin, offset, copied):
+    """The wgmma form stages x in 16- or 4-byte pieces: x with an even
+    Cin and 4-byte aligned is read in place; an odd Cin or a 2-byte aligned
+    x is copied, 16-byte aligned, Cin zero-padded to a multiple of 8, the
+    values unchanged."""
+    rng = np.random.RandomState(cin + offset)
+    values = torch.from_numpy(rng.randn(2, 2, 4, 3, cin).astype(np.float32)).bfloat16()
+    x = torch.empty(offset + values.numel(), dtype=torch.bfloat16)[offset:].view(values.shape)
+    x.copy_(values)
+    staged = W.staged_input(x)
+    assert (staged is not x) == copied
+    if copied:
+        assert staged.data_ptr() % 16 == 0 and staged.is_contiguous()
+        assert staged.shape == (*x.shape[:4], -(-cin // 8) * 8)
+        assert torch.equal(staged[..., :cin], values) and not staged[..., cin:].any()
 
 
 def test_cpu_calls_count_no_launch_and_no_form():
@@ -262,12 +289,25 @@ def test_cuda_wgmma_form_matches_plain(cuda_device, shape, cin, cout):
 
 
 @pytest.mark.cuda
-def test_cuda_channels_off_the_wgmma_form_take_wmma(cuda_device):
-    x, k = _case((1, 4, 8, 20), 5, 96, seed=9)
+@pytest.mark.parametrize("shape,cin,cout,offset", [
+    ((1, 4, 8, 20), 5, 96, 0), ((2, 4, 8, 20), 96, 12, 0), ((1, 6, 10, 40), 100, 100, 0),
+    ((1, 6, 10, 40), 96, 96, 1), ((2, 4, 6, 17), 5, 12, 1), ((1, 4, 6, 33), 36, 20, 2)])
+def test_cuda_ragged_and_misaligned_bf16_take_wgmma(cuda_device, shape, cin, cout, offset):
+    """bf16 calls of any Cin and Cout, x one or two elements off alignment
+    (copied, or staged in 4-byte pieces): the wgmma form, y within 1e-2 of
+    the plain version, the statistics within 1e-4 of an f64 sum of the
+    kernel's own y."""
+    x, k = _case(shape, cin, cout, seed=9)
     tx = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+    if offset:
+        store = torch.empty(offset + tx.numel(), dtype=tx.dtype, device=cuda_device)
+        tx = store[offset:].view(tx.shape).copy_(tx)
     tk = torch.from_numpy(k).to(cuda_device, torch.bfloat16)
     W.reset_launches()
     y = W.winograd3x3x3(tx, tk)
+    ys, s1, s2 = W.winograd3x3x3_with_stats(tx, tk)
     torch.cuda.synchronize()
-    assert dict(W.FORM_LAUNCHES) == {("winograd", "wmma"): 1}
-    assert _rel(y.float().cpu(), W.winograd_reference(tx, tk).float().cpu()) < 1e-2
+    assert dict(W.FORM_LAUNCHES) == {("winograd", "wgmma"): 1, ("winograd_stats", "wgmma"): 1}
+    want = W.winograd_reference(tx.clone(), tk).float().cpu()
+    assert _rel(y.float().cpu(), want) < 1e-2 and _rel(ys.float().cpu(), want) < 1e-2
+    assert _stats_rel(ys.cpu(), s1.cpu(), s2.cpu()) < 1e-4

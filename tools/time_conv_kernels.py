@@ -1,6 +1,6 @@
 """Time the port's direct conv, s2_wgrad and Winograd-DH kernels at the BraTS DynUNet's bf16 sites.
 
-    python tools/time_conv_kernels.py [--root CHECKOUT] [--reps N] [--sites bf16|narrow_f32]
+    python tools/time_conv_kernels.py [--root CHECKOUT] [--reps N] [--sites bf16|narrow_f32|halo]
 
 Imports ``unet3d_tpu_torch`` from ``--root`` (default: this checkout), so that
 two checkouts can be timed on one card in turns, e.g. a parent commit
@@ -19,11 +19,16 @@ instead the calls that take neither the wgmma nor the direct tf32x3 form:
 Winograd-DH in f32 at the ``chip_smoke.WINO_SHAPES`` sites (its
 ``winograd_stats`` forward sites and ``winograd`` input gradients), the
 bf16 s2_wgrad at ``chip_smoke.NARROW_S2_SHAPES`` (4 input channels), and
-``winograd`` in bf16 at ``WMMA_WINO_SITES`` (100 -> 100 @64^3 and 96 -> 96
-@64^3 with x one element off alignment: winograd.cu's wmma form), each of
-these beside ``F.conv3d`` on the same operands and its bound
-(``chip_smoke.conv_bound``, 48 of the direct conv's 108 products). Prints
-the card and one JSON line: {"root": ..., "card": ..., "ms": {label: ms}}.
+``winograd`` in bf16 at ``chip_smoke.WINO_BF16_TIMED`` (100 -> 100 @64^3
+and 96 -> 96 @64^3 with x one element off alignment: the bf16 calls off
+the multiples of 8 and off alignment, with the form each checkout gives
+them), each of these beside ``F.conv3d`` on the same operands and its
+bound (``chip_smoke.conv_bound``, 48 of the direct conv's 108 products).
+``--sites halo`` times Winograd-DH's D-halo mode in bf16 at
+``chip_smoke.WINO_HALO_SHAPES`` (two ranks' slabs of the strategy's sites),
+each beside the SAME call over the whole volume (D twice the slab's) and
+``F.conv3d`` on the slab padded on D, in three rounds. Prints the card and
+one JSON line: {"root": ..., "card": ..., "ms": {label: ms}}.
 Needs a CUDA GPU.
 """
 import argparse
@@ -33,16 +38,13 @@ import os
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (label, spatial, cin, cout, element offset of x)
-WMMA_WINO_SITES = [("100->100 @64^3", 64, 100, 100, 0),
-                   ("96->96 @64^3, x off alignment", 64, 96, 96, 1)]
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=REPO)
     parser.add_argument("--reps", type=int, default=10)
-    parser.add_argument("--sites", choices=["bf16", "narrow_f32"], default="bf16")
+    parser.add_argument("--sites", choices=["bf16", "narrow_f32", "halo"], default="bf16")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -65,6 +67,29 @@ def main() -> int:
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(0)
     wino = {"winograd": WG.winograd3x3x3, "winograd_stats": WG.winograd3x3x3_with_stats}
+    if args.sites == "halo":
+        from unet3d_tpu_torch.ops.conv3d import pad_d
+        ms = {}
+        for rnd in range(3):
+            for label, depth, hw, cin, cout, variant, pads in chip_smoke.WINO_HALO_SHAPES:
+                d_in = depth + 2 - sum(pads)
+                x = torch.randn(1, d_in, hw, hw, cin, device=device, generator=gen).bfloat16()
+                whole = torch.randn(1, 2 * (depth // 2 * 2), hw, hw, cin, device=device,
+                                    generator=gen).bfloat16()
+                w = (torch.randn(3, 3, 3, cin, cout, device=device, generator=gen)
+                     / (27 * cin) ** 0.5).bfloat16()
+                xn = pad_d(x, pads).permute(0, 4, 1, 2, 3)
+                wn = w.permute(4, 3, 0, 1, 2).contiguous()
+                key = f"{variant} {label} pads {pads}"
+                for name, fn in ((key, lambda: wino[variant](x, w, pads)),
+                                 (f"{key} SAME whole volume", lambda: wino[variant](whole, w)),
+                                 (f"{key} F.conv3d padded slab",
+                                  lambda: torch.nn.functional.conv3d(xn, wn, padding=(0, 1, 1)))):
+                    ms.setdefault(name, []).append(chip_smoke.device_ms(fn, args.reps))
+                del x, whole, w, xn, wn
+        print(chip_smoke.card_line())
+        print(json.dumps({"root": args.root, "card": chip_smoke.card_line(), "ms": ms}))
+        return 0
     if args.sites == "narrow_f32":
         ms = {}
         for label, s, cin, cout in chip_smoke.WINO_SHAPES:
@@ -78,11 +103,9 @@ def main() -> int:
             g = torch.randn(1, s // 2, s // 2, s // 2, cout, device=device,
                             generator=gen).bfloat16()
             ms[f"s2_wgrad {label}"] = chip_smoke.device_ms(lambda: W.s2_wgrad(x, g), args.reps)
-        for label, s, cin, cout, offset in WMMA_WINO_SITES:
-            x = torch.randn(1, s, s, s, cin, device=device, generator=gen).bfloat16()
-            if offset:
-                store = torch.empty(offset + x.numel(), dtype=x.dtype, device=device)
-                x = store[offset:].view(x.shape).copy_(x)
+        for label, s, cin, cout, offset in chip_smoke.WINO_BF16_TIMED:
+            x = chip_smoke.offset_copy(
+                torch.randn(1, s, s, s, cin, device=device, generator=gen).bfloat16(), offset)
             w = (torch.randn(3, 3, 3, cin, cout, device=device, generator=gen)
                  / (27 * cin) ** 0.5).bfloat16()
             ms[f"winograd bf16 {label}"] = chip_smoke.device_ms(lambda: WG.winograd3x3x3(x, w),

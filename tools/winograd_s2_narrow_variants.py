@@ -89,7 +89,7 @@ def build_variants():
             raise RuntimeError(f"nvcc failed for {kind} {name}:\n{' '.join(cmd)}\n{output}")
         lib = ctypes.CDLL(os.path.join(OUT, f"lib{kind}_{name}.so"))
         if kind == "wino":
-            lib.unet3d_winograd_tf32x3.argtypes = [i, i, p, p, p, p] + [i] * 10 + [p]
+            lib.unet3d_winograd_tf32x3.argtypes = [i, i, p, p, p, p] + [i] * 12 + [p]
             lib.unet3d_winograd_tf32x3.restype = i
         else:
             lib.unet3d_s2_wgrad_narrow.argtypes = [i, p, p, p, p] + [i] * 17 + [p]
@@ -131,8 +131,9 @@ def main() -> int:
         def call(lib):
             def run():
                 err = lib.unet3d_winograd_tf32x3(
-                    0, plan.config, x.data_ptr(), u2.data_ptr(), y.data_ptr(), None, 1, s, s, s,
-                    cin, cout, plan.h_tiles, plan.w_tiles, plan.n_tiles, plan.chunks, stream())
+                    0, plan.config, x.data_ptr(), u2.data_ptr(), y.data_ptr(), None, 1, s, 1, 1,
+                    s, s, cin, cout, plan.h_tiles, plan.w_tiles, plan.n_tiles, plan.chunks,
+                    stream())
                 if err:
                     raise RuntimeError(f"launch failed: {err}")
             return run

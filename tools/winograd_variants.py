@@ -76,7 +76,7 @@ def build_variants():
                                for l in lines if "Loss: " in l}))
         lib = ctypes.CDLL(os.path.join(OUT, f"lib{name}.so"))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.unet3d_winograd_wgmma.argtypes = [i, i, p, p, p, p] + [i] * 10 + [p]
+        lib.unet3d_winograd_wgmma.argtypes = [i, i, p, p, p, p] + [i] * 12 + [p]
         lib.unet3d_winograd_wgmma.restype = i
         libs[name] = lib
     return libs, notes
@@ -114,7 +114,7 @@ def main() -> int:
             def run():
                 err = lib.unet3d_winograd_wgmma(
                     with_stats, plan.config, x.data_ptr(), u2.data_ptr(), y.data_ptr(),
-                    stats.data_ptr(), 1, s, s, s, cin, cout, plan.h_tiles, plan.w_tiles,
+                    stats.data_ptr(), 1, s, 1, 1, s, s, cin, cout, plan.h_tiles, plan.w_tiles,
                     plan.n_tiles, plan.chunks, torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"launch failed: {err}")

@@ -37,8 +37,7 @@ _PACKAGE = Path(__file__).resolve().parents[1]
 _KERNELS = _PACKAGE / "ops" / "kernels"
 SOURCES = tuple(_KERNELS / name for name in (
     "conv3d_wgmma.cu", "conv3d_narrow.cu", "conv3d_tf32x3.cu", "s2_wgrad.cu",
-    "s2_wgrad_wgmma.cu", "s2_wgrad_tf32x3.cu", "winograd.cu", "winograd_wgmma.cu",
-    "winograd_tf32x3.cu"))
+    "s2_wgrad_wgmma.cu", "s2_wgrad_tf32x3.cu", "winograd_wgmma.cu", "winograd_tf32x3.cu"))
 HEADERS = (_KERNELS / "sm90_wgmma.cuh",)  # included by the sources, hashed with them
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -176,11 +175,8 @@ def load_library() -> ctypes.CDLL:
             lib.unet3d_s2_wgrad_wgmma.argtypes = [
                 i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
             lib.unet3d_s2_wgrad_wgmma.restype = i
-            lib.unet3d_winograd3x3x3_ndhwc.argtypes = [
-                i, p, p, p, p, i, i, i, i, i, i, i, i, p]
-            lib.unet3d_winograd3x3x3_ndhwc.restype = i
             lib.unet3d_winograd_wgmma.argtypes = [
-                i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+                i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, p]
             lib.unet3d_winograd_wgmma.restype = i
             lib.unet3d_winograd_wgmma_config.argtypes = [i, ctypes.POINTER(i)]
             lib.unet3d_winograd_wgmma_config.restype = i

@@ -33,8 +33,15 @@ gradient on the input padded on D by (pad_lo, 1), VALID on D, and
 ``s2_wgrad``'s halo mode for the weight gradient. A 1x1x1 conv is local to
 each plane. The statistics of ``conv3d_with_stats`` and
 ``conv3d_block_with_stats`` are summed over the axis
-(``distributed.sum_over_space``). Other kernel sizes, and a Winograd site,
-raise on the axis (see ROADMAP.md).
+(``distributed.sum_over_space``). Other kernel sizes raise on the axis (see
+ROADMAP.md). Under ``UNET3D_TPU_CONV=winograd`` the gate is judged on the
+whole volume (the slab's D times the axis), as the JAX package's sharded
+step judges it, and a site that passes runs the Winograd-DH kernels' D-halo
+mode, forward and input gradient; at a fused block site the neighbours'
+raw planes are exchanged, the halo'd slab activated with the slab's
+scale and shift, and the Winograd halo mode's zero pad planes stand for the
+missing neighbours after the activation, as JAX pads the materialised
+activation.
 
 f32 on the card is full f32: every cuDNN conv here (forward and gradients)
 and the channel matmuls (the attention products too) run under
@@ -87,19 +94,19 @@ def conv_strategy() -> Optional[str]:
     return strategy
 
 
+def whole_volume(shape, space: int) -> Tuple[int, ...]:
+    """The NDHWC shape of the volume of which ``shape`` is one of ``space``
+    D slabs."""
+    return (shape[0], shape[1] * space, *shape[2:])
+
+
 def _winograd_site(x: torch.Tensor, w: torch.Tensor, stride, pads) -> bool:
+    """Whether the strategy and the JAX gate, judged on the whole volume
+    (x's on one device, a slab's times the space axis), send this 3x3x3
+    conv to Winograd-DH."""
     return (conv_strategy() == "winograd"
-            and winograd_applies(tuple(x.shape), tuple(w.shape), stride, pads))
-
-
-def _refuse_space_winograd(x: torch.Tensor, w: torch.Tensor) -> None:
-    """A Winograd site (judged on the whole volume) on the space axis raises."""
-    shape = (x.shape[0], x.shape[1] * distributed.space_size(), *x.shape[2:])
-    if (conv_strategy() == "winograd"
-            and winograd_applies(shape, tuple(w.shape), (1, 1, 1), ((1, 1),) * 3)):
-        raise NotImplementedError(
-            "the Winograd-DH kernels (UNET3D_TPU_CONV=winograd) have no form for the "
-            "'space' mesh axis yet (see ROADMAP.md)")
+            and winograd_applies(whole_volume(x.shape, distributed.space_size()),
+                                 tuple(w.shape), stride, pads))
 
 
 def _is_3x3x3(w: torch.Tensor, stride: Tuple[int, ...], pads: Pads, s: int) -> bool:
@@ -237,12 +244,13 @@ class _Conv3x3x3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, with_stats: bool, winograd: bool = False, pads=SAME):
         ctx.with_stats, ctx.winograd, ctx.pads = with_stats, winograd, tuple(pads)
+        ctx.space = distributed.space_size()
         if with_stats:
-            y, s1, s2 = (winograd3x3x3_with_stats(x, w) if winograd
+            y, s1, s2 = (winograd3x3x3_with_stats(x, w, pads) if winograd
                          else conv3x3x3_with_stats(x, w, pads))
             ctx.save_for_backward(x, w, y)
             return y, s1, s2
-        y = winograd3x3x3(x, w) if winograd else conv3x3x3(x, w, pads)
+        y = winograd3x3x3(x, w, pads) if winograd else conv3x3x3(x, w, pads)
         ctx.save_for_backward(x, w)
         return y
 
@@ -257,10 +265,12 @@ class _Conv3x3x3(torch.autograd.Function):
             g = gy.to(x.dtype).contiguous()
         dx = None
         if ctx.needs_input_grad[0]:
-            if ctx.winograd and winograd_profitable(g.shape):
-                dx = winograd3x3x3(g, flip_io(w))
+            dx_pads = input_grad_pads(ctx.pads)
+            # the JAX _dgrad's gate, on the whole volume's cotangent
+            if ctx.winograd and winograd_profitable(whole_volume(g.shape, ctx.space)):
+                dx = winograd3x3x3(g, flip_io(w), dx_pads)
             else:
-                dx = conv3x3x3(g, flip_io(w), input_grad_pads(ctx.pads))
+                dx = conv3x3x3(g, flip_io(w), dx_pads)
         dw = None
         if ctx.needs_input_grad[1]:
             dw = halo_weight_grad(x, g, w.shape, ctx.pads).to(w.dtype)
@@ -353,9 +363,9 @@ def _space_conv3d(x: torch.Tensor, w: torch.Tensor, stride, pads, with_stats: bo
     """``conv3d`` (``conv3d_with_stats``: the slab's statistics) of a D slab
     on the space axis."""
     if _is_3x3x3(w, stride, pads, 1):
-        _refuse_space_winograd(x, w)
+        winograd = _winograd_site(x, w, stride, pads)
         xh, halo_pads = exchange_halo(x, 1, 1)
-        return _Conv3x3x3.apply(xh, w.contiguous(), with_stats, False, halo_pads)
+        return _Conv3x3x3.apply(xh, w.contiguous(), with_stats, winograd, halo_pads)
     if _is_3x3x3(w, stride, pads, 2) and x.shape[1] % 2 == 0:
         xh, halo_pads = exchange_halo(x, 1, 0)
         y = _Conv3x3x3Stride2.apply(xh, w.contiguous(), halo_pads[0])
@@ -423,13 +433,20 @@ def conv3d_block_with_stats(y: torch.Tensor, w: torch.Tensor,
     The activation is zero-padded, as if it had been materialised; at a
     Winograd site it is materialised, as the JAX model does. On the space
     axis the neighbours' planes of y are exchanged first and activated with
-    the slab's own."""
-    if distributed.space_size() > 1 and tuple(w.shape[:3]) == (3, 3, 3):
-        _refuse_space_winograd(y, w)
+    the slab's own (at a Winograd site the halo'd slab is activated, then
+    convolved in the Winograd halo mode)."""
+    if tuple(w.shape[:3]) != (3, 3, 3):
+        return conv3d_with_stats(affine_lrelu(y, scale, shift, alpha), w)
+    winograd = _winograd_site(y, w, (1, 1, 1), ((1, 1),) * 3)
+    if distributed.space_size() > 1:
         yh, halo_pads = exchange_halo(y, 1, 1)
-        out, t1, t2 = _BlockConv3x3x3.apply(yh, w.contiguous(), scale, shift, alpha, halo_pads)
+        if winograd:
+            out, t1, t2 = _Conv3x3x3.apply(affine_lrelu(yh, scale, shift, alpha),
+                                           w.contiguous(), True, True, halo_pads)
+        else:
+            out, t1, t2 = _BlockConv3x3x3.apply(yh, w.contiguous(), scale, shift, alpha,
+                                                halo_pads)
         return (out, *space_stats(t1, t2))
-    if (tuple(w.shape[:3]) == (3, 3, 3)
-            and not _winograd_site(y, w, (1, 1, 1), ((1, 1),) * 3)):
+    if not winograd:
         return _BlockConv3x3x3.apply(y, w.contiguous(), scale, shift, alpha)
     return conv3d_with_stats(affine_lrelu(y, scale, shift, alpha), w)

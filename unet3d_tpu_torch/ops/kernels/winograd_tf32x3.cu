@@ -12,8 +12,16 @@
 //                   the pallas_call at :274).
 //
 // It takes every f32 call: any Cin and Cout, any alignment of x (4 bytes),
-// D and H even. winograd_wgmma.cu takes the bf16 calls with Cin and Cout
-// multiples of 8, winograd.cu the other bf16 calls.
+// H even, D any in the D-halo mode below. winograd_wgmma.cu takes every bf16
+// call.
+//
+// D-halo mode (the space mesh axis; winograd_wgmma.cu's, which is
+// ops/conv3d_kernel.py's convention): x holds d_in planes, and pads
+// (pad_lo, pad_hi) in 0..2 stand for missing neighbour planes as zeros. The
+// output has d = d_in + pad_lo + pad_hi - 2 planes; output D tile t reads x
+// planes 2t - pad_lo .. 2t + 3 - pad_lo, zero outside [0, d_in); an odd d's
+// last tile stores and counts its first row only. The SAME conv is d_in =
+// d, pads (1, 1).
 //
 // Math (winograd_kernel.winograd_reference in f32): output rows (2t, 2t+1)
 // in D and (2s, 2s+1) in H of one column come from the padded input rows
@@ -134,12 +142,12 @@ __device__ __forceinline__ uint32_t swz(int row, int wr, int j) {
 }
 
 struct Args {
-  const float* x;     // (N, D, H, W, Cin)
+  const float* x;     // (N, d_in, H, W, Cin)
   const float* u2;    // packed (n_tiles, chunks, SLABS, 2, BN, 32)
-  float* y;           // (N, D, H, W, Cout)
+  float* y;           // (N, d, H, W, Cout)
   float* stats;       // (N, 2, Cout), STATS only; zeroed by the caller
-  int n, d, h, w_, cin, cout;
-  int h_tiles, w_tiles, n_tiles, chunks;
+  int n, d_in, d, pad_lo, h, w_, cin, cout;
+  int d_tiles, h_tiles, w_tiles, n_tiles, chunks;
   int vec_x;          // 16-byte copies of x: Cin % 4 == 0 and x 16-byte aligned
 };
 
@@ -174,10 +182,10 @@ __global__ void __launch_bounds__(THREADS, 1) winograd_tf32x3(const Args a) {
   const int nt = bid % a.n_tiles; bid /= a.n_tiles;
   const int w0 = (bid % a.w_tiles) * BW; bid /= a.w_tiles;
   const int th0 = (bid % a.h_tiles) * BHT; bid /= a.h_tiles;
-  const int td = bid % (a.d / 2);
-  const int item = bid / (a.d / 2);
+  const int td = bid % a.d_tiles;
+  const int item = bid / a.d_tiles;
 
-  // the window of chunk c: D rows 2td-1 .. 2td+2, H rows 2th0-1 .. 2th0+2BHT,
+  // the window of chunk c: x planes 2td-pad_lo .. 2td+3-pad_lo, H rows 2th0-1 .. 2th0+2BHT,
   // W columns w0-1 .. w0+BW; thread -> items tid, tid + THREADS, ... of
   // (column, 16-byte chunk of 4 channels), each in all four D rows
   auto load_window = [&](int c, uint32_t buf) {
@@ -188,10 +196,10 @@ __global__ void __launch_bounds__(THREADS, 1) winograd_tf32x3(const Args a) {
       const bool in_hw = iy >= 0 && iy < a.h && ix >= 0 && ix < a.w_;
 #pragma unroll
       for (int dz = 0; dz < 4; ++dz) {
-        const int iz = 2 * td - 1 + dz;
-        const bool in = in_hw && iz >= 0 && iz < a.d;
+        const int iz = 2 * td - a.pad_lo + dz;
+        const bool in = in_hw && iz >= 0 && iz < a.d_in;
         const float* src =
-            in ? a.x + (((static_cast<long long>(item) * a.d + iz) * a.h + iy) * a.w_ + ix) *
+            in ? a.x + (((static_cast<long long>(item) * a.d_in + iz) * a.h + iy) * a.w_ + ix) *
                            a.cin + ch
                : a.x;
         const uint32_t dst = buf + swz(dz * PLANE + col, wr, j);
@@ -391,7 +399,7 @@ __global__ void __launch_bounds__(THREADS, 1) winograd_tf32x3(const Args a) {
     for (int hi = 0; hi < 2; ++hi) {
       const int m = wq * 16 + (lane >> 2) + 8 * hi;
       const int oy = 2 * (th0 + wg * 2 + (m >> 5)) + (o & 1), ox = w0 + (m & 31);
-      row_ok[o][hi] = oy < a.h && ox < a.w_;
+      row_ok[o][hi] = 2 * td + (o >> 1) < a.d && oy < a.h && ox < a.w_;
     }
 #pragma unroll
   for (int i = 0; i < BN / 8; ++i) {
@@ -435,7 +443,7 @@ __global__ void __launch_bounds__(THREADS, 1) winograd_tf32x3(const Args a) {
     const int o = r / BM, pm = r % BM;
     const int oz = 2 * td + (o >> 1), oy = 2 * (th0 + (pm >> 5)) + (o & 1), ox = w0 + (pm & 31);
     vox = ((static_cast<long long>(item) * a.d + oz) * a.h + oy) * a.w_ + ox;
-    return oy < a.h && ox < a.w_;
+    return oz < a.d && oy < a.h && ox < a.w_;
   };
   if (a.cout % 4 == 0) {
     // y: consecutive threads store consecutive 16-byte groups of channels
@@ -487,7 +495,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (a.h_tiles != (a.h / 2 + BHT - 1) / BHT || a.w_tiles != (a.w_ + BW - 1) / BW ||
       a.n_tiles != (a.cout + BN - 1) / BN || a.chunks != (a.cin + CK - 1) / CK)
     return cudaErrorInvalidValue;
-  const long long blocks = static_cast<long long>(a.n) * (a.d / 2) * a.h_tiles *
+  const long long blocks = static_cast<long long>(a.n) * a.d_tiles * a.h_tiles *
                            a.w_tiles * a.n_tiles;
   if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   kernel<<<static_cast<unsigned>(blocks), THREADS, Cfg::SMEM, stream>>>(a);
@@ -518,21 +526,23 @@ bool aligned(const void* p, int bytes) {
 }  // namespace
 
 // stats: 0 = winograd, 1 = winograd_stats; config: an index of CONFIGS. u2 is
-// the packed transformed weight (n_tiles, chunks, 24, 2, BN, 32) and y are
-// 16-byte aligned; x (N, D, H, W, Cin) f32, 4-byte aligned, any Cin and
-// Cout, D and H even; h_tiles, w_tiles, n_tiles and chunks as the
-// configuration cuts the shape. Returns the cudaError_t of the launch (0 on
-// success).
+// the packed transformed weight (n_tiles, chunks, 24, 2, BN, 32) and y (N,
+// d, H, W, Cout) are 16-byte aligned; x (N, d_in, H, W, Cin) f32, 4-byte
+// aligned, any Cin and Cout; d = d_in + pad_lo + pad_hi - 2 >= 1 with pads
+// in 0..2, H even; h_tiles, w_tiles, n_tiles and chunks as the configuration
+// cuts the shape. Returns the cudaError_t of the launch (0 on success).
 extern "C" int unet3d_winograd_tf32x3(int stats, int config, const void* x, const void* u2,
-                                      void* y, float* stats_buf, int n, int d, int h, int w_,
-                                      int cin, int cout, int h_tiles, int w_tiles, int n_tiles,
-                                      int chunks, void* stream) {
-  if (cin < 1 || cout < 1 || d % 2 != 0 || h % 2 != 0 || !aligned(x, 4) || !aligned(u2, 16) ||
-      !aligned(y, 16) || (stats && !stats_buf))
+                                      void* y, float* stats_buf, int n, int d_in, int pad_lo,
+                                      int pad_hi, int h, int w_, int cin, int cout, int h_tiles,
+                                      int w_tiles, int n_tiles, int chunks, void* stream) {
+  const int d = d_in + pad_lo + pad_hi - 2;
+  if (cin < 1 || cout < 1 || pad_lo < 0 || pad_lo > 2 || pad_hi < 0 || pad_hi > 2 || d < 1 ||
+      h % 2 != 0 || !aligned(x, 4) || !aligned(u2, 16) || !aligned(y, 16) ||
+      (stats && !stats_buf))
     return cudaErrorInvalidValue;
   Args a{static_cast<const float*>(x), static_cast<const float*>(u2), static_cast<float*>(y),
-         stats_buf, n, d, h, w_, cin, cout, h_tiles, w_tiles, n_tiles, chunks,
-         cin % 4 == 0 && aligned(x, 16)};
+         stats_buf, n, d_in, d, pad_lo, h, w_, cin, cout, (d + 1) / 2, h_tiles, w_tiles,
+         n_tiles, chunks, cin % 4 == 0 && aligned(x, 16)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (config) {
     case 0: return dispatch<48, 4, 1>(stats, a, s);

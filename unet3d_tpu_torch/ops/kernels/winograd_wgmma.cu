@@ -4,14 +4,29 @@
 //
 //   winograd        y = conv(x, w). Replaces
 //                   unet3d_tpu/ops/pallas/winograd_kernel.py _winograd_batched
-//                   (the pallas_call at :229).
+//                   (:199, the pallas_call at :229), and its input gradient
+//                   through _dgrad (:363).
 //   winograd_stats  y plus per-(n, cout) f32 sum(y) and sum(y^2) of y as
-//                   rounded to bf16. Replaces _winograd_batched_stats (:274).
+//                   rounded to bf16. Replaces _winograd_batched_stats (:254,
+//                   the pallas_call at :274).
 //
-// It takes every bf16 call with Cin and Cout multiples of 8 (every Winograd
-// site of the BraTS DynUNet: Cin 96, 128, 192, Cout 64, 96, 192);
-// winograd_tf32x3.cu takes the f32 calls, winograd.cu's WMMA form the bf16
-// calls of other channel counts.
+// It takes every bf16 call: any Cout, and any Cin and alignment of x the
+// wrapper hands it (ops/winograd_kernel.py: x whose rows the staging cannot
+// copy in 4-byte or larger pieces, odd Cin or x only 2-byte aligned, is
+// copied first into a 16-byte aligned tensor of Cin rounded up to 8);
+// winograd_tf32x3.cu takes the f32 calls. The window is staged by 16-byte
+// cp.async pieces where Cin % 8 == 0 and x is 16-byte aligned (every DynUNet
+// site), else by 4-byte pieces, zero-filled past Cin; output channels past
+// Cout are neither stored nor counted (2-byte stores where Cout % 8 != 0).
+//
+// D-halo mode (the space mesh axis, ops/conv3d_kernel.py's convention): x
+// holds d_in planes, a slab of the volume with up to one neighbour plane on
+// each side, and pads (pad_lo, pad_hi) in 0..2 stand for missing neighbours
+// as zero planes. The output has d = d_in + pad_lo + pad_hi - 2 planes;
+// output D tile t reads x planes 2t - pad_lo .. 2t + 3 - pad_lo, zero
+// outside [0, d_in). d may be odd (an input gradient at the volume's edge):
+// the last tile's second row is then neither stored nor counted. The SAME
+// conv is d_in = d, pads (1, 1).
 //
 // Math (the JAX kernel's, winograd_kernel.py:143-193): output rows (2t, 2t+1)
 // in D and (2s, 2s+1) in H of one column come from the padded input rows
@@ -149,12 +164,12 @@ __device__ __forceinline__ uint32_t swz(int row, int wr, int j) {
 }
 
 struct Args {
-  const bf16* x;      // (N, D, H, W, Cin)
+  const bf16* x;      // (N, d_in, H, W, Cin)
   const bf16* u2;     // packed (n_tiles, chunks, SLABS, BN, 64)
-  bf16* y;            // (N, D, H, W, Cout)
+  bf16* y;            // (N, d, H, W, Cout)
   float* stats;       // (N, 2, Cout), STATS only; zeroed by the caller
-  int n, d, h, w_, cin, cout;
-  int h_tiles, w_tiles, n_tiles, chunks;
+  int n, d_in, d, pad_lo, h, w_, cin, cout;
+  int d_tiles, h_tiles, w_tiles, n_tiles, chunks;
 };
 
 template <int BN, int STAGES>
@@ -169,7 +184,11 @@ struct Tile {
   static_assert(2 * 8 * BN * 4 <= STAGES * SLAB_BYTES, "statistics fit the ring");
 };
 
-template <int BN, int STAGES, bool STATS>
+// VEC16: x staged in 16-byte pieces (Cin % 8 == 0, x 16-byte aligned: every
+// DynUNet site), else in 4-byte pieces (Cin even, x 4-byte aligned), each in
+// an instantiation of its own (a run-time choice in the one loop cost the
+// 16-byte sites 3-6%)
+template <int BN, int STAGES, bool STATS, bool VEC16>
 __global__ void __launch_bounds__(THREADS, 1) winograd_wgmma(const Args a) {
   using Cfg = Tile<BN, STAGES>;
   constexpr int NACC = BN / 2;
@@ -188,27 +207,39 @@ __global__ void __launch_bounds__(THREADS, 1) winograd_wgmma(const Args a) {
   const int nt = bid % a.n_tiles; bid /= a.n_tiles;
   const int w0 = (bid % a.w_tiles) * BW; bid /= a.w_tiles;
   const int th0 = (bid % a.h_tiles) * BHT; bid /= a.h_tiles;
-  const int td = bid % (a.d / 2);
-  const int item = bid / (a.d / 2);
+  const int td = bid % a.d_tiles;
+  const int item = bid / a.d_tiles;
 
-  // the window of chunk c: D rows 2td-1 .. 2td+2, H rows 2th0-1 .. 2th0+2BHT,
-  // W columns w0-1 .. w0+BW; thread -> items tid, tid + THREADS, ... of
-  // (column, 16-byte chunk), each in all four D rows
+  // the window of chunk c: x planes 2td-pad_lo .. 2td+3-pad_lo, H rows
+  // 2th0-1 .. 2th0+2BHT, W columns w0-1 .. w0+BW; thread -> items tid, tid +
+  // THREADS, ... of (column, 16-byte chunk of 8 channels), each in all four
+  // D rows, in 16- or 4-byte pieces (Cin a multiple of 8 or 2: a piece lies
+  // inside Cin or past it)
   auto load_window = [&](int c, uint32_t buf) {
     for (int i = tid; i < ITEMS; i += THREADS) {
       const int col = i >> 2, j = i & 3;
       const int hr = col / RAW_W, wr = col - hr * RAW_W;
       const int iy = 2 * th0 - 1 + hr, ix = w0 - 1 + wr, ch = c * CK + j * 8;
-      const bool in_hw = iy >= 0 && iy < a.h && ix >= 0 && ix < a.w_ && ch < a.cin;
+      const bool in_hw =
+          iy >= 0 && iy < a.h && ix >= 0 && ix < a.w_ && (!VEC16 || ch < a.cin);
 #pragma unroll
       for (int dz = 0; dz < 4; ++dz) {
-        const int iz = 2 * td - 1 + dz;
-        const bool ok = in_hw && iz >= 0 && iz < a.d;
+        const int iz = 2 * td - a.pad_lo + dz;
+        const bool in = in_hw && iz >= 0 && iz < a.d_in;
         const bf16* src =
-            ok ? a.x + (((static_cast<long long>(item) * a.d + iz) * a.h + iy) * a.w_ + ix) *
+            in ? a.x + (((static_cast<long long>(item) * a.d_in + iz) * a.h + iy) * a.w_ + ix) *
                            a.cin + ch
                : a.x;
-        cp_async16(buf + swz(dz * PLANE + col, wr, j), src, ok);
+        const uint32_t dst = buf + swz(dz * PLANE + col, wr, j);
+        if constexpr (VEC16) {
+          cp_async16(dst, src, in);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool ok = in && ch + 2 * e < a.cin;
+            cp_async4(dst + 4 * e, ok ? src + 2 * e : a.x, ok);
+          }
+        }
       }
     }
   };
@@ -386,7 +417,7 @@ __global__ void __launch_bounds__(THREADS, 1) winograd_wgmma(const Args a) {
     for (int hi = 0; hi < 2; ++hi) {
       const int m = wq * 16 + (lane >> 2) + 8 * hi;
       const int oy = 2 * (th0 + wg * 2 + (m >> 5)) + (o & 1), ox = w0 + (m & 31);
-      row_ok[o][hi] = oy < a.h && ox < a.w_;
+      row_ok[o][hi] = 2 * td + (o >> 1) < a.d && oy < a.h && ox < a.w_;
     }
 #pragma unroll
   for (int i = 0; i < BN / 8; ++i) {
@@ -429,17 +460,30 @@ __global__ void __launch_bounds__(THREADS, 1) winograd_wgmma(const Args a) {
   }
   __syncthreads();
 
-  // y: consecutive threads store consecutive 16-byte groups of channels
-  constexpr int GROUPS = BN / 8;
-  for (int i = tid; i < 4 * BM * GROUPS; i += THREADS) {
-    const int r = i / GROUPS, q = i - r * GROUPS;
+  auto voxel_of = [&](int r, long long& vox) {
     const int o = r / BM, pm = r % BM;
     const int oz = 2 * td + (o >> 1), oy = 2 * (th0 + (pm >> 5)) + (o & 1), ox = w0 + (pm & 31);
-    const int co = nt * BN + q * 8;
-    if (oy < a.h && ox < a.w_ && co < a.cout) {
-      const long long vox = ((static_cast<long long>(item) * a.d + oz) * a.h + oy) * a.w_ + ox;
-      *reinterpret_cast<uint4*>(a.y + vox * a.cout + co) =
-          *reinterpret_cast<const uint4*>(ctile + r * Cfg::C_PITCH + q * 16);
+    vox = ((static_cast<long long>(item) * a.d + oz) * a.h + oy) * a.w_ + ox;
+    return oz < a.d && oy < a.h && ox < a.w_;
+  };
+  if (a.cout % 8 == 0) {
+    // y: consecutive threads store consecutive 16-byte groups of channels
+    constexpr int GROUPS = BN / 8;
+    for (int i = tid; i < 4 * BM * GROUPS; i += THREADS) {
+      const int r = i / GROUPS, q = i - r * GROUPS;
+      const int co = nt * BN + q * 8;
+      long long vox;
+      if (voxel_of(r, vox) && co < a.cout)
+        *reinterpret_cast<uint4*>(a.y + vox * a.cout + co) =
+            *reinterpret_cast<const uint4*>(ctile + r * Cfg::C_PITCH + q * 16);
+    }
+  } else {  // rows of Cout bf16 are not 16-byte aligned: one channel a store
+    for (int i = tid; i < 4 * BM * BN; i += THREADS) {
+      const int r = i / BN, q = i - r * BN;
+      const int co = nt * BN + q;
+      long long vox;
+      if (voxel_of(r, vox) && co < a.cout)
+        a.y[vox * a.cout + co] = *reinterpret_cast<const bf16*>(ctile + r * Cfg::C_PITCH + q * 2);
     }
   }
   if constexpr (STATS) {
@@ -458,10 +502,10 @@ __global__ void __launch_bounds__(THREADS, 1) winograd_wgmma(const Args a) {
   }
 }
 
-template <int BN, int STAGES, bool STATS>
+template <int BN, int STAGES, bool STATS, bool VEC16>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   using Cfg = Tile<BN, STAGES>;
-  auto kernel = winograd_wgmma<BN, STAGES, STATS>;
+  auto kernel = winograd_wgmma<BN, STAGES, STATS, VEC16>;
   static bool attribute_set = false;  // once per instantiation
   if (!attribute_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -472,16 +516,23 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (a.h_tiles != (a.h / 2 + BHT - 1) / BHT || a.w_tiles != (a.w_ + BW - 1) / BW ||
       a.n_tiles != (a.cout + BN - 1) / BN || a.chunks != (a.cin + CK - 1) / CK)
     return cudaErrorInvalidValue;
-  const long long blocks = static_cast<long long>(a.n) * (a.d / 2) * a.h_tiles *
+  const long long blocks = static_cast<long long>(a.n) * a.d_tiles * a.h_tiles *
                            a.w_tiles * a.n_tiles;
   if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   kernel<<<static_cast<unsigned>(blocks), THREADS, Cfg::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <int BN, int STAGES, bool VEC16>
+cudaError_t dispatch_stats(int stats, const Args& a, cudaStream_t stream) {
+  return stats ? launch<BN, STAGES, true, VEC16>(a, stream)
+               : launch<BN, STAGES, false, VEC16>(a, stream);
+}
+
 template <int BN, int STAGES>
-cudaError_t dispatch(int stats, const Args& a, cudaStream_t stream) {
-  return stats ? launch<BN, STAGES, true>(a, stream) : launch<BN, STAGES, false>(a, stream);
+cudaError_t dispatch(int stats, bool vec16, const Args& a, cudaStream_t stream) {
+  return vec16 ? dispatch_stats<BN, STAGES, true>(stats, a, stream)
+               : dispatch_stats<BN, STAGES, false>(stats, a, stream);
 }
 
 // the tile configurations, by index: H tiles and columns per block (BHT, BW),
@@ -494,28 +545,37 @@ constexpr int CONFIGS[][5] = {
 };
 constexpr int N_CONFIGS = sizeof(CONFIGS) / sizeof(CONFIGS[0]);
 
-bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<std::uintptr_t>(p) % bytes == 0;
+}
+
 
 }  // namespace
 
 // stats: 0 = winograd, 1 = winograd_stats; config: an index of CONFIGS. u2 is
-// the packed transformed weight (n_tiles, chunks, 24, BN, 64); x, u2 and y
-// 16-byte aligned, Cin and Cout multiples of 8, D and H even; h_tiles, w_tiles,
-// n_tiles and chunks as the configuration cuts the shape. Returns the
-// cudaError_t of the launch (0 on success).
+// the packed transformed weight (n_tiles, chunks, 24, BN, 64), 16-byte
+// aligned; x (N, d_in, H, W, Cin) bf16 with an even Cin and 4-byte aligned
+// (the wrapper copies other x); y (N, d, H, W, Cout), 16-byte aligned, any
+// Cout; d = d_in + pad_lo + pad_hi - 2 >= 1 with pads in 0..2, H even;
+// h_tiles, w_tiles, n_tiles and chunks as the configuration cuts the shape.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int unet3d_winograd_wgmma(int stats, int config, const void* x, const void* u2,
-                                     void* y, float* stats_buf, int n, int d, int h, int w_,
-                                     int cin, int cout, int h_tiles, int w_tiles, int n_tiles,
-                                     int chunks, void* stream) {
-  if (cin % 8 != 0 || cout % 8 != 0 || d % 2 != 0 || h % 2 != 0 || !aligned16(x) ||
-      !aligned16(u2) || !aligned16(y) || (stats && !stats_buf))
+                                     void* y, float* stats_buf, int n, int d_in, int pad_lo,
+                                     int pad_hi, int h, int w_, int cin, int cout, int h_tiles,
+                                     int w_tiles, int n_tiles, int chunks, void* stream) {
+  const int d = d_in + pad_lo + pad_hi - 2;
+  if (cin < 1 || cin % 2 != 0 || cout < 1 || pad_lo < 0 || pad_lo > 2 || pad_hi < 0 ||
+      pad_hi > 2 || d < 1 || h % 2 != 0 || !aligned(x, 4) || !aligned(u2, 16) ||
+      !aligned(y, 16) || (stats && !stats_buf))
     return cudaErrorInvalidValue;
   Args a{static_cast<const bf16*>(x), static_cast<const bf16*>(u2), static_cast<bf16*>(y),
-         stats_buf, n, d, h, w_, cin, cout, h_tiles, w_tiles, n_tiles, chunks};
+         stats_buf, n, d_in, d, pad_lo, h, w_, cin, cout, (d + 1) / 2, h_tiles, w_tiles,
+         n_tiles, chunks};
+  const bool vec16 = cin % 8 == 0 && aligned(x, 16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (config) {
-    case 0: return dispatch<64, 7>(stats, a, s);
-    case 1: return dispatch<48, 8>(stats, a, s);
+    case 0: return dispatch<64, 7>(stats, vec16, a, s);
+    case 1: return dispatch<48, 8>(stats, vec16, a, s);
     default: return cudaErrorInvalidValue;
   }
 }

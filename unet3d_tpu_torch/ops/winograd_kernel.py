@@ -10,14 +10,26 @@ Two variants:
 * ``winograd3x3x3_with_stats``  y plus per-(n, c) f32 sum / sum of squares of
                                 y as rounded to its dtype
 
-each in three CUDA forms (``kernel_form``): ``wgmma``
-(``ops/kernels/winograd_wgmma.cu``), the Hopper form, for bf16 with Cin and
-Cout multiples of 8 (every Winograd site of the DynUNet), tiled by
-``wgmma_plan`` with U2 packed per call by ``pack_u2``; ``wmma``
-(``ops/kernels/winograd.cu``) for the other bf16 calls; ``tf32x3``
+each in two CUDA forms (``kernel_form``): ``wgmma``
+(``ops/kernels/winograd_wgmma.cu``), the Hopper form, for every bf16 call,
+tiled by ``wgmma_plan`` with U2 packed per call by ``pack_u2`` (x with an
+odd Cin or only 2-byte aligned, which the kernel's staging cannot copy, is
+first copied by ``staged_input`` into an aligned tensor of Cin rounded up to
+8, and that copy is part of the call); ``tf32x3``
 (``ops/kernels/winograd_tf32x3.cu``) for every f32 call, the wgmma form's
 pipeline in 3xTF32 (three TF32 products per product, f32-accurate), tiled by
 ``tf32_plan`` with U2's TF32 hi and lo parts packed by ``pack_u2_tf32``.
+
+The D-halo mode (``pads``, both forms and variants) is
+``ops/conv3d_kernel``'s: x holds a slab of a volume's D planes with up to
+one neighbour plane on each side (the space axis of ``parallel/``), and
+``pads`` = (pad_lo, pad_hi) in 0..2 stand for missing neighbours as zero
+planes. The output has ``x.D - 2 + pad_lo + pad_hi`` planes, output D tile
+t (planes 2t, 2t + 1) reading x planes 2t - pad_lo ... 2t + 3 - pad_lo; H
+and W stay SAME. The output's D may be odd (the input gradient at a volume's
+edge, pads (1, 2) or (2, 1)): its last tile's second row is computed on a
+zero plane and dropped. The SAME conv is pads (1, 1). ``HALO_LAUNCHES``
+counts the launches per (variant, pads) other than (1, 1).
 
 Each takes a CUDA tensor to its kernel and a CPU tensor to its plain version
 (``*_reference``); any other device raises. The plain versions round where
@@ -42,11 +54,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from unet3d_tpu_torch.ops.conv3d_kernel import _check, instance_stats, tf32_split
+from unet3d_tpu_torch.ops.conv3d_kernel import (SAME, _check, instance_stats, out_depth,
+                                                tf32_split)
 from unet3d_tpu_torch.utils.device import full_f32
 
 LAUNCHES: Dict[str, int] = {"winograd": 0, "winograd_stats": 0}
 FORM_LAUNCHES: Dict[Tuple[str, str], int] = collections.Counter()
+HALO_LAUNCHES: Dict[Tuple[str, Tuple[int, int]], int] = collections.Counter()
 
 _MIN_WINOGRAD_CHANNELS = 96
 _MIN_WINOGRAD_VOXELS = 64 ** 3
@@ -59,9 +73,6 @@ _G = np.array([[1, 0, 0],
 _BT = ((0, 2, -1), (1, 2, 1), (2, 1, -1), (1, 3, -1))
 # A^T: output row o takes transform point j with this sign
 _AT = ((1, 1, 1, 0), (0, 1, -1, -1))
-# the wmma form's channel chunk and output-channel tile: the wrapper
-# zero-pads the transformed weight to these multiples
-_CIN_PAD, _COUT_PAD = 16, 64
 
 # the wgmma form's tile configurations, in the order of the C table
 # (winograd_wgmma.cu CONFIGS, checked when the library loads): H tiles of 2
@@ -159,17 +170,25 @@ def pack_u2_tf32(w: torch.Tensor, plan: WgmmaPlan) -> torch.Tensor:
 
 
 def kernel_form(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The CUDA form a call takes: ``wgmma``, ``wmma`` or ``tf32x3``."""
-    if x.dtype == torch.float32:
-        return "tf32x3"
-    aligned = x.data_ptr() % 16 == 0
-    return "wgmma" if x.shape[4] % 8 == 0 and w.shape[4] % 8 == 0 and aligned else "wmma"
+    """The CUDA form a call takes: ``tf32x3`` for f32, ``wgmma`` for bf16."""
+    return "tf32x3" if x.dtype == torch.float32 else "wgmma"
+
+
+def staged_input(x: torch.Tensor) -> torch.Tensor:
+    """bf16 x as the wgmma form reads it: x itself where its staging copies
+    whole pieces of at least 4 bytes (Cin even, x 4-byte aligned), else a
+    copy, 16-byte aligned, with Cin zero-padded to a multiple of 8."""
+    cin = x.shape[4]
+    if cin % 2 == 0 and x.data_ptr() % 4 == 0:
+        return x
+    return F.pad(x, (0, -cin % 8)) if cin % 8 else x.clone()
 
 
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
     FORM_LAUNCHES.clear()
+    HALO_LAUNCHES.clear()
 
 
 def winograd_profitable(x_shape) -> bool:
@@ -217,13 +236,17 @@ def _transform(rows, j):
     return rows[a] + rows[b] if s > 0 else rows[a] - rows[b]
 
 
-def winograd_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def winograd_reference(x: torch.Tensor, w: torch.Tensor, pads=SAME) -> torch.Tensor:
     """The plain Winograd-DH conv with the JAX kernel's rounding points (its
-    f32 products in full f32 on the card)."""
-    n, d, h, wd, c = x.shape
+    f32 products in full f32 on the card); with D ``pads``, x padded on D by
+    them (and one more zero plane for an odd output D) and the output
+    sliced to its ``out_depth`` planes."""
+    n, _, h, wd, c = x.shape
+    d = out_depth(x, pads)
+    dd = d + d % 2                                        # whole D tiles
     u2 = transform_weights_dh(w, x.dtype).float()
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
-    rows_d = [xp[:, k:k + d:2] for k in range(4)]       # D rows 2t + k, padded
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1, pads[0], pads[1] + d % 2))
+    rows_d = [xp[:, k:k + dd:2] for k in range(4)]      # D rows 2t + k, padded
     out = [[0.0, 0.0], [0.0, 0.0]]
     for jd in range(4):
         vd = _transform(rows_d, jd)                       # working dtype
@@ -239,31 +262,33 @@ def winograd_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                     if sign:
                         out[od][oh] = out[od][oh] + sign * m
     y = torch.stack([torch.stack(out[od], dim=3) for od in range(2)], dim=2)
-    return y.reshape(n, d, h, wd, -1).to(x.dtype)
+    return y.reshape(n, dd, h, wd, -1)[:, :d].to(x.dtype)
 
 
-def winograd_with_stats_reference(x, w):
-    y = winograd_reference(x, w)
+def winograd_with_stats_reference(x, w, pads=SAME):
+    y = winograd_reference(x, w, pads)
     return (y, *instance_stats(y))
 
 
-def _check_winograd(x: torch.Tensor, w: torch.Tensor) -> None:
-    _check(x, w)
-    if x.shape[1] % 2 or x.shape[2] % 2:
-        raise ValueError(f"Winograd-DH needs even D and H, got x {tuple(x.shape)}")
+def _check_winograd(x: torch.Tensor, w: torch.Tensor, pads) -> None:
+    _check(x, w, pads=pads)
+    if x.shape[2] % 2:
+        raise ValueError(f"Winograd-DH needs an even H, got x {tuple(x.shape)}")
 
 
-def _launch(variant: str, x: torch.Tensor, w: torch.Tensor
+def _launch(variant: str, x: torch.Tensor, w: torch.Tensor, pads
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
     from unet3d_tpu_torch.kernels.build import load_library
 
     lib = load_library()
-    n, d, h, wd, cin = x.shape
-    cout = w.shape[-1]
     form = kernel_form(x, w)
-    y = torch.empty((n, d, h, wd, cout), dtype=x.dtype, device=x.device)
+    if form == "wgmma":
+        x = staged_input(x)
+    n, d_in, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    y = torch.empty((n, out_depth(x, pads), h, wd, cout), dtype=x.dtype, device=x.device)
     stats = None
     if variant == "winograd_stats":
         stats = torch.zeros((n, 2, cout), dtype=torch.float32, device=x.device)
@@ -273,43 +298,34 @@ def _launch(variant: str, x: torch.Tensor, w: torch.Tensor
         if form == "wgmma":
             plan = wgmma_plan(tuple(x.shape), cout)
             u2 = pack_u2(w, plan)
-            err = lib.unet3d_winograd_wgmma(
-                int(stats is not None), plan.config, x.data_ptr(), u2.data_ptr(),
-                y.data_ptr(), stats_ptr, n, d, h, wd, cin, cout, plan.h_tiles,
-                plan.w_tiles, plan.n_tiles, plan.chunks, stream)
-        elif form == "tf32x3":
+            entry = lib.unet3d_winograd_wgmma
+        else:
             plan = tf32_plan(tuple(x.shape), cout)
             u2 = pack_u2_tf32(w, plan)
-            err = lib.unet3d_winograd_tf32x3(
-                int(stats is not None), plan.config, x.data_ptr(), u2.data_ptr(),
-                y.data_ptr(), stats_ptr, n, d, h, wd, cin, cout, plan.h_tiles,
-                plan.w_tiles, plan.n_tiles, plan.chunks, stream)
-        else:
-            cp = -(-cin // _CIN_PAD) * _CIN_PAD
-            cop = -(-cout // _COUT_PAD) * _COUT_PAD
-            u2 = F.pad(transform_weights_dh(w, x.dtype), (0, cop - cout, 0, cp - cin))
-            u2 = u2.contiguous()
-            err = lib.unet3d_winograd3x3x3_ndhwc(
-                int(stats is not None), x.data_ptr(), u2.data_ptr(), y.data_ptr(),
-                stats_ptr, n, d, h, wd, cin, cout, cp, cop, stream)
+            entry = lib.unet3d_winograd_tf32x3
+        err = entry(int(stats is not None), plan.config, x.data_ptr(), u2.data_ptr(),
+                    y.data_ptr(), stats_ptr, n, d_in, pads[0], pads[1], h, wd, cin, cout,
+                    plan.h_tiles, plan.w_tiles, plan.n_tiles, plan.chunks, stream)
     if err != 0:
         raise RuntimeError(f"winograd3x3x3 {variant} ({form}) launch failed: "
                            f"{lib.unet3d_cuda_error_string(err).decode()}")
     LAUNCHES[variant] += 1
     FORM_LAUNCHES[variant, form] += 1
+    if tuple(pads) != SAME:
+        HALO_LAUNCHES[variant, tuple(pads)] += 1
     return y, stats
 
 
-def winograd3x3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    _check_winograd(x, w)
+def winograd3x3x3(x: torch.Tensor, w: torch.Tensor, pads=SAME) -> torch.Tensor:
+    _check_winograd(x, w, pads)
     if x.device.type == "cpu":
-        return winograd_reference(x, w)
-    return _launch("winograd", x, w)[0]
+        return winograd_reference(x, w, pads)
+    return _launch("winograd", x, w, pads)[0]
 
 
-def winograd3x3x3_with_stats(x: torch.Tensor, w: torch.Tensor):
-    _check_winograd(x, w)
+def winograd3x3x3_with_stats(x: torch.Tensor, w: torch.Tensor, pads=SAME):
+    _check_winograd(x, w, pads)
     if x.device.type == "cpu":
-        return winograd_with_stats_reference(x, w)
-    y, stats = _launch("winograd_stats", x, w)
+        return winograd_with_stats_reference(x, w, pads)
+    y, stats = _launch("winograd_stats", x, w, pads)
     return y, stats[:, 0], stats[:, 1]

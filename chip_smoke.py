@@ -352,7 +352,28 @@ Run from the repository root on a machine with an H100 (sm_90). Phases:
    odd-D input gradient among them; (c) the predict CLI with ``--ngpus 2``:
    JAX's default plan, the space axis, clamped to the one card; (d) the
    SPPIN config's bf16 step (192^3, batch 2) at world size 1: its peak
-   allocated memory.
+   allocated memory; the f32 Winograd halo calls are timed too.
+19. export and serving (``predict/export.py``, ``scripts/export.py``,
+   ``scripts/serve.py``): (a) the export CLI on a checkpoint of phase 3's
+   seeded BraTS DynUNet (full width, bf16 AMP, sigmoid from the loss, a
+   dynamic batch), traced on the card; the artifact loaded and run in a
+   fresh process that imports only ``unet3d_tpu_torch.predict.export`` (no
+   model code); export and load seconds, the artifact's bytes; (b) one
+   128^3 window through the loaded artifact: its launches per kernel equal
+   to the eager ``make_forward`` window's (``conv_stats`` 6, ``block_stats``
+   11, all wgmma), its output within relative L2 1e-2 of the eager one, the
+   window ms of both (CUDA events, 5 after a warm-up: eager, artifact,
+   artifact, eager); (c) an f32 artifact exported on the CPU, loaded onto
+   the card and run under torch's default TF32 flags: the direct conv in the
+   tf32x3 form only, within 1e-5 of the eager f32 forward under the port's
+   policy; (d) batch 2 through the dynamic artifact, each item within 1e-2
+   of its batch-1 output; (e) an artifact exported under
+   UNET3D_TPU_CONV=winograd and run with it unset: ``winograd_stats``
+   launched as the eager strategy forward launches it, within 1e-2 of it;
+   (f) the predict CLI on one of phase 8's BraTS-grid cases with the
+   artifact and with the checkpoint: the written volumes within 1e-2, each
+   run's case seconds; (g) ``scripts/serve.py`` on localhost: ``/health``,
+   then ``/predict`` of a 1 x 4 x 128^3 body, seconds per request.
 
 Exits non-zero if any phase fails or there is no CUDA device. The last lines
 are the card, a JSON object of the kernels (the bf16 forms' rows, then the
@@ -5507,15 +5528,18 @@ def halo_by_kernel(counts: dict, kernels=TRAIN_KERNELS) -> dict:
             for v in kernels}
 
 
-def halo_bound(variant, d_in, d_out, hw, cin, cout, dtype=torch.bfloat16, products=1.0):
+def halo_bound(variant, d_in, d_out, hw, cin, cout, dtype=torch.bfloat16, products=1.0,
+               tf32x3=False):
     """bound_ms of a 3x3x3 conv variant in the D-halo mode: ``d_in`` planes of
     x read, ``d_out`` planes of y written, hw x hw each (``products``:
-    Winograd-DH's share of the direct conv's)."""
+    Winograd-DH's share of the direct conv's; ``tf32x3``: an f32 call done as
+    three TF32 products per product at the TF32 peak)."""
     size = torch.finfo(dtype).bits // 8
     nbytes = size * (hw * hw * (d_in * cin + d_out * cout) + 27 * cin * cout)
     nbytes += (8 * cout if variant not in ("conv", "winograd") else 0) + (
         8 * cin if variant == "block_stats" else 0)
-    return bound_ms(2.0 * d_out * hw * hw * 27 * cin * cout * products, nbytes, dtype)
+    flops = 2.0 * d_out * hw * hw * 27 * cin * cout * products
+    return bound_ms(3 * flops, nbytes, "tf32") if tf32x3 else bound_ms(flops, nbytes, dtype)
 
 
 def phase18_kernels(device, gen) -> dict:
@@ -5626,12 +5650,15 @@ def phase18_kernels(device, gen) -> dict:
 def phase18_winograd_kernels(device, gen) -> dict:
     """Winograd-DH's D-halo mode against its plain version at the strategy's
     sites on two ranks' slabs (WINO_HALO_SHAPES; bf16 and f32, phase 2's
-    bounds), the bf16 calls timed beside the plain composition (F.pad on D,
-    cuDNN, the statistics), F.conv3d on the padded slab, the bound, and the
-    SAME call over the whole volume (D twice the slab's)."""
+    bounds), each call timed beside the plain composition (F.pad on D,
+    cuDNN, the statistics), F.conv3d on the padded slab (TF32 off in f32),
+    the bound (f32: the 3xTF32 one and the f32 CUDA-core one), and the SAME
+    call over the whole volume (D twice the slab's); the f32 rows under
+    ``<variant>_tf32x3``, each site's."""
     from unet3d_tpu_torch.ops import winograd_kernel as W
     from unet3d_tpu_torch.ops.conv3d import conv3d_torch, pad_d
     from unet3d_tpu_torch.ops.conv3d_kernel import instance_stats
+    from unet3d_tpu_torch.utils.device import full_f32
 
     kernel = {"winograd": W.winograd3x3x3, "winograd_stats": W.winograd3x3x3_with_stats}
     report = {}
@@ -5660,30 +5687,40 @@ def phase18_winograd_kernels(device, gen) -> dict:
                 msg += f" stats rel {s_err:.3e}"
                 check(s_err < STATS_BOUND, f"{msg} > {STATS_BOUND}")
             del got, want
-            if dtype == torch.bfloat16:
-                def composition():
-                    y = conv3d_torch(pad_d(x, pads), w, (1, 1, 1), ((0, 0), (1, 1), (1, 1)))
-                    return y if variant == "winograd" else (y, *instance_stats(y))
 
-                xn = pad_d(x, pads).permute(0, 4, 1, 2, 3)
-                wn = w.permute(4, 3, 0, 1, 2).contiguous()
-                ms = device_ms(lambda: kernel[variant](x, w, pads))
-                plain_ms = device_ms(composition)
-                library_ms = device_ms(lambda: F.conv3d(xn, wn, padding=(0, 1, 1)))
-                whole = torch.randn(1, 2 * (depth // 2 * 2), hw, hw, cin, device=device,
-                                    generator=gen).to(dtype)
-                same_ms = device_ms(lambda: kernel[variant](whole, w))
-                del whole, xn
-                bms, bound_by = halo_bound(variant, d_in, depth, hw, cin, cout,
-                                           products=WINOGRAD_PRODUCTS)
-                msg += (f" | kernel {ms:.3f} ms ({ms / same_ms:.2f} of the whole volume's "
-                        f"SAME call, {same_ms:.3f} ms), plain {plain_ms:.3f} ms, F.conv3d "
-                        f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
-                if label == WINO_HALO_TIMED_AT[variant]:
-                    report[variant] = dict(
-                        ms=ms, plain_ms=plain_ms, shape=f"{label} pads {pads}",
-                        bound_ms=bms, bound_by=bound_by, library_ms=library_ms,
-                        same_ms=same_ms, max_abs_err=err)
+            def composition():
+                y = conv3d_torch(pad_d(x, pads), w, (1, 1, 1), ((0, 0), (1, 1), (1, 1)))
+                return y if variant == "winograd" else (y, *instance_stats(y))
+
+            def library():  # cuDNN on the padded slab, TF32 off in f32
+                with full_f32(xn):
+                    return F.conv3d(xn, wn, padding=(0, 1, 1))
+
+            xn = pad_d(x, pads).permute(0, 4, 1, 2, 3)
+            wn = w.permute(4, 3, 0, 1, 2).contiguous()
+            ms = device_ms(lambda: kernel[variant](x, w, pads))
+            plain_ms = device_ms(composition)
+            library_ms = device_ms(library)
+            whole = torch.randn(1, 2 * (depth // 2 * 2), hw, hw, cin, device=device,
+                                generator=gen).to(dtype)
+            same_ms = device_ms(lambda: kernel[variant](whole, w))
+            del whole, xn
+            f32 = dtype == torch.float32
+            bms, bound_by = halo_bound(variant, d_in, depth, hw, cin, cout, dtype,
+                                       WINOGRAD_PRODUCTS, tf32x3=f32)
+            msg += (f" | kernel {ms:.3f} ms ({ms / same_ms:.2f} of the whole volume's "
+                    f"SAME call, {same_ms:.3f} ms), plain {plain_ms:.3f} ms, F.conv3d "
+                    f"{library_ms:.3f} ms, bound {bms:.3f} ms ({bound_by}, {bms / ms:.1%})")
+            row = dict(ms=ms, plain_ms=plain_ms, shape=f"{label} pads {pads}", bound_ms=bms,
+                       bound_by=bound_by, library_ms=library_ms, same_ms=same_ms,
+                       max_abs_err=err)
+            if f32:
+                row["f32_bound_ms"] = halo_bound(variant, d_in, depth, hw, cin, cout, dtype,
+                                                 WINOGRAD_PRODUCTS)[0]
+                msg += f", f32 CUDA-core bound {row['f32_bound_ms']:.3f} ms"
+                report.setdefault(f"{variant}_tf32x3", []).append(row)
+            elif label == WINO_HALO_TIMED_AT[variant]:
+                report[variant] = row
             print(msg, flush=True)
             del x, w, got_y
     return report
@@ -5929,6 +5966,261 @@ def phase18_sppin(device, seed, card) -> dict:
                 card_gib=total)
 
 
+EXPORT_DIR = os.path.join(ROOT, "build", "chip_smoke_export")
+EXPORT_BOUNDS = {"bf16": 1e-2, "f32": 1e-5}
+EXPORT_WINDOW = (128, 128, 128)  # the config's patch and window
+# a fresh process that imports only predict/export.py: it loads the
+# artifact, runs one window and reports what it imported
+EXPORT_LOAD_ALONE = """
+import json, sys, time
+import torch
+t0 = time.perf_counter()
+from unet3d_tpu_torch.predict.export import load_exported
+served = load_exported(sys.argv[1])
+torch.cuda.synchronize()
+seconds = time.perf_counter() - t0
+out = served(torch.zeros(1, 4, *json.loads(sys.argv[2])))
+torch.cuda.synchronize()
+print(json.dumps(dict(load_seconds=seconds, shape=list(out.shape),
+                      finite=bool(torch.isfinite(out).all()),
+                      models=sorted(m for m in sys.modules
+                                    if m.startswith("unet3d_tpu_torch.models")),
+                      jax=sorted(m for m in sys.modules
+                                 if m.split(".")[0] in ("jax", "unet3d_tpu")))))
+"""
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def eager_window(model, amp: bool):
+    """The eager path of a window: ``make_forward`` on NDHWC, the sigmoid,
+    NCDHW out, as the artifact computes it."""
+    from unet3d_tpu_torch.predict.volumetric import make_forward, to_ndhwc
+    forward = make_forward(model, amp=amp)
+    return lambda x: torch.sigmoid(forward(to_ndhwc(x))).permute(0, 4, 1, 2, 3)
+
+
+def counted(fn, x):
+    """``fn(x)`` with the launch counts set to 0 just before and read just
+    after; the counts by kernel and by form."""
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn(x)
+    torch.cuda.synchronize()
+    return out, launch_counts(), forms_of(TRAIN_KERNELS + STRATEGY_KERNELS)
+
+
+def phase19_export(device, seed, card, cases) -> tuple:
+    """Export and serving: (a) the export CLI and a fresh process's load,
+    (b) one window through the artifact against the eager path, (c) an f32
+    artifact from the CPU on the card, (d) batch 2, (e) the Winograd
+    strategy frozen at export, (f) the predict CLI with the artifact and with
+    the checkpoint on one BraTS-grid case, (g) the HTTP server."""
+    import io
+    import urllib.request
+    from unet3d_tpu_torch.config.factory import build_or_load_model_from_config
+    from unet3d_tpu_torch.data import nifti
+    from unet3d_tpu_torch.predict.export import export_forward, load_exported, save_exported
+    from unet3d_tpu_torch.scripts import export as export_cli
+    from unet3d_tpu_torch.scripts import predict
+    from unet3d_tpu_torch.scripts.serve import build_server
+    from unet3d_tpu_torch.train.checkpoint import save_checkpoint
+    from unet3d_tpu_torch.utils.config import dump_json, load_json
+
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    os.makedirs(EXPORT_DIR)
+    report = {}
+    config = load_json(CONFIG)
+    config["bratsvalidation_filenames"] = [{"image": cases[0]["image"]}]
+    config_file = os.path.join(EXPORT_DIR, "brats2020_config.json")
+    dump_json(config, config_file)
+    model = build_or_load_model_from_config(config, None, device, seed=seed)
+    checkpoint = os.path.join(EXPORT_DIR, "model.npz")
+    save_checkpoint(model, checkpoint)
+    artifact = os.path.join(EXPORT_DIR, "model.u3dexp")
+
+    # (a) the export CLI, then a process with no model code
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    header = export_cli.main(["--config_filename", config_file, "--model_filename",
+                              checkpoint, "--output_filename", artifact, "--amp"])
+    report["export_seconds"] = time.perf_counter() - t0
+    report["artifact_bytes"] = os.path.getsize(artifact)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    alone = subprocess.run([sys.executable, "-c", EXPORT_LOAD_ALONE, artifact,
+                            json.dumps(EXPORT_WINDOW)], cwd=ROOT,
+                           env=env, capture_output=True, text=True, timeout=300)
+    check(alone.returncode == 0, f"the artifact in a fresh process: {alone.stderr[-3000:]}")
+    report["fresh_process"] = dict(json.loads(alone.stdout.strip().splitlines()[-1]),
+                                   process_seconds=time.perf_counter() - t0)
+    fresh = report["fresh_process"]
+    print(f"export (a): the export CLI {report['export_seconds']:.1f} s, "
+          f"{report['artifact_bytes']} bytes, header {json.dumps(header)}; a fresh process "
+          f"loads it in {fresh['load_seconds']:.1f} s ({fresh['process_seconds']:.1f} s in "
+          f"all), output {fresh['shape']}, imported models {fresh['models']}, jax "
+          f"{fresh['jax']} [{card}]", flush=True)
+    window = ",".join(map(str, EXPORT_WINDOW))
+    check(header["activation"] == "sigmoid" and header["amp"] is True
+          and header["in_avals"] == [f"float32[batch,4,{window}]"], f"header {header}")
+    check(fresh["shape"] == [1, 3, *EXPORT_WINDOW] and fresh["finite"]
+          and not fresh["models"] and not fresh["jax"], f"fresh process {fresh}")
+
+    # (b) one window, the artifact against the eager path
+    t0 = time.perf_counter()
+    served = load_exported(artifact)
+    report["load_seconds"] = time.perf_counter() - t0
+    rng = np.random.RandomState(seed + 95)
+    windows = [torch.from_numpy(rng.randn(1, 4, *EXPORT_WINDOW).astype(np.float32)).to(device)
+               for _ in range(2)]
+    eager = eager_window(model, amp=True)
+    with torch.inference_mode():
+        want, eager_launches, eager_forms = counted(eager, windows[0])
+        got, launches, forms = counted(served, windows[0])
+    window_rel = rel_l2(got, want)
+    times = {"eager": [], "artifact": []}
+    with torch.inference_mode():
+        for which in ("eager", "artifact", "artifact", "eager"):
+            fn = served if which == "artifact" else eager
+            times[which].append(cuda_ms(lambda: fn(windows[0])))
+    report["window"] = dict(launches={k: launches[k] for k in PREDICT_KERNELS}, forms=forms,
+                            rel_l2=window_rel, ms=times, load_seconds=report["load_seconds"])
+    print(f"export (b): one 128^3 window, artifact vs eager: launches {launches} (eager "
+          f"{eager_launches}), forms {forms}, rel L2 {window_rel:.3e}; window ms artifact "
+          f"{times['artifact']}, eager {times['eager']} (in-process load "
+          f"{report['load_seconds']:.1f} s) [{card}]", flush=True)
+    check(launches == eager_launches and forms == eager_forms,
+          f"artifact launches {launches} {forms} != eager {eager_launches} {eager_forms}")
+    check(launches["conv_stats"] == 6 and launches["block_stats"] == 11
+          and set(forms) == {"conv_stats/wgmma", "block_stats/wgmma"},
+          f"artifact window launches {launches} {forms}")
+    check(window_rel < EXPORT_BOUNDS["bf16"], f"artifact vs eager window rel L2 {window_rel}")
+    window_launches = launches
+
+    # (d) batch 2 through the dynamic artifact
+    with torch.inference_mode():
+        single = [got, served(windows[1])]
+        pair = served(torch.cat(windows))
+    batch_rel = [rel_l2(pair[i:i + 1], single[i]) for i in range(2)]
+    report["batch2_rel_l2"] = batch_rel
+    print(f"export (d): batch 2 through the artifact, each item vs batch 1: rel L2 "
+          f"{batch_rel}", flush=True)
+    check(tuple(pair.shape) == (2, 3, *EXPORT_WINDOW) and max(batch_rel) < EXPORT_BOUNDS["bf16"],
+          f"batch 2 {tuple(pair.shape)}, rel L2 {batch_rel}")
+    want_host = want.cpu().numpy()
+    del single, pair, got, want
+
+    # (c) f32, exported on the CPU, run on the card under torch's default
+    # TF32 flags (the artifact's call scopes the port's policy)
+    t0 = time.perf_counter()
+    path32 = os.path.join(EXPORT_DIR, "model_f32_cpu.u3dexp")
+    save_exported(export_forward(model, (*EXPORT_WINDOW, 4), activation="sigmoid",
+                                 device="cpu"), path32)
+    export32_seconds = time.perf_counter() - t0
+    served32 = load_exported(path32)
+    with torch.inference_mode():
+        want32, _, eager32_forms = counted(eager_window(model, amp=False), windows[0])
+        got32, launches32, forms32 = counted(served32, windows[0])
+    rel32 = rel_l2(got32, want32)
+    report["f32_cpu_export"] = dict(export_seconds=export32_seconds, forms=forms32,
+                                    rel_l2=rel32, tf32_flags=dict(
+                                        cudnn=torch.backends.cudnn.allow_tf32,
+                                        matmul=torch.backends.cuda.matmul.allow_tf32))
+    print(f"export (c): f32 artifact exported on the CPU in {export32_seconds:.1f} s, on the "
+          f"card under TF32 flags {report['f32_cpu_export']['tf32_flags']}: forms {forms32} "
+          f"(eager {eager32_forms}), rel L2 vs the eager f32 forward {rel32:.3e} [{card}]",
+          flush=True)
+    check(set(forms32) == {"conv_stats/tf32x3", "block_stats/tf32x3"} and forms32 == eager32_forms,
+          f"f32 artifact forms {forms32}")
+    check(rel32 < EXPORT_BOUNDS["f32"], f"f32 artifact vs eager rel L2 {rel32}")
+    del served32, got32, want32
+
+    # (e) the Winograd strategy, frozen into the artifact at export
+    with conv_strategy("winograd"):
+        exported = export_forward(model, (*EXPORT_WINDOW, 4), amp=True, activation="sigmoid")
+        with torch.inference_mode():
+            want_w, eager_w, _ = counted(eager_window(model, amp=True), windows[0])
+    path_w = os.path.join(EXPORT_DIR, "model_winograd.u3dexp")
+    header_w = save_exported(exported, path_w)
+    with torch.inference_mode():
+        got_w, launches_w, forms_w = counted(load_exported(path_w), windows[0])
+    rel_w = rel_l2(got_w, want_w)
+    report["winograd"] = dict(launches=launches_w, forms=forms_w, rel_l2=rel_w,
+                              conv_strategy=header_w["conv_strategy"])
+    print(f"export (e): exported under UNET3D_TPU_CONV=winograd, run with it unset: launches "
+          f"{launches_w} (eager strategy {eager_w}), forms {forms_w}, rel L2 {rel_w:.3e}",
+          flush=True)
+    check(header_w["conv_strategy"] == "winograd" and launches_w == eager_w
+          and launches_w["winograd_stats"] == 4, f"strategy artifact launches {launches_w}")
+    check(rel_w < EXPORT_BOUNDS["bf16"], f"strategy artifact vs eager rel L2 {rel_w}")
+    del got_w, want_w, exported
+
+    # (f) the predict CLI, the artifact against the checkpoint
+    volumetric_log = logging.getLogger("unet3d_tpu_torch.predict.volumetric")
+    volumetric_log.setLevel(logging.INFO)
+    outputs, case_seconds = {}, {}
+    for name, model_file, extra in (("artifact", artifact, []),
+                                    ("checkpoint", checkpoint, ["--activation", "sigmoid"])):
+        records = LogRecords()
+        volumetric_log.addHandler(records)
+        out_dir = os.path.join(EXPORT_DIR, f"out_{name}")
+        predict.main(["--config_filename", config_file, "--model_filename", model_file,
+                      "--output_directory", out_dir, "--group", "bratsvalidation", *extra])
+        volumetric_log.removeHandler(records)
+        (written,) = os.listdir(os.path.join(out_dir, "predictions"))
+        outputs[name] = nifti.load(os.path.join(out_dir, "predictions", written))[0]
+        case_seconds[name] = records.records
+    cli_rel = float(np.linalg.norm(outputs["artifact"] - outputs["checkpoint"])
+                    / np.linalg.norm(outputs["checkpoint"]))
+    report["predict_cli"] = dict(rel_l2=cli_rel, case_seconds=case_seconds)
+    print(f"export (f): predict CLI on one BraTS-grid case, artifact vs checkpoint: rel L2 "
+          f"{cli_rel:.3e}; case seconds {json.dumps(case_seconds)} [{card}]", flush=True)
+    check(outputs["artifact"].shape == BRATS_GRID + (3,)
+          and bool(np.isfinite(outputs["artifact"]).all()), "predict CLI artifact output")
+    check(cli_rel < EXPORT_BOUNDS["bf16"], f"predict CLI artifact vs checkpoint {cli_rel}")
+
+    # (g) the HTTP server
+    server = build_server(artifact, port=0)
+    host, port = server.server_address
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"http://{host}:{port}/health", timeout=60) as r:
+            health = json.loads(r.read())
+        health_seconds = time.perf_counter() - t0
+        body = io.BytesIO()
+        np.save(body, windows[0].cpu().numpy())
+        request_seconds = []
+        for _ in range(2):  # the first request warms up
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(urllib.request.Request(
+                    f"http://{host}:{port}/predict", body.getvalue()), timeout=300) as r:
+                answer = np.load(io.BytesIO(r.read()))
+            request_seconds.append(time.perf_counter() - t0)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "the server thread did not stop")
+    served_rel = float(np.linalg.norm(answer - want_host) / np.linalg.norm(want_host))
+    report["server"] = dict(health_seconds=health_seconds, request_seconds=request_seconds,
+                            rel_l2=served_rel)
+    print(f"export (g): server /health {health_seconds:.3f} s ({health['status']}), /predict "
+          f"of 1 x 4 x 128^3 {request_seconds} s a request, rel L2 vs eager {served_rel:.3e} "
+          f"[{card}]", flush=True)
+    check(health["status"] == "ok" and health["format"] == "unet3d_tpu_torch.export",
+          f"/health {health}")
+    check(answer.shape == (1, 3, *EXPORT_WINDOW) and served_rel < EXPORT_BOUNDS["bf16"],
+          f"/predict {answer.shape}, rel L2 {served_rel}")
+    del model, served, windows, eager
+    torch.cuda.empty_cache()
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    return {**window_launches, "winograd_stats": launches_w["winograd_stats"]}, report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6064,9 +6356,12 @@ def main() -> int:
     halo_report = phase18_kernels(device, gen)
     space_halo, space = phase18_space(device, args.seed, card)
     space["predict_cli"] = phase18_predict_cli(card, cases)
-    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
     space["sppin"] = phase18_sppin(device, args.seed, card)
     phase_done(18)
+    # phase 19
+    export_launches, export = phase19_export(device, args.seed, card, cases)
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    phase_done(19)
     check(not any(m in sys.modules for m in ("jax", "unet3d_tpu")),
           "the port imported jax")
     # launches: the training path's (phase 5; phase 7 for the Winograd
@@ -6103,7 +6398,10 @@ def main() -> int:
     # space axis (phase 18b), all four kernels in the SAME form and, in the
     # entries named "_halo", the two ranks' launches in their D-halo modes
     # (launches_by_pads, each rank's; the windows' in
-    # launches_window_by_pads, phase 18a)
+    # launches_window_by_pads, phase 18a); launches_export: one 128^3 window
+    # through the loaded export artifact (phase 19b; winograd_stats through
+    # the artifact exported under the strategy, 19e); the f32 Winograd
+    # entries' halo_shapes: the f32 calls of phase 18's Winograd halo sites
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": v, "route": "cuda", "source": SOURCES[v],
                 "replaces": REPLACES[v], "launches": train_launches[v],
@@ -6131,6 +6429,7 @@ def main() -> int:
                 "launches_data_parallel_rank": dp_rank_launches[v],
                 "launches_train_cli_data_parallel": dp_cli_launches[v],
                 "launches_space_rank": space["ranks"][0]["launches_bf16"][v],
+                "launches_export": export_launches.get(v, 0),
                 **{k: report[v][k] for k in keys}}
                for v in TRAIN_KERNELS]
     for entry in kernels:
@@ -6160,6 +6459,7 @@ def main() -> int:
                  "launches_train_cli": train_cli_launches[v],
                  "launches_train_cli_res_remat": res_launches[v],
                  "launches_segresnet": segresnet_launches[v],
+                 "launches_export": export_launches.get(v, 0),
                  **{k: report[v][k] for k in keys}, "direct_ms": report[v]["direct_ms"]}
                 for v in STRATEGY_KERNELS]
     # winograd_wgmma.cu's bf16 calls off the multiples of 8 and off
@@ -6245,7 +6545,8 @@ def main() -> int:
                  "replaces": REPLACES[v],
                  "launches": strategy["f32_forms"].get(f"{v}/tf32x3", 0),
                  **{k: report[f"{v}_tf32x3"][k] for k in keys + ("f32_bound_ms",)},
-                 "direct_ms": report[f"{v}_tf32x3"]["direct_ms"]}
+                 "direct_ms": report[f"{v}_tf32x3"]["direct_ms"],
+                 "halo_shapes": halo_report[f"{v}_tf32x3"]}
                 for v in STRATEGY_KERNELS]
     # s2_wgrad's narrow form (s2_wgrad.cu): launches in MONAI UNet's bf16
     # step (phase 11, its 4 -> 16 first stride-2 conv) and in the
@@ -6320,6 +6621,7 @@ def main() -> int:
     print(f"data parallel: {json.dumps(dict(world1=dp_world1, two_ranks=dp_ranks, cli=dp_cli))} "
           f"[{card}]")
     print(f"space axis: {json.dumps(dict(space, kernel_shapes=halo_report))} [{card}]")
+    print(f"export and serving: {json.dumps(export)} [{card}]")
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))

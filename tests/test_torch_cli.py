@@ -136,9 +136,18 @@ def test_parsers_take_the_jax_flags():
     ("model.npz", {"n_gpus": 1, "mesh": "data1,space2"}),
     ("model.npz", {"n_gpus": 1, "mesh": "model2"})])
 def test_unported_options_raise(setup, tmp_path, model_file, machine):
-    """An exported artifact, a ``model`` axis and a ``space`` axis for a net
-    without a space form raise (DynUNet and UNet3D predict on the space
-    axis: ``tests/test_torch_space_cli.py``)."""
+    """A multi-device (mesh) export artifact, a ``model`` axis and a
+    ``space`` axis for a net without a space form raise (DynUNet and UNet3D
+    predict on the space axis: ``tests/test_torch_space_cli.py``; the
+    predict CLI serves a single-device artifact: ``tests/test_torch_export.py``)."""
+    if model_file.endswith(".u3dexp"):
+        from unet3d_tpu_torch.scripts import export
+        with pytest.raises(NotImplementedError, match="not ported"):
+            export.main(["--config_filename", setup[0], "--model_filename", setup[1],
+                         "--output_filename", str(tmp_path / model_file), "--mesh", "space2"],
+                        device="cpu")
+        assert not os.path.exists(tmp_path / model_file)
+        return
     config = json.load(open(setup[0]))
     if "space" in str(machine.get("mesh")):
         config["model"] = {"name": "SegResNet", "init_filters": 4, "in_channels": 2,

@@ -65,6 +65,9 @@ CLASSIFIER_MODULES = ("models.resnet", "models.densenet", "models.efficientnet",
 PARALLEL_MODULES = ("parallel.distributed", "parallel.mesh", "parallel.launch",
                     "data.loader", "data.prefetch", "train.train", "scripts.train",
                     "scripts.predict", "kernels.build")
+# export and serving
+EXPORT_MODULES = ("predict.export", "scripts.export", "scripts.serve", "predict.volumetric",
+                  "scripts.predict", "ops.conv3d_kernel", "ops.winograd_kernel")
 
 
 def _env():
@@ -92,6 +95,7 @@ def test_every_module_imports_without_jax_or_a_build():
     assert {f"unet3d_tpu_torch.{m}" for m in LAST_CONV_NET_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in CLASSIFIER_MODULES} <= set(names.split())
     assert {f"unet3d_tpu_torch.{m}" for m in PARALLEL_MODULES} <= set(names.split())
+    assert {f"unet3d_tpu_torch.{m}" for m in EXPORT_MODULES} <= set(names.split())
 
 
 def test_no_source_of_the_port_names_jax():

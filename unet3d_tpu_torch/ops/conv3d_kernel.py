@@ -48,6 +48,19 @@ gradient of a halo conv is the conv of the cotangent with pads (2 - pad_lo,
 planes only; ``block_stats`` activates a neighbour plane like any other
 (it holds the neighbour's pre-norm values) and keeps a pad plane zero.
 ``HALO_LAUNCHES`` counts the launches per (variant, pads) other than (1, 1).
+
+The three variants are torch.library operators of the ``unet3d_tpu_torch``
+namespace (``conv3x3x3``, ``conv3x3x3_stats``, ``conv3x3x3_block_stats``),
+registered when this module is imported: their CPU implementation is the
+plain version, their CUDA implementation the launch, and their fake
+implementation gives the output's shapes, so a ``torch.export`` graph holds
+each call as one node and a loaded artifact launches the kernels
+(``predict/export.py``). They are defined on the low-level
+``torch.library.Library``, whose dispatch costs a few microseconds of host
+time per call, less than ``torch.library.custom_op``'s. The statistics
+variants return ``(y, stats)`` with (N, 2, Cout) f32 ``stats``, which the
+public functions split (an operator's outputs may not alias each other);
+the public functions check their operands (``_check``) before the call.
 """
 from __future__ import annotations
 
@@ -317,6 +330,8 @@ def out_depth(x: torch.Tensor, pads) -> int:
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, inv=None, shift=None, pads=SAME) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"no kernel for device {x.device}")
     if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3):
         raise ValueError(f"expected x (N,D,H,W,C) and w (3,3,3,C,Cout), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -340,7 +355,15 @@ def _check(x: torch.Tensor, w: torch.Tensor, inv=None, shift=None, pads=SAME) ->
         tensors += [inv, shift]
     if any(t.device != x.device for t in tensors):
         raise ValueError("all operands must be on one device")
-    if x.device.type == "cuda" and not all(t.is_contiguous() for t in tensors):
+    if x.device.type == "cuda":
+        check_contiguous(*tensors)
+
+
+def check_contiguous(*tensors: Optional[torch.Tensor]) -> None:
+    """Raises unless every operand given is contiguous, as a CUDA kernel
+    reads them (also where an exported graph calls the operator, which
+    ``_check`` does not see)."""
+    if not all(t is None or t.is_contiguous() for t in tensors):
         raise ValueError("the CUDA kernel needs contiguous operands")
 
 
@@ -349,6 +372,7 @@ def _launch(variant: str, x: torch.Tensor, w: torch.Tensor,
             shift: Optional[torch.Tensor] = None, alpha: float = 0.01, pads=SAME):
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
+    check_contiguous(x, w, inv, shift)
     from unet3d_tpu_torch.kernels.build import load_library
 
     lib = load_library()
@@ -394,18 +418,63 @@ def _launch(variant: str, x: torch.Tensor, w: torch.Tensor,
     return y, stats
 
 
+# the operators: one DEF library for the namespace (ops/winograd_kernel.py
+# defines its two on it), each with its plain version on the CPU, its launch
+# on CUDA and its output shapes for tracing
+LIBRARY = torch.library.Library("unet3d_tpu_torch", "DEF")
+
+
+def define_op(name: str, schema: str, cpu, cuda, fake):
+    """Defines ``unet3d_tpu_torch::<name><schema>`` with its CPU, CUDA and
+    fake implementations; returns its default overload."""
+    LIBRARY.define(name + schema)
+    LIBRARY.impl(name, cpu, "CPU")
+    LIBRARY.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"unet3d_tpu_torch::{name}", fake, lib=LIBRARY)
+    return getattr(torch.ops.unet3d_tpu_torch, name).default
+
+
+def stacked(y, s1, s2):
+    """A plain version's (y, sum, sum of squares) as an operator's (y, stats)."""
+    return y, torch.stack((s1, s2), dim=1)
+
+
+def fake_outputs(x: torch.Tensor, w: torch.Tensor, pads, with_stats: bool):
+    """The shapes of a conv operator's outputs, for tracing."""
+    y = x.new_empty((x.shape[0], out_depth(x, pads), x.shape[2], x.shape[3], w.shape[4]))
+    if not with_stats:
+        return y
+    return y, x.new_empty((x.shape[0], 2, w.shape[4]), dtype=torch.float32)
+
+
+_conv_op = define_op(
+    "conv3x3x3", "(Tensor x, Tensor w, int[] pads) -> Tensor",
+    conv3d_reference, lambda x, w, pads: _launch("conv", x, w, pads=pads)[0],
+    lambda x, w, pads: fake_outputs(x, w, pads, False))
+_conv_stats_op = define_op(
+    "conv3x3x3_stats", "(Tensor x, Tensor w, int[] pads) -> (Tensor, Tensor)",
+    lambda x, w, pads: stacked(*conv3d_with_stats_reference(x, w, pads)),
+    lambda x, w, pads: _launch("conv_stats", x, w, pads=pads),
+    lambda x, w, pads: fake_outputs(x, w, pads, True))
+_block_stats_op = define_op(
+    "conv3x3x3_block_stats",
+    "(Tensor x, Tensor w, Tensor inv, Tensor shift, float alpha, int[] pads) "
+    "-> (Tensor, Tensor)",
+    lambda x, w, inv, shift, alpha, pads: stacked(
+        *conv3d_block_with_stats_reference(x, w, inv, shift, alpha, pads)),
+    lambda x, w, inv, shift, alpha, pads: _launch("block_stats", x, w, inv, shift, alpha,
+                                                  pads),
+    lambda x, w, inv, shift, alpha, pads: fake_outputs(x, w, pads, True))
+
+
 def conv3x3x3(x: torch.Tensor, w: torch.Tensor, pads=SAME) -> torch.Tensor:
     _check(x, w, pads=pads)
-    if x.device.type == "cpu":
-        return conv3d_reference(x, w, pads)
-    return _launch("conv", x, w, pads=pads)[0]
+    return _conv_op(x, w, pads)
 
 
 def conv3x3x3_with_stats(x: torch.Tensor, w: torch.Tensor, pads=SAME):
     _check(x, w, pads=pads)
-    if x.device.type == "cpu":
-        return conv3d_with_stats_reference(x, w, pads)
-    y, stats = _launch("conv_stats", x, w, pads=pads)
+    y, stats = _conv_stats_op(x, w, pads)
     return y, stats[:, 0], stats[:, 1]
 
 
@@ -413,7 +482,5 @@ def conv3x3x3_block_with_stats(x: torch.Tensor, w: torch.Tensor,
                                inv: torch.Tensor, shift: torch.Tensor,
                                alpha: float = 0.01, pads=SAME):
     _check(x, w, inv, shift, pads)
-    if x.device.type == "cpu":
-        return conv3d_block_with_stats_reference(x, w, inv, shift, alpha, pads)
-    y, stats = _launch("block_stats", x, w, inv, shift, alpha, pads)
+    y, stats = _block_stats_op(x, w, inv, shift, alpha, pads)
     return y, stats[:, 0], stats[:, 1]

@@ -37,7 +37,11 @@ the JAX Pallas kernel rounds: the D and then the H input transform in the
 working dtype, the transformed weight ``transform_weights_dh`` in the working
 dtype, the 48 channel products and the inverse transform in f32, one rounding
 at the store. ``LAUNCHES`` counts kernel launches per variant,
-``FORM_LAUNCHES`` per (variant, form).
+``FORM_LAUNCHES`` per (variant, form). Both variants are torch.library
+operators of ``ops/conv3d_kernel``'s namespace (``winograd3x3x3``,
+``winograd3x3x3_stats``, the latter returning ``(y, stats)``), registered on
+import, so an exported graph keeps each call as a node: the strategy in
+force when a model is exported is the one its graph runs.
 
 The gate (``winograd_applies``) is the JAX package's: the shape part of
 ``winograd_available`` (stride 1, SAME, 3^3, D and H even) and
@@ -54,8 +58,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from unet3d_tpu_torch.ops.conv3d_kernel import (SAME, _check, instance_stats, out_depth,
-                                                tf32_split)
+from unet3d_tpu_torch.ops.conv3d_kernel import (SAME, _check, check_contiguous, define_op,
+                                                fake_outputs, instance_stats, out_depth,
+                                                stacked, tf32_split)
 from unet3d_tpu_torch.utils.device import full_f32
 
 LAUNCHES: Dict[str, int] = {"winograd": 0, "winograd_stats": 0}
@@ -280,6 +285,7 @@ def _launch(variant: str, x: torch.Tensor, w: torch.Tensor, pads
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
+    check_contiguous(x, w)
     from unet3d_tpu_torch.kernels.build import load_library
 
     lib = load_library()
@@ -316,16 +322,23 @@ def _launch(variant: str, x: torch.Tensor, w: torch.Tensor, pads
     return y, stats
 
 
+_winograd_op = define_op(
+    "winograd3x3x3", "(Tensor x, Tensor w, int[] pads) -> Tensor", winograd_reference,
+    lambda x, w, pads: _launch("winograd", x, w, pads)[0],
+    lambda x, w, pads: fake_outputs(x, w, pads, False))
+_winograd_stats_op = define_op(
+    "winograd3x3x3_stats", "(Tensor x, Tensor w, int[] pads) -> (Tensor, Tensor)",
+    lambda x, w, pads: stacked(*winograd_with_stats_reference(x, w, pads)),
+    lambda x, w, pads: _launch("winograd_stats", x, w, pads),
+    lambda x, w, pads: fake_outputs(x, w, pads, True))
+
+
 def winograd3x3x3(x: torch.Tensor, w: torch.Tensor, pads=SAME) -> torch.Tensor:
     _check_winograd(x, w, pads)
-    if x.device.type == "cpu":
-        return winograd_reference(x, w, pads)
-    return _launch("winograd", x, w, pads)[0]
+    return _winograd_op(x, w, pads)
 
 
 def winograd3x3x3_with_stats(x: torch.Tensor, w: torch.Tensor, pads=SAME):
     _check_winograd(x, w, pads)
-    if x.device.type == "cpu":
-        return winograd_with_stats_reference(x, w, pads)
-    y, stats = _launch("winograd_stats", x, w, pads)
+    y, stats = _winograd_stats_op(x, w, pads)
     return y, stats[:, 0], stats[:, 1]

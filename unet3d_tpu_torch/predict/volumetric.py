@@ -37,6 +37,13 @@ def to_ndhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 4, 1).contiguous()
 
 
+def inference_net(model: torch.nn.Module, amp: bool = False) -> torch.nn.Module:
+    """The model in eval mode, under ``amp`` a bf16 copy of it (the f32
+    master stays as it is)."""
+    net = copy.deepcopy(model).to(torch.bfloat16) if amp else model
+    return net.eval()
+
+
 def make_forward(model: torch.nn.Module, amp: bool = False,
                  use_test: bool = False, mesh=None) -> Callable:
     """Inference forward over NDHWC inputs.
@@ -50,8 +57,7 @@ def make_forward(model: torch.nn.Module, amp: bool = False,
     returns the gathered output, or runs whole where the axis does not
     divide the input's D (the JAX version's ``mesh=`` dispatch;
     ``parallel/mesh.space_forward``)."""
-    net = copy.deepcopy(model).to(torch.bfloat16) if amp else model
-    net.eval()
+    net = inference_net(model, amp)
     kwargs = ({"test": True} if use_test
               and "test" in inspect.signature(net.forward).parameters else {})
 
@@ -135,13 +141,14 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def volumetric_predictions(model: torch.nn.Module, dataloader,
+def volumetric_predictions(model: Optional[torch.nn.Module], dataloader,
                            prediction_dir: str,
                            activation: Optional[str] = None,
                            resample: bool = False,
                            inferer: Optional[Callable] = None,
                            amp: bool = False,
-                           interpolation: str = "trilinear", mesh=None) -> List[str]:
+                           interpolation: str = "trilinear", mesh=None,
+                           forward: Optional[Callable] = None) -> List[str]:
     """Predict every case of ``dataloader`` on the model's device and write
     one NIfTI each; returns the filenames.
 
@@ -156,13 +163,21 @@ def volumetric_predictions(model: torch.nn.Module, dataloader,
     Batches are dicts with ``image`` (B, C, D, H, W), ``affine`` (B, 4, 4) and
     ``source_filename``; ``amp`` runs the forward in bf16. ``resample`` maps
     each prediction back onto its source file's grid (``interpolation``)
-    before it is written, with the source's affine."""
+    before it is written, with the source's affine.
+
+    ``forward`` overrides ``model`` with a prebuilt NDHWC callable that has
+    a ``device`` attribute, the inputs' device (the serving path passes an
+    exported artifact's ``ExportedModel.ndhwc_forward()``, ``predict/export.py``);
+    ``model`` may then be None, and ``amp`` is the artifact's own."""
     os.makedirs(prediction_dir, exist_ok=True)
     if mesh is not None and mesh.size > 1:
         dataloader = dataloader.rank_cases(mesh.rank, mesh.size)
     writer = mesh is None or mesh.space_rank == 0
-    forward = make_forward(model, amp=amp, mesh=mesh)
-    device = next(model.parameters()).device
+    if forward is None:
+        forward = make_forward(model, amp=amp, mesh=mesh)
+        device = next(model.parameters()).device
+    else:
+        device = forward.device
     written: List[str] = []
     batches = iter(dataloader)
     while True:

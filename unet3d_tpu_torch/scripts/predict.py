@@ -25,6 +25,13 @@ the single-device run's. A net without a space form (any but DynUNet and
 UNet3D) takes the data layout by default, with a log line (a divergence
 from JAX's CLI, see ROADMAP.md), and raises on an explicit ``space`` axis;
 a ``model`` axis raises.
+
+A ``--model_filename`` ending in ``.u3dexp`` is a serving artifact of
+``unet3d-torch-export`` (``predict/export.py``): no model is built and no
+checkpoint read; the program runs as exported, on one device (``--ngpus``
+and a mesh are logged and ignored, as JAX's CLI runs its artifacts), and
+an activation folded into it is the one applied (a different
+``--activation`` raises).
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ from unet3d_tpu_torch.models.registry import MODEL_REGISTRY
 from unet3d_tpu_torch.parallel import distributed, launch
 from unet3d_tpu_torch.parallel.mesh import (check_space_form, has_space_form, make_mesh,
                                             parse_mesh_spec)
+from unet3d_tpu_torch.predict.export import load_exported
 from unet3d_tpu_torch.predict.volumetric import volumetric_predictions
 from unet3d_tpu_torch.scripts.segment import format_parser as format_segmentation_parser
 from unet3d_tpu_torch.utils.config import in_config, load_json
@@ -137,11 +145,11 @@ def run_inference(config, output_directory, model_filename, group, activation,
     CUDA GPU (``require_cuda``, which raises without one); on N ranks for a
     machine config of N devices (see the module docstring). Returns the
     written files in the loader's order."""
-    if str(model_filename).endswith(".u3dexp"):
-        raise NotImplementedError(
-            f"{model_filename}: exported model artifacts are not ported yet "
-            "(see ROADMAP.md)")
-    run_plan = predict_plan(config, system_config, device or "cuda")
+    artifact = str(model_filename).endswith(".u3dexp")
+    run_plan = None if artifact else predict_plan(config, system_config, device or "cuda")
+    asked = system_config or {}
+    if artifact and (int(asked.get("n_gpus") or 1) > 1 or asked.get("mesh") is not None):
+        logging.info("%s runs as exported, on one device", model_filename)
     if run_plan is not None and not distributed.is_initialized():
         if device is None:
             require_cuda()
@@ -172,7 +180,19 @@ def run_inference(config, output_directory, model_filename, group, activation,
                               num_workers=in_config("n_workers", system_config, 1))
 
     logging.info("Model filename: %s", model_filename)
-    model = build_or_load_model_from_config(config, model_filename, device, strict=True)
+    model = forward = None
+    if artifact:
+        served = load_exported(model_filename, device)
+        folded = served.metadata.get("activation")
+        if folded:
+            if activation and activation != folded:
+                raise ValueError(f"--activation {activation!r} conflicts with the {folded!r} "
+                                 f"activation folded into {model_filename}")
+            logging.info("Activation %r is folded into the artifact", folded)
+            activation = None
+        forward = served.ndhwc_forward()
+    else:
+        model = build_or_load_model_from_config(config, model_filename, device, strict=True)
     prediction_dir = os.path.join(work_dir, "predictions")
     os.makedirs(prediction_dir, exist_ok=True)
     amp = bool(in_config("amp", config.get("inference", {}),
@@ -180,7 +200,8 @@ def run_inference(config, output_directory, model_filename, group, activation,
     return volumetric_predictions(model, dataloader, prediction_dir,
                                   activation=activation,
                                   resample=in_config("resample", config["dataset"], False),
-                                  amp=amp, interpolation="trilinear", mesh=mesh)
+                                  amp=amp, interpolation="trilinear", mesh=mesh,
+                                  forward=forward)
 
 
 def main(args=None, device=None):

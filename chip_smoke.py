@@ -915,6 +915,13 @@ WINO_HALO_SHAPES = [
 ]
 WINO_HALO_TIMED_AT = {"winograd_stats": "upsample4.conv1 128->64 rank 0",
                       "winograd": "dx of a 96->96 conv rank 0"}
+# phase 18 (f) and (g): SegResNetVAE at Myronenko's widths and SegResNetDS at
+# MONAI's defaults on the space axis (phase 10's and 11's configurations);
+# the conv halo forms each must launch on every rank (the f32 tf32x3 form:
+# SegResNetVAE's decoder after its trilinear upsample)
+SPACE_NETS = (("SegResNetVAE", SEGRESNET_MODEL, ("wgmma", "tf32x3")),
+              ("SegResNetDS", SEGRESNET_DS_MODEL, ("wgmma",)))
+SPACE_NETS_DIR = os.path.join(ROOT, "build", "chip_smoke_space_nets")
 DP_STATS_BOUND = 1e-4
 
 
@@ -5275,7 +5282,7 @@ def dp_update(model, criterion, images, labels, amp, mesh=None) -> dict:
     out = dict(loss=loss, launches={k: launches[k] for k in TRAIN_KERNELS},
                updates={k: (p.detach() - before[k]).float().cpu()
                         for k, p in model.named_parameters()},
-               buffers={k: b.detach().float().cpu() for k, b in model.named_buffers()})
+               buffers={k: b.detach().float().cpu().clone() for k, b in model.named_buffers()})
     model.load_state_dict(before)
     return out
 
@@ -5966,6 +5973,164 @@ def phase18_sppin(device, seed, card) -> dict:
                 card_gib=total)
 
 
+def halo_form_counts() -> dict:
+    """The direct conv's launches in its D-halo mode by variant and form
+    (``"conv/wgmma"``)."""
+    from unet3d_tpu_torch.ops import conv3d_kernel
+    return {f"{v}/{form}": n for (v, form), n in sorted(
+        conv3d_kernel.HALO_FORM_LAUNCHES.items())}
+
+
+def vae_term(model, window, device, seed, mesh=None) -> float:
+    """SegResNetVAE's VAE loss term (reconstruction MSE + latent
+    regulariser) in one bf16 training forward of ``window`` with the noise
+    drawn from ``seed``; on ``mesh``'s space axis on this rank's D slab."""
+    from unet3d_tpu_torch.parallel.mesh import space_forward
+    from unet3d_tpu_torch.predict.volumetric import inference_net
+    net = inference_net(model, amp=True)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    forward = space_forward(lambda x: net(x, train=True, rng=gen), mesh)
+    with torch.no_grad():
+        _, term = forward(window.to(device, torch.bfloat16))
+    return float(term)
+
+
+def phase18_net_rank(path, seed):
+    """One of (f)'s and (g)'s two ranks (a spawned process sharing the card
+    over gloo, ``{"space": 2}``): for each of ``SPACE_NETS`` the 128^3 bf16
+    window on its D slab, gathered, and one bf16 train step (SegResNetVAE's
+    VAE term too), against the single-device references in ``path``; the
+    launches, by halo pads and by halo form, of the window and the step."""
+    from unet3d_tpu_torch.parallel import distributed
+    from unet3d_tpu_torch.parallel.mesh import make_mesh, make_sharded_forward
+
+    device = distributed.rank_device()
+    refs = torch.load(path)
+    mesh = make_mesh({"space": SPACE_RANKS})
+    window = refs["window"].to(device)
+    out = {"rank": mesh.space_rank}
+    for name, model_cfg, _ in SPACE_NETS:
+        ref = refs[name]
+        model, criterion = dp_model(model_cfg, device, seed)
+        r = {"state": state_digest(model)}
+        forward = make_sharded_forward(model, mesh, amp=True)
+        torch.cuda.synchronize()
+        reset_launches()
+        got = forward(window).float().cpu()
+        torch.cuda.synchronize()
+        r.update(window_launches=dict(launch_counts()), window_halo=halo_counts(),
+                 window_halo_forms=halo_form_counts(), window_shape=list(got.shape),
+                 window=float((got - ref["forward"]).norm() / ref["forward"].norm()),
+                 window_ms=cuda_ms(lambda: forward(window), reps=2))
+        del forward, got
+        if name == "SegResNetVAE":
+            r["vae_term"] = vae_term(model, refs["window"], device, seed, mesh)
+        run = dp_update(model, criterion, refs["images"], refs["labels"], True, mesh)
+        r.update(loss=run["loss"], launches=run["launches"], halo=halo_counts(),
+                 halo_forms=halo_form_counts(),
+                 bf16=dict_gap(run["updates"], ref["updates"]))
+        if ref["buffers"]:
+            r["stats"] = dict_gap(run["buffers"], ref["buffers"])
+        r["step_ms"], r["all_reduce_ms"] = dp_step_ms(model, criterion, refs["images"],
+                                                      refs["labels"], True, mesh, steps=2)
+        out[name] = r
+        del model, run
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase18_space_nets(device, seed, card) -> dict:
+    """(f) SegResNetVAE and (g) SegResNetDS on the space axis: the
+    single-device references here (the 128^3 bf16 window, one bf16 step's
+    updates and statistics from the seeded weights with the noise drawn from
+    the same seed, SegResNetVAE's VAE term), then two ranks sharing the card
+    over gloo on ``{"space": 2}`` (``phase18_net_rank``)."""
+    from unet3d_tpu_torch.parallel import launch
+    from unet3d_tpu_torch.predict.volumetric import make_forward
+
+    window, images, labels = space_batch(seed)
+    refs = {"window": window, "images": images, "labels": labels}
+    for name, model_cfg, _ in SPACE_NETS:
+        model, criterion = dp_model(model_cfg, device, seed)
+        ref = {"state": state_digest(model),
+               "forward": make_forward(model, amp=True)(window.to(device)).float().cpu()}
+        if name == "SegResNetVAE":
+            ref["vae_term"] = vae_term(model, window, device, seed)
+        plain = dp_update(model, criterion, images, labels, True)
+        ref.update(updates=plain["updates"], buffers=plain["buffers"], loss=plain["loss"],
+                   launches=plain["launches"])
+        ref["step_ms"], _ = dp_step_ms(model, criterion, images, labels, True, steps=2)
+        refs[name] = ref
+        del model
+        torch.cuda.empty_cache()
+    shutil.rmtree(SPACE_NETS_DIR, ignore_errors=True)
+    os.makedirs(SPACE_NETS_DIR)
+    path = os.path.join(SPACE_NETS_DIR, "references.pt")
+    torch.save(refs, path)
+    t0 = time.perf_counter()
+    ranks = launch.launch(phase18_net_rank, (path, seed),
+                          launch.Plan(SPACE_RANKS, {"space": SPACE_RANKS}, {}),
+                          device=torch.device("cuda", device.index or 0), backend="gloo")
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(SPACE_NETS_DIR, ignore_errors=True)
+    report = {"seconds": seconds}
+    for (name, _, forms), part in zip(SPACE_NETS, "fg"):
+        ref = refs[name]
+        got = [r[name] for r in ranks]
+        for rank, r in zip((r["rank"] for r in ranks), got):
+            extra = (f"; VAE term {r['vae_term']:.6f} vs {ref['vae_term']:.6f} on one device"
+                     if "vae_term" in r else "")
+            extra += (f"; running statistics vs the single-device step's rel L2 "
+                      f"{r['stats']:.3e} (bound {BN_STATS_BOUNDS[torch.bfloat16]})"
+                      if "stats" in r else "")
+            print(f"space axis ({part}) {name} rank {rank} of {SPACE_RANKS} over gloo on one "
+                  f"card: the 128^3 bf16 window, gathered, vs the single-device forward rel "
+                  f"L2 {r['window']:.3e} (bound {L2_BOUND}), {r['window_ms']:.1f} ms a window "
+                  f"(two processes on one card), launches {r['window_launches']}, halo pads "
+                  f"{r['window_halo']}, halo forms {r['window_halo_forms']}; one bf16 step's "
+                  f"updates vs the single-device step rel L2 {r['bf16']:.3e} (bound "
+                  f"{SPACE_BF16_BOUND}), loss {r['loss']:.6f} vs {ref['loss']:.6f}, "
+                  f"{r['step_ms']:.1f} ms a step after a warm-up, all-reduce "
+                  f"{r['all_reduce_ms']:.1f} ms (one device {ref['step_ms']:.1f} ms), "
+                  f"launches {r['launches']} (one device {ref['launches']}), halo pads "
+                  f"{r['halo']}, halo forms {r['halo_forms']}{extra}; weights {r['state']} "
+                  f"[{card}]", flush=True)
+            check(r["state"] == ref["state"], f"{name} rank {rank} weights {r['state']} != "
+                  f"the reference's {ref['state']}")
+            check(r["window_shape"] == [1, *SPACE_SHAPE, 3],
+                  f"{name} window shape {r['window_shape']}")
+            check(r["window"] <= L2_BOUND, f"{name} rank {rank} window rel L2 {r['window']:.3e}")
+            check(r["bf16"] <= SPACE_BF16_BOUND, f"{name} rank {rank} bf16 updates rel L2 "
+                  f"{r['bf16']:.3e} > {SPACE_BF16_BOUND}")
+            check(r.get("stats", 0.0) <= BN_STATS_BOUNDS[torch.bfloat16],
+                  f"{name} rank {rank} running statistics rel L2 {r.get('stats')}")
+            for form in forms:
+                check(r["halo_forms"].get(f"conv/{form}", 0) > 0,
+                      f"{name} rank {rank}: no {form} conv in its halo mode in the step: "
+                      f"{r['halo_forms']}")
+            check(r["window_halo_forms"].get("conv/wgmma", 0) > 0,
+                  f"{name} rank {rank}: no wgmma conv in its halo mode in the window")
+        check(got[0]["loss"] == got[1]["loss"] and np.isfinite(got[0]["loss"]),
+              f"{name} losses {[r['loss'] for r in got]}")
+        if name == "SegResNetVAE":
+            terms = [r["vae_term"] for r in got]
+            check(terms[0] == terms[1], f"SegResNetVAE's VAE term differs between the ranks: "
+                  f"{terms}")
+            check(abs(terms[0] - ref["vae_term"]) <= 1e-2 * abs(ref["vae_term"]),
+                  f"SegResNetVAE's VAE term {terms[0]} vs {ref['vae_term']} on one device")
+        # rank 0 holds the volume's first planes: its stride-2 convs run
+        # s2_wgrad with pad_lo 1, the SAME mode; rank 1's take the plane below
+        s2_halo = sum(halo_by_kernel(r["halo"])["s2_wgrad"] for r in got)
+        check(s2_halo > 0, f"{name}: no s2_wgrad halo launch in the ranks' steps")
+        report[name] = dict(
+            ranks=got, s2_wgrad_halo=s2_halo, plain_loss=ref["loss"],
+            plain_step_ms=ref["step_ms"], plain_launches=ref["launches"],
+            **({"plain_vae_term": ref["vae_term"]} if "vae_term" in ref else {}))
+    print(f"space axis (f, g): the two ranks' run {seconds:.1f} s (spawn, library load, "
+          f"windows, steps) [{card}]", flush=True)
+    return report
+
+
 EXPORT_DIR = os.path.join(ROOT, "build", "chip_smoke_export")
 EXPORT_BOUNDS = {"bf16": 1e-2, "f32": 1e-5}
 EXPORT_WINDOW = (128, 128, 128)  # the config's patch and window
@@ -6357,6 +6522,7 @@ def main() -> int:
     space_halo, space = phase18_space(device, args.seed, card)
     space["predict_cli"] = phase18_predict_cli(card, cases)
     space["sppin"] = phase18_sppin(device, args.seed, card)
+    space["nets"] = phase18_space_nets(device, args.seed, card)
     phase_done(18)
     # phase 19
     export_launches, export = phase19_export(device, args.seed, card, cases)
@@ -6398,7 +6564,10 @@ def main() -> int:
     # space axis (phase 18b), all four kernels in the SAME form and, in the
     # entries named "_halo", the two ranks' launches in their D-halo modes
     # (launches_by_pads, each rank's; the windows' in
-    # launches_window_by_pads, phase 18a); launches_export: one 128^3 window
+    # launches_window_by_pads, phase 18a; launches_space_nets each rank's
+    # in SegResNetVAE's and SegResNetDS's bf16 steps, phase 18f and g, and
+    # launches_segresnet_space_halo on conv_tf32x3 the f32 decoder's halo
+    # launches in SegResNetVAE's); launches_export: one 128^3 window
     # through the loaded export artifact (phase 19b; winograd_stats through
     # the artifact exported under the strategy, 19e); the f32 Winograd
     # entries' halo_shapes: the f32 calls of phase 18's Winograd halo sites
@@ -6477,6 +6646,9 @@ def main() -> int:
                  "launches": segresnet["step_forms"].get("conv/tf32x3", 0),
                  "launches_segresnet_window": segresnet["window_forms"].get("conv/tf32x3", 0),
                  "launches_train_cli_segresnet": segresnet_cli["forms"].get("conv/tf32x3", 0),
+                 "launches_segresnet_space_halo": [
+                     r["halo_forms"].get("conv/tf32x3", 0)
+                     for r in space["nets"]["SegResNetVAE"]["ranks"]],
                  **{k: conv_tf32[k] for k in keys + ("f32_bound_ms",)},
                  "family_shapes": tf32_rows}]
     kernels += [{"name": f"{v}_tf32x3", "route": "cuda", "source": TF32X3_SOURCE,
@@ -6570,6 +6742,9 @@ def main() -> int:
                  "launches_window_by_pads": [{k: n for k, n in r["window_halo"].items()
                                               if k.startswith(v + "(")}
                                              for r in space["ranks"]],
+                 "launches_space_nets": {
+                     name: [halo_by_kernel(r["halo"])[v] for r in space["nets"][name]["ranks"]]
+                     for name, _, _ in SPACE_NETS},
                  **{k: halo_report[v][k] for k in keys}}
                 for v in TRAIN_KERNELS]
     # Winograd-DH's halo mode: the two ranks' launches in their bf16 steps

@@ -137,8 +137,8 @@ def test_parsers_take_the_jax_flags():
     ("model.npz", {"n_gpus": 1, "mesh": "model2"})])
 def test_unported_options_raise(setup, tmp_path, model_file, machine):
     """A multi-device (mesh) export artifact, a ``model`` axis and a
-    ``space`` axis for a net without a space form raise (DynUNet and UNet3D
-    predict on the space axis: ``tests/test_torch_space_cli.py``; the
+    ``space`` axis for a net without a space form (VNet) raise (DynUNet and
+    UNet3D predict on the space axis: ``tests/test_torch_space_cli.py``; the
     predict CLI serves a single-device artifact: ``tests/test_torch_export.py``)."""
     if model_file.endswith(".u3dexp"):
         from unet3d_tpu_torch.scripts import export
@@ -150,8 +150,7 @@ def test_unported_options_raise(setup, tmp_path, model_file, machine):
         return
     config = json.load(open(setup[0]))
     if "space" in str(machine.get("mesh")):
-        config["model"] = {"name": "SegResNet", "init_filters": 4, "in_channels": 2,
-                           "out_channels": 3}
+        config["model"] = {"name": "VNet", "in_channels": 2, "out_channels": 3}
     with pytest.raises(NotImplementedError, match="not ported"):
         predict.run_inference(config, str(tmp_path), model_file, "test", None, machine,
                               device="cpu")

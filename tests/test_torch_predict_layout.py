@@ -13,7 +13,7 @@ import pytest
 from unet3d_tpu_torch.scripts.predict import train_predict_layout
 
 
-@pytest.mark.parametrize("name", ["DynUNet", "UNet3D"])
+@pytest.mark.parametrize("name", ["DynUNet", "UNet3D", "SegResNetVAE", "SegResNetDS"])
 @pytest.mark.parametrize("spec, want", [
     (None, {"space": 2}),            # --ngpus 2: JAX re-lays the ranks on space
     ("data2", {"data": 2}),          # an explicit data-only mesh keeps its layout
@@ -28,8 +28,8 @@ def test_space_form_nets(name, spec, want, caplog):
 @pytest.mark.parametrize("spec, logged", [(None, True), ("data2", False)])
 def test_other_nets_keep_the_data_layout(spec, logged, caplog):
     with caplog.at_level(logging.WARNING):
-        assert train_predict_layout("SegResNetVAE", spec, 2) == {"data": 2}
-    assert ("SegResNetVAE has no form for the 'space' mesh axis" in caplog.text) == logged
+        assert train_predict_layout("VNet", spec, 2) == {"data": 2}
+    assert ("VNet has no form for the 'space' mesh axis" in caplog.text) == logged
 
 
 def test_a_space_spec_on_a_larger_world():

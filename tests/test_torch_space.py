@@ -587,7 +587,9 @@ def _config(name):
             "training": {"batch_size": 2}}
 
 
-@pytest.mark.parametrize("name", ["DynUNet", "UNet3D"])
+@pytest.mark.parametrize("name", ["DynUNet", "UNet3D", "SegResNet", "SegResNetVAE",
+                                  "LabeledVariationalAutoEncoder", "SegResNetDS",
+                                  "AttentionUnet", "UNet"])
 def test_predict_cli_default_plan_is_the_space_axis(name):
     """``--ngpus N`` without a mesh spec lays the N ranks on ``{"space":
     N}``, as JAX's predict CLI does; a spec with a space axis takes every
@@ -601,10 +603,10 @@ def test_predict_cli_default_plan_is_the_space_axis(name):
 
 
 def test_a_net_without_a_space_form_raises(caplog):
-    """SegResNet has no space form: on an explicit space axis the CLIs and
+    """VNet has no space form: on an explicit space axis the CLIs and
     the sharded steps raise; the predict CLI's default takes the data
     layout, with a log line."""
-    config = _config("SegResNet")
+    config = _config("VNet")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         predict.predict_plan(config, {"mesh": "space2"}, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -612,7 +614,7 @@ def test_a_net_without_a_space_form_raises(caplog):
     with caplog.at_level("WARNING"):
         assert predict.predict_plan(config, {"n_gpus": 2}, "cpu").mesh == {"data": 2}
     assert "no form for the 'space' mesh axis" in caplog.text
-    model = create_model("SegResNet", init_filters=4, in_channels=1, out_channels=1)
+    model = create_model("VNet", in_channels=1, out_channels=1)
     mesh = Mesh({"space": 2}, 0, None, 0, object(), object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_sharded_train_step(model, losses.DiceLoss(), torch.optim.SGD(

@@ -62,12 +62,12 @@ def test_train_without_a_gpu_raises_unless_given_the_cpu(config_file, tmp_path, 
 def test_unported_options_raise(tmp_path, flags, training):
     """What the CLI does not run raises before any rank starts: a ``model``
     axis, orbax checkpoints, and a ``space`` axis for a net without a space
-    form (DynUNet and UNet3D have one: ``tests/test_torch_space_cli.py``)."""
+    form, VNet (DynUNet and UNet3D have one: ``tests/test_torch_space_cli.py``;
+    the other nets that do: ``tests/test_torch_space_nets.py``)."""
     config = small_brats_config(str(tmp_path), n_train=1, n_val=0, test=False)
     config["training"].update(training)
     if any("space" in f for f in flags):
-        config["model"] = {"name": "SegResNet", "init_filters": 4, "in_channels": 2,
-                           "out_channels": 3}
+        config["model"] = {"name": "VNet", "in_channels": 2, "out_channels": 3}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(["--config_filename", _write(tmp_path, config)] + flags, device="cpu")
     assert not os.path.exists(os.path.join(str(tmp_path), "small", "training_log.csv"))

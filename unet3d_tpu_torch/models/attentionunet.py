@@ -16,6 +16,16 @@ module names:
 
 The BatchNorms keep their running statistics in buffers (``batch_stats``);
 the dropout masks come from the forward's ``rng``.
+
+On the space axis (``parallel/``; x a slab of the volume's D planes) each
+level is D-sharded where its depth divides by the axis, else run whole on
+every rank (``distributed.level_layout``): a strided ``ConvBlock`` and an
+``UpConv`` (the transposed conv's halo form, ``layers.ConvTranspose``) run
+between two levels (``between_levels``), the attention gate (1-cubed convs,
+BatchNorms over the slabs, a sigmoid and a product, each local to its
+planes) and the merge in their level's layout. The elementwise dropout on a
+slab draws the slab's own mask: another draw than one device's, as on the
+data axis.
 """
 from __future__ import annotations
 
@@ -26,6 +36,8 @@ import torch.nn as nn
 
 from unet3d_tpu_torch.models.layers import BatchNorm, FastConv, conv1, dropout, transposed_conv
 from unet3d_tpu_torch.models.monai_unet import Convolution
+from unet3d_tpu_torch.parallel.distributed import (at_level, between_levels, level_layout,
+                                                   space_size)
 
 
 class ConvBlock(nn.Module):
@@ -79,6 +91,8 @@ class AttentionUnet(nn.Module):
     """MONAI AttentionUnet config surface (3D). ``kernel_size`` is taken
     and, as in the JAX model, unused: the blocks' convs are 3-cubed."""
 
+    SPACE_AXIS = True  # runs on D slabs of the space mesh axis
+
     def __init__(self, spatial_dims: int = 3, in_channels: int = 1, out_channels: int = 2,
                  channels: Sequence[int] = (16, 32, 64, 128),
                  strides: Sequence[int] = (2, 2, 2), kernel_size: int = 3,
@@ -87,6 +101,7 @@ class AttentionUnet(nn.Module):
         if spatial_dims != 3:
             raise NotImplementedError("unet3d_tpu_torch AttentionUnet is 3D")
         self.n_levels = len(channels)
+        self.strides = tuple(int(s) for s in strides)
         ch = tuple(channels)
         self.conv0 = ConvBlock(in_channels, ch[0], dropout=dropout)
         for i in range(1, len(ch)):
@@ -100,12 +115,23 @@ class AttentionUnet(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        depths = [x.shape[1] * space_size()]
+        for i in range(1, self.n_levels):
+            depths.append(-(-depths[-1] // self.strides[i - 1]))
+        levels = level_layout(depths) or [None] * self.n_levels
         feats = [self.conv0(x, train, rng)]
         for i in range(1, self.n_levels):
-            feats.append(getattr(self, f"down{i}")(feats[-1], train, rng))
+            feats.append(between_levels(getattr(self, f"down{i}"), feats[-1], levels[i - 1],
+                                        levels[i], train, rng))
         y = feats[-1]
         for i in range(self.n_levels - 2, -1, -1):
-            up = getattr(self, f"upconv{i}")(y, train)
-            att = getattr(self, f"att{i}")(up, feats[i], train)
-            y = getattr(self, f"merge{i}")(torch.cat([att, up], dim=-1), train, rng)
+            up = between_levels(getattr(self, f"upconv{i}"), y, levels[i + 1], levels[i],
+                                train)
+            y = at_level(levels[i], self._gate, i, up, feats[i], train, rng)
         return self.head(y)
+
+    def _gate(self, i: int, up: torch.Tensor, feat: torch.Tensor, train: bool,
+              rng: Optional[torch.Generator]) -> torch.Tensor:
+        """Level ``i``'s attention gate and merge."""
+        att = getattr(self, f"att{i}")(up, feat, train)
+        return getattr(self, f"merge{i}")(torch.cat([att, up], dim=-1), train, rng)

@@ -16,7 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from unet3d_tpu_torch.models.layers import MyronenkoLayer, conv1, transposed_conv
+from unet3d_tpu_torch.models.layers import (MyronenkoLayer, SubpixelConvTranspose, conv1,
+                                            transposed_conv)
 from unet3d_tpu_torch.ops.interpolate import upsample_ndhwc
 from unet3d_tpu_torch.parallel import distributed
 
@@ -195,11 +196,42 @@ class MyronenkoDecoder(nn.Module):
             channels = out_width
         self.out_channels = channels
 
+    def level_depths(self, depth: int) -> List[int]:
+        """The depths of the input's level and of each layer's for an input
+        of ``depth`` planes."""
+        depths = [depth]
+        for i in range(len(self.layer_blocks)):
+            d = depths[-1]
+            if not self.transposed:
+                depths.append(int(d * self.upsampling_scale))
+                continue
+            up = getattr(self, f"up{i}")
+            if isinstance(up, SubpixelConvTranspose):
+                depths.append(d * up.kernel_size[0])
+            else:
+                depths.append((d - 1) * up.stride[0] + up.kernel_size[0] - 2 * up.padding[0]
+                              + up.output_padding[0])
+        return depths
+
     def forward(self, x: torch.Tensor, train: bool = False,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[torch.Generator] = None,
+                levels: Optional[Sequence[bool]] = None) -> torch.Tensor:
+        """``levels``: whether the input's level and each layer's level are
+        D-sharded on the space axis (``distributed.level_layout``, one more
+        entry than the layers): an upsample between two sharded levels runs
+        on the slabs, any other whole, cut to the slab where the next level
+        is sharded."""
         for i in range(len(self.layer_blocks)):
             module = getattr(self, f"up{i}" if self.transposed else f"pre{i}")
-            x = _upsample(module, x, self.transposed, self.upsampling_scale,
-                          self.upsampling_mode, self.align_corners)
-            x = getattr(self, f"layer{i}")(x, train=train, rng=rng)
+            here, there = (levels[i], levels[i + 1]) if levels else (None, None)
+            if here and there and self.transposed:
+                raise NotImplementedError(
+                    "transposed-conv upsampling has no form for the 'space' mesh axis "
+                    "yet (see ROADMAP.md)")
+            x = distributed.between_levels(
+                lambda v: _upsample(module, v, self.transposed, self.upsampling_scale,
+                                    self.upsampling_mode, self.align_corners),
+                x, here, there)
+            x = distributed.at_level(there, getattr(self, f"layer{i}"), x, train=train,
+                                     rng=rng)
         return x

@@ -242,7 +242,7 @@ class DynUNet(nn.Module):
         ups = []
         for h, sharded in reversed(heads):
             if sharded is False and levels[0]:  # a replicated level's head, a slab out
-                h = distributed.slice_d(resize_ndhwc(
-                    h, (depths[0], *full[1:]), mode="nearest"))
+                h = distributed.between_levels(resize_ndhwc, h, False, True,
+                                               (depths[0], *full[1:]), mode="nearest")
             ups.append(resize_ndhwc(h, full, mode="nearest"))
         return torch.stack([out] + ups, dim=1)

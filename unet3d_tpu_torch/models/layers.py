@@ -33,9 +33,10 @@ import torch
 import torch.nn as nn
 
 from unet3d_tpu_torch.ops.conv3d import (channel_matmul, conv3d, conv3d_with_stats, cudnn_conv,
-                                         global_instance_stats)
+                                         global_instance_stats, pad_d)
 from unet3d_tpu_torch.parallel.distributed import (data_size, mean_over_data, space_size,
                                                    sum_over_space)
+from unet3d_tpu_torch.parallel.halo import exchange_halo
 
 Ints3 = Union[int, Sequence[int]]
 
@@ -172,7 +173,9 @@ class PointwiseConv(nn.Module):
 class SubpixelConvTranspose(nn.Module):
     """Transposed conv with kernel == stride: ``out[s*i + a] = x[i] @ w[flip(a)]``,
     one matmul plus the depth-to-space interleave. Flax applies a
-    ConvTranspose kernel tap-reversed, hence the flip."""
+    ConvTranspose kernel tap-reversed, hence the flip. Each output plane
+    reads one input plane, so on the space axis a D slab gives the slab of
+    the whole volume's output as it is."""
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: Tuple[int, int, int], use_bias: bool = True):
@@ -201,7 +204,14 @@ class ConvTranspose(nn.Module):
     padded by ``pads`` per axis, correlated with the kernel as stored (Flax
     does not flip it). Computed by a cuDNN transposed conv on the flipped
     kernel (torch's transposed conv flips), in the result type of the input
-    and the parameters."""
+    and the parameters.
+
+    On the space axis (x a D slab) the kernel-3 stride-2 form with D pads
+    (1, 2) (torch's ``output_padding`` 1: out = 2 in; MONAI's up-convs)
+    reads one plane past the slab's top: the slab takes the plane above it
+    (``parallel/halo.exchange_halo``; a zero plane at the volume's top, as
+    the pad there), is transposed-convolved whole and cut to its own 2 D
+    output planes. Any other form raises on the axis."""
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: Tuple[int, int, int], stride: Tuple[int, int, int],
@@ -218,10 +228,21 @@ class ConvTranspose(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         params = [self.kernel] + ([self.bias] if self.bias is not None else [])
         dtype = _result_type(x, *params)
+        depth, on_axis = x.shape[1], space_size() > 1
+        if on_axis:
+            if (self.kernel_size[0], self.stride[0], self.padding[0],
+                    self.output_padding[0]) != (3, 2, 1, 1):
+                raise NotImplementedError(
+                    f"a transposed conv of kernel {self.kernel_size}, stride {self.stride}, "
+                    f"padding {self.padding} and output padding {self.output_padding} has "
+                    "no form for the 'space' mesh axis (see ROADMAP.md)")
+            x, (_, pad_hi) = exchange_halo(x, 0, 1)
+            x = pad_d(x, (0, pad_hi))
         w = torch.flip(self.kernel, dims=(0, 1, 2)).to(dtype).permute(3, 4, 0, 1, 2)
         y = cudnn_conv(x.to(dtype).permute(0, 4, 1, 2, 3), w, self.stride, self.padding,
                        transposed=True, output_padding=self.output_padding)
-        y = y.permute(0, 2, 3, 4, 1).contiguous()
+        y = y.permute(0, 2, 3, 4, 1)
+        y = (y[:, :2 * depth] if on_axis else y).contiguous()
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y
@@ -271,7 +292,10 @@ class Conv(nn.Module):
     slices; an int means 3). ``padding`` is symmetric per axis, or "SAME",
     XLA's: ``max((ceil(n / s) - 1) * s + (k - 1) * d + 1 - n, 0)`` in all on
     an axis of size n, the odd one at the high side. ``groups`` is Flax's
-    ``feature_group_count``: the kernel is ``(*k, Cin / groups, Cout)``."""
+    ``feature_group_count``: the kernel is ``(*k, Cin / groups, Cout)``.
+    On the space axis only a form local to its D planes runs (kernel 1,
+    stride 1, no pad on D); any other raises: a slab convolved with zero
+    pads for its neighbours' planes is not the volume's slab."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: Ints3,
                  strides: Ints3 = 1, padding: Union[str, Ints3] = 0, dilation: Ints3 = 1,
@@ -302,6 +326,11 @@ class Conv(nn.Module):
         dtype = _result_type(x, *params)
         nd = len(self.kernel_size)
         pads = self._pads(x.shape[1:-1])
+        if space_size() > 1 and (self.kernel_size[0], self.strides[0], pads[0]) != (
+                1, 1, (0, 0)):
+            raise NotImplementedError(
+                f"a conv of kernel {self.kernel_size}, strides {self.strides} and pads "
+                f"{pads} has no form for the 'space' mesh axis (see ROADMAP.md)")
         x = x.to(dtype).movedim(-1, 1)
         if any(lo != hi for lo, hi in pads):
             x = torch.nn.functional.pad(x, [p for pair in reversed(pads) for p in pair])
@@ -485,8 +514,10 @@ class BatchNorm(nn.Module):
     With ``train`` the statistics are the batch's, over every axis but the
     last, in f32 (f64 for an f64 x), the variance E[x^2] - E[x]^2 clamped at
     0 (the biased one); in a data-parallel step E[x] and E[x^2] are the
-    global batch's, averaged over the data axis (SyncBN: Flax under SPMD),
-    so every rank normalises and updates alike; each call updates the
+    global batch's, averaged over the data axis, and on the space axis (x
+    a D slab; not in a replicated level) over the slabs too (SyncBN over
+    (data, space): Flax under SPMD), so every rank normalises and updates
+    alike; each call updates the
     running averages in place, once, ``ra = momentum * ra + (1 - momentum) *
     batch``, in the buffers' dtype (f32 under the AMP train step, which
     casts only parameters). Otherwise the running averages as they are (bf16 under the inference
@@ -510,9 +541,12 @@ class BatchNorm(nn.Module):
         if train:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             dims = tuple(range(x.dim() - 1))
-            mean, mean_sq = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+            moments = torch.stack([xf.mean(dim=dims), (xf * xf).mean(dim=dims)])
+            if space_size() > 1:  # every slab of a level has as many planes
+                moments = sum_over_space(moments) / space_size()
             if data_size() > 1:
-                mean, mean_sq = mean_over_data(torch.stack([mean, mean_sq])).unbind(0)
+                moments = mean_over_data(moments)
+            mean, mean_sq = moments.unbind(0)
             var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum

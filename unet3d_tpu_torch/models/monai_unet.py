@@ -14,6 +14,17 @@
 The norm and activation of stage ``i`` are the parent's ``norm{i}`` /
 ``act{i}`` (the JAX ``_norm_act`` names them on its caller), so the modules
 keep the Flax tree. The dropout masks come from the forward's ``rng``.
+
+On the space axis (``parallel/``; x a slab of the volume's D planes) each of
+``UNet``'s levels is D-sharded where its depth divides by the axis, else run
+whole on every rank (``distributed.level_layout``): a ``down_{d}`` block and
+an ``up_{d}_t`` (the transposed conv's halo form, ``layers.ConvTranspose``)
+run between two levels (``between_levels``), the bottom and the residual
+units in their level's layout; a ``ResidualUnit``'s strided 1-cubed
+residual and PReLU are local to their planes. A dilated conv
+(``layers.Conv``) raises on the axis. The elementwise dropout on a slab
+draws the slab's own mask: another draw than one device's, as on the data
+axis.
 """
 from __future__ import annotations
 
@@ -25,6 +36,8 @@ import torch.nn as nn
 from unet3d_tpu_torch.models.layers import (BatchNorm, Conv, FastConv, GroupNorm,
                                             apply_norm, dropout, leaky_relu,
                                             transposed_conv)
+from unet3d_tpu_torch.parallel.distributed import (at_level, between_levels, level_layout,
+                                                   space_size)
 
 
 class PReLU(nn.Module):
@@ -140,6 +153,8 @@ class UNet(nn.Module):
     ``bottom_{d}`` at the deepest level), ``up_{d}_t`` and, with residual
     units, ``up_{d}_ru``, as in the Flax tree."""
 
+    SPACE_AXIS = True  # runs on D slabs of the space mesh axis
+
     def __init__(self, spatial_dims: int = 3, in_channels: int = 1, out_channels: int = 2,
                  channels: Sequence[int] = (16, 32, 64, 128, 256),
                  strides: Sequence[int] = (2, 2, 2, 2), kernel_size: int = 3,
@@ -152,6 +167,7 @@ class UNet(nn.Module):
             raise ValueError("len(strides) must be len(channels) - 1")
         self.depth = len(channels) - 2
         self.res = num_res_units
+        self.strides = tuple(int(s) for s in strides)
         stage = dict(act=act, norm=norm, dropout=dropout)
 
         def down(in_c, features, stride):
@@ -179,17 +195,25 @@ class UNet(nn.Module):
             in_c, out_c = c, c
 
     def _block(self, x: torch.Tensor, d: int, train: bool,
-               rng: Optional[torch.Generator]) -> torch.Tensor:
-        h = getattr(self, f"down_{d}")(x, train, rng)
+               rng: Optional[torch.Generator], levels) -> torch.Tensor:
+        """Level ``d``'s block: x in level d's layout, h and the inner block
+        in level d + 1's (``levels``, the input's level first)."""
+        h = between_levels(getattr(self, f"down_{d}"), x, levels[d], levels[d + 1], train,
+                           rng)
         if d < self.depth:
-            inner = self._block(h, d + 1, train, rng)
+            inner = self._block(h, d + 1, train, rng, levels)
         else:
-            inner = getattr(self, f"bottom_{d + 1}")(h, train, rng)
-        y = getattr(self, f"up_{d}_t")(torch.cat([h, inner], dim=-1), train, rng)
+            inner = at_level(levels[d + 1], getattr(self, f"bottom_{d + 1}"), h, train, rng)
+        y = between_levels(getattr(self, f"up_{d}_t"), torch.cat([h, inner], dim=-1),
+                           levels[d + 1], levels[d], train, rng)
         if self.res > 0:
-            y = getattr(self, f"up_{d}_ru")(y, train, rng)
+            y = at_level(levels[d], getattr(self, f"up_{d}_ru"), y, train, rng)
         return y
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self._block(x, 0, train, rng)
+        depths = [x.shape[1] * space_size()]
+        for s in self.strides:
+            depths.append(-(-depths[-1] // s))
+        levels = level_layout(depths) or [None] * len(depths)
+        return self._block(x, 0, train, rng, levels)

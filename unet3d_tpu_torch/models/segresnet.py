@@ -19,6 +19,19 @@ bottleneck it strides down to ``smallest_filters`` channels, flattens into a
 a learned std), projects back up and replays the shared decoder without
 skips to reconstruct the input; training returns ``(seg, mse + reg)``, eval
 ``seg``. The draws come from the ``rng`` generator.
+
+On the space axis (``parallel/``; x a slab of the volume's D planes) each
+level is D-sharded where its depth divides by the axis, else run whole on
+every rank (``distributed.level_layout``): the blocks in their level's
+layout, the stride-2 convs and the upsamples between two levels
+(``between_levels``), each skip added in its own level's layout. The
+channel dropout draws one value per (item, channel), the same on every rank
+of a space line (they share the seed and the draw order). The VAE branch
+runs on the whole bottleneck, gathered, on every rank alike (the strided
+conv, the flatten, the dense layers and the latent's draw), its
+reconstruction handed to the decoder in the bottleneck level's layout; the
+reconstruction's squared error is summed over the slabs
+(``sum_over_space``), so every rank returns the same scalar.
 """
 from __future__ import annotations
 
@@ -33,6 +46,9 @@ from unet3d_tpu_torch.models.layers import (Dense, GroupNorm, MyronenkoResidualB
                                             channel_dropout, conv1, conv3,
                                             group_norm_groups, transposed_conv)
 from unet3d_tpu_torch.ops.interpolate import resize_ndhwc
+from unet3d_tpu_torch.parallel.distributed import (at_level, between_levels, level_layout,
+                                                   on_whole, slice_d, space_size,
+                                                   sum_over_space)
 
 UPSAMPLE_MODES = ("nontrainable", "trilinear", "nearest", "deconv")
 
@@ -55,6 +71,8 @@ def _upsample2x(x: torch.Tensor, mode: str, deconv: Optional[nn.Module]) -> torc
 
 class SegResNet(nn.Module):
     """MONAI SegResNet config surface (3D)."""
+
+    SPACE_AXIS = True  # runs on D slabs of the space mesh axis
 
     def __init__(self, spatial_dims: int = 3, init_filters: int = 8,
                  in_channels: int = 1, out_channels: int = 2,
@@ -90,30 +108,50 @@ class SegResNet(nn.Module):
             self.final_norm = GroupNorm(width, group_norm_groups(width, norm_groups))
             self.conv_final = conv1(width, out_channels)
 
-    def _encode(self, x: torch.Tensor, train: bool, rng: Optional[torch.Generator]):
-        """convInit, its dropout and the down levels: (bottleneck, skips)."""
+    def _levels(self, x: torch.Tensor) -> list:
+        """Whether each level (the input's first) is D-sharded on the space
+        axis; Nones off it. Each stride-2 SAME conv gives ceil(depth / 2)."""
+        depths = [x.shape[1] * space_size()]
+        for _ in self.blocks_down[1:]:
+            depths.append(-(-depths[-1] // 2))
+        return level_layout(depths) or [None] * len(depths)
+
+    def _level_blocks(self, x: torch.Tensor, prefix: str, n_blocks: int) -> torch.Tensor:
+        for b in range(n_blocks):
+            x = getattr(self, f"{prefix}_block{b}")(x)
+        return x
+
+    def _encode(self, x: torch.Tensor, train: bool, rng: Optional[torch.Generator],
+                levels: Sequence[Optional[bool]]):
+        """convInit, its dropout and the down levels: (bottleneck, skips),
+        each in its level's layout ``levels``."""
         x = self.convInit(x)
         if self.dropout_prob is not None:
             x = channel_dropout(x, self.dropout_prob, train, rng)
         skips = []
         for i, n_blocks in enumerate(self.blocks_down):
             if i > 0:
-                x = getattr(self, f"down{i}")(x)
-            for b in range(n_blocks):
-                x = getattr(self, f"layer{i}_block{b}")(x)
+                x = between_levels(getattr(self, f"down{i}"), x, levels[i - 1], levels[i])
+            x = at_level(levels[i], self._level_blocks, x, f"layer{i}", n_blocks)
             skips.append(x)
         return x, skips
 
-    def _decode(self, x: torch.Tensor, skips: Optional[Sequence[torch.Tensor]]):
+    def _up(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        x = getattr(self, f"up{i}_conv")(x)
+        return _upsample2x(x, self.upsample_mode, getattr(self, f"up{i}_deconv", None))
+
+    def _decode(self, x: torch.Tensor, skips: Optional[Sequence[torch.Tensor]],
+                levels: Sequence[Optional[bool]]):
         """The up levels; each adds the skip of its level when ``skips`` is
-        given (deepest-first, the bottleneck excluded)."""
+        given (deepest-first, the bottleneck excluded). ``levels``: the
+        encoder's layout, the input's level first."""
+        top = len(self.blocks_down) - 1
         for i, n_blocks in enumerate(self.blocks_up):
-            x = getattr(self, f"up{i}_conv")(x)
-            x = _upsample2x(x, self.upsample_mode, getattr(self, f"up{i}_deconv", None))
+            here, there = levels[top - i], levels[top - i - 1]
+            x = between_levels(self._up, x, here, there, i)
             if skips is not None:
                 x = x + skips[i]
-            for b in range(n_blocks):
-                x = getattr(self, f"up{i}_block{b}")(x)
+            x = at_level(there, self._level_blocks, x, f"up{i}", n_blocks)
         return x
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
@@ -123,8 +161,9 @@ class SegResNet(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        x, skips = self._encode(x, train, rng)
-        return self._head(self._decode(x, skips[:-1][::-1]))
+        levels = self._levels(x)
+        x, skips = self._encode(x, train, rng, levels)
+        return self._head(self._decode(x, skips[:-1][::-1], levels))
 
 
 class SegResNetVAE(SegResNet):
@@ -177,13 +216,28 @@ class SegResNetVAE(SegResNet):
     def forward(self, x: torch.Tensor, train: bool = False,
                 rng: Optional[torch.Generator] = None):
         net_input = x
-        x, skips = self._encode(x, train, rng)
-        seg = self._head(self._decode(x, skips[:-1][::-1]))
+        levels = self._levels(x)
+        x, skips = self._encode(x, train, rng, levels)
+        seg = self._head(self._decode(x, skips[:-1][::-1], levels))
         if not train:
             return seg
         if rng is None:
             raise ValueError("SegResNetVAE's training forward draws its latent "
                              "noise from a torch.Generator (rng)")
+        r, reg = on_whole(self._vae_latent, x, levels[-1], rng)
+        if levels[-1]:  # the reconstruction's first level is the bottleneck's
+            r = slice_d(r)
+        recon = self.vae_conv_final(self._decode(r, None, levels))
+        err = (recon.float() - net_input.float()) ** 2
+        if space_size() == 1:
+            mse = torch.mean(err)
+        else:  # the whole volume's mean: the slabs' sums summed over the axis
+            mse = sum_over_space(err.sum()) / (err.numel() * space_size())
+        return seg, mse + reg
+
+    def _vae_latent(self, x: torch.Tensor, rng: torch.Generator):
+        """The VAE branch from the bottleneck ``x`` to the reconstruction's
+        first level: (its input, the latent's regulariser)."""
         v = self.vae_down_conv(torch.relu(self.vae_down_norm(x)))
         v = v.reshape(v.shape[0], -1)
         z_mean = self.vae_fc1(v)
@@ -201,6 +255,4 @@ class SegResNetVAE(SegResNet):
         r = r.reshape((r.shape[0],) + self.fc_insize + (self.smallest_filters,))
         r = _upsample2x(self.vae_fc_up_conv(r), self.upsample_mode,
                         getattr(self, "vae_fc_upsample", None))
-        recon = self.vae_conv_final(self._decode(r, None))
-        mse = torch.mean((recon.float() - net_input.float()) ** 2)
-        return seg, mse + reg
+        return r, reg

@@ -14,6 +14,15 @@ resolution first, the lower ones trilinearly resized to it (the JAX
 package's convention for the criterion's deep-supervision weighting); eval,
 and ``dsdepth`` 1, return the full-resolution head. ``resolution`` and
 upsample modes other than ``deconv`` raise, as in JAX.
+
+On the space axis (``parallel/``; x a slab of the volume's D planes) each
+level is D-sharded where its depth divides by the axis, else run whole on
+every rank (``distributed.level_layout``): the blocks in their level's
+layout (BatchNorm's statistics summed over the slabs, ``layers.BatchNorm``),
+the stride-2 convs and the kernel-2 transposed convs (local to their
+planes) between two levels (``between_levels``), each head in its level's
+layout and resized to the full-resolution head's slab (a replicated
+level's head resized whole and cut to the slab).
 """
 from __future__ import annotations
 
@@ -26,6 +35,8 @@ from unet3d_tpu_torch.models.layers import (BatchNorm, GroupNorm, PointwiseConv,
                                             _result_type, apply_norm, conv3, leaky_relu,
                                             transposed_conv)
 from unet3d_tpu_torch.ops.interpolate import resize_ndhwc
+from unet3d_tpu_torch.parallel.distributed import (at_level, between_levels, level_layout,
+                                                   space_size)
 
 ACTIVATIONS = ("relu", "leakyrelu")
 
@@ -66,6 +77,8 @@ class SegResBlock(nn.Module):
 class SegResNetDS(nn.Module):
     """MONAI SegResNetDS config surface (3D)."""
 
+    SPACE_AXIS = True  # runs on D slabs of the space mesh axis
+
     def __init__(self, spatial_dims: int = 3, init_filters: int = 32, in_channels: int = 1,
                  out_channels: int = 2, act: str = "relu", norm: str = "batch",
                  blocks_down: Sequence[int] = (1, 2, 2, 4),
@@ -105,27 +118,42 @@ class SegResNetDS(nn.Module):
             if len(self.blocks_up) - i <= dsdepth:
                 self.add_module(f"up{i}_head", PointwiseConv(filters, out_channels))
 
+    def _blocks(self, x: torch.Tensor, prefix: str, n_blocks: int,
+                train: bool) -> torch.Tensor:
+        for b in range(n_blocks):
+            x = getattr(self, f"{prefix}_block{b}")(x, train)
+        return x
+
     def forward(self, x: torch.Tensor, train: bool = False):
+        depths = [x.shape[1] * space_size()]
+        for _ in self.blocks_down[1:]:
+            depths.append(-(-depths[-1] // 2))
+        levels = level_layout(depths) or [None] * len(depths)
         x = self.conv_init(x)
         skips = []
         for i, n_blocks in enumerate(self.blocks_down):
-            for b in range(n_blocks):
-                x = getattr(self, f"down{i}_block{b}")(x, train)
+            x = at_level(levels[i], self._blocks, x, f"down{i}", n_blocks, train)
             skips.append(x)
             if i < len(self.blocks_down) - 1:
-                x = getattr(self, f"down{i}_downsample")(x)
+                x = between_levels(getattr(self, f"down{i}_downsample"), x, levels[i],
+                                   levels[i + 1])
         up_skips = skips[:-1][::-1]
+        top = len(self.blocks_down) - 1
         heads = []
         for i, n_blocks in enumerate(self.blocks_up):
-            x = getattr(self, f"up{i}_upsample")(x) + up_skips[i]
-            for b in range(n_blocks):
-                x = getattr(self, f"up{i}_block{b}")(x, train)
+            here, there = levels[top - i], levels[top - i - 1]
+            x = between_levels(getattr(self, f"up{i}_upsample"), x, here, there) + up_skips[i]
+            x = at_level(there, self._blocks, x, f"up{i}", n_blocks, train)
             if len(self.blocks_up) - i <= self.dsdepth:
-                heads.append(getattr(self, f"up{i}_head")(x))
+                heads.append((getattr(self, f"up{i}_head")(x), there))
         heads.reverse()  # the full-resolution head first
         if len(heads) == 1 or not train:
-            return heads[0]
-        full = tuple(heads[0].shape[1:4])
-        stacked = [heads[0]] + [resize_ndhwc(h, full, mode="trilinear") for h in heads[1:]]
+            return heads[0][0]
+        full = tuple(heads[0][0].shape[1:4])
+        whole = (depths[0], *full[1:])  # the full-resolution head's whole volume
+        stacked = [heads[0][0]] + [
+            between_levels(resize_ndhwc, h, sharded, levels[0],
+                           whole if sharded is False else full, mode="trilinear")
+            for h, sharded in heads[1:]]
         dtype = _result_type(*stacked)
         return torch.stack([h.to(dtype) for h in stacked], dim=1)

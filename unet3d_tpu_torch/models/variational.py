@@ -8,6 +8,14 @@ pre-activation conv, flatten, a dense layer to (mu, logvar), the
 reparameterised sample (or mu when not sampling), a dense layer back, reshape,
 a 1-cubed conv and an upsample; it returns ``(out, mu, logvar)``. The normal
 draws come from the ``rng`` generator.
+
+On the space axis (``parallel/``; x a slab of the volume's D planes) each
+level of the encoder and the decoder is D-sharded where its depth divides
+by the axis, else run whole on every rank (``distributed.level_layout``).
+The variational layer runs on the whole bottleneck, gathered, on every rank
+alike (its strided conv, the flatten, the dense layers, the latent's draw
+and the upsample), and hands its output to the decoder's first level in
+that level's layout; ``mu`` and ``logvar`` are the same on every rank.
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ from unet3d_tpu_torch.models.decoder import MirroredDecoder, MyronenkoDecoder
 from unet3d_tpu_torch.models.layers import Dense, MyronenkoConvBlock, conv1
 from unet3d_tpu_torch.models.myronenko import MyronenkoEncoder
 from unet3d_tpu_torch.ops.interpolate import upsample_ndhwc
+from unet3d_tpu_torch.parallel.distributed import (level_layout, on_whole, slice_d,
+                                                   space_size)
 
 
 def activation_fn(name: Optional[str]):
@@ -37,6 +47,8 @@ def activation_fn(name: Optional[str]):
 
 class ConvolutionalAutoEncoder(nn.Module):
     """``n_outputs`` defaults to ``n_features`` (reconstruction)."""
+
+    SPACE_AXIS = True  # runs on D slabs of the space mesh axis
 
     def __init__(self, n_features: int = 1, base_width: int = 32,
                  encoder_blocks: Sequence[int] = (1, 2, 2, 4),
@@ -63,8 +75,22 @@ class ConvolutionalAutoEncoder(nn.Module):
         else:
             blocks = decoder_blocks or [1] * len(encoder_blocks)
             self.decoder = MyronenkoDecoder(latent, layer_blocks=blocks, **common)
+        self.mirrored = decoder_mirrors_encoder
         n_out = n_outputs if n_outputs is not None else n_features
         self.final_convolution = conv1(self.decoder.out_channels, n_out, use_bias=False)
+
+    def _levels(self, x: torch.Tensor):
+        """The encoder's level layout on the space axis (None off it)."""
+        return level_layout(self.encoder.level_depths(x.shape[1] * space_size()))
+
+    def _decoder_levels(self, levels, depth: int):
+        """The decoder's level layout for an input of ``depth`` planes: the
+        encoder's mirrored, or the Myronenko decoder's own."""
+        if levels is None:
+            return None
+        if self.mirrored:
+            return levels[::-1]
+        return level_layout(self.decoder.level_depths(depth))
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_convolution(x)
@@ -72,8 +98,11 @@ class ConvolutionalAutoEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = self.encoder(x, train=train, rng=rng)
-        return self._head(self.decoder(x, train=train, rng=rng))
+        levels = self._levels(x)
+        x = self.encoder(x, train=train, rng=rng, levels=levels)
+        depth = x.shape[1] * (space_size() if levels and levels[-1] else 1)
+        return self._head(self.decoder(x, train=train, rng=rng,
+                                       levels=self._decoder_levels(levels, depth)))
 
 
 class VariationalBlock(nn.Module):
@@ -117,11 +146,24 @@ class MyronenkoVariationalLayer(nn.Module):
         self.var_block = VariationalBlock(in_size, latent_features, in_size)
         self.out_conv = conv1(reduced_features, in_features, use_bias=False)
 
+    def out_depth(self, depth: int) -> int:
+        """The output's depth for an input of ``depth`` planes."""
+        return -(-depth // self.conv_stride) * self.conv_stride
+
     def forward(self, x: torch.Tensor, sample: bool = True,
-                rng: Optional[torch.Generator] = None, return_reduced: bool = False):
+                rng: Optional[torch.Generator] = None, return_reduced: bool = False,
+                levels=None):
         """``(x, mu, logvar)``; with ``return_reduced`` also the flattened
         output of the strided conv (RegularizedResNet's classifier reads
-        it)."""
+        it). ``levels``: whether x's level and the output's are D-sharded on
+        the space axis (None off it): the layer runs on the whole volume,
+        the output cut to this rank's slab where its level is sharded."""
+        here, there = levels or (None, None)
+        out = on_whole(self._whole, x, here, sample, rng, return_reduced)
+        return (slice_d(out[0]), *out[1:]) if there else out
+
+    def _whole(self, x: torch.Tensor, sample: bool, rng: Optional[torch.Generator],
+               return_reduced: bool):
         reduced = self.in_conv(x)
         reduced = reduced.reshape(reduced.shape[0], -1)
         x, mu, logvar = self.var_block(reduced, sample, rng)
@@ -167,9 +209,14 @@ class VariationalAutoEncoder(ConvolutionalAutoEncoder):
                 sample: Optional[bool] = None, rng: Optional[torch.Generator] = None):
         if sample is None:
             sample = train
-        x = self.encoder(x, train=train, rng=rng)
-        x, mu, logvar = self.var_layer(x, sample=sample, rng=rng)
-        return self._head(self.decoder(x, train=train, rng=rng)), mu, logvar
+        levels = self._levels(x)
+        x = self.encoder(x, train=train, rng=rng, levels=levels)
+        depth = x.shape[1] * (space_size() if levels and levels[-1] else 1)
+        decoder_levels = self._decoder_levels(levels, self.var_layer.out_depth(depth))
+        x, mu, logvar = self.var_layer(x, sample=sample, rng=rng, levels=(
+            (levels[-1], decoder_levels[0]) if levels else None))
+        return (self._head(self.decoder(x, train=train, rng=rng, levels=decoder_levels)),
+                mu, logvar)
 
 
 class LabeledVariationalAutoEncoder(VariationalAutoEncoder):

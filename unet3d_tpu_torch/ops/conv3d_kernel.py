@@ -47,7 +47,8 @@ gradient of a halo conv is the conv of the cotangent with pads (2 - pad_lo,
 2 - pad_hi), which gives every plane of x. The statistics cover the output's
 planes only; ``block_stats`` activates a neighbour plane like any other
 (it holds the neighbour's pre-norm values) and keeps a pad plane zero.
-``HALO_LAUNCHES`` counts the launches per (variant, pads) other than (1, 1).
+``HALO_LAUNCHES`` counts the launches per (variant, pads) other than (1, 1),
+``HALO_FORM_LAUNCHES`` the same launches per (variant, form).
 
 The three variants are torch.library operators of the ``unet3d_tpu_torch``
 namespace (``conv3x3x3``, ``conv3x3x3_stats``, ``conv3x3x3_block_stats``),
@@ -75,6 +76,7 @@ from unet3d_tpu_torch.utils.device import full_f32
 LAUNCHES: Dict[str, int] = {"conv": 0, "conv_stats": 0, "block_stats": 0}
 FORM_LAUNCHES: Dict[Tuple[str, str], int] = collections.Counter()
 HALO_LAUNCHES: Dict[Tuple[str, Tuple[int, int]], int] = collections.Counter()
+HALO_FORM_LAUNCHES: Dict[Tuple[str, str], int] = collections.Counter()
 SAME = (1, 1)  # the D pads of the SAME conv
 
 _VARIANTS = {"conv": 0, "conv_stats": 1, "block_stats": 2}
@@ -136,6 +138,7 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
     FORM_LAUNCHES.clear()
     HALO_LAUNCHES.clear()
+    HALO_FORM_LAUNCHES.clear()
 
 
 def wgmma_plan(spatial: Tuple[int, int, int], cin: int, cout: int) -> WgmmaPlan:
@@ -415,6 +418,7 @@ def _launch(variant: str, x: torch.Tensor, w: torch.Tensor,
     FORM_LAUNCHES[variant, form] += 1
     if tuple(pads) != SAME:
         HALO_LAUNCHES[variant, tuple(pads)] += 1
+        HALO_FORM_LAUNCHES[variant, form] += 1
     return y, stats
 
 

@@ -11,10 +11,13 @@ any axis is resampled (an axis of unchanged size is skipped and casts
 nothing).
 
 On the space axis (``parallel/``: x an NDHWC slab of the volume's D planes)
-``upsample_ndhwc`` takes one plane from each neighbour
+``resize_ndhwc`` (and ``upsample_ndhwc``, which calls it) resizes D by an
+integer factor: the slab takes one plane from each neighbour
 (``parallel/halo.exchange_halo``) and places every output plane of its slab
 by the whole volume's coordinates, clamped at the volume's edges, so each
-slab is the slab of the single-device result.
+slab is the slab of the single-device result (one plane reaches any
+integer factor: output plane i of slab r reads source planes within one of
+[r d, (r + 1) d)). Any other change of D raises there.
 """
 from __future__ import annotations
 
@@ -43,7 +46,21 @@ def axis_coords(s_in: int, s_out: int, mode: str, align_corners: bool) -> np.nda
 def resize_ndhwc(x: torch.Tensor, out_spatial: Sequence[int], mode: str = "trilinear",
                  align_corners: bool = False) -> torch.Tensor:
     """Resize ``(N, D, H, W, C)`` to spatial ``out_spatial``: ``nearest``,
-    ``nearest-exact``, or any other mode name as linear (``trilinear``)."""
+    ``nearest-exact``, or any other mode name as linear (``trilinear``). On
+    the space axis x and ``out_spatial`` are a D slab's (an integer factor
+    on D)."""
+    size = space_size()
+    depth, d_out = x.shape[1], int(out_spatial[0])
+    if size > 1 and d_out != depth:
+        if d_out % depth:
+            raise NotImplementedError(
+                f"a resize of a D slab of {depth} planes to {d_out} (not an integer "
+                "factor) has no form for the 'space' mesh axis (see ROADMAP.md)")
+        rank = space_rank()
+        xh, _ = exchange_halo(x, 1, 1)
+        coords = axis_coords(depth * size, d_out * size, mode, align_corners)
+        x = _resample_axis(xh, 1, coords[rank * d_out:(rank + 1) * d_out], depth * size, mode,
+                           first=rank * depth - (1 if rank > 0 else 0))
     for axis, (s_in, s_out) in enumerate(zip(x.shape[1:4], out_spatial), start=1):
         s_out = int(s_out)
         if s_in == s_out:
@@ -73,15 +90,6 @@ def upsample_ndhwc(x: torch.Tensor, scale: int = 2, mode: str = "trilinear",
     """scale_factor-style upsample (torch semantics: out = floor(in * scale));
     on the space axis, of a D slab (an integer ``scale``)."""
     out_spatial = tuple(int(s * scale) for s in x.shape[1:4])
-    size = space_size()
-    if size > 1 and out_spatial[0] != x.shape[1]:
-        depth = x.shape[1]
-        rank = space_rank()
-        xh, _ = exchange_halo(x, 1, 1)
-        coords = axis_coords(depth * size, out_spatial[0] * size, mode, align_corners)
-        mine = coords[rank * out_spatial[0]:(rank + 1) * out_spatial[0]]
-        x = _resample_axis(xh, 1, mine, depth * size, mode,
-                           first=rank * depth - (1 if rank > 0 else 0))
     return resize_ndhwc(x, out_spatial, mode=mode, align_corners=align_corners)
 
 

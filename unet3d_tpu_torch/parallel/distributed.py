@@ -392,19 +392,27 @@ def at_level(sharded: Optional[bool], fn, *args, **kwargs):
         return fn(*args, **kwargs)
 
 
+def on_whole(fn, x: torch.Tensor, sharded: Optional[bool], *args, **kwargs):
+    """``fn(x, ...)`` on the whole volume on every rank of the space axis
+    (``replicated``): x gathered on D first where its level is sharded
+    (None: off the axis, ``fn`` as it is). The result stays whole."""
+    if sharded is None:
+        return fn(x, *args, **kwargs)
+    if sharded:
+        x = gather_d(x, 1)
+    with replicated():
+        return fn(x, *args, **kwargs)
+
+
 def between_levels(fn, x: torch.Tensor, sharded_in: Optional[bool],
                    sharded_out: Optional[bool], *args, **kwargs):
     """``fn(x, ...)`` from a level of one layout to a level of another: on
-    the slabs where both are sharded, else whole (x gathered on D first
-    where its level is sharded, the result cut to this rank's slab where
-    the next one is)."""
+    the slabs where both are sharded, else whole (``on_whole``), the result
+    cut to this rank's slab where the next level is sharded."""
     if sharded_in is None or (sharded_in and sharded_out):
         return fn(x, *args, **kwargs)
     mesh = space_mesh()
-    if sharded_in:
-        x = gather_d(x, 1, mesh)
-    with replicated():
-        y = fn(x, *args, **kwargs)
+    y = on_whole(fn, x, sharded_in, *args, **kwargs)
     return slice_d(y, 1, mesh) if sharded_out else y
 
 

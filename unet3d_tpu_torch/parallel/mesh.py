@@ -44,9 +44,11 @@ criterion, so every criterion runs as on one device; a batch whose D the
 axis does not divide runs whole on every rank of the line, as JAX's
 dispatch runs it unsharded. Inside, a level of the net is D-sharded where
 its D divides by the axis, else replicated (JAX's ``activation_spec``;
-``level_sharded``). Only DynUNet and the Myronenko UNet3D (with its
-subclasses) have that form; any other net on a space axis above 1 raises
-(see ROADMAP.md). The gradients of every rank of the mesh are averaged
+``level_sharded``). The nets whose class sets ``SPACE_AXIS`` have that
+form (``space_form_nets``: DynUNet, the Myronenko U-Nets and autoencoders,
+SegResNet and SegResNetVAE, SegResNetDS, AttentionUnet and MONAI's UNet);
+any other net on a space axis above 1 raises (see ROADMAP.md). The
+gradients of every rank of the mesh are averaged
 once: each rank's is its share times the space axis's size
 (``parallel/distributed.py``). A ``model`` axis above 1 raises.
 """
@@ -190,9 +192,15 @@ def make_mesh(axis_sizes: Optional[Dict[str, int]] = None) -> Mesh:
 
 def has_space_form(model) -> bool:
     """Whether a net (a module or its class) runs on D slabs of the space
-    axis: DynUNet and the Myronenko UNet3D and its subclasses."""
+    axis: its class sets ``SPACE_AXIS``."""
     cls = model if isinstance(model, type) else type(model)
     return bool(getattr(cls, "SPACE_AXIS", False))
+
+
+def space_form_nets() -> list:
+    """The registry's names whose net has a space form."""
+    from unet3d_tpu_torch.models.registry import MODEL_REGISTRY
+    return sorted(name for name, cls in MODEL_REGISTRY.items() if has_space_form(cls))
 
 
 def check_space_form(model, space: int) -> None:
@@ -201,8 +209,8 @@ def check_space_form(model, space: int) -> None:
     if space > 1 and not has_space_form(model):
         name = model.__name__ if isinstance(model, type) else type(model).__name__
         raise NotImplementedError(
-            f"the 'space' mesh axis is not ported yet for {name}: only DynUNet and UNet3D "
-            "run D-sharded (see ROADMAP.md)")
+            f"the 'space' mesh axis is not ported yet for {name}: the nets that run "
+            f"D-sharded are {', '.join(space_form_nets())} (see ROADMAP.md)")
 
 
 def gather_output(out, mesh: Mesh):
